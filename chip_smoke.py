@@ -10,26 +10,37 @@ on failure:
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel of ``fourdgs_tpu_torch/csrc`` (nvcc, sm_90a) and print
    the build time and ptxas report;
-3. the blend kernel (K1) against its plain PyTorch version on synthetic
-   inputs: windows straddling chunk boundaries, a tile longer than 3 chunks,
-   a saturated tile, empty tiles, trailing empty tiles at start == K and a
-   nonzero tile-row offset/stride;
+3. the forward blend kernel (K1) and the backward blend kernel (K2) against
+   their plain PyTorch versions on synthetic inputs: windows straddling
+   chunk boundaries, a tile longer than 3 chunks, a saturated tile, empty
+   tiles, trailing empty tiles at start == K and a nonzero tile-row
+   offset/stride; K2 with a random cotangent;
 4. the full-width render of the D-NeRF ``lego`` preset (multires (1, 2),
    net_width 64, 64³×25 K-planes × 32 features, sh degree 3, white
    background) over 60,000 random Gaussians in capacity 65,536, 800×800:
-   1 warm-up view and 20 timed views through ``render``; the launch count
+   1 warm-up view and 20 timed views through ``render``; the K1 launch count
    must rise by exactly 21. Then K1 at that view's shapes: time per call
    (CUDA events), the plain version's time, the bound and agreement
    (``profile_render_torch.py`` breaks a view down by stage);
 5. a snapshot round trip (save, load, render) that must match bit for bit;
-6. one JSON line ``{"kernels": [...]}`` and, last, the result line
+6. the fine-stage train step of the same preset and scene at 800×800,
+   batch 1, against a GT rendered by the port from a second seeded scene
+   and tiled once: 3 warm-up and 20 timed steps through ``make_train_step``
+   (trained pixels/s as ``bench.py`` counts them, ms per step, peak memory);
+   exactly one K1 and one K2 launch per step, a finite loss that falls,
+   demand within the budget. Then K2 at the last step's shapes and
+   cotangent: agreement, time, plain time and bound, and two backward
+   passes (K2 and the per-Gaussian segment sum) that must agree bit for
+   bit (``profile_train_torch.py`` breaks a step down by stage);
+7. one JSON line ``{"kernels": [...]}`` and, last, the result line
    ``{"ok": true, "device": {...}}``.
 
 Agreement bound of K1 with its plain version: atol 1e-4 on color and final
 transmittance, except pixels riding T_STOP, where a different association of
 the transmittance product may flip one instance (the association contract of
 ``tests/test_pallas_raster.py``): at most 0.01% of pixels may exceed 1e-4 and
-none 1e-2. Depth is held at 1e-4 relative to max(1, |depth|).
+none 1e-2. Depth is held at 1e-4 relative to max(1, |depth|). K2's bound is
+in :func:`compare_blend_backward`.
 """
 
 from __future__ import annotations
@@ -50,9 +61,20 @@ LEGO = os.path.join(ROOT, "fourdgs_tpu", "configs", "presets", "dnerf", "lego.py
 WIDTH = HEIGHT = 800
 N_POINTS, CAPACITY = 60_000, 65_536
 N_TIMED = 20
+N_WARM = 3                # warm-up train steps
 H100_F32_FLOPS = 67e12    # non-tensor-core float32, H100 SXM data sheet
 H100_HBM_BYTES = 3.35e12  # bytes/s
-OPS_PER_PAIR = 16         # ~15 float32 operations + one exp per (pixel, instance)
+# float32 operations per (pixel, instance) pair, counted from the kernels'
+# source (an exp counts as one). Every pair in a tile's range takes the gates:
+# dx, dy, the power (9), exp, α, the cap and two tests.
+OPS_GATE = 16
+# A pair that blends adds, in K1, the T update and its test (3), w and four
+# colour multiply-adds (9);
+OPS_LIVE_FWD = 12
+# in K2, the T update and its test (3), w, combo (7), pw (2), S,
+# 1/max(1−α, 1e-6) (3), dα (4), dpow, the ten gradient terms (22) and their
+# sum over the tile's pixels (10).
+OPS_LIVE_BWD = 54
 
 
 def synthetic_blend_inputs(device, seed=0):
@@ -125,6 +147,40 @@ def compare_blend(out, ref):
     return res
 
 
+def compare_blend_backward(d_kernel, d_plain, n_instances):
+    """K2's ``dfeat`` [16, K] vs its plain version under the association
+    contract; returns a dict of counts and errors, raising on violation.
+
+    An element agrees when |kernel − plain| ≤ 1e-3·|plain| + 1e-4·(its
+    row's largest |plain|): each is a float32 sum over a tile's 256 pixels
+    of terms that cancel, taken in another order (warp butterflies against
+    a tensor sum), with T from a serial product against a log-space
+    cumsum. Instances seen by a pixel that rides T_STOP may be blended on
+    one side only (the contract of K1): at most 0.1% of the instances in
+    the tiles' ranges may disagree, none by more than 1% of its row's scale. Rows
+    10..15 must be 0."""
+    import torch
+
+    err = (d_kernel[:10] - d_plain[:10]).abs()
+    scale = d_plain[:10].abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+    bad = (err > 1e-3 * d_plain[:10].abs() + 1e-4 * scale).any(dim=0)
+    res = {
+        "instances_over_tol": int(bad.sum()),
+        "instances": int(n_instances),
+        "max_abs_err": float(err.max()),
+        "max_err_over_row_scale": float((err / scale).max()),
+        "pad_rows_zero": bool((d_kernel[10:] == 0).all()),
+        "finite": bool(torch.isfinite(d_kernel).all()),
+    }
+    ok = (res["finite"] and res["pad_rows_zero"]
+          and res["instances_over_tol"] <= 1e-3 * n_instances
+          and res["max_err_over_row_scale"] <= 1e-2)
+    if not ok:
+        raise AssertionError(
+            f"backward blend kernel disagrees with its plain version: {res}")
+    return res
+
+
 def cuda_time_ms(fn, reps, warmup=2):
     """Median milliseconds per call of ``fn`` by CUDA events."""
     import torch
@@ -143,21 +199,41 @@ def cuda_time_ms(fn, reps, warmup=2):
     return statistics.median(times)
 
 
-def blend_bound(starts, stops, k_pad):
-    """Least time for K1's work on this input: the larger of the operations
-    on the walked (pixel, instance) pairs at the float32 rate and the bytes
-    (40 B per walked instance, 5 output floats per pixel) at HBM rate.
-    Walked instances of a tile: from its 8-aligned window start to its stop,
-    the masked alignment lanes included."""
-    s = starts.cpu().numpy().astype(np.int64)
-    e = stops.cpu().numpy().astype(np.int64)
-    off0 = np.minimum((s // 8) * 8, k_pad - 8)
-    walked = int(np.where(e > s, e - off0, 0).sum())
-    pairs = 256 * walked
-    ops_s = pairs * OPS_PER_PAIR / H100_F32_FLOPS
-    bytes_s = (40 * walked + s.size * 5 * 256 * 4) / H100_HBM_BYTES
-    return {"walked": walked, "pairs": pairs, "bound_ms": 1e3 * max(ops_s, bytes_s),
+def blend_work(feat, starts, stops, row_off, grid_x):
+    """The blend's data-dependent work on this input: ``instances`` in the
+    tiles' ranges, the ``in_range`` (pixel, instance) pairs (a window's
+    masked alignment lanes need no work) and the ``live`` pairs that blend
+    (:func:`fourdgs_tpu_torch.ops.blend.live_pairs`)."""
+    from fourdgs_tpu_torch.ops import blend
+
+    n = int((stops.long() - starts.long()).clamp(min=0).sum())
+    return {"instances": n, "in_range": 256 * n,
+            "live": blend.live_pairs(feat, starts, stops, row_off, grid_x)}
+
+
+def _bound(ops, n_bytes):
+    ops_s, bytes_s = ops / H100_F32_FLOPS, n_bytes / H100_HBM_BYTES
+    return {"bound_ms": 1e3 * max(ops_s, bytes_s),
             "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
+
+
+def blend_bound(work, n_tiles):
+    """Least time for K1's work (:func:`blend_work`): the larger of its
+    operations at the float32 rate and its bytes at HBM rate (the payload
+    read once, 40 B per instance; 8 B of range per tile; 5 output floats per
+    pixel)."""
+    return _bound(work["in_range"] * OPS_GATE + work["live"] * OPS_LIVE_FWD,
+                  40 * work["instances"] + n_tiles * (8 + 5 * 256 * 4))
+
+
+def blend_backward_bound(work, n_tiles, k_pad):
+    """Least time for K2's work, as :func:`blend_bound`; its bytes: the
+    payload read once, 8 B of range per tile, the saved output and the
+    cotangent read once (10 floats per pixel), ``dfeat`` [16, K] written
+    once (64 B per slot)."""
+    return _bound(work["in_range"] * OPS_GATE + work["live"] * OPS_LIVE_BWD,
+                  40 * work["instances"] + n_tiles * (8 + 10 * 256 * 4)
+                  + 64 * k_pad)
 
 
 def ring_camera(i, n_views):
@@ -252,6 +328,14 @@ def main() -> int:
     ref = blend.blend_forward_plain(feat, starts, stops, row_off, bg, gx)
     syn = compare_blend(out, ref)
     print(f"[3] K1 vs plain, synthetic edge cases: {syn}")
+    g_syn = torch.tensor(np.random.default_rng(1).uniform(-1, 1, tuple(out.shape)),
+                         dtype=torch.float32, device=dev)
+    d_k = blend.blend_backward(feat, starts, stops, row_off, bg, out, g_syn, gx)
+    torch.cuda.synchronize()
+    d_p = blend.blend_backward_plain(feat, starts, stops, row_off, bg, out, g_syn, gx)
+    syn_b = compare_blend_backward(
+        d_k, d_p, blend_work(feat, starts, stops, row_off, gx)["instances"])
+    print(f"    K2 vs plain, synthetic edge cases, random cotangent: {syn_b}")
 
     # -- 4. full-width render of the lego preset
     cfg = load_config(LEGO)
@@ -310,10 +394,11 @@ def main() -> int:
     kernel_ms = cuda_time_ms(lambda: blend.blend_forward(*args), reps=20)
     plain_ms = cuda_time_ms(lambda: blend.blend_forward_plain(*args), reps=3,
                             warmup=1)
-    bound = blend_bound(bi.bins.tile_start, bi.bins.tile_stop, bi.feat.shape[1])
+    work = blend_work(*args[:4], bi.grid_x)
+    bound = blend_bound(work, bi.bins.tile_start.numel())
     print(f"    K1 at view {k_view} ({bi.bins.tile_start.numel()} tiles, "
-          f"{int(bi.bins.num_rendered)} instances, {bound['walked']} walked, "
-          f"{bound['pairs']} pairs): kernel {kernel_ms:.4f} ms, "
+          f"{work['instances']} instances, {work['in_range']} pairs in range, "
+          f"{work['live']} live): kernel {kernel_ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
           f"({bound['bound_by']}), kernel/bound "
           f"{kernel_ms / bound['bound_ms']:.2f}")
@@ -330,7 +415,103 @@ def main() -> int:
     if not same:
         raise AssertionError("snapshot round trip changed the render")
 
-    # -- 6. kernels line, result line
+    # -- 6. the fine-stage train step of the lego preset
+    from fourdgs_tpu_torch.train import adam
+    from fourdgs_tpu_torch.train.loop import make_train_step
+    from fourdgs_tpu_torch.utils.losses import abs_, tile_image
+
+    train_state = bench_scene(cfg, seed=0, device=dev)
+    cam1 = TR.CameraArrays.from_camera(ring_camera(0, N_TIMED), device=dev)
+    cams1 = TR.CameraArrays(*(x[None] for x in cam1))          # batch 1
+    gt = tile_image(view(cam1, bench_scene(cfg, seed=1, device=dev)).color,
+                    pad_cols=2)[None]                           # [1, T, 5, 256]
+    step_fn = make_train_step(cfg, WIDTH, HEIGHT, "fine", cfg.model.sh_degree,
+                              device=dev)
+    params, opt = train_state.params, adam.init(train_state.params)
+    K = -(-cfg.tpu.instance_budget // 128) * 128
+    metrics = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    blend.blend_forward.launches = blend.blend_backward.launches = 0
+    with torch.enable_grad():
+        for it in range(1, N_WARM + 1):
+            params, opt, train_state, m = step_fn(params, opt, train_state,
+                                                  cams1, gt, it)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for it in range(N_WARM + 1, N_WARM + N_TIMED + 1):
+            params, opt, train_state, m = step_fn(params, opt, train_state,
+                                                  cams1, gt, it)
+            metrics.append(m)
+        torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    n_steps = N_WARM + N_TIMED
+    train_launches = (blend.blend_forward.launches, blend.blend_backward.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(m["loss"]) for m in metrics]
+    n_rend = [int(m["num_rendered"]) for m in metrics]
+    print(f"[6] train step {WIDTH}x{HEIGHT} lego fine stage, batch 1: "
+          f"{N_TIMED} timed steps after {N_WARM} warm-up in {elapsed * 1e3:.3f} ms, "
+          f"{elapsed * 1e3 / N_TIMED:.3f} ms/step, trained px/s "
+          f"{WIDTH * HEIGHT * N_TIMED / elapsed:.1f}")
+    print(f"    loss step 1 {losses[0]:.6f}, step {n_steps} {losses[-1]:.6f}; "
+          f"psnr {float(metrics[0]['psnr']):.3f} -> {float(metrics[-1]['psnr']):.3f}; "
+          f"num_rendered min/max {min(n_rend)}/{max(n_rend)}, K = {K}; "
+          f"peak memory {peak_gib:.3f} GiB")
+    print(f"    K1/K2 launches over {n_steps} steps: {train_launches}")
+    if train_launches != (n_steps, n_steps):
+        raise AssertionError(f"expected one K1 and one K2 launch per step, "
+                             f"got {train_launches} over {n_steps} steps")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"loss not finite or not falling: {losses}")
+    if max(n_rend) > K:
+        raise AssertionError(f"instance demand {max(n_rend)} above the budget {K}")
+
+    # K2 at the shapes and cotangent of the last step
+    xyz, sc, rot, op, shs, _ = TR.activated_gaussians(params, train_state, cam1, "fine")
+    bi = R.blend_inputs(xyz, sc, rot, op, shs, cam1.camera_center, cam1.world_view,
+                        cam1.full_proj, cam1.tanfovx, cam1.tanfovy, WIDTH, HEIGHT,
+                        cfg.model.sh_degree, cfg.tpu.instance_budget,
+                        alive=train_state.alive)
+    fwd_args = (bi.feat, bi.bins.tile_start, bi.bins.tile_stop, bi.row_off, bg_img)
+    out5 = blend.blend_forward(*fwd_args, bi.grid_x)
+    with torch.enable_grad():       # the tile-space L1's cotangent
+        o = out5.clone().requires_grad_()
+        diff = (o - gt[0]) * torch.tensor([1.0, 1.0, 1.0, 0.0, 0.0], device=dev)[:, None]
+        (g_out,) = torch.autograd.grad(abs_(diff).sum() / (3 * WIDTH * HEIGHT), o)
+    bwd_args = (*fwd_args, out5, g_out, bi.grid_x)
+    d_k = blend.blend_backward(*bwd_args)
+    d_p = blend.blend_backward_plain(*bwd_args)
+    bwd_work = blend_work(*fwd_args[:4], bi.grid_x)
+    bwd_bound = blend_backward_bound(bwd_work, bi.bins.tile_start.numel(),
+                                     bi.feat.shape[1])
+    step_b = compare_blend_backward(d_k, d_p, bwd_work["instances"])
+    bwd_ms = cuda_time_ms(lambda: blend.blend_backward(*bwd_args), reps=20)
+    bwd_plain_ms = cuda_time_ms(lambda: blend.blend_backward_plain(*bwd_args),
+                                reps=3, warmup=1)
+    print(f"    K2 at the last step ({bi.bins.tile_start.numel()} tiles, "
+          f"{bwd_work['instances']} instances, {bwd_work['in_range']} pairs in "
+          f"range, {bwd_work['live']} live): kernel {bwd_ms:.4f} ms, plain "
+          f"{bwd_plain_ms:.4f} ms, bound {bwd_bound['bound_ms']:.4f} ms "
+          f"({bwd_bound['bound_by']}), kernel/bound "
+          f"{bwd_ms / bwd_bound['bound_ms']:.2f}")
+    print(f"    K2 vs plain at the last step: {step_b}")
+    P = xyz.shape[0]
+    g1 = R.payload_grad(blend.blend_backward(*bwd_args), bi.bins, P)
+    g2 = R.payload_grad(blend.blend_backward(*bwd_args), bi.bins, P)
+    same_bits = bool(torch.equal(g1, g2)) and bool(torch.equal(d_k, blend.blend_backward(*bwd_args)))
+    g_cpu = R.payload_grad(d_k.cpu(), type(bi.bins)(*(x.cpu() for x in bi.bins)), P)
+    seg_err = float((g1.cpu() - g_cpu).abs().max() / g_cpu.abs().max())
+    print(f"    per-Gaussian payload gradients of two backward passes "
+          f"bit-identical = {same_bits}; against the CPU's segment sums: "
+          f"max error / max |grad| = {seg_err:.3g}")
+    if not same_bits:
+        raise AssertionError("the payload gradients differ between two runs")
+    if not seg_err <= 1e-5:
+        raise AssertionError("the card's segment sums disagree with the CPU's")
+
+    # -- 7. kernels line, result line
     kernels = [{
         "name": "blend_forward",
         "route": "cuda",
@@ -344,6 +525,18 @@ def main() -> int:
         "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"],
         "library_ms": None,   # no single PyTorch call computes this blend
+    }, {
+        "name": "blend_backward",
+        "route": "cuda",
+        "source": "fourdgs_tpu_torch/csrc/blend_backward.cu",
+        "replaces": "fourdgs_tpu/ops/pallas_blend.py:463",
+        "launches": train_launches[1],
+        "max_abs_err": step_b["max_abs_err"],
+        "ms": bwd_ms,
+        "plain_ms": bwd_plain_ms,
+        "bound_ms": bwd_bound["bound_ms"],
+        "bound_by": bwd_bound["bound_by"],
+        "library_ms": None,   # no single PyTorch call computes this gradient
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -26,25 +26,24 @@
 // per-pixel blend in float32, all threads reading the same instance at once
 // (a shared-memory broadcast). Nothing carries across blocks. The TPU
 // machinery (DMA ring, blocked payload, window roll, tiles per grid step,
-// MXU scans, SMEM state) has no counterpart here.
+// MXU scans, SMEM state) has no counterpart here. The gates (power, alpha,
+// keep, the T update) come from blend_common.cuh, which the backward kernel
+// shares, so the two take the same decisions bit for bit.
 //
-// Bound. Per visited (pixel, instance) pair: ~15 float32 operations and one
-// exp; the payload is read once per tile (40 B per walked instance) and the
-// output written once (5 floats per pixel). At the shapes of an 800x800
-// render the pairs dominate: the kernel is bound by operations.
+// Bound. Every (pixel, instance) pair in a tile's range takes the gates, 16
+// float32 operations with the exp; a pair that blends takes 12 more (the T
+// update, w and four colour multiply-adds). The payload is read once (40 B
+// per instance) and the output written once (5 floats per pixel). At the
+// shapes of an 800x800 render the pairs dominate: the kernel is bound by
+// operations.
 
 #include <cuda_runtime.h>
 
+#include "blend_common.cuh"
+
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPix = kTile * kTile;  // threads per block
-constexpr int kChunk = 128;
-constexpr int kAlign = 8;
-constexpr int kRows = 10;            // payload rows read by the blend
-constexpr float kAlphaCap = 0.99f;
-constexpr float kAlphaFloor = (float)(1.0 / 255.0);
-constexpr float kTStop = 1e-4f;
+using namespace fourdgs;
 
 __global__ void __launch_bounds__(kPix)
 blend_forward_kernel(const float* __restrict__ feat,   // [16, K]
@@ -58,45 +57,27 @@ blend_forward_kernel(const float* __restrict__ feat,   // [16, K]
 
   const int t = blockIdx.x;
   const int p = threadIdx.x;
-  const int start = starts[t];
-  const int stop = stops[t];
-  const int tx = t % grid_x;
-  const int ty = (t / grid_x) * row_off[1] + row_off[0];
-  const float px = (float)(tx * kTile + p % kTile);
-  const float py = (float)(ty * kTile + p / kTile);
-
-  int off0 = (start / kAlign) * kAlign;
-  if (off0 > k_pad - kAlign) off0 = k_pad - kAlign;
-  const int n_chunks = stop > start ? (stop - off0 + kChunk - 1) / kChunk : 0;
+  const Window win = tile_window(starts, stops, t, k_pad);
+  float px, py;
+  pixel_coords(t, p, grid_x, row_off, &px, &py);
 
   float T = 1.0f;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_d = 0.0f;
 
-  for (int c = 0; c < n_chunks; ++c) {
-    const int off = off0 + c * kChunk;
-    const int j_lo = max(start - off, 0);
-    const int j_hi = min(stop - off, kChunk);
+  for (int c = 0; c < win.n_chunks; ++c) {
+    const int off = win.off0 + c * kChunk;
+    const int j_lo = max(win.start - off, 0);
+    const int j_hi = min(win.stop - off, kChunk);
     __syncthreads();  // the previous chunk's reads are done
-    for (int i = p; i < kRows * kChunk; i += kPix) {
-      const int r = i / kChunk;
-      const int j = i % kChunk;
-      if (j >= j_lo && j < j_hi) {
-        s_feat[r][j] = feat[(size_t)r * k_pad + off + j];
-      }
-    }
+    stage_chunk(s_feat, feat, k_pad, off, j_lo, j_hi, p);
     __syncthreads();
 
     for (int j = j_lo; j < j_hi; ++j) {
-      const float dx = px - s_feat[0][j];
-      const float dy = py - s_feat[1][j];
-      const float power = -0.5f * (s_feat[2][j] * dx * dx +
-                                   s_feat[4][j] * dy * dy) -
-                          s_feat[3][j] * dx * dy;
-      const float alpha = fminf(s_feat[5][j] * expf(power), kAlphaCap);
-      if (!(power <= 0.0f) || !(alpha >= kAlphaFloor)) continue;
-      const float t_next = T * (1.0f - alpha);
+      const Splat s = eval_splat(s_feat, j, px, py);
+      if (!s.keep) continue;
+      const float t_next = transmit(T, s.alpha);
       if (!(t_next >= kTStop)) break;  // frozen until the chunk ends
-      const float w = alpha * T;
+      const float w = s.alpha * T;
       acc_r += w * s_feat[6][j];
       acc_g += w * s_feat[7][j];
       acc_b += w * s_feat[8][j];

@@ -9,6 +9,10 @@ nested ``deform`` dict ``feature_out[i].{w,b}``, ``grid_s*_p*``,
 functions here transpose explicitly. Everything crosses as numpy: the port
 never sees JAX (callers convert with ``jax.tree.map(np.asarray, ...)``).
 
+The Adam state crosses with the same leaf mapping (:func:`adam_from_jax_numpy`,
+:func:`adam_to_numpy`): the moments of ``deform`` are keyed by the module's
+parameter names on the port's side.
+
 ``flatten_tree`` reproduces ``jax.tree.flatten``'s leaf order on these trees
 (dict keys sorted, lists in order), which the snapshot format relies on.
 """
@@ -21,54 +25,76 @@ import numpy as np
 import torch
 
 from fourdgs_tpu_torch.models import gaussians as G
-from fourdgs_tpu_torch.models.deformation import HEADS, Deformation
+from fourdgs_tpu_torch.models.deformation import Deformation
+from fourdgs_tpu_torch.train import adam
 
 
-def _linear_tree(lin: torch.nn.Linear) -> dict[str, np.ndarray]:
-    return {"w": lin.weight.detach().cpu().numpy().T.copy(),
-            "b": lin.bias.detach().cpu().numpy().copy()}
+def _jax_path(name: str) -> tuple[tuple, bool]:
+    """A :class:`Deformation` parameter name → (its path in the JAX
+    ``deform`` tree, whether the array is transposed there):
+    ``grids.grid_s0_p1`` → ``("grid_s0_p1",)``, ``feature_out.0.weight`` →
+    ``("feature_out", 0, "w")``, ``heads.pos.1.bias`` → ``("head_pos", 1,
+    "b")``, ``timenet.0.weight`` → ``("timenet", 0, "w")``."""
+    parts = name.split(".")
+    if parts[0] == "grids":
+        return (parts[1],), False
+    if parts[0] == "heads":
+        parts = [f"head_{parts[1]}"] + parts[2:]
+    key, i, kind = parts
+    return (key, int(i), "w" if kind == "weight" else "b"), kind == "weight"
+
+
+def named_to_tree(named) -> dict[str, Any]:
+    """``{parameter name: tensor}`` of a :class:`Deformation` (its
+    parameters, or moments or gradients shaped like them) → the JAX
+    ``deform`` tree as numpy, Linear weights transposed to [in, out]."""
+    tree: dict[str, Any] = {}
+    for name, x in named.items():
+        (key, *rest), transposed = _jax_path(name)
+        a = x.detach().cpu().numpy()
+        a = (a.T if transposed else a).copy()
+        if not rest:
+            tree[key] = a
+            continue
+        layers = tree.setdefault(key, [])
+        layers.extend({} for _ in range(rest[0] + 1 - len(layers)))
+        layers[rest[0]][rest[1]] = a
+    return tree
+
+
+def tree_to_named(tree, deform: Deformation) -> dict[str, np.ndarray]:
+    """Inverse of :func:`named_to_tree` for ``deform``'s parameters, with
+    the tree's keys, layer counts and shapes checked."""
+    expected = named_to_tree(dict(deform.named_parameters()))
+    if set(tree) != set(expected):
+        raise ValueError(
+            f"deform tree keys {sorted(tree)} != expected {sorted(expected)}")
+    for k, v in expected.items():
+        if isinstance(v, list) and len(tree[k]) != len(v):
+            raise ValueError(f"{k}: {len(tree[k])} layers != {len(v)}")
+    out = {}
+    for name, p in deform.named_parameters():
+        (key, *rest), transposed = _jax_path(name)
+        a = tree[key] if not rest else tree[key][rest[0]][rest[1]]
+        a = np.asarray(a, np.float32)
+        a = a.T if transposed else a
+        if a.shape != tuple(p.shape):
+            raise ValueError(f"{name}: shape {a.shape} != expected {tuple(p.shape)}")
+        out[name] = a
+    return out
 
 
 def deform_to_tree(deform: Deformation) -> dict[str, Any]:
     """The module's parameters as the JAX ``params["deform"]`` tree."""
-    tree: dict[str, Any] = {
-        k: v.detach().cpu().numpy().copy() for k, v in deform.grids.items()
-    }
-    tree["feature_out"] = [_linear_tree(l) for l in deform.feature_out]
-    for h in HEADS:
-        tree[f"head_{h}"] = [_linear_tree(l) for l in deform.heads[h]]
-    tree["timenet"] = [_linear_tree(l) for l in deform.timenet]
-    return tree
-
-
-def _copy(dst: torch.Tensor, src, name: str) -> None:
-    src = np.asarray(src, np.float32)
-    if tuple(dst.shape) != src.shape:
-        raise ValueError(f"{name}: shape {src.shape} != expected {tuple(dst.shape)}")
-    with torch.no_grad():
-        dst.copy_(torch.tensor(src))
+    return named_to_tree(dict(deform.named_parameters()))
 
 
 def load_deform_tree(deform: Deformation, tree: dict[str, Any]) -> Deformation:
     """Copy a JAX-layout ``deform`` tree into ``deform`` (shapes checked)."""
-    expected = set(deform_to_tree(deform))
-    if set(tree) != expected:
-        raise ValueError(
-            f"deform tree keys {sorted(tree)} != expected {sorted(expected)}")
-    for k, p in deform.grids.items():
-        _copy(p, tree[k], k)
-
-    def load_layers(layers, entries, name):
-        if len(entries) != len(layers):
-            raise ValueError(f"{name}: {len(entries)} layers != {len(layers)}")
-        for i, (lin, e) in enumerate(zip(layers, entries)):
-            _copy(lin.weight, np.asarray(e["w"]).T, f"{name}[{i}].w")
-            _copy(lin.bias, e["b"], f"{name}[{i}].b")
-
-    load_layers(deform.feature_out, tree["feature_out"], "feature_out")
-    for h in HEADS:
-        load_layers(deform.heads[h], tree[f"head_{h}"], f"head_{h}")
-    load_layers(deform.timenet, tree["timenet"], "timenet")
+    arrays = tree_to_named(tree, deform)
+    with torch.no_grad():
+        for name, p in deform.named_parameters():
+            p.copy_(torch.from_numpy(np.ascontiguousarray(arrays[name])))
     return deform
 
 
@@ -117,3 +143,31 @@ def to_numpy(state: G.GaussianState):
               for k in G.PRIMITIVE_KEYS}
     params["deform"] = deform_to_tree(state.params["deform"])
     return (params, state.alive.cpu().numpy(), state.aabb.cpu().numpy())
+
+
+def adam_from_jax_numpy(mu, nu, count, params) -> adam.AdamState:
+    """A JAX ``AdamState`` (its ``mu``, ``nu`` trees as numpy and
+    ``count``) → a port :class:`~fourdgs_tpu_torch.train.adam.AdamState`
+    for ``params``, on their device, with the leaf mapping of the
+    parameters."""
+    dev = params["xyz"].device
+
+    def moments(tree):
+        out = {k: torch.tensor(np.asarray(tree[k], np.float32), device=dev)
+               for k in G.PRIMITIVE_KEYS}
+        out["deform"] = {n: torch.tensor(a, device=dev) for n, a in
+                         tree_to_named(tree["deform"], params["deform"]).items()}
+        return out
+
+    return adam.AdamState(mu=moments(mu), nu=moments(nu), count=int(count))
+
+
+def adam_to_numpy(state: adam.AdamState):
+    """A port Adam state → (``mu``, ``nu`` as JAX-layout numpy trees,
+    ``count``)."""
+    def tree(m):
+        out = {k: m[k].detach().cpu().numpy() for k in G.PRIMITIVE_KEYS}
+        out["deform"] = named_to_tree(m["deform"])
+        return out
+
+    return tree(state.mu), tree(state.nu), state.count

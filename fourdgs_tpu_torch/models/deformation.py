@@ -130,3 +130,12 @@ class Deformation(nn.Module):
         out_shs = (shs if hidden.no_dshs
                    else shs + head("shs").reshape(shs.shape))
         return out_xyz, out_scales, out_rot, out_op, out_shs
+
+
+def split_param_labels(deform: Deformation) -> dict[str, str]:
+    """"grid" or "deformation" for each named parameter of ``deform``, the
+    per-group learning-rate split (``deformation.py:186-191`` with
+    ``adam.py:190-207``'s "grid"-in-key rule): the planes ``grids.*`` are the
+    grid group, every Linear layer the deformation group."""
+    return {name: "grid" if name.startswith("grids.") else "deformation"
+            for name, _ in deform.named_parameters()}

@@ -110,3 +110,8 @@ def get_features(params) -> torch.Tensor:
         [params["f_dc"][:, None, :], params["f_rest"].reshape(P, -1, 3)],
         dim=1,
     )
+
+
+def count_alive(state: GaussianState) -> torch.Tensor:
+    """[] int32 number of live Gaussians."""
+    return state.alive.sum(dtype=torch.int32)

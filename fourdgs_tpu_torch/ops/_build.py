@@ -3,8 +3,9 @@
 Each ``fourdgs_tpu_torch/csrc/*.cu`` compiles with ``nvcc`` into its own shared
 library with a plain C interface (``nvcc -shared``, no PyTorch headers: a
 build takes seconds, not minutes) under ``fourdgs_tpu_torch/_build/``. The
-library's name carries a hash of its source and the flags, so an edited
-source or flag builds anew and an unchanged one is reused. All sources build
+library's name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source, header or flag builds
+anew and an unchanged one is reused. All sources build
 in parallel, one ``nvcc`` each. A missing ``nvcc`` or a failed build raises
 with the compiler's output; nothing falls back.
 """
@@ -49,6 +50,8 @@ def sources() -> list[pathlib.Path]:
 
 def _lib_path(src: pathlib.Path) -> pathlib.Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):   # shared by the sources
+        h.update(header.read_bytes())
     h.update("\0".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 

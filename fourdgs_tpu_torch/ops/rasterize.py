@@ -1,10 +1,13 @@
 """Rasterizer: preprocess → binning → payload gather → tile blend.
 
-Counterpart of the forward of ``rasterize_pallas``
-(``fourdgs_tpu/ops/rasterize.py:151-219``), ``build_table`` (:222-248) and
-``rasterize_from_table`` (:251-397). The payload gather ``table[gauss_id].T``
-is plain ``index_select`` (an XLA op on the JAX side); the blend is the CUDA
-kernel behind :func:`fourdgs_tpu_torch.ops.blend.blend_forward`.
+Counterpart of ``rasterize_pallas`` (``fourdgs_tpu/ops/rasterize.py:151-219``),
+``build_table`` (:222-248), ``rasterize_from_table`` (:251-397) and the
+payload gather with its scatter-free backward (``_gathered_payload``,
+:84-148). The gather ``table[gauss_id].T`` is plain ``index_select``; its
+gradient is a deterministic segment sum over the binning's slot order (no
+``index_add_``, no atomics). The blend is the CUDA kernels behind
+:func:`fourdgs_tpu_torch.ops.blend.blend`. Everything is differentiable with
+respect to the Gaussians' parameters and ``means2d_offset``.
 """
 
 from __future__ import annotations
@@ -15,14 +18,17 @@ import torch
 
 from fourdgs_tpu_torch.ops import constants as C
 from fourdgs_tpu_torch.ops.binning import BinningOut, bin_gaussians_fast
-from fourdgs_tpu_torch.ops.blend import blend_forward
+from fourdgs_tpu_torch.ops.blend import blend
 from fourdgs_tpu_torch.ops.preprocess import PreprocessOut, preprocess
+
+# gradient containment bound (rasterize.py:127-130, loop.py:183-193)
+GRAD_CLAMP = 1e12
 
 
 class RasterOut(NamedTuple):
-    color: torch.Tensor         # [3, H, W], bg composited
-    depth: torch.Tensor         # [1, H, W]
-    alpha: torch.Tensor         # [1, H, W]
+    color: torch.Tensor         # [3, H, W] bg composited; [T, 5, 256] in tile space
+    depth: torch.Tensor         # [1, H, W]; [T, 1, 256] in tile space
+    alpha: torch.Tensor         # [1, H, W]; [T, 1, 256] in tile space
     radii: torch.Tensor         # [P] int32
     means2d: torch.Tensor       # [P, 2]
     num_rendered: torch.Tensor  # [] int64 instance demand (may exceed K)
@@ -59,32 +65,86 @@ def build_table(pre: PreprocessOut, opac: torch.Tensor,
     )
 
 
+def contain(g: torch.Tensor) -> torch.Tensor:
+    """NaN → 0, ±inf → ±1e12, then a clip to ±1e12: the identity on every
+    finite gradient within the bound; it keeps a local float blow-up out of
+    sums over other elements and out of Adam's squared moments."""
+    return torch.nan_to_num(g, nan=0.0, posinf=GRAD_CLAMP,
+                            neginf=-GRAD_CLAMP).clamp_(-GRAD_CLAMP, GRAD_CLAMP)
+
+
+def payload_grad(d_feat: torch.Tensor, bins: BinningOut, P: int) -> torch.Tensor:
+    """``d_table`` [P, 16] from the per-instance ``d_feat`` [16, K]: the
+    backward of ``_gathered_payload`` (rasterize.py:108-145).
+
+    1. :func:`contain`, so one non-finite instance gradient stays in its
+       own Gaussian's row.
+    2. The rows go to pre-sort slot order (``slot`` is a permutation of the
+       K slots, so each is written once), where each depth-ranked Gaussian's
+       slots are contiguous: ``[seg_starts, seg_starts + seg_counts)``,
+       clipped at K (demand above the budget keeps the slots it got, as the
+       JAX clip does, :72-77).
+    3. ``torch.segment_reduce`` sums each segment on its own, in slot order
+       (no running prefix across Gaussians, no scatter, no atomics: two runs
+       give the same bits); ``order`` maps the sums back to Gaussians. The
+       segments cover the slots below the demand; the padding slots after
+       them are never read (``unsafe=True`` skips the check that the
+       lengths cover every row, which would also cost a host sync).
+    """
+    K = d_feat.shape[1]
+    d = contain(d_feat.to(torch.float32))
+    ordered = torch.empty((K, C.FEAT_ROWS), dtype=torch.float32,
+                          device=d.device).index_copy_(0, bins.slot, d.T)
+    beg = bins.seg_starts.clamp(max=K)
+    lengths = (bins.seg_starts + bins.seg_counts).clamp(max=K) - beg
+    seg = torch.segment_reduce(ordered, "sum", lengths=lengths, axis=0,
+                               unsafe=True)                         # [P, 16] by rank
+    return torch.empty_like(seg).index_copy_(0, bins.order, seg)
+
+
+class _GatheredPayload(torch.autograd.Function):
+    """``feat = table[gauss_id].T`` with :func:`payload_grad` as its
+    backward (``_gathered_payload``'s custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, table, bins: BinningOut):
+        ctx.bins = bins
+        ctx.P = table.shape[0]
+        # padding slots gather Gaussian 0's (finite) row; the blend's range
+        # gates make them inert and K2 leaves their gradient 0
+        return table.index_select(0, bins.gauss_id).T.contiguous()
+
+    @staticmethod
+    def backward(ctx, d_feat):
+        return payload_grad(d_feat, ctx.bins, ctx.P), None
+
+
 def blend_inputs(
     means3d, scales, rotations, opacities, shs,
     camera_center, world_view, full_proj, tanfovx, tanfovy,
     width: int, height: int, sh_degree: int, instance_budget: int,
-    alive=None,
+    alive=None, means2d_offset=None,
 ) -> BlendInputs:
     """Preprocess, bin and gather one camera's blend inputs (activated
-    Gaussian parameters in, as ``rasterize_pallas`` takes them)."""
+    Gaussian parameters in, as ``rasterize_pallas`` takes them);
+    ``means2d_offset`` [P, 2] is added to the means before the table."""
     opac = opacities.reshape(-1)
     pre = preprocess(
         means3d, scales, rotations, shs, camera_center, world_view,
         full_proj, tanfovx, tanfovy, width, height, sh_degree,
         opacities=opac, alive=alive,
     )
-    table = build_table(pre, opac, pre.means2d)
+    means2d = pre.means2d if means2d_offset is None else pre.means2d + means2d_offset
+    table = build_table(pre, opac, means2d)
     grid_x = (width + C.TILE_X - 1) // C.TILE_X
     grid_y = (height + C.TILE_Y - 1) // C.TILE_Y
     # K: the budget rounded up to a CHUNK multiple (rasterize.py:286)
     K = -(-instance_budget // C.CHUNK) * C.CHUNK
     bins = bin_gaussians_fast(
-        pre.tile_min, pre.tile_max, pre.tiles_touched, pre.depths,
+        pre.tile_min, pre.tile_max, pre.tiles_touched, pre.depths.detach(),
         grid_x, grid_y, K,
     )
-    # padding slots gather Gaussian 0's (finite) row; the blend's range gates
-    # make them inert
-    feat = table.index_select(0, bins.gauss_id).T.contiguous()   # [16, K]
+    feat = _GatheredPayload.apply(table, bins)                       # [16, K]
     row_off = torch.tensor([0, 1], dtype=torch.int32, device=feat.device)
     return BlendInputs(feat, row_off, bins, pre, grid_x, grid_y)
 
@@ -103,31 +163,34 @@ def rasterize_pallas(
     means3d, scales, rotations, opacities, shs,
     camera_center, world_view, full_proj, tanfovx, tanfovy,
     width: int, height: int, sh_degree: int, bg: torch.Tensor,
-    instance_budget: int, alive=None,
+    instance_budget: int, alive=None, means2d_offset=None,
+    tile_space: bool = False,
 ) -> RasterOut:
     """Render one camera; keeps the JAX name so the counterpart is easy to
-    find (the blend here is the CUDA kernel, or its plain version on CPU)."""
+    find (the blend here is the CUDA kernels, or their plain versions on
+    CPU). ``tile_space=True`` returns the packed channel-major [T, 5, 256]
+    block (r, g, b, depth, t_fin) as ``color`` and [T, 1, 256] views as
+    depth and alpha (rasterize.py:359-376), the layout the training loss
+    reads."""
     bi = blend_inputs(
         means3d, scales, rotations, opacities, shs, camera_center,
         world_view, full_proj, tanfovx, tanfovy, width, height, sh_degree,
-        instance_budget, alive=alive,
+        instance_budget, alive=alive, means2d_offset=means2d_offset,
     )
     bins = bi.bins
-    out5 = blend_forward(
+    out5 = blend(
         bi.feat, bins.tile_start, bins.tile_stop, bi.row_off,
         bg.to(torch.float32).contiguous(), bi.grid_x,
     )
     tile_len = bins.tile_stop - bins.tile_start
+    common = dict(radii=bi.pre.radii, means2d=bi.pre.means2d,
+                  num_rendered=bins.num_rendered, max_tile_len=tile_len.max())
+    if tile_space:
+        return RasterOut(color=out5, depth=out5[:, 3:4],
+                         alpha=1.0 - out5[:, 4:5], **common)
 
     def img(x):
         return untile(x, bi.grid_x, bi.grid_y, width, height)
 
-    return RasterOut(
-        color=img(out5[:, 0:3]),
-        depth=img(out5[:, 3:4]),
-        alpha=img(1.0 - out5[:, 4:5]),
-        radii=bi.pre.radii,
-        means2d=bi.pre.means2d,
-        num_rendered=bins.num_rendered,
-        max_tile_len=tile_len.max(),
-    )
+    return RasterOut(color=img(out5[:, 0:3]), depth=img(out5[:, 3:4]),
+                     alpha=img(1.0 - out5[:, 4:5]), **common)

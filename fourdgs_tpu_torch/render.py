@@ -52,9 +52,9 @@ class CameraArrays(NamedTuple):
 
 
 class RenderOut(NamedTuple):
-    color: torch.Tensor         # [3, H, W]
-    depth: torch.Tensor         # [1, H, W]
-    alpha: torch.Tensor         # [1, H, W]
+    color: torch.Tensor         # [3, H, W]; packed [T, 5, 256] in tile space
+    depth: torch.Tensor         # [1, H, W]; [T, 1, 256] in tile space
+    alpha: torch.Tensor         # [1, H, W]; [T, 1, 256] in tile space
     radii: torch.Tensor         # [P] int32
     num_rendered: torch.Tensor  # []
     max_tile_len: torch.Tensor  # []
@@ -94,7 +94,6 @@ def activated_gaussians(params: dict[str, Any], state: G.GaussianState,
     return xyz, scales_act, rot_act, torch.sigmoid(opacity), shs, dxyz_abs
 
 
-@torch.no_grad()
 def render(
     params: dict[str, Any],
     state: G.GaussianState,
@@ -106,9 +105,19 @@ def render(
     bg: torch.Tensor,
     active_sh_degree: int,
     device="cuda",
+    means2d_offset: torch.Tensor | None = None,
+    tile_space: bool = False,
 ) -> RenderOut:
     """Render one camera on ``device`` (the parameters, state, camera and
-    background must lie there)."""
+    background must lie there).
+
+    Differentiable, like the JAX ``render``: callers that only serve turn
+    gradients off themselves (``torch.no_grad``). ``means2d_offset`` [P, 2]
+    is added to the screen-space means before the payload table (the train
+    step's zero carrier, whose gradient is the view-space gradient);
+    ``tile_space=True`` returns the packed tile layout of
+    :func:`~fourdgs_tpu_torch.ops.rasterize.rasterize_pallas`.
+    """
     dev = resolve_device(device)
     for name, x in (("params['xyz']", params["xyz"]), ("state.alive", state.alive),
                     ("cam.world_view", cam.world_view), ("bg", bg)):
@@ -130,6 +139,8 @@ def render(
         bg=bg,
         instance_budget=cfg.tpu.instance_budget,
         alive=state.alive,
+        means2d_offset=means2d_offset,
+        tile_space=tile_space,
     )
     return RenderOut(
         color=out.color, depth=out.depth, alpha=out.alpha, radii=out.radii,

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from fourdgs_tpu_torch.utils.losses import clip
+
 C0 = 0.28209479177387814
 C1 = 0.4886025119029199
 C2 = (
@@ -72,8 +74,9 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
 
 
 def sh_to_rgb(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
-    """SH → RGB as the rasterizer's forward does: +0.5, clamped at 0."""
-    return torch.clamp(eval_sh(deg, sh, dirs) + 0.5, min=0.0)
+    """SH → RGB as the rasterizer's forward does: +0.5, clamped at 0, the
+    gradient split at a tie as ``jnp.maximum`` splits it."""
+    return clip(eval_sh(deg, sh, dirs) + 0.5, 0.0)
 
 
 def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:

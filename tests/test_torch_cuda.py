@@ -1,4 +1,5 @@
-"""The CUDA blend kernel against its plain PyTorch version, on the card.
+"""The CUDA blend kernels (K1 forward, K2 backward) against their plain
+PyTorch versions, on the card.
 
 Skips without CUDA. It imports no JAX, so it runs where only PyTorch is
 installed; the repository's conftest imports JAX, hence on such a machine:
@@ -9,7 +10,8 @@ installed; the repository's conftest imports JAX, hence on such a machine:
 import pytest
 import torch
 
-from chip_smoke import compare_blend, synthetic_blend_inputs
+from chip_smoke import (blend_work, compare_blend, compare_blend_backward,
+                        synthetic_blend_inputs)
 from fourdgs_tpu_torch.ops import blend
 
 pytestmark = pytest.mark.cuda
@@ -38,3 +40,32 @@ def test_kernel_rejects_cpu_mix(cuda_device):
     feat, starts, stops, row_off, bg, gx = synthetic_blend_inputs(cuda_device)
     with pytest.raises(ValueError):
         blend.blend_forward(feat, starts.cpu(), stops, row_off, bg, gx)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_backward_kernel_matches_plain(cuda_device, seed):
+    feat, starts, stops, row_off, bg, gx = synthetic_blend_inputs(cuda_device, seed=seed)
+    out = blend.blend_forward(feat, starts, stops, row_off, bg, gx)
+    gen = torch.Generator(device=cuda_device).manual_seed(seed)
+    g = torch.rand(out.shape, generator=gen, device=cuda_device) * 2 - 1
+    before = blend.blend_backward.launches
+    d = blend.blend_backward(feat, starts, stops, row_off, bg, out, g, gx)
+    torch.cuda.synchronize()
+    assert blend.blend_backward.launches == before + 1
+    ref = blend.blend_backward_plain(feat, starts, stops, row_off, bg, out, g, gx)
+    res = compare_blend_backward(
+        d, ref, blend_work(feat, starts, stops, row_off, gx)["instances"])
+    assert res["instances_over_tol"] == 0
+    # every run gives the same bits: one block per tile, fixed sum order
+    assert torch.equal(d, blend.blend_backward(feat, starts, stops, row_off, bg, out, g, gx))
+
+
+def test_blend_autograd_runs_both_kernels(cuda_device):
+    feat, starts, stops, row_off, bg, gx = synthetic_blend_inputs(cuda_device)
+    feat.requires_grad_()
+    before = (blend.blend_forward.launches, blend.blend_backward.launches)
+    out = blend.blend(feat, starts, stops, row_off, bg, gx)
+    (d,) = torch.autograd.grad(out[:, :3].sum(), feat)
+    assert (blend.blend_forward.launches, blend.blend_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.isfinite(d).all() and d.abs().max() > 0

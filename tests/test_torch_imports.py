@@ -1,9 +1,9 @@
 """The PyTorch port stands alone: no JAX, nothing of fourdgs_tpu, CUDA by
 default.
 
-- every port module and the import graphs of ``chip_smoke.py`` and
-  ``profile_render_torch.py`` load in a fresh interpreter without ``jax`` or
-  ``fourdgs_tpu`` in ``sys.modules``;
+- every port module and the import graphs of ``chip_smoke.py``,
+  ``profile_render_torch.py`` and ``profile_train_torch.py`` load in a fresh
+  interpreter without ``jax`` or ``fourdgs_tpu`` in ``sys.modules``;
 - an AST scan finds no such import in the package or those two scripts;
 - with CUDA absent, each entry point raises unless asked for the CPU;
 - the port's constants equal the JAX package's.
@@ -46,7 +46,7 @@ def test_import_graph_has_no_jax():
         "import sys, importlib, runpy\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "import chip_smoke, profile_render_torch\n"
+        "import chip_smoke, profile_render_torch, profile_train_torch\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'fourdgs_tpu'))\n"
         "print('BAD', bad)\n"
@@ -55,12 +55,13 @@ def test_import_graph_has_no_jax():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert len(mods) >= 17
+    assert len(mods) >= 22
 
 
 def test_ast_scan_has_no_jax_imports():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "profile_render_torch.py"]
+                                         ROOT / "profile_render_torch.py",
+                                         ROOT / "profile_train_torch.py"]
     found = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

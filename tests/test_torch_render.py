@@ -38,6 +38,7 @@ def _jax_render(cfg, state, stage, time=0.3):
                      jnp.asarray(BG), active_sh_degree=1, backend="pallas")
 
 
+@torch.no_grad()   # a serving caller: render is differentiable
 def _port_render(cfg, tstate, stage, time=0.3):
     cam = TR.CameraArrays.from_camera(_camera(time=time, size=SIZE), device="cpu")
     return TR.render(tstate.params, tstate, cam, cfg, SIZE, SIZE, stage,
@@ -127,8 +128,9 @@ def test_lego_preset_renders_on_cpu():
     aabb = np.array([[1.0] * 3, [-1.0] * 3], np.float32)
     state = G.state_from_numpy(prim, deform, alive, aabb, 3, device="cpu")
     cam = TR.CameraArrays.from_camera(_camera(time=0.5, size=SIZE), device="cpu")
-    out = TR.render(state.params, state, cam, cfg, SIZE, SIZE, "fine",
-                    torch.ones(3), 3, device="cpu")
+    with torch.no_grad():
+        out = TR.render(state.params, state, cam, cfg, SIZE, SIZE, "fine",
+                        torch.ones(3), 3, device="cpu")
     assert torch.isfinite(out.color).all()
     assert 0.0 <= float(out.alpha.min()) and float(out.alpha.max()) <= 1.0
     assert float(out.alpha.max()) > 0.05
