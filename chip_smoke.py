@@ -19,8 +19,8 @@ on failure:
    net_width 64, 64³×25 K-planes × 32 features, sh degree 3, white
    background) over 60,000 random Gaussians in capacity 65,536, 800×800:
    1 warm-up view and 20 timed views through ``render``; the K1 launch count
-   must rise by exactly 21. Then K1 at that view's shapes: time per call
-   (CUDA events), the plain version's time, the bound and agreement
+   must rise by exactly 21. Then K1 at that view's shapes: device time per
+   call, the plain version's time, the bound and agreement
    (``profile_render_torch.py`` breaks a view down by stage);
 5. a snapshot round trip (save, load, render) that must match bit for bit;
 6. the fine-stage train step of the same preset and scene at 800×800,
@@ -32,7 +32,18 @@ on failure:
    cotangent: agreement, time, plain time and bound, and two backward
    passes (K2 and the per-Gaussian segment sum) that must agree bit for
    bit (``profile_train_torch.py`` breaks a step down by stage);
-7. one JSON line ``{"kernels": [...]}`` and, last, the result line
+7. the cost experiments of ``fourdgs_tpu_torch/scripts``, each through its
+   ``run()`` with the launch counts zeroed just before it and read just
+   after: ``exp_gather`` (K3, the column gather, beside the PyTorch gather
+   layouts and backwards, at the JAX script's shape and the render's
+   2,097,152-slot shape), ``exp_grid_cost`` (the probes K4–K10 over 2500
+   tiles) and ``exp_kernel_overhead`` (K1 and K2 on empty, 98- and
+   128-per-tile grids: per-tile fixed cost and per-instance cost). Then K3
+   bit for bit against its plain version at both shapes, each probe bit for
+   bit against its plain version, K1 and K2 on the three grids against
+   theirs (the bounds above), each launch counted; the times of the plain
+   versions and of the one-call PyTorch yardsticks;
+8. one JSON line ``{"kernels": [...]}`` and, last, the result line
    ``{"ok": true, "device": {...}}``.
 
 Agreement bound of K1 with its plain version: atol 1e-4 on color and final
@@ -41,6 +52,12 @@ the transmittance product may flip one instance (the association contract of
 ``tests/test_pallas_raster.py``): at most 0.01% of pixels may exceed 1e-4 and
 none 1e-2. Depth is held at 1e-4 relative to max(1, |depth|). K2's bound is
 in :func:`compare_blend_backward`.
+
+Every time of the kernels line, each kernel's, its plain version's and its
+yardstick's, is device time from one timer,
+:func:`fourdgs_tpu_torch.scripts.time_ms` (CUDA events around calls queued
+behind a sleep kernel). A plain version that waits for the card inside a
+call holds host time too.
 """
 
 from __future__ import annotations
@@ -48,7 +65,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -181,24 +197,6 @@ def compare_blend_backward(d_kernel, d_plain, n_instances):
     return res
 
 
-def cuda_time_ms(fn, reps, warmup=2):
-    """Median milliseconds per call of ``fn`` by CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def blend_work(feat, starts, stops, row_off, grid_x):
     """The blend's data-dependent work on this input: ``instances`` in the
     tiles' ranges, the ``in_range`` (pixel, instance) pairs (a window's
@@ -234,6 +232,130 @@ def blend_backward_bound(work, n_tiles, k_pad):
     return _bound(work["in_range"] * OPS_GATE + work["live"] * OPS_LIVE_BWD,
                   40 * work["instances"] + n_tiles * (8 + 10 * 256 * 4)
                   + 64 * k_pad)
+
+
+def check_cost_experiments(dev):
+    """Phase 7: the three cost experiments through their ``run()``, then each
+    new kernel against its plain version; returns the kernels-line entries of
+    K3–K10 and prints the rest."""
+    import torch
+
+    from fourdgs_tpu_torch.ops import blend, gather
+    from fourdgs_tpu_torch.ops import grid_cost as GC
+    from fourdgs_tpu_torch.scripts import exp_gather, exp_grid_cost, time_ms
+    from fourdgs_tpu_torch.scripts import exp_kernel_overhead as EKO
+
+    def drive(run, fns):
+        for f in fns:
+            f.launches = 0
+        res = run(device=dev)
+        counts = {f.__name__: f.launches for f in fns}
+        if not all(counts.values()):
+            raise AssertionError(f"{run.__module__}: a kernel never launched: {counts}")
+        print(f"    launches in {run.__module__.rsplit('.', 1)[-1]}.run(): {counts}")
+        return res, counts
+
+    print("[7] cost experiments: exp_gather.run()")
+    r_gather, n_gather = drive(exp_gather.run, [gather.gather_cols])
+    print("    exp_grid_cost.run()")
+    r_grid, n_grid = drive(exp_grid_cost.run, [p.fn for p in GC.PROBES])
+    print("    exp_kernel_overhead.run()")
+    r_over, _ = drive(EKO.run, [blend.blend_forward, blend.blend_backward])
+
+    def timed(fn):
+        return time_ms(fn, dev)[0]
+
+    def same(got, want, what):
+        """Raise unless the kernel's output equals its plain version's bit
+        for bit; returns the max abs error, 0."""
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+            raise AssertionError(f"{what} differs from its plain version: {errs}")
+        return 0.0
+
+    # K3 against its plain version at the script's and the render's shape
+    rng = np.random.default_rng(0)
+    P, K, KR = r_gather["P"], r_gather["K"], r_gather["render_K"]
+    tableT = torch.from_numpy(rng.standard_normal((16, P), dtype=np.float32)).to(dev)
+    kernels = []
+    for shape, idx in (
+            ("script", torch.from_numpy(rng.integers(0, P, K, dtype=np.int32)).to(dev)),
+            ("render", exp_gather.render_ids(P, KR, r_gather["render_n_ids"], rng, dev))):
+        before = gather.gather_cols.launches
+        out = gather.gather_cols(tableT, idx)
+        torch.cuda.synchronize()
+        if gather.gather_cols.launches != before + 1:
+            raise AssertionError("gather_cols did not count its launch")
+        err = same(out, gather.gather_cols_plain(tableT, idx), f"K3 at the {shape} shape")
+        n = idx.numel()
+        bound = _bound(0, 4 * n + 64 * n + 64 * P)
+        k_ms = r_gather["ms"][f"{shape}/gather_cols/float32"]
+        plain_ms = timed(lambda: gather.gather_cols_plain(tableT, idx))
+        lib_ms = timed(lambda: torch.index_select(tableT, 1, idx))
+        port_ms = r_gather["ms"][f"{shape}/take_axis0_T/float32"]
+        print(f"    K3 at the {shape} shape (P {P}, K {n}): bit-equal to plain, kernel "
+              f"{k_ms:.4f} ms, plain {plain_ms:.4f} ms, index_select(1) {lib_ms:.4f} ms, "
+              f"render path index_select(0).T {port_ms:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), kernel/bound "
+              f"{k_ms / bound['bound_ms']:.2f}")
+        if shape == "script":
+            kernels.append(dict(
+                name="gather_cols", route="cuda",
+                source="fourdgs_tpu_torch/csrc/gather_cols.cu",
+                replaces="scripts/exp_gather.py:93", launches=n_gather["gather_cols"],
+                max_abs_err=err, ms=k_ms, plain_ms=plain_ms, library_ms=lib_ms, **bound))
+
+    # K4-K10 against their plain versions over the experiment's tiles
+    T = r_grid["T"]
+    print(f"    probes over T = {T} tiles, floor (1 block) {r_grid['floor_ms']:.5f} ms:")
+    for p in GC.PROBES:
+        name = p.fn.__name__
+        cases = [p.args(T, dev)]
+        if p.fn is GC.while_ones:   # the experiment's zero loop counts, then 0..6
+            cases.append((torch.arange(T, dtype=torch.int32, device=dev) % 7,))
+        for args in cases:
+            before = p.fn.launches
+            got = p.fn(*args)
+            torch.cuda.synchronize()
+            if p.fn.launches != before + 1:
+                raise AssertionError(f"{name} did not count its launch")
+            err = same(got, p.plain(*args), name)
+        # the inputs read once, the outputs written once
+        n_bytes = sum(4 * a.numel() for a in cases[0] if isinstance(a, torch.Tensor))
+        bound = _bound(0, n_bytes + T * 256 * p.floats * 4)
+        pr = r_grid["probes"][name]
+        lib_ms = (timed(lambda: torch.ones((T, 256, p.floats), dtype=torch.float32,
+                                           device=dev)) if p.ones else None)
+        plain_ms = timed(lambda: p.plain(*cases[0]))
+        lib = "none" if lib_ms is None else f"{lib_ms:.5f} ms"
+        print(f"      {p.id:3s} {name:16s} bit-equal, {pr['ms']:.5f} ms, {pr['blocks']} "
+              f"blocks, {pr['per_block_us']} us/block over the floor, bound "
+              f"{bound['bound_ms']:.5f} ms, plain {plain_ms:.5f} ms, torch.ones {lib}")
+        kernels.append(dict(
+            name=name, route="cuda", source="fourdgs_tpu_torch/csrc/grid_cost.cu",
+            replaces=p.site, launches=n_grid[name], max_abs_err=err,
+            ms=pr["ms"], plain_ms=plain_ms, library_ms=lib_ms, **bound))
+
+    # K1 and K2 on the synthetic grids against their plain versions
+    for grid, (feat, starts, stops, row_off, bg, g_out) in EKO.inputs(
+            r_over["T"], r_over["gx"], r_over["K"], dev).items():
+        out = blend.blend_forward(feat, starts, stops, row_off, bg, r_over["gx"])
+        d = blend.blend_backward(feat, starts, stops, row_off, bg, out, g_out, r_over["gx"])
+        torch.cuda.synchronize()
+        fwd = compare_blend(out, blend.blend_forward_plain(
+            feat, starts, stops, row_off, bg, r_over["gx"]))
+        bwd = compare_blend_backward(d, blend.blend_backward_plain(
+            feat, starts, stops, row_off, bg, out, g_out, r_over["gx"]),
+            r_over["grids"][grid]["instances"])
+        print(f"    K1/K2 on the {grid} grid vs plain: K1 max abs err "
+              f"{fwd['max_abs_err']:.3g} ({fwd['over_1e-4']} pixels over 1e-4), K2 "
+              f"{bwd['instances_over_tol']} instances over tolerance, max err / row scale "
+              f"{bwd['max_err_over_row_scale']:.3g}")
+    print(f"    K1/K2 per-tile fixed cost (us): {r_over['per_tile_us']}; per-instance "
+          f"cost (ns): {r_over['per_instance_ns']}")
+    return kernels
 
 
 def ring_camera(i, n_views):
@@ -300,6 +422,7 @@ def main() -> int:
     from fourdgs_tpu_torch.configs.core import load_config
     from fourdgs_tpu_torch.ops import _build, blend
     from fourdgs_tpu_torch.ops import rasterize as R
+    from fourdgs_tpu_torch.scripts import time_ms
     from fourdgs_tpu_torch.train import checkpoint
 
     dev = torch.device("cuda")
@@ -391,9 +514,8 @@ def main() -> int:
     k_out = blend.blend_forward(*args)
     p_out = blend.blend_forward_plain(*args)
     full = compare_blend(k_out, p_out)
-    kernel_ms = cuda_time_ms(lambda: blend.blend_forward(*args), reps=20)
-    plain_ms = cuda_time_ms(lambda: blend.blend_forward_plain(*args), reps=3,
-                            warmup=1)
+    kernel_ms = time_ms(lambda: blend.blend_forward(*args), dev)[0]
+    plain_ms = time_ms(lambda: blend.blend_forward_plain(*args), dev, iters=1, reps=3)[0]
     work = blend_work(*args[:4], bi.grid_x)
     bound = blend_bound(work, bi.bins.tile_start.numel())
     print(f"    K1 at view {k_view} ({bi.bins.tile_start.numel()} tiles, "
@@ -487,9 +609,9 @@ def main() -> int:
     bwd_bound = blend_backward_bound(bwd_work, bi.bins.tile_start.numel(),
                                      bi.feat.shape[1])
     step_b = compare_blend_backward(d_k, d_p, bwd_work["instances"])
-    bwd_ms = cuda_time_ms(lambda: blend.blend_backward(*bwd_args), reps=20)
-    bwd_plain_ms = cuda_time_ms(lambda: blend.blend_backward_plain(*bwd_args),
-                                reps=3, warmup=1)
+    bwd_ms = time_ms(lambda: blend.blend_backward(*bwd_args), dev)[0]
+    bwd_plain_ms = time_ms(lambda: blend.blend_backward_plain(*bwd_args), dev,
+                           iters=1, reps=3)[0]
     print(f"    K2 at the last step ({bi.bins.tile_start.numel()} tiles, "
           f"{bwd_work['instances']} instances, {bwd_work['in_range']} pairs in "
           f"range, {bwd_work['live']} live): kernel {bwd_ms:.4f} ms, plain "
@@ -511,7 +633,10 @@ def main() -> int:
     if not seg_err <= 1e-5:
         raise AssertionError("the card's segment sums disagree with the CPU's")
 
-    # -- 7. kernels line, result line
+    # -- 7. the cost experiments
+    cost_kernels = check_cost_experiments(dev)
+
+    # -- 8. kernels line, result line
     kernels = [{
         "name": "blend_forward",
         "route": "cuda",
@@ -520,7 +645,6 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": full["max_abs_err"],
         "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"],
@@ -537,7 +661,7 @@ def main() -> int:
         "bound_ms": bwd_bound["bound_ms"],
         "bound_by": bwd_bound["bound_by"],
         "library_ms": None,   # no single PyTorch call computes this gradient
-    }]
+    }, *cost_kernels]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,12 @@ library's name carries a hash of its source, the shared headers
 anew and an unchanged one is reused. All sources build
 in parallel, one ``nvcc`` each. A missing ``nvcc`` or a failed build raises
 with the compiler's output; nothing falls back.
+
+Every source exports plain C entry points that take their pointers and ints,
+then the stream, and return ``cudaGetLastError()`` of their launch, plus
+``fourdgs_cuda_error_string``. :func:`bind` sets an entry point's argument
+types once; :func:`launch` calls it on the device's current stream and
+raises on a nonzero return.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+
+import torch
 
 PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -102,3 +110,30 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.fourdgs_cuda_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+PTR = ctypes.c_void_p   # a tensor's data_ptr() or the stream
+INT = ctypes.c_int
+
+
+def bind(stem: str, name: str, argtypes):
+    """The C entry point ``name`` of ``csrc/<stem>.cu`` with its argument
+    types (:data:`PTR` or :data:`INT` each, the stream last) and an int
+    return; returns (lib, fn). ctypes would pass an untyped Python int as a
+    32-bit int and cut a pointer."""
+    lib = load(stem)
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def launch(stem: str, name: str, argtypes, device: torch.device, *args) -> None:
+    """Call ``name`` with ``args`` (tensors pass their data pointers) and the
+    current stream of ``device``; raise if it returns a CUDA error."""
+    lib, fn = bind(stem, name, argtypes)
+    vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):   # the C side launches on the current device
+        rc = fn(*vals, torch.cuda.current_stream(device).cuda_stream)
+    check(lib, rc, f"{name} launch")

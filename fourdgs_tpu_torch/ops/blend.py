@@ -24,7 +24,6 @@ the differentiable blend.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
@@ -248,25 +247,12 @@ def _check_inputs(feat, starts, stops, row_off, bg, *packed):
         raise ValueError(f"K = {K} overflows the kernels' int32 offsets")
 
 
-def _kernel(stem: str, n_pointers: int):
-    """The C entry point ``fourdgs_<stem>`` of ``csrc/<stem>.cu``: pointers,
-    then num_tiles, k_pad, grid_x, then the stream; returns (lib, fn)."""
-    lib = _build.load(stem)
-    fn = getattr(lib, f"fourdgs_{stem}")
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p] * n_pointers + [ctypes.c_int] * 3 + [p]
-        fn.restype = ctypes.c_int
-    return lib, fn
-
-
 def _launch(stem: str, tensors, num_tiles: int, k_pad: int, grid_x: int):
-    lib, fn = _kernel(stem, len(tensors))
-    dev = tensors[0].device
-    with torch.cuda.device(dev):   # the C side launches on the current device
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*[x.data_ptr() for x in tensors], num_tiles, k_pad, grid_x, stream)
-    _build.check(lib, rc, f"{stem} launch")
+    """``fourdgs_<stem>`` of ``csrc/<stem>.cu``: pointers, then num_tiles,
+    k_pad, grid_x, then the stream."""
+    argtypes = [_build.PTR] * len(tensors) + [_build.INT] * 3 + [_build.PTR]
+    _build.launch(stem, f"fourdgs_{stem}", argtypes, tensors[0].device,
+                  *tensors, num_tiles, k_pad, grid_x)
 
 
 def blend_forward(feat, starts, stops, row_off, bg, grid_x: int):

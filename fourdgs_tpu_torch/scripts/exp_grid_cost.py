@@ -1,0 +1,43 @@
+"""Experiment: what a grid of T = 2500 tiles costs on the card.
+
+Counterpart of ``scripts/exp_grid_cost.py``: times each grid-cost probe of
+``ops/grid_cost.py`` (K4–K10, its table :data:`~fourdgs_tpu_torch.ops.grid_cost.PROBES`;
+the port's per-tile blocks in place of the TPU's grid steps) per call,
+beside the floor of the same launch with one block (K4 ``parallel`` at
+T = 1). Per-block cost = (time − floor) / blocks. K10 runs with zero loop
+counts, as the JAX script does. Times: see :mod:`fourdgs_tpu_torch.scripts`.
+"""
+
+from __future__ import annotations
+
+from fourdgs_tpu_torch import resolve_device
+from fourdgs_tpu_torch.ops import grid_cost as G
+from fourdgs_tpu_torch.scripts import header, main_with, time_ms
+
+
+def run(device="cuda", T=2500) -> dict:
+    """Returns ``{"device", "clock", "T", "floor_ms", "probes": {wrapper
+    name: {"ms", "wall_ms", "blocks", "per_block_us"}}}``."""
+    dev = resolve_device(device)
+    floor_ms, _ = time_ms(lambda: G.ones_parallel(1, dev), dev)
+    res = dict(header(dev), T=T, floor_ms=floor_ms, probes={})
+    print(f"floor: 1 block, parallel   {floor_ms:9.5f} ms")
+    for p in G.PROBES:
+        args = p.args(T, dev)
+        ms, wall_ms = time_ms(lambda: p.fn(*args), dev)
+        blocks = p.blocks(T, dev)
+        per_block = None if not blocks else (ms - floor_ms) / blocks * 1e3
+        res["probes"][p.fn.__name__] = dict(ms=ms, wall_ms=wall_ms, blocks=blocks,
+                                            per_block_us=per_block)
+        pb = "n/a" if per_block is None else f"{per_block:.5f} us/block"
+        print(f"{p.label:26s} {ms:9.5f} ms  ({blocks} blocks, {pb}; "
+              f"wall {wall_ms:.5f} ms/call)")
+    return res
+
+
+def main():
+    main_with(run, "Grid-cost probes (K4-K10) on the card")
+
+
+if __name__ == "__main__":
+    main()

@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fourdgs_tpu_torch import resolve_device
+
 
 def abs_(x: torch.Tensor) -> torch.Tensor:
     """|x| with JAX's derivative at 0, which is +1 (``torch.abs`` gives 0).
@@ -92,9 +94,10 @@ def tile_image_np(img: np.ndarray, tile_x: int = 16,
 
 
 def tile_pixel_mask(height: int, width: int, tile_x: int = 16,
-                    tile_y: int = 16, device="cpu") -> torch.Tensor:
-    """[T, 1, tile_y·tile_x] float mask: 1 inside H×W, 0 on the tile-grid
-    padding."""
+                    tile_y: int = 16, device="cuda") -> torch.Tensor:
+    """[T, 1, tile_y·tile_x] float mask on ``device``: 1 inside H×W, 0 on
+    the tile-grid padding."""
+    device = resolve_device(device)
     gy = -(-height // tile_y)
     gx = -(-width // tile_x)
     yy = torch.arange(gy * tile_y, device=device) < height

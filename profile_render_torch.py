@@ -6,8 +6,9 @@ Renders the scene and cameras of ``chip_smoke.py`` (the ``lego`` preset at
 full width, 60,000 Gaussians, 800×800) on one NVIDIA card, then times the
 whole render and each of its stages run alone, on the same inputs:
 
-- ``wall_ms``: median milliseconds per call between two CUDA events recorded
-  around the call (the host's launch time included);
+- ``wall_ms``: median milliseconds per call on the host's clock, the call
+  run alone and ended by a synchronize (the host's launch time included;
+  ``fourdgs_tpu_torch.scripts.time_ms``);
 - ``device_ms``: the card's busy time per call, the summed durations of the
   kernels, copies and fills that ``torch.profiler`` records over ``--reps``
   calls;
@@ -68,6 +69,7 @@ def main() -> int:
     from fourdgs_tpu_torch.ops import rasterize as R
     from fourdgs_tpu_torch.ops.binning import bin_gaussians_fast
     from fourdgs_tpu_torch.ops.preprocess import preprocess
+    from fourdgs_tpu_torch.scripts import time_ms
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -117,7 +119,7 @@ def main() -> int:
     rows = {}
     top = None
     for name, fn in stages.items():
-        wall = cs.cuda_time_ms(fn, reps=args.reps)
+        wall = time_ms(fn, dev, iters=1, reps=args.reps)[1]
         busy, n_dev, by_name = device_time(fn, args.reps)
         rows[name] = {"wall_ms": wall, "device_ms": busy, "launches": n_dev,
                       "idle": 1.0 - busy / wall}

@@ -12,8 +12,8 @@ whole step and each of its parts run alone, on the same inputs:
 - K2 and the per-Gaussian segment sum alone, at the step's shapes;
 - ``sanitize_grads`` + Adam, and the densification statistics.
 
-Columns as in ``profile_render_torch.py``: ``wall_ms`` (CUDA events around
-the call, median), ``device_ms`` (the card's busy time per call from
+Columns as in ``profile_render_torch.py``: ``wall_ms`` (the host's clock
+around the call run alone and a synchronize, median), ``device_ms`` (the card's busy time per call from
 ``torch.profiler``), ``launches`` (device events per call) and ``idle``
 (1 − device_ms / wall_ms). Prints the card's name and power limit, a table,
 and as the last line one JSON object with the same numbers. Needs CUDA;
@@ -45,6 +45,7 @@ def main() -> int:
     from fourdgs_tpu_torch.models import gaussians as G
     from fourdgs_tpu_torch.ops import blend
     from fourdgs_tpu_torch.ops import rasterize as R
+    from fourdgs_tpu_torch.scripts import time_ms
     from fourdgs_tpu_torch.train import adam
     from fourdgs_tpu_torch.train.loop import make_train_step, sanitize_grads
     from fourdgs_tpu_torch.utils.losses import tile_image
@@ -134,7 +135,7 @@ def main() -> int:
     }
     rows = {}
     for name, fn in stages.items():
-        wall = cs.cuda_time_ms(fn, reps=args.reps)
+        wall = time_ms(fn, dev, iters=1, reps=args.reps)[1]
         busy, n_dev, by_name = device_time(fn, args.reps)
         rows[name] = {"wall_ms": wall, "device_ms": busy, "launches": n_dev,
                       "idle": 1.0 - busy / wall}

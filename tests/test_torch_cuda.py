@@ -1,5 +1,6 @@
-"""The CUDA blend kernels (K1 forward, K2 backward) against their plain
-PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+blend kernels (K1 forward, K2 backward), the column gather (K3) and the
+grid-cost probes (K4–K10).
 
 Skips without CUDA. It imports no JAX, so it runs where only PyTorch is
 installed; the repository's conftest imports JAX, hence on such a machine:
@@ -12,7 +13,7 @@ import torch
 
 from chip_smoke import (blend_work, compare_blend, compare_blend_backward,
                         synthetic_blend_inputs)
-from fourdgs_tpu_torch.ops import blend
+from fourdgs_tpu_torch.ops import blend, gather, grid_cost
 
 pytestmark = pytest.mark.cuda
 
@@ -20,7 +21,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the blend kernel has no CPU mode")
+        pytest.skip("needs an NVIDIA card: a CUDA kernel has no CPU mode")
     return torch.device("cuda")
 
 
@@ -69,3 +70,38 @@ def test_blend_autograd_runs_both_kernels(cuda_device):
     assert (blend.blend_forward.launches, blend.blend_backward.launches) == (
         before[0] + 1, before[1] + 1)
     assert torch.isfinite(d).all() and d.abs().max() > 0
+
+
+@pytest.mark.parametrize("K", [393_216, 2_097_152])
+def test_gather_kernel_matches_plain(cuda_device, K):
+    gen = torch.Generator().manual_seed(K)
+    P = 65_536
+    table = torch.randn(16, P, generator=gen).to(cuda_device)
+    idx = torch.randint(0, P, (K,), generator=gen, dtype=torch.int32)
+    idx[K // 2:] = 0          # the render's padding id
+    idx[:3] = P - 1
+    idx = idx.to(cuda_device)
+    before = gather.gather_cols.launches
+    out = gather.gather_cols(table, idx)
+    torch.cuda.synchronize()
+    assert gather.gather_cols.launches == before + 1
+    assert torch.equal(out, gather.gather_cols_plain(table, idx))
+    with pytest.raises(ValueError):
+        gather.gather_cols(table, idx.cpu())
+
+
+@pytest.mark.parametrize("probe", grid_cost.PROBES, ids=lambda p: p.fn.__name__)
+def test_grid_probe_matches_plain(cuda_device, probe):
+    T = 2500
+    cases = [probe.args(T, cuda_device)]
+    if probe.fn is grid_cost.while_ones:   # nonzero loop counts too
+        cases.append((torch.arange(T, dtype=torch.int32, device=cuda_device) % 7,))
+    for args in cases:
+        before = probe.fn.launches
+        got = probe.fn(*args)
+        torch.cuda.synchronize()
+        assert probe.fn.launches == before + 1
+        got = got if isinstance(got, tuple) else (got,)
+        want = probe.plain(*args)
+        want = want if isinstance(want, tuple) else (want,)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))

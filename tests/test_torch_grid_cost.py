@@ -1,0 +1,189 @@
+"""K4–K10, the grid-cost probes: each wrapper of
+``fourdgs_tpu_torch.ops.grid_cost`` on the CPU (its plain version) against
+the JAX kernel of ``scripts/exp_grid_cost.py`` rebuilt under the Pallas
+interpreter at T = 8. The bodies are copied verbatim (the script defines them
+inside ``main``); the outputs are constants and iotas, so the tolerance is 0.
+K6's JAX kernel fails at trace time; the port's K6 gives K7's output."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from fourdgs_tpu_torch.ops import grid_cost as G
+
+T = 8
+N = 256
+
+
+def blk(ch):
+    # exp_grid_cost.py:44-46
+    return pl.BlockSpec((1, N, ch), lambda t, *_: (t, 0, 0),
+                        memory_space=pltpu.VMEM)
+
+
+def _params(sem):
+    return pltpu.CompilerParams(dimension_semantics=(sem,))
+
+
+# -- the JAX kernels, verbatim ---------------------------------------------
+
+
+def k1(o):
+    # exp_grid_cost.py:49-50
+    o[0] = jnp.ones((N, 1), jnp.float32)
+
+
+def k3(a, b, c):
+    # exp_grid_cost.py:62-65
+    a[0] = jnp.ones((N, 3), jnp.float32)
+    b[0] = jnp.ones((N, 1), jnp.float32)
+    c[0] = jnp.ones((N, 1), jnp.float32)
+
+
+def k5(o):
+    # exp_grid_cost.py:85-86
+    o[0] = jnp.ones((N, 5), jnp.float32)
+
+
+def kp(o):
+    # exp_grid_cost.py:97-98
+    o[:] = jnp.ones((2, N, 5), jnp.float32)
+
+
+def kw(o):
+    # exp_grid_cost.py:111-117
+    i = jax.lax.broadcasted_iota(jnp.int32, (128, 128), 0)
+    j = jax.lax.broadcasted_iota(jnp.int32, (128, 128), 1)
+    tri = (i < j).astype(jnp.float32)
+    sub = jax.lax.broadcasted_iota(jnp.int32, (N, 1), 0)
+    px = (sub % 16).astype(jnp.float32)
+    o[0] = px + tri[0:1, 0:1] * jnp.ones((N, 1), jnp.float32)
+
+
+def kwl(s_ref, o):
+    # exp_grid_cost.py:128-139
+    t = pl.program_id(0)
+    start = s_ref[t]
+
+    def cond(c):
+        return c < start
+
+    def body(c):
+        return c + 1
+
+    jax.lax.while_loop(cond, body, jnp.int32(0))
+    o[0] = jnp.ones((N, 1), jnp.float32)
+
+
+def _f32(*shapes):
+    outs = [jax.ShapeDtypeStruct(s, jnp.float32) for s in shapes]
+    return outs if len(outs) > 1 else outs[0]
+
+
+def jax_probe(name, s=None):
+    """The script's ``pallas_call`` of each probe (calls :53, :67, :78, :88,
+    :100, :119, :146), with ``interpret=True``."""
+    if name in ("ones_parallel", "ones_sequential"):
+        sem = "parallel" if name == "ones_parallel" else "arbitrary"
+        f = pl.pallas_call(k1, grid=(T,), out_specs=blk(1), out_shape=_f32((T, N, 1)),
+                           compiler_params=_params(sem), interpret=True)
+        return f()
+    if name == "ones_three":
+        f = pl.pallas_call(k3, grid=(T,), out_specs=[blk(3), blk(1), blk(1)],
+                           out_shape=_f32((T, N, 3), (T, N, 1), (T, N, 1)),
+                           compiler_params=_params("arbitrary"), interpret=True)
+        return f()
+    if name == "ones_broadcast5":
+        f = pl.pallas_call(k1, grid=(T,), out_specs=blk(5), out_shape=_f32((T, N, 5)),
+                           compiler_params=_params("arbitrary"), interpret=True)
+        return f()
+    if name == "ones5":
+        f = pl.pallas_call(k5, grid=(T,), out_specs=blk(5), out_shape=_f32((T, N, 5)),
+                           compiler_params=_params("arbitrary"), interpret=True)
+        return f()
+    if name == "ones5_pairs":
+        f = pl.pallas_call(
+            kp, grid=(T // 2,),
+            out_specs=pl.BlockSpec((2, N, 5), lambda t, *_: (t, 0, 0),
+                                   memory_space=pltpu.VMEM),
+            out_shape=_f32((T, N, 5)), compiler_params=_params("arbitrary"),
+            interpret=True)
+        return f()
+    if name == "iota_px":
+        f = pl.pallas_call(kw, grid=(T,), out_specs=blk(1), out_shape=_f32((T, N, 1)),
+                           compiler_params=_params("arbitrary"), interpret=True)
+        return f()
+    assert name == "while_ones"
+    gs = pltpu.PrefetchScalarGridSpec(num_scalar_prefetch=1, grid=(T,), in_specs=[],
+                                      out_specs=blk(1))
+    f = pl.pallas_call(kwl, grid_spec=gs, out_shape=_f32((T, N, 1)),
+                       compiler_params=_params("arbitrary"), interpret=True)
+    return jax.jit(f)(jnp.asarray(s))
+
+
+@pytest.mark.parametrize("name", ["ones_parallel", "ones_sequential", "ones_three",
+                                  "ones5", "ones5_pairs", "iota_px", "while_ones"])
+def test_probe_matches_jax_kernel(name):
+    fn = getattr(G, name)
+    before = fn.launches
+    if name == "while_ones":
+        s = np.arange(T, dtype=np.int32)          # nonzero loop counts
+        got = fn(torch.from_numpy(s))
+        want = jax_probe(name, s)
+    else:
+        got = fn(T, device="cpu")
+        want = jax_probe(name)
+    assert fn.launches == before                   # the plain version ran
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_k6_jax_kernel_fails_at_trace_and_port_gives_k7():
+    """exp_grid_cost.py:78 stores ``k1``'s (256, 1) value into a (256, 5)
+    block; the trace rejects the store. The port's K6 broadcasts the value,
+    which is K7's output."""
+    with pytest.raises(ValueError, match="shape"):
+        jax_probe("ones_broadcast5")
+    got = G.ones_broadcast5(T, device="cpu").numpy()
+    np.testing.assert_array_equal(got, np.asarray(jax_probe("ones5")))
+    np.testing.assert_array_equal(got, G.ones5(T, device="cpu").numpy())
+
+
+def test_probe_wrapper_checks():
+    with pytest.raises(ValueError, match="even"):
+        G.ones5_pairs(7, device="cpu")
+    with pytest.raises(ValueError):
+        G.ones_parallel(-1, device="cpu")
+    with pytest.raises(ValueError):
+        G.while_ones(torch.zeros(T, dtype=torch.int64))
+    for p in G.PROBES:
+        out = p.fn(*p.args(0, torch.device("cpu")))
+        for o in out if isinstance(out, tuple) else (out,):
+            assert o.shape[0] == 0
+
+
+def test_probe_table_matches_the_outputs():
+    """Each row of ``PROBES`` against its plain version's output: the floats
+    per pixel (the bound of chip_smoke.py), the ``torch.ones`` yardstick,
+    and the blocks of one launch."""
+    cpu = torch.device("cpu")
+    assert len({p.fn for p in G.PROBES}) == len(G.PROBES) == 8
+    for p in G.PROBES:
+        out = p.plain(*p.args(T, cpu))
+        outs = out if isinstance(out, tuple) else (out,)
+        assert all(o.shape[:2] == (T, N) for o in outs), p.id
+        assert sum(o.shape[2] for o in outs) == p.floats, p.id
+        if p.ones:
+            torch.testing.assert_close(out, torch.ones((T, N, p.floats)), rtol=0, atol=0)
+        else:
+            assert not (len(outs) == 1 and bool((outs[0] == 1).all())), p.id
+        assert p.blocks(T, cpu) == {"tile": T, "pair": T // 2, "sm": None}[p.grid], p.id
+        assert p.site.startswith("scripts/exp_grid_cost.py:"), p.id

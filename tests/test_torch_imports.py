@@ -113,6 +113,28 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         checkpoint.load_snapshot("/nonexistent", cfg)
 
+    from fourdgs_tpu_torch.ops import grid_cost
+    from fourdgs_tpu_torch.scripts import exp_gather, exp_grid_cost, exp_kernel_overhead
+    from fourdgs_tpu_torch.train.loop import make_train_step
+    from fourdgs_tpu_torch.utils.losses import tile_pixel_mask
+
+    cfg.opt.lambda_dssim = 0.0
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_train_step(cfg, 64, 64, "fine", 1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tile_pixel_mask(56, 72)
+    assert tile_pixel_mask(56, 72, device="cpu").shape == (20, 1, 256)
+    for run in (exp_gather.run, exp_grid_cost.run, exp_kernel_overhead.run):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run()
+    for probe in grid_cost.PROBES:
+        if probe.fn is grid_cost.while_ones:   # runs where its counts lie
+            continue
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            probe.fn(8)
+        with pytest.raises(TypeError):         # the plain versions name their device
+            probe.plain(8)
+
 
 def test_constants_match_jax():
     from fourdgs_tpu_torch.ops import constants as TC
