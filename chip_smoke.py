@@ -12,16 +12,23 @@ on failure:
    the build time and ptxas report;
 3. the forward blend kernel (K1) and the backward blend kernel (K2) against
    their plain PyTorch versions on synthetic inputs: windows straddling
-   chunk boundaries, a tile longer than 3 chunks, a saturated tile, empty
-   tiles, trailing empty tiles at start == K and a nonzero tile-row
-   offset/stride; K2 with a random cotangent;
+   chunk boundaries, a tile longer than 3 chunks, a saturated tile, a tile
+   of near-singular conics, empty tiles, trailing empty tiles at start == K
+   and a nonzero tile-row offset/stride; K2 with a random cotangent. Each
+   kernel with its per-warp cull equals its walk of every in-range instance
+   (the ``_cull=False`` test hook) bit for bit, K2 twice gives the same
+   bits, and the strip masks the kernels stage equal their plain mirror's
+   (``blend.strip_masks``), here, on the cull's edge cases, at view 10 and
+   at the last train step; the gated counts come from those masks;
 4. the full-width render of the D-NeRF ``lego`` preset (multires (1, 2),
    net_width 64, 64³×25 K-planes × 32 features, sh degree 3, white
    background) over 60,000 random Gaussians in capacity 65,536, 800×800:
    1 warm-up view and 20 timed views through ``render``; the K1 launch count
    must rise by exactly 21. Then K1 at that view's shapes: device time per
-   call, the plain version's time, the bound and agreement
-   (``profile_render_torch.py`` breaks a view down by stage);
+   call with and without the cull, the plain version's time, the bound on
+   kept pairs and on all in-range pairs, the share of pairs the cull leaves
+   to the gates, the tile lengths and agreement (``profile_render_torch.py``
+   breaks a view down by stage);
 5. a snapshot round trip (save, load, render) that must match bit for bit;
 6. the fine-stage train step of the same preset and scene at 800×800,
    batch 1, against a GT rendered by the port from a second seeded scene
@@ -29,9 +36,11 @@ on failure:
    (trained pixels/s as ``bench.py`` counts them, ms per step, peak memory);
    exactly one K1 and one K2 launch per step, a finite loss that falls,
    demand within the budget. Then K2 at the last step's shapes and
-   cotangent: agreement, time, plain time and bound, and two backward
-   passes (K2 and the per-Gaussian segment sum) that must agree bit for
-   bit (``profile_train_torch.py`` breaks a step down by stage);
+   cotangent: agreement, time (and, as for K1 in phase 4, without the cull),
+   plain time, both bounds, the pair shares and K2's shuffles per live
+   warp-instance, and two backward passes (K2 and the per-Gaussian segment
+   sum) that must agree bit for bit (``profile_train_torch.py`` breaks a step
+   down by stage);
 7. the cost experiments of ``fourdgs_tpu_torch/scripts``, each through its
    ``run()`` with the launch counts zeroed just before it and read just
    after: ``exp_gather`` (K3, the column gather, beside the PyTorch gather
@@ -81,8 +90,8 @@ N_WARM = 3                # warm-up train steps
 H100_F32_FLOPS = 67e12    # non-tensor-core float32, H100 SXM data sheet
 H100_HBM_BYTES = 3.35e12  # bytes/s
 # float32 operations per (pixel, instance) pair, counted from the kernels'
-# source (an exp counts as one). Every pair in a tile's range takes the gates:
-# dx, dy, the power (9), exp, α, the cap and two tests.
+# source (an exp counts as one). A pair the kernels gate takes dx, dy, the
+# power (9), exp, α, the cap and two tests.
 OPS_GATE = 16
 # A pair that blends adds, in K1, the T update and its test (3), w and four
 # colour multiply-adds (9);
@@ -94,8 +103,9 @@ OPS_LIVE_BWD = 54
 
 
 def synthetic_blend_inputs(device, seed=0):
-    """Blend inputs covering the window edge cases (see module docstring):
-    24 tiles on a 4-wide grid, tile rows mapped to 1 + 2j, K = 4096."""
+    """Blend inputs covering the window and cull edge cases (see module
+    docstring): 24 tiles on a 4-wide grid, tile rows mapped to 1 + 2j,
+    K = 4096."""
     import torch
 
     from fourdgs_tpu_torch.ops import constants as C
@@ -129,12 +139,65 @@ def synthetic_blend_inputs(device, seed=0):
     feat[4, sat] = rng.uniform(0.002, 0.02, sat.sum())
     feat[3, sat] = 0.0
     feat[5, sat] = rng.uniform(0.8, 0.99, sat.sum())
+    # near-singular conics: eigenvalues λ1 and λ1·10^-7..10^-2 at any angle
+    sing = tile == 13
+    th = rng.uniform(0, np.pi, sing.sum())
+    l1 = rng.uniform(0.05, 0.3, sing.sum())
+    l2 = l1 * 10.0 ** rng.uniform(-7, -2, sing.sum())
+    cs, sn = np.cos(th), np.sin(th)
+    feat[2, sing] = l1 * cs * cs + l2 * sn * sn
+    feat[3, sing] = (l1 - l2) * sn * cs
+    feat[4, sing] = l1 * sn * sn + l2 * cs * cs
 
     def t(x, dtype):
         return torch.tensor(np.asarray(x), dtype=dtype, device=device)
 
     return (t(feat, torch.float32), t(starts, torch.int32), t(stops, torch.int32),
             t(row_off, torch.int32), t([0.2, 0.5, 0.9], torch.float32), gx)
+
+
+def cull_edge_inputs(device, seed=0, n_tiles=1024):
+    """Blend inputs that press on the cull's margin (``csrc/blend_common.cuh``):
+    ``n_tiles`` tiles on a 32-wide grid, 16 instances each, means within 24 px of
+    their tile at sub-pixel offsets; conics at any angle, 70% positive
+    definite with eigenvalues 10^-3..2 and a ratio down to 10^-8 (near
+    singular), 10% indefinite, 20% round; opacities half U(0, 1), a quarter
+    within 1% of 1/255, a quarter U(0.9, 1). Returns the inputs of
+    :func:`synthetic_blend_inputs` and a cotangent."""
+    import torch
+
+    from fourdgs_tpu_torch.ops import constants as C
+
+    rng = np.random.default_rng(seed)
+    gx, T, per = 32, n_tiles, 16
+    K = T * per
+    tile = np.repeat(np.arange(T), per)
+    th = rng.uniform(0, np.pi, K)
+    l1 = 10.0 ** rng.uniform(-3, np.log10(2), K)
+    kind = rng.uniform(0, 1, K)
+    l2 = np.where(kind < 0.7, l1 * 10.0 ** rng.uniform(-8, 0, K),
+                  np.where(kind < 0.8, -l1 * 10.0 ** rng.uniform(-6, 0, K), l1))
+    cs, sn = np.cos(th), np.sin(th)
+    feat = np.zeros((C.FEAT_ROWS, K), np.float32)
+    feat[0] = (tile % gx) * 16 + rng.uniform(-24, 40, K)
+    feat[1] = (tile // gx) * 16 + rng.uniform(-24, 40, K)
+    feat[2] = l1 * cs * cs + l2 * sn * sn
+    feat[3] = (l1 - l2) * sn * cs
+    feat[4] = l1 * sn * sn + l2 * cs * cs
+    u = rng.uniform(0, 1, K)
+    feat[5] = np.where(u < 0.5, rng.uniform(0, 1, K),
+                       np.where(u < 0.75, (1 + rng.uniform(-0.01, 0.01, K)) / 255,
+                                rng.uniform(0.9, 1.0, K)))
+    feat[6:10] = rng.uniform(0, 1, (4, K))
+    starts = np.arange(T, dtype=np.int32) * per
+    g_out = rng.uniform(-1, 1, (T, C.OUT5, C.N_PIX))
+
+    def t(x, dtype):
+        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+    return (t(feat, torch.float32), t(starts, torch.int32), t(starts + per, torch.int32),
+            t((0, 1), torch.int32), t([0.2, 0.5, 0.9], torch.float32), gx,
+            t(g_out, torch.float32))
 
 
 def compare_blend(out, ref):
@@ -199,14 +262,25 @@ def compare_blend_backward(d_kernel, d_plain, n_instances):
 
 def blend_work(feat, starts, stops, row_off, grid_x):
     """The blend's data-dependent work on this input: ``instances`` in the
-    tiles' ranges, the ``in_range`` (pixel, instance) pairs (a window's
-    masked alignment lanes need no work) and the ``live`` pairs that blend
-    (:func:`fourdgs_tpu_torch.ops.blend.live_pairs`)."""
+    tiles' ranges and the pair counts of
+    :func:`fourdgs_tpu_torch.ops.blend.pair_counts` (``in_range``,
+    ``gated``, ``kept_pairs``, ``live_pairs``, K2's reductions at the batch
+    its library was built with). ``gated`` comes from the kernels' own strip
+    masks (``blend.strip_masks``), which must first equal their plain
+    mirror's on the CPU bit for bit."""
+    import torch
+
     from fourdgs_tpu_torch.ops import blend
 
+    masks = blend.strip_masks(feat, starts, stops, row_off, grid_x).cpu()
+    plain = blend.strip_masks_plain(*(x.cpu() for x in (feat, starts, stops, row_off)),
+                                    grid_x)
+    if not torch.equal(masks, plain):
+        raise AssertionError(f"the kernels' strip masks differ from their plain mirror "
+                             f"at {int((masks != plain).sum())} of {masks.numel()} slots")
     n = int((stops.long() - starts.long()).clamp(min=0).sum())
-    return {"instances": n, "in_range": 256 * n,
-            "live": blend.live_pairs(feat, starts, stops, row_off, grid_x)}
+    return {"instances": n, **blend.pair_counts(
+        feat, starts, stops, row_off, grid_x, k2_batch=blend.k2_reduction()["batch"])}
 
 
 def _bound(ops, n_bytes):
@@ -215,13 +289,24 @@ def _bound(ops, n_bytes):
             "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
 
 
+def _blend_bounds(work, ops_live, n_bytes):
+    """The bound with the gates counted on kept pairs (the least work: the
+    cull leaves unkept pairs nothing to compute), and as ``bound_all_pairs_ms``
+    with the gates counted on every in-range pair (the bound before the
+    cull)."""
+    live = work["live_pairs"] * ops_live
+    return {**_bound(work["kept_pairs"] * OPS_GATE + live, n_bytes),
+            "bound_all_pairs_ms": _bound(work["in_range"] * OPS_GATE + live,
+                                         n_bytes)["bound_ms"]}
+
+
 def blend_bound(work, n_tiles):
     """Least time for K1's work (:func:`blend_work`): the larger of its
     operations at the float32 rate and its bytes at HBM rate (the payload
     read once, 40 B per instance; 8 B of range per tile; 5 output floats per
-    pixel)."""
-    return _bound(work["in_range"] * OPS_GATE + work["live"] * OPS_LIVE_FWD,
-                  40 * work["instances"] + n_tiles * (8 + 5 * 256 * 4))
+    pixel); see :func:`_blend_bounds`."""
+    return _blend_bounds(work, OPS_LIVE_FWD,
+                         40 * work["instances"] + n_tiles * (8 + 5 * 256 * 4))
 
 
 def blend_backward_bound(work, n_tiles, k_pad):
@@ -229,9 +314,53 @@ def blend_backward_bound(work, n_tiles, k_pad):
     payload read once, 8 B of range per tile, the saved output and the
     cotangent read once (10 floats per pixel), ``dfeat`` [16, K] written
     once (64 B per slot)."""
-    return _bound(work["in_range"] * OPS_GATE + work["live"] * OPS_LIVE_BWD,
-                  40 * work["instances"] + n_tiles * (8 + 10 * 256 * 4)
-                  + 64 * k_pad)
+    return _blend_bounds(work, OPS_LIVE_BWD,
+                         40 * work["instances"] + n_tiles * (8 + 10 * 256 * 4)
+                         + 64 * k_pad)
+
+
+def work_line(work):
+    """The pair counts and shares of :func:`blend_work` as one line, with the
+    gated share of each warp's strip and K2's shuffles per live
+    warp-instance (``blend.k2_reduction``'s shuffles per reduce-scatter)."""
+    from fourdgs_tpu_torch.ops import blend
+
+    red = blend.k2_reduction()
+    n = work["in_range"]
+    per_warp = n // len(work["gated_by_warp"])
+    shares = "/".join(f"{g / per_warp:.3f}" for g in work["gated_by_warp"])
+    live_wi = max(work["live_warp_instances"], 1)
+    return (f"{work['instances']} instances, {n} pairs in range; the cull leaves "
+            f"{work['gated']} to the gates (gated share {work['gated'] / n:.4f}; by "
+            f"warp {shares}), {work['kept_pairs']} kept ({work['kept_pairs'] / n:.4f}), "
+            f"{work['live_pairs']} live ({work['live_pairs'] / n:.4f}); "
+            f"{work['live_warp_instances']} live warp-instances in "
+            f"{work['k2_reductions']} K2 reductions, "
+            f"{red['shuffles'] * work['k2_reductions'] / live_wi:.2f} shuffles each "
+            f"({red['unbatched']} without batching)")
+
+
+def tile_lengths(starts, stops):
+    """Instances per tile: mean over all tiles and over nonempty ones,
+    percentiles and the longest (``max_tile_len``)."""
+    lens = (stops.long() - starts.long()).clamp(min=0).cpu().numpy()
+    q = np.percentile(lens, [50, 90, 99])
+    return (f"tile lengths: mean {lens.mean():.2f} (nonempty "
+            f"{lens[lens > 0].mean():.2f}), p50/p90/p99 {q[0]:.0f}/{q[1]:.0f}/"
+            f"{q[2]:.0f}, max_tile_len {lens.max()}")
+
+
+def check_cull_exact(fn, *args):
+    """Raise unless ``fn`` (a kernel wrapper) gives the same bits with its
+    per-warp cull as walking every in-range instance, and twice the same."""
+    import torch
+
+    got, again, walked = fn(*args), fn(*args), fn(*args, _cull=False)
+    if not torch.equal(got, again):
+        raise AssertionError(f"{fn.__name__}: two runs differ")
+    if not torch.equal(got, walked):
+        bad = int((got != walked).sum())
+        raise AssertionError(f"{fn.__name__}: the cull changed {bad} output elements")
 
 
 def check_cost_experiments(dev):
@@ -443,6 +572,8 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"    {stem}: {line.strip()}")
+    print(f"    resident blocks per SM: K1 {blend.blocks_per_sm('blend_forward')}, "
+          f"K2 {blend.blocks_per_sm('blend_backward')}")
 
     # -- 3. K1 against its plain version on synthetic edge cases
     feat, starts, stops, row_off, bg, gx = synthetic_blend_inputs(dev)
@@ -456,9 +587,19 @@ def main() -> int:
     d_k = blend.blend_backward(feat, starts, stops, row_off, bg, out, g_syn, gx)
     torch.cuda.synchronize()
     d_p = blend.blend_backward_plain(feat, starts, stops, row_off, bg, out, g_syn, gx)
-    syn_b = compare_blend_backward(
-        d_k, d_p, blend_work(feat, starts, stops, row_off, gx)["instances"])
+    syn_work = blend_work(feat, starts, stops, row_off, gx)
+    syn_b = compare_blend_backward(d_k, d_p, syn_work["instances"])
     print(f"    K2 vs plain, synthetic edge cases, random cotangent: {syn_b}")
+    check_cull_exact(blend.blend_forward, feat, starts, stops, row_off, bg, gx)
+    check_cull_exact(blend.blend_backward, feat, starts, stops, row_off, bg, out, g_syn, gx)
+    print(f"    K1 and K2 with the cull equal their walk of every in-range "
+          f"instance bit for bit, K2 twice the same bits, the kernels' strip masks "
+          f"their plain mirror's; {work_line(syn_work)}")
+    *edge, g_edge = cull_edge_inputs(dev)
+    out_edge = blend.blend_forward(*edge)
+    check_cull_exact(blend.blend_forward, *edge)
+    check_cull_exact(blend.blend_backward, *edge[:5], out_edge, g_edge, edge[5])
+    print(f"    the same on the cull's edge cases: {work_line(blend_work(*edge[:4], edge[5]))}")
 
     # -- 4. full-width render of the lego preset
     cfg = load_config(LEGO)
@@ -514,17 +655,22 @@ def main() -> int:
     k_out = blend.blend_forward(*args)
     p_out = blend.blend_forward_plain(*args)
     full = compare_blend(k_out, p_out)
+    check_cull_exact(blend.blend_forward, *args)
     kernel_ms = time_ms(lambda: blend.blend_forward(*args), dev)[0]
+    walk_ms = time_ms(lambda: blend.blend_forward(*args, _cull=False), dev)[0]
     plain_ms = time_ms(lambda: blend.blend_forward_plain(*args), dev, iters=1, reps=3)[0]
     work = blend_work(*args[:4], bi.grid_x)
     bound = blend_bound(work, bi.bins.tile_start.numel())
-    print(f"    K1 at view {k_view} ({bi.bins.tile_start.numel()} tiles, "
-          f"{work['instances']} instances, {work['in_range']} pairs in range, "
-          f"{work['live']} live): kernel {kernel_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
-          f"({bound['bound_by']}), kernel/bound "
-          f"{kernel_ms / bound['bound_ms']:.2f}")
-    print(f"    K1 vs plain at view {k_view}: {full}")
+    print(f"    K1 at view {k_view} ({bi.bins.tile_start.numel()} tiles): kernel "
+          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound on kept pairs "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), kernel/bound "
+          f"{kernel_ms / bound['bound_ms']:.2f}; bound on all in-range pairs "
+          f"{bound['bound_all_pairs_ms']:.4f} ms; without the cull (test hook) "
+          f"{walk_ms:.4f} ms")
+    print(f"    {work_line(work)}")
+    print(f"    {tile_lengths(args[1], args[2])}")
+    print(f"    K1 vs plain at view {k_view}: {full}; the cull equals the walk of "
+          f"every in-range instance bit for bit, the strip masks their plain mirror's")
 
     # -- 5. snapshot round trip
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_snapshot_") as tmp:
@@ -609,16 +755,24 @@ def main() -> int:
     bwd_bound = blend_backward_bound(bwd_work, bi.bins.tile_start.numel(),
                                      bi.feat.shape[1])
     step_b = compare_blend_backward(d_k, d_p, bwd_work["instances"])
+    check_cull_exact(blend.blend_forward, *fwd_args, bi.grid_x)
+    check_cull_exact(blend.blend_backward, *bwd_args)
     bwd_ms = time_ms(lambda: blend.blend_backward(*bwd_args), dev)[0]
+    bwd_walk_ms = time_ms(lambda: blend.blend_backward(*bwd_args, _cull=False), dev)[0]
     bwd_plain_ms = time_ms(lambda: blend.blend_backward_plain(*bwd_args), dev,
                            iters=1, reps=3)[0]
-    print(f"    K2 at the last step ({bi.bins.tile_start.numel()} tiles, "
-          f"{bwd_work['instances']} instances, {bwd_work['in_range']} pairs in "
-          f"range, {bwd_work['live']} live): kernel {bwd_ms:.4f} ms, plain "
-          f"{bwd_plain_ms:.4f} ms, bound {bwd_bound['bound_ms']:.4f} ms "
+    print(f"    K2 at the last step ({bi.bins.tile_start.numel()} tiles): kernel "
+          f"{bwd_ms:.4f} ms (with the wrapper's zeroing of dfeat), plain "
+          f"{bwd_plain_ms:.4f} ms, bound on kept pairs {bwd_bound['bound_ms']:.4f} ms "
           f"({bwd_bound['bound_by']}), kernel/bound "
-          f"{bwd_ms / bwd_bound['bound_ms']:.2f}")
-    print(f"    K2 vs plain at the last step: {step_b}")
+          f"{bwd_ms / bwd_bound['bound_ms']:.2f}; bound on all in-range pairs "
+          f"{bwd_bound['bound_all_pairs_ms']:.4f} ms; without the cull (test hook) "
+          f"{bwd_walk_ms:.4f} ms")
+    print(f"    {work_line(bwd_work)}")
+    print(f"    {tile_lengths(fwd_args[1], fwd_args[2])}")
+    print(f"    K2 vs plain at the last step: {step_b}; K1 and K2 with the cull "
+          f"equal their walk of every in-range instance bit for bit, the strip masks "
+          f"their plain mirror's")
     P = xyz.shape[0]
     g1 = R.payload_grad(blend.blend_backward(*bwd_args), bi.bins, P)
     g2 = R.payload_grad(blend.blend_backward(*bwd_args), bi.bins, P)
@@ -649,6 +803,8 @@ def main() -> int:
         "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"],
         "library_ms": None,   # no single PyTorch call computes this blend
+        "bound_all_pairs_ms": bound["bound_all_pairs_ms"],
+        "gated_share": work["gated"] / work["in_range"],
     }, {
         "name": "blend_backward",
         "route": "cuda",
@@ -661,6 +817,8 @@ def main() -> int:
         "bound_ms": bwd_bound["bound_ms"],
         "bound_by": bwd_bound["bound_by"],
         "library_ms": None,   # no single PyTorch call computes this gradient
+        "bound_all_pairs_ms": bwd_bound["bound_all_pairs_ms"],
+        "gated_share": bwd_work["gated"] / bwd_work["in_range"],
     }, *cost_kernels]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

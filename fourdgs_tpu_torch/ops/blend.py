@@ -19,19 +19,36 @@ and returns ``dfeat`` [16, K].
 :func:`blend_forward` and :func:`blend_backward` run the CUDA kernels
 ``csrc/blend_forward.cu`` (K1) and ``csrc/blend_backward.cu`` (K2) for CUDA
 tensors (or raise) and the plain versions for CPU tensors. :func:`blend` is
-the differentiable blend.
+the differentiable blend. :func:`strip_mask` mirrors the kernels' exact cull,
+:func:`strip_masks` gives its masks for every slot (the kernels' own staging
+on the card) and :func:`pair_counts` counts their data-dependent work; the
+tests and ``chip_smoke.py`` use them, the blend does not.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from fourdgs_tpu_torch.ops import _build
 from fourdgs_tpu_torch.ops import constants as C
 
 _TILES_PER_STEP = 512   # tiles per vectorized step of the plain versions
+
+# The plain mirror of the kernels' cull (csrc/blend_common.cuh, where the
+# margin is derived): the conic shrunk by CULL_GAMMA of its terms,
+# L = ln(255·opacity) grown by CULL_LOG_SLACK, one pixel of padding;
+# ALL_STRIPS is the mask that culls nothing, and an opacity below
+# _OPACITY_CUT culls everything. The card holds the kernels' masks equal to
+# this mirror's (strip_masks; chip_smoke.py, tests/test_torch_cuda.py).
+CULL_GAMMA = 1e-6
+CULL_LOG_SLACK = 1e-5
+CULL_PAD_PX = 1.0
+ALL_STRIPS = 0xFF
+_OPACITY_CUT = float(np.float32(C.ALPHA_FLOOR)) * (1.0 - 2.0**-18)
 
 
 def _pixel_coords(t: torch.Tensor, grid_x: int, row_off: torch.Tensor):
@@ -197,24 +214,136 @@ def blend_backward_plain(feat, starts, stops, row_off, bg, out, g_out,
     return dfeat
 
 
-def live_pairs(feat, starts, stops, row_off, grid_x: int) -> int:
-    """The number of (pixel, instance) pairs that blend: kept by the gates
-    and met before the pixel's T_STOP, over the chunk walk of
-    :func:`blend_forward_plain`. The part of the kernels' work that depends
-    on the data, for their bounds."""
-    n = 0
+def strip_mask(x, y, a, b, c, o, x0, y0) -> torch.Tensor:
+    """The kernels' per-warp cull (``csrc/blend_common.cuh::strip_mask``),
+    elementwise over broadcast tensors: an int64 mask whose bit w is set
+    when strip w of the tile at pixel (x0, y0) (rows y0 + 2w, y0 + 2w + 1,
+    columns x0..x0 + 15) meets the padded pixel box of the instance's
+    ellipse d'Q'd ≤ 2L. 0 when opacity < 1/255 (no pixel can keep it), all
+    8 bits when a value is not finite or Q' is not positive definite. In
+    float64, as the kernels compute it."""
+    x, y, a, b, c, o, x0, y0 = (torch.as_tensor(v).double()
+                                for v in (x, y, a, b, c, o, x0, y0))
+    finite = (torch.isfinite(x) & torch.isfinite(y) & torch.isfinite(a)
+              & torch.isfinite(b) & torch.isfinite(c) & torch.isfinite(o))
+    bb = b.abs()
+    a2 = a - CULL_GAMMA * (a + bb)
+    c2 = c - CULL_GAMMA * (c + bb)
+    det = a2 * c2 - b * b
+    full = ~finite | ~(a2 > 0) | ~(det > 0)
+    k = 2.0 * (torch.log(255.0 * o).clamp(min=0.0) + CULL_LOG_SLACK)
+    hx = torch.sqrt(k * c2 / det) + CULL_PAD_PX
+    hy = torch.sqrt(k * a2 / det) + CULL_PAD_PX
+    r_lo = torch.ceil(y - hy - y0).clamp(min=0.0)
+    r_hi = torch.floor(y + hy - y0).clamp(max=C.TILE_Y - 1.0)
+    hit = ((x + hx >= x0) & (x - hx <= x0 + (C.TILE_X - 1)) & (r_lo <= r_hi)
+           & ~full)
+    w_lo = torch.where(hit, r_lo, 0.0).long() // 2
+    w_hi = torch.where(hit, r_hi, 0.0).long() // 2
+    mask = torch.where(hit, (2 << w_hi) - (1 << w_lo), 0)
+    mask = torch.where(full, ALL_STRIPS, mask)
+    return torch.where(o < _OPACITY_CUT, 0, mask)
+
+
+def strip_masks_plain(feat, starts, stops, row_off, grid_x: int) -> torch.Tensor:
+    """:func:`strip_masks` by the plain mirror :func:`strip_mask`, each slot
+    of tile t's range at the tile's first pixel."""
+    K = feat.shape[1]
+    dev = feat.device
+    lens = (stops.long() - starts.long()).clamp(min=0)
+    tile = torch.repeat_interleave(torch.arange(starts.shape[0], device=dev), lens)
+    first = torch.cumsum(lens, 0) - lens                  # tile's first entry
+    slot = starts.long()[tile] + torch.arange(tile.shape[0], device=dev) - first[tile]
     row_off = row_off.long()
+    x0 = (tile % grid_x) * C.TILE_X
+    y0 = ((tile // grid_x) * row_off[1] + row_off[0]) * C.TILE_Y
+    masks = torch.zeros(K, dtype=torch.int32, device=dev)
+    masks[slot] = strip_mask(*feat[0:6, slot], x0, y0).int()
+    return masks
+
+
+def strip_masks(feat, starts, stops, row_off, grid_x: int) -> torch.Tensor:
+    """int32 [K]: for each slot of a tile's range the strip mask the
+    kernels stage for it (``csrc/blend_common.cuh::strip_mask`` at the
+    tile's first pixel), 0 for a slot of no range. The ranges must not
+    overlap, as the binning makes them.
+
+    CUDA tensors run K1's staging of each chunk
+    (``fourdgs_blend_forward_strip_masks``, not counted as a K1 launch);
+    CPU tensors :func:`strip_masks_plain`. For the cull's checks and counts:
+    the blend does not call it."""
+    _check_inputs(feat, starts, stops, row_off)
+    ne = stops > starts
+    s, order = torch.sort(starts[ne].long())
+    if bool((stops[ne].long()[order][:-1] > s[1:]).any()):
+        raise ValueError("tile ranges overlap")
+    if feat.device.type == "cpu":
+        return strip_masks_plain(feat, starts, stops, row_off, grid_x)
+    masks = torch.zeros(feat.shape[1], dtype=torch.int32, device=feat.device)
+    argtypes = [_build.PTR] * 5 + [_build.INT] * 3 + [_build.PTR]
+    _build.launch("blend_forward", "fourdgs_blend_forward_strip_masks", argtypes,
+                  feat.device, feat, starts, stops, row_off, masks,
+                  starts.shape[0], feat.shape[1], grid_x)
+    return masks
+
+
+def k2_reduction() -> dict:
+    """K2's warp reduction as built (``csrc/blend_backward.cu``):
+    ``batch`` instances per reduce-scatter, its ``shuffles``, and the
+    ``unbatched`` shuffles per instance of ten separate warp sums."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    lib, fn = _build.bind("blend_backward", "fourdgs_blend_backward_reduction",
+                          [ctypes.POINTER(ctypes.c_int)] * 3)
+    _build.check(lib, fn(*(ctypes.byref(v) for v in vals)), "blend_backward reduction")
+    return dict(zip(("batch", "shuffles", "unbatched"), (v.value for v in vals)))
+
+
+def pair_counts(feat, starts, stops, row_off, grid_x: int, k2_batch: int = 0) -> dict:
+    """The kernels' data-dependent work on this input, as (pixel, instance)
+    pair counts over the chunk walk of :func:`blend_forward_plain` (a
+    window's alignment lanes need no work):
+
+    - ``in_range``: a pixel and an instance of its tile's range;
+    - ``gated``: the in-range pairs whose strip the cull keeps, which the
+      kernels put through the gates, from :func:`strip_masks` (on the card
+      the kernels' own masks);
+    - ``kept_pairs``: the in-range pairs that pass the gates (power ≤ 0,
+      α ≥ 1/255), whatever T;
+    - ``live_pairs``: the kept pairs met before the pixel's T_STOP, which
+      blend;
+    - ``gated_by_warp``: ``gated`` of each warp's strip (rows 2w, 2w + 1);
+    - ``live_warp_instances``: (warp, instance) with a live lane, which K2
+      sums over the warp; with ``k2_batch`` (:func:`k2_reduction`) also
+      ``k2_reductions``: its reduce-scatters, one per ``k2_batch`` of them
+      in a warp's list of a chunk.
+    """
+    keys = ("in_range", "kept_pairs", "live_pairs", "live_warp_instances")
+    n = dict.fromkeys(keys + (("k2_reductions",) if k2_batch else ()), 0)
+    n_warps = C.N_PIX // 32
     for tiles, start, stop, off0, n_chunks in _tile_groups(starts, stops, feat.shape[1]):
-        px, py = _pixel_coords(tiles, grid_x, row_off)
+        px, py = _pixel_coords(tiles, grid_x, row_off.long())
         Tv = torch.ones((tiles.shape[0], C.N_PIX), dtype=feat.dtype, device=feat.device)
         for ch in _walk_chunks(feat, start, stop, off0, n_chunks, px, py, Tv):
-            n += int((ch.contrib & ch.keep).sum())
+            live = ch.contrib & ch.keep                              # [a, 256, CH]
+            per_warp = live.reshape(live.shape[0], n_warps, 32, -1).any(2).sum(2)
+            n["in_range"] += C.N_PIX * int(ch.inside.sum())
+            n["kept_pairs"] += int(ch.keep.sum())
+            n["live_pairs"] += int(live.sum())
+            n["live_warp_instances"] += int(per_warp.sum())
+            if k2_batch:
+                n["k2_reductions"] += int(((per_warp + k2_batch - 1) // k2_batch).sum())
+    masks = strip_masks(feat, starts, stops, row_off, grid_x).long()
+    bits = torch.arange(n_warps, device=feat.device)
+    by_warp = 32 * ((masks[:, None] >> bits) & 1).sum(0)
+    n["gated"] = int(by_warp.sum())
+    n["gated_by_warp"] = by_warp.tolist()
     return n
 
 
-def _check_inputs(feat, starts, stops, row_off, bg, *packed):
+def _check_inputs(feat, starts, stops, row_off, bg=None, *packed):
     """Raise on what the kernels do not take; ``packed`` are [T, 5, 256]
-    float32 blocks (the saved output and its cotangent)."""
+    float32 blocks (the saved output and its cotangent). ``bg`` may be
+    None for :func:`strip_masks`, which takes none."""
     if feat.dtype != torch.float32 or feat.dim() != 2 or feat.shape[0] != C.FEAT_ROWS:
         raise ValueError(
             f"feat must be float32 [{C.FEAT_ROWS}, K], got {feat.dtype} "
@@ -227,7 +356,7 @@ def _check_inputs(feat, starts, stops, row_off, bg, *packed):
         raise ValueError("starts/stops must be int32 [T] of one shape")
     if row_off.dtype != torch.int32 or tuple(row_off.shape) != (2,):
         raise ValueError("row_off must be int32 [2] = (offset, stride)")
-    if bg.dtype != torch.float32 or tuple(bg.shape) != (3,):
+    if bg is not None and (bg.dtype != torch.float32 or tuple(bg.shape) != (3,)):
         raise ValueError("bg must be float32 [3]")
     for x in packed:
         if x.dtype != torch.float32 or tuple(x.shape) != (
@@ -235,7 +364,7 @@ def _check_inputs(feat, starts, stops, row_off, bg, *packed):
             raise ValueError(
                 f"out/g_out must be float32 [T, {C.OUT5}, {C.N_PIX}], got "
                 f"{x.dtype} {tuple(x.shape)}")
-    tensors = (feat, starts, stops, row_off, bg, *packed)
+    tensors = (feat, starts, stops, row_off, *([] if bg is None else [bg]), *packed)
     devs = {x.device for x in tensors}
     if len(devs) != 1:
         raise ValueError(f"blend inputs lie on several devices: {devs}")
@@ -247,19 +376,35 @@ def _check_inputs(feat, starts, stops, row_off, bg, *packed):
         raise ValueError(f"K = {K} overflows the kernels' int32 offsets")
 
 
-def _launch(stem: str, tensors, num_tiles: int, k_pad: int, grid_x: int):
+def _launch(stem: str, tensors, num_tiles: int, k_pad: int, grid_x: int,
+            cull: bool):
     """``fourdgs_<stem>`` of ``csrc/<stem>.cu``: pointers, then num_tiles,
-    k_pad, grid_x, then the stream."""
-    argtypes = [_build.PTR] * len(tensors) + [_build.INT] * 3 + [_build.PTR]
+    k_pad, grid_x, cull, then the stream."""
+    argtypes = [_build.PTR] * len(tensors) + [_build.INT] * 4 + [_build.PTR]
     _build.launch(stem, f"fourdgs_{stem}", argtypes, tensors[0].device,
-                  *tensors, num_tiles, k_pad, grid_x)
+                  *tensors, num_tiles, k_pad, grid_x, int(cull))
 
 
-def blend_forward(feat, starts, stops, row_off, bg, grid_x: int):
+def blocks_per_sm(stem: str) -> int:
+    """How many blocks of K1 (``"blend_forward"``) or K2
+    (``"blend_backward"``) one SM of the current card holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    lib, fn = _build.bind(stem, f"fourdgs_{stem}_blocks_per_sm",
+                          [ctypes.POINTER(ctypes.c_int)])
+    n = ctypes.c_int(0)
+    _build.check(lib, fn(ctypes.byref(n)), f"{stem} occupancy")
+    return n.value
+
+
+def blend_forward(feat, starts, stops, row_off, bg, grid_x: int, *,
+                  _cull: bool = True):
     """Packed [T, 5, 256] forward blend.
 
     CUDA tensors launch K1 (``blend_forward.launches`` counts the launches)
-    or raise; CPU tensors run :func:`blend_forward_plain`.
+    or raise; CPU tensors run :func:`blend_forward_plain`. ``_cull=False``
+    is a test hook, not an option: K1 then walks every in-range instance
+    instead of its per-warp cull, which must give the same bits
+    (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
     """
     _check_inputs(feat, starts, stops, row_off, bg)
     if feat.device.type == "cpu":
@@ -270,7 +415,7 @@ def blend_forward(feat, starts, stops, row_off, bg, grid_x: int):
     if T == 0:
         return out
     _launch("blend_forward", (feat, starts, stops, row_off, bg, out),
-            T, feat.shape[1], grid_x)
+            T, feat.shape[1], grid_x, _cull)
     blend_forward.launches += 1
     return out
 
@@ -278,12 +423,14 @@ def blend_forward(feat, starts, stops, row_off, bg, grid_x: int):
 blend_forward.launches = 0
 
 
-def blend_backward(feat, starts, stops, row_off, bg, out, g_out, grid_x: int):
+def blend_backward(feat, starts, stops, row_off, bg, out, g_out, grid_x: int,
+                   *, _cull: bool = True):
     """``dfeat`` [16, K] from the forward's inputs, its packed output ``out``
     and the cotangent ``g_out`` [T, 5, 256].
 
     CUDA tensors launch K2 (``blend_backward.launches`` counts the launches)
-    or raise; CPU tensors run :func:`blend_backward_plain`.
+    or raise; CPU tensors run :func:`blend_backward_plain`. ``_cull=False``
+    is the test hook of :func:`blend_forward`.
     """
     _check_inputs(feat, starts, stops, row_off, bg, out, g_out)
     if feat.device.type == "cpu":
@@ -295,7 +442,7 @@ def blend_backward(feat, starts, stops, row_off, bg, out, g_out, grid_x: int):
         return dfeat
     _launch("blend_backward",
             (feat, starts, stops, row_off, bg, out, g_out, dfeat),
-            T, feat.shape[1], grid_x)
+            T, feat.shape[1], grid_x, _cull)
     blend_backward.launches += 1
     return dfeat
 

@@ -9,7 +9,9 @@ whole step and each of its parts run alone, on the same inputs:
 
 - the forward (render in tile space with the carrier, loss, regularizer);
 - the backward (one ``torch.autograd.grad`` over the step's graph, kept);
-- K2 and the per-Gaussian segment sum alone, at the step's shapes;
+- K2 and the per-Gaussian segment sum alone, at the step's shapes; of K2's
+  stage, the kernel's own device time apart from the wrapper's zeroing of
+  ``dfeat``;
 - ``sanitize_grads`` + Adam, and the densification statistics.
 
 Columns as in ``profile_render_torch.py``: ``wall_ms`` (the host's clock
@@ -141,6 +143,8 @@ def main() -> int:
                       "idle": 1.0 - busy / wall}
         if name == "train step (whole)":
             top = by_name.most_common(12)
+        if name == "  K2 (blend backward) alone":
+            k2_kernel = sum(ms for n, ms in by_name.items() if "blend_backward_kernel" in n)
     rows = {"train step (whole)": rows.pop("train step (whole)"), **rows}
     if rows["train step (whole)"]["launches"] == 0:
         raise AssertionError("torch.profiler recorded no device activity")
@@ -150,10 +154,13 @@ def main() -> int:
     for name, r in rows.items():
         print(f"{name:30s} {r['wall_ms']:10.4f} {r['device_ms']:10.4f} "
               f"{r['launches']:9.1f} {r['idle']:7.3f}")
+    print(f"K2 kernel alone (torch.profiler): {k2_kernel:.4f} ms of the stage's "
+          f"{rows['  K2 (blend backward) alone']['device_ms']:.4f} ms of device time "
+          f"(the rest zeroes dfeat)")
     print("busiest device work of the whole step (ms per step):")
     for name, ms in top:
         print(f"  {ms:9.4f}  {name[:100]}")
-    print(json.dumps({"card": card, "stages": rows,
+    print(json.dumps({"card": card, "stages": rows, "k2_kernel_ms": k2_kernel,
                       "top_device_ms": [[n[:100], ms] for n, ms in top]}))
     return 0
 

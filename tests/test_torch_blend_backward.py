@@ -146,14 +146,15 @@ def test_plain_backward_is_the_forward_gradient():
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-5)
 
 
-def _live_pairs_serial(feat, starts, stops, gx):
-    """The pairs that blend, walked as the CUDA kernels walk them: per pixel,
-    the tile's instances in order in float32, T multiplied directly, a pixel
-    frozen at T_STOP until its chunk ends."""
+def _pairs_serial(feat, starts, stops, gx):
+    """(kept, live): the in-range pairs that pass the gates and those that
+    blend, walked as the CUDA kernels walk them: per pixel, the tile's
+    instances in order in float32, T multiplied directly, a pixel frozen at
+    T_STOP until its chunk ends."""
     K = feat.shape[1]
     f = np.ascontiguousarray(feat, np.float32)
     sub = np.arange(256)
-    n = 0
+    n_kept = n_live = 0
     for t, (s, e) in enumerate(zip(starts, stops)):
         px = ((t % gx) * 16 + sub % 16).astype(np.float32)
         py = ((t // gx) * 16 + sub // 16).astype(np.float32)
@@ -167,13 +168,15 @@ def _live_pairs_serial(feat, starts, stops, gx):
             power = (np.float32(-0.5) * (f[2, i] * dx * dx + f[4, i] * dy * dy)
                      - f[3, i] * dx * dy)
             alpha = np.minimum(f[5, i] * np.exp(power), np.float32(0.99))
-            keep = (power <= 0) & (alpha >= np.float32(1 / 255)) & ~frozen
+            gate = (power <= 0) & (alpha >= np.float32(1 / 255))
+            keep = gate & ~frozen
             t_next = T * (np.float32(1) - alpha)
             live = keep & (t_next >= np.float32(1e-4))
             frozen |= keep & ~live
             T = np.where(live, t_next, T)
-            n += int(live.sum())
-    return n
+            n_kept += int(gate.sum())
+            n_live += int(live.sum())
+    return n_kept, n_live
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -184,10 +187,26 @@ def test_live_pairs_match_serial_walk(case):
     contract), so the counts may differ by 0.1%."""
     feat, starts, stops, gx, T, K = CASES[case]()
     f, s, e, r, _ = _torch_args(feat, starts, stops)
-    got = blend.live_pairs(f, s, e, r, gx)
-    want = _live_pairs_serial(feat, starts, stops, gx)
+    got = blend.pair_counts(f, s, e, r, gx)["live_pairs"]
+    want = _pairs_serial(feat, starts, stops, gx)[1]
     assert 0 < want < 256 * int((stops - starts).sum())
     assert abs(got - want) <= 1e-3 * want, (got, want)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kept_pairs_match_serial_walk(case):
+    """The pairs the bounds charge the gates to: every in-range pair that
+    passes them, whatever T. No association enters the gates, so the counts
+    agree but for an exp one ulp apart at the α floor; kept ≥ live, and the
+    cull gates every kept pair and no more than the pairs in range."""
+    feat, starts, stops, gx, T, K = CASES[case]()
+    f, s, e, r, _ = _torch_args(feat, starts, stops)
+    got = blend.pair_counts(f, s, e, r, gx)
+    kept, live = _pairs_serial(feat, starts, stops, gx)
+    assert abs(got["kept_pairs"] - kept) <= 1e-4 * kept, (got, kept)
+    assert got["in_range"] == 256 * int((stops - starts).sum())
+    assert got["in_range"] > got["gated"] >= got["kept_pairs"] >= got["live_pairs"] > 0
+    assert kept >= live
 
 
 def test_backward_wrapper_cpu_dispatch_and_checks():

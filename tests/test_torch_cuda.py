@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 blend kernels (K1 forward, K2 backward), the column gather (K3) and the
-grid-cost probes (K4–K10).
+grid-cost probes (K4–K10); and K1 and K2 with their per-warp cull against
+their walk of every in-range instance, bit for bit, and the strip masks
+they stage against their plain mirror.
 
 Skips without CUDA. It imports no JAX, so it runs where only PyTorch is
 installed; the repository's conftest imports JAX, hence on such a machine:
@@ -12,7 +14,7 @@ import pytest
 import torch
 
 from chip_smoke import (blend_work, compare_blend, compare_blend_backward,
-                        synthetic_blend_inputs)
+                        cull_edge_inputs, synthetic_blend_inputs)
 from fourdgs_tpu_torch.ops import blend, gather, grid_cost
 
 pytestmark = pytest.mark.cuda
@@ -59,6 +61,46 @@ def test_backward_kernel_matches_plain(cuda_device, seed):
     assert res["instances_over_tol"] == 0
     # every run gives the same bits: one block per tile, fixed sum order
     assert torch.equal(d, blend.blend_backward(feat, starts, stops, row_off, bg, out, g, gx))
+
+
+@pytest.mark.parametrize("inputs", ["synthetic", "cull_edges"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cull_is_exact(cuda_device, seed, inputs):
+    """K1 and K2 with their per-warp cull give the bits of their walk of
+    every in-range instance (the ``_cull=False`` test hook)."""
+    if inputs == "synthetic":
+        args = synthetic_blend_inputs(cuda_device, seed=seed)
+        out = blend.blend_forward(*args)
+        gen = torch.Generator(device=cuda_device).manual_seed(seed)
+        g = torch.rand(out.shape, generator=gen, device=cuda_device) * 2 - 1
+    else:
+        *args, g = cull_edge_inputs(cuda_device, seed=seed)
+        out = blend.blend_forward(*args)
+    assert torch.equal(out, blend.blend_forward(*args, _cull=False))
+    bwd = (*args[:5], out, g, args[5])
+    d = blend.blend_backward(*bwd)
+    assert torch.equal(d, blend.blend_backward(*bwd, _cull=False))
+    assert torch.equal(d, blend.blend_backward(*bwd))
+
+
+@pytest.mark.parametrize("inputs", ["synthetic", "cull_edges"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_strip_masks_match_plain(cuda_device, seed, inputs):
+    """The strip masks the kernels stage are their plain mirror's, slot for
+    slot, so the CPU's proofs of the mirror and the gated counts hold for
+    the kernels."""
+    if inputs == "synthetic":
+        args = synthetic_blend_inputs(cuda_device, seed=seed)
+    else:
+        args = cull_edge_inputs(cuda_device, seed=seed)[:6]
+    feat, starts, stops, row_off, _, gx = args
+    before = blend.blend_forward.launches
+    got = blend.strip_masks(feat, starts, stops, row_off, gx)
+    torch.cuda.synchronize()
+    assert blend.blend_forward.launches == before
+    want = blend.strip_masks_plain(*(x.cpu() for x in (feat, starts, stops, row_off)), gx)
+    assert torch.equal(got.cpu(), want)
+    assert bool(((want > 0) & (want < blend.ALL_STRIPS)).any())   # some cull
 
 
 def test_blend_autograd_runs_both_kernels(cuda_device):
