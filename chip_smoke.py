@@ -53,7 +53,26 @@ on failure:
    theirs (the bounds above), each launch counted; the times of the plain
    versions and of the one-call PyTorch yardsticks;
 8. one JSON line ``{"kernels": [...]}`` and, last, the result line
-   ``{"ok": true, "device": {...}}``.
+   ``{"ok": true, "device": {...}}``; before them
+9. training from a point cloud (``bench_quality_torch.py``): (a) the
+   bouncingballs preset at ``--gt oracle --scale 0.05`` (150 coarse + 1,000
+   fine steps at 800×800 from 2,000 random points, the launch counts zeroed
+   just before the training and read after the eval): K2 launches equal
+   the renders of its steps, K1 launches those plus the 10 eval views, every
+   logged loss finite, the last logged train PSNR above the first; the
+   held-out PSNR, final points, wall and it/s printed. Then K1 and K2 at
+   the shapes of a train step of the trained model (train view 0, the
+   grown budget, the step's L1 cotangent against the oracle frame: opaque
+   splats, pixels that reach T_STOP) against their plain versions, the
+   cull against the walk and the strip masks against their mirror, as in
+   phases 4 and 6, with their times and bounds at this shape. (b) A
+   256×256 run with GT from K1 whose gates fire early (capacity 2,048,
+   densify and prune every 20 from iteration 20, an opacity reset at 60;
+   60 coarse + 40 fine iterations): capacity growth and the reset must
+   fire. (c) The maintenance (capacity growth, clone, split, prune, opacity
+   reset) on one state on the card and on the CPU: alive, table and counts
+   equal, the parameters and moments within rtol 1e-6 of their operands
+   (:func:`check_maintenance_on_card`).
 
 Agreement bound of K1 with its plain version: atol 1e-4 on color and final
 transmittance, except pixels riding T_STOP, where a different association of
@@ -74,7 +93,6 @@ from __future__ import annotations
 import json
 import math
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -487,6 +505,256 @@ def check_cost_experiments(dev):
     return kernels
 
 
+def check_maintenance_on_card(dev, seed=0):
+    """Phase 9 (c): capacity growth, clone, split (the same normals), prune
+    with the size gate and the opacity reset on one state of 2,000 points
+    with random shapes, statistics and Adam moments, on the card and on the
+    CPU. Raises unless alive, table and counts are equal and every element
+    of the parameters and moments agrees within rtol 1e-6 of its operands:
+    of itself, but for a split child's position, the sum p + R·(s∘n) of its
+    parent's position and its offset, which may cancel to near 0; its
+    operands are |p| and ‖s∘n‖ (≥ each |Σ_j R_ij s_j n_j| term by term, R a
+    rotation), read from a CPU run with the normals set to 0, which places
+    the same children at their parents' positions."""
+    import torch
+
+    from fourdgs_tpu_torch.configs.core import load_config
+    from fourdgs_tpu_torch.models import gaussians as G
+    from fourdgs_tpu_torch.train import adam
+    from fourdgs_tpu_torch.train.loop import make_maintenance
+
+    rng = np.random.default_rng(seed)
+    n = 2000
+    cfg = load_config(os.path.join(ROOT, "fourdgs_tpu", "configs", "presets",
+                                   "dnerf", "bouncingballs.py"))
+    cfg.tpu.capacity_init = 2048
+    st = G.create_from_pcd(cfg, rng.uniform(-1.3, 1.3, (n, 3)),
+                           rng.uniform(0, 1, (n, 3)), 5.0, device=dev)
+    P = st.alive.shape[0]
+    denom = rng.integers(0, 4, P).astype(np.float32)
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=dev)
+
+    params = dict(st.params)
+    params["scaling"] = t(np.log(rng.uniform(0.005, 0.3, (P, 3))))
+    params["opacity"] = t(rng.normal(-1.0, 2.5, (P, 1)))
+    params["rotation"] = t(rng.normal(size=(P, 4)))
+    st = st._replace(params=params, denom=t(denom),
+                     xyz_gradient_accum=t(denom * rng.exponential(2e-4, P)),
+                     max_radii2d=t(rng.integers(0, 40, P)))
+    opt = adam.init(params)
+    for m in (opt.mu, opt.nu):
+        for k in G.PRIMITIVE_KEYS:
+            m[k].copy_(t(rng.normal(size=tuple(m[k].shape))))
+    normals = torch.tensor(rng.standard_normal((2, 4096, 3), dtype=np.float32))
+    densify_fn, prune_fn, reset_fn = make_maintenance(cfg)
+
+    def run(state, opt_state, device, normals=normals):
+        """The maintenance sequence; the deformation module stays where it is
+        (no maintenance call reads it)."""
+        state, opt_state = G.grow_capacity(state, opt_state, 4096)
+        state, opt_state, n_cloned, n_split = densify_fn(
+            state, opt_state, 2e-4, 5.0, normals.to(device))
+        state, n_pruned = prune_fn(state, 0.005, 5.0, True)
+        state, opt_state = reset_fn(state, opt_state)
+        return state, opt_state, (n_cloned, n_split, int(n_pruned))
+
+    def to_cpu(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.cpu()
+        if isinstance(tree, dict):
+            return {k: (v if k == "deform" else to_cpu(v)) for k, v in tree.items()}
+        return tree
+
+    cpu_state = G.GaussianState(*(to_cpu(x) for x in st))
+    cpu_opt = adam.AdamState(mu=to_cpu(opt.mu), nu=to_cpu(opt.nu), count=0)
+    got, got_opt, got_n = run(st, opt, dev)
+    want, want_opt, want_n = run(cpu_state, cpu_opt, "cpu")
+    if got_n != want_n or not all(got_n[:2]):
+        raise AssertionError(f"maintenance counts card {got_n} vs CPU {want_n}")
+    for k in ("alive", "deformation_table", "max_radii2d", "denom"):
+        if not torch.equal(getattr(got, k).cpu(), getattr(want, k)):
+            raise AssertionError(f"maintenance: {k} differs between card and CPU")
+    at_parent = run(cpu_state, cpu_opt, "cpu", torch.zeros_like(normals))[0]
+    if not (torch.equal(at_parent.alive, want.alive)
+            and torch.equal(at_parent.deformation_table, want.deformation_table)):
+        raise AssertionError("maintenance: the normals moved the slots")
+    parent = at_parent.params["xyz"]
+    offset = (want.params["xyz"] - parent).norm(dim=1, keepdim=True)
+    worst = 0.0
+    for name, a, b in [(k, got.params[k], want.params[k]) for k in G.PRIMITIVE_KEYS] + [
+            (f"moment {k}", m[k], w[k]) for m, w in ((got_opt.mu, want_opt.mu),
+                                                   (got_opt.nu, want_opt.nu))
+            for k in G.PRIMITIVE_KEYS]:
+        err = (a.cpu() - b).abs()
+        operands = parent.abs() + offset if name == "xyz" else b.abs()
+        bad = err > 1e-6 * operands
+        if bad.any():
+            i = int(torch.argmax((err - 1e-6 * operands).flatten()))
+            raise AssertionError(
+                f"maintenance: {name} differs between card and CPU at "
+                f"{int(bad.sum())} elements, worst {float(err.flatten()[i])} against "
+                f"operands {float(operands.flatten()[i])}")
+        worst = max(worst, float(err.max()))
+    return {"cloned": got_n[0], "split": got_n[1], "pruned": got_n[2],
+            "alive": int(got.alive.sum()), "max_abs_err": worst}
+
+
+def view_blend_inputs(model, view, dev):
+    """The blend inputs of train view ``view`` of a trained model
+    (``bench_quality_torch.Trained``) as its train step builds them (fine
+    stage, the active SH degree, the grown budget), and that step's
+    cotangent of the tile-space L1 against the view's GT frame. Returns
+    (K1's arguments, K2's arguments)."""
+    import torch
+
+    from fourdgs_tpu_torch import render as TR
+    from fourdgs_tpu_torch.ops import blend
+    from fourdgs_tpu_torch.ops import rasterize as R
+    from fourdgs_tpu_torch.utils import losses
+
+    cfg, state, train_cams, bg = model
+    cam_np, frame = train_cams[view]
+    H, W = int(cam_np.height), int(cam_np.width)
+    cam = TR.CameraArrays.from_camera(cam_np, device=dev)
+    with torch.no_grad():
+        xyz, sc, rot, op, shs, _ = TR.activated_gaussians(state.params, state, cam, "fine")
+        bi = R.blend_inputs(xyz, sc, rot, op, shs, cam.camera_center, cam.world_view,
+                            cam.full_proj, cam.tanfovx, cam.tanfovy, W, H,
+                            state.active_sh_degree, cfg.tpu.instance_budget,
+                            alive=state.alive)
+    fwd_args = (bi.feat, bi.bins.tile_start, bi.bins.tile_stop, bi.row_off, bg, bi.grid_x)
+    out5 = blend.blend_forward(*fwd_args)
+    gt = torch.tensor(np.asarray(frame), device=dev)
+    if gt.dtype == torch.uint8:                   # the oracle's [H, W, 3] frames
+        gt = gt.to(torch.float32).permute(2, 0, 1) / 255.0
+    mask = torch.tensor([1.0, 1.0, 1.0, 0.0, 0.0], device=dev)[:, None]
+    if H % 16 or W % 16:
+        mask = mask * losses.tile_pixel_mask(H, W, device=dev)
+    with torch.enable_grad():                     # the train step's L1 cotangent
+        o = out5.clone().requires_grad_()
+        diff = (o - losses.tile_image(gt[:3], pad_cols=2)) * mask
+        (g_out,) = torch.autograd.grad(
+            losses.abs_(diff).sum() / (cfg.opt.batch_size * 3 * H * W), o)
+    return fwd_args, (*fwd_args[:5], out5, g_out, fwd_args[5])
+
+
+def check_trained_blend(model, dev, view=0):
+    """Phase 9 (a), after the run: K1 and K2 at the shapes of a train step
+    of the trained model (:func:`view_blend_inputs`) against their plain
+    versions, with the cull against the walk of every in-range instance and
+    the kernels' strip masks against their plain mirror's; their times and
+    bounds. Returns the kernels-line fields of K1 and K2 at this shape."""
+    from fourdgs_tpu_torch.ops import blend
+    from fourdgs_tpu_torch.scripts import time_ms
+
+    fwd_args, bwd_args = view_blend_inputs(model, view, dev)
+    out5, g_out = bwd_args[5], bwd_args[6]
+    fwd = compare_blend(out5, blend.blend_forward_plain(*fwd_args))
+    d_k = blend.blend_backward(*bwd_args)
+    work = blend_work(*fwd_args[:4], fwd_args[5])
+    bwd = compare_blend_backward(d_k, blend.blend_backward_plain(*bwd_args),
+                                 work["instances"])
+    check_cull_exact(blend.blend_forward, *fwd_args)
+    check_cull_exact(blend.blend_backward, *bwd_args)
+    n_tiles, k_pad = fwd_args[1].numel(), fwd_args[0].shape[1]
+    bounds = (blend_bound(work, n_tiles), blend_backward_bound(work, n_tiles, k_pad))
+    res = {}
+    for fn, plain, args, cmp, bound in (
+            (blend.blend_forward, blend.blend_forward_plain, fwd_args, fwd, bounds[0]),
+            (blend.blend_backward, blend.blend_backward_plain, bwd_args, bwd, bounds[1])):
+        res[fn.__name__] = {
+            "ms": time_ms(lambda: fn(*args), dev)[0],
+            "ms_without_cull": time_ms(lambda: fn(*args, _cull=False), dev)[0],
+            "plain_ms": time_ms(lambda: plain(*args), dev, iters=1, reps=3)[0],
+            "max_abs_err": cmp["max_abs_err"], **bound,
+            "gated_share": work["gated"] / max(work["in_range"], 1),
+            "slots": k_pad, "instances": work["instances"]}
+    state = model.state
+    print(f"    (a) K1/K2 at train view {view} of the trained model ({n_tiles} tiles, "
+          f"K = {k_pad} slots, capacity {state.alive.shape[0]}, "
+          f"{int(state.alive.sum())} alive, SH degree {state.active_sh_degree}): "
+          f"K1 vs plain {fwd}; K2 vs plain with the step's cotangent {bwd}")
+    for name, r in res.items():
+        print(f"    {name} at this shape: kernel {r['ms']:.4f} ms (cull off "
+              f"{r['ms_without_cull']:.4f}), plain {r['plain_ms']:.4f} ms, bound on "
+              f"kept pairs {r['bound_ms']:.4f} ms ({r['bound_by']}), kernel/bound "
+              f"{r['ms'] / r['bound_ms']:.2f}; all in-range pairs "
+              f"{r['bound_all_pairs_ms']:.4f} ms")
+    opaque = float((out5[:, 4] < 0.01).float().mean())
+    print(f"    {work_line(work)}; pixels with final T < 0.01: {opaque:.4f}")
+    print(f"    {tile_lengths(fwd_args[1], fwd_args[2])}; K1 and K2 with the cull equal "
+          f"their walk of every in-range instance bit for bit, the strip masks their "
+          f"plain mirror's")
+    return res
+
+
+def check_training_from_pcd(dev):
+    """Phase 9: ``bench_quality_torch.run`` twice, K1/K2 on
+    (a)'s trained model and the maintenance on card and CPU (module
+    docstring); returns (a)'s result and :func:`check_trained_blend`'s."""
+    import bench_quality_torch as BQ
+    from fourdgs_tpu_torch.ops import blend
+
+    print("[9] training from a point cloud: (a) bench_quality_torch --gt oracle "
+          "--scale 0.05", flush=True)
+    t0 = time.perf_counter()
+    a, model = BQ.run(scale=0.05, gt="oracle", log_interval=50, device=dev)
+    launches = (blend.blend_forward.launches, blend.blend_backward.launches)
+    renders = (a["schedule"]["coarse"] + a["schedule"]["fine"]) * a["batch_size"]
+    log = a["train_log"]
+    print(f"    (a) from 2,000 random points, bouncingballs preset, oracle GT "
+          f"{a['resolution']}x{a['resolution']}, {a['schedule']} steps "
+          f"({time.perf_counter() - t0:.1f} s with GT load and eval): held-out PSNR "
+          f"{a['test_psnr_db']:.4f} dB, final points {a['final_points']}, train wall "
+          f"{a['train_wall_clock_s']:.3f} s, it/s {a['it_per_s']:.3f}")
+    print(f"    K1 launches {a['k1_launches']} (steps {renders} + eval views "
+          f"{a['eval_views']}), K2 launches {a['k2_launches']}; budget growths "
+          f"{a['budget_growths']} (final {a['final_instance_budget']}), capacity "
+          f"growths {a['capacity_growths']} (final {a['final_capacity']}); "
+          f"K1 vs oracle frame {a['gt_pallas_vs_oracle']['max_abs']:.4f} max abs")
+    print(f"    stage seconds {json.dumps(a['stage_s'])}; densify/prune "
+          f"{json.dumps(a['densify_events'])}")
+    if launches != (a["k1_launches"], a["k2_launches"]):
+        raise AssertionError(f"the counts moved after the run: {launches}")
+    if (a["k2_launches"], a["k1_launches"]) != (renders, renders + a["eval_views"]):
+        raise AssertionError(f"launches K1 {a['k1_launches']}, K2 {a['k2_launches']}; "
+                             f"expected {renders + a['eval_views']}, {renders}")
+    if not all(math.isfinite(e["loss"]) for e in log):
+        raise AssertionError("a logged loss is not finite")
+    if not a["last_train_psnr"] > log[0]["psnr"]:
+        raise AssertionError(f"train PSNR did not rise: {log[0]['psnr']} -> "
+                             f"{a['last_train_psnr']}")
+    trained = check_trained_blend(model, dev)
+    del model
+
+    def early_gates(cfg):
+        cfg.opt.coarse_iterations, cfg.opt.iterations = 60, 40
+        cfg.opt.position_lr_max_steps = 40
+        cfg.opt.densify_from_iter = cfg.opt.pruning_from_iter = 20
+        cfg.opt.densification_interval = cfg.opt.pruning_interval = 20
+        cfg.opt.opacity_reset_interval = 60
+        cfg.opt.densify_until_iter = 1000
+        cfg.tpu.capacity_init = 2048
+
+    print("    (b) 256x256, GT from K1, gates every 20", flush=True)
+    t0 = time.perf_counter()
+    b, _ = BQ.run(size=256, n_train=20, n_test=4, gt="kernel", log_interval=20,
+                  device=dev, adjust=early_gates)
+    print(f"    (b) {b['schedule']} steps in "
+          f"{time.perf_counter() - t0:.1f} s; capacity growths {b['capacity_growths']} "
+          f"(final {b['final_capacity']}), resets {b['resets']}, final points "
+          f"{b['final_points']}, held-out PSNR {b['test_psnr_db']:.4f} dB; densify "
+          f"{json.dumps(b['densify_events'])}")
+    if b["capacity_growths"] < 1 or b["resets"] < 1:
+        raise AssertionError("capacity growth or the opacity reset did not fire")
+    c = check_maintenance_on_card(dev)
+    print(f"    (c) maintenance on card and CPU: alive, table and counts equal, "
+          f"parameters and moments within rtol 1e-6 of their operands: {c}")
+    return a, trained
+
+
 def ring_camera(i, n_views):
     """bench.py's camera ring: 800×800, fov π/3, at time i/(n_views−1)."""
     from fourdgs_tpu_torch.utils import graphics
@@ -506,7 +774,8 @@ def ring_camera(i, n_views):
 
 
 def bench_scene(cfg, seed=0, device="cuda"):
-    """bench.py's scene: 60,000 live Gaussians in capacity 65,536, positions
+    """bench.py's scene: 60,000 live Gaussians in ``cfg.tpu.capacity`` rows
+    (65,536 here), positions
     U(−1.2, 1.2), scales U(0.005, 0.02), opacity 0.1, random colors and
     unit rotations; the lego deformation initialized from the seed (nonzero
     heads)."""
@@ -530,8 +799,8 @@ def bench_scene(cfg, seed=0, device="cuda"):
         "scaling": np.log(rng.uniform(0.005, 0.02, (n, 3))),
         "rotation": rot,
         "opacity": np.full((n, 1), G.inverse_sigmoid(0.1)),
-    }, CAPACITY)
-    alive = np.arange(CAPACITY) < n
+    }, cfg.tpu.capacity)
+    alive = np.arange(cfg.tpu.capacity) < n
     aabb = np.stack([pts.max(axis=0), pts.min(axis=0)])
     deform = Deformation(cfg.hidden, k_sh, seed=seed, device=device)
     return G.state_from_numpy(prim, deform, alive, aabb,
@@ -551,14 +820,12 @@ def main() -> int:
     from fourdgs_tpu_torch.configs.core import load_config
     from fourdgs_tpu_torch.ops import _build, blend
     from fourdgs_tpu_torch.ops import rasterize as R
+    from fourdgs_tpu_torch import scripts
     from fourdgs_tpu_torch.scripts import time_ms
     from fourdgs_tpu_torch.train import checkpoint
 
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = scripts.card()
     print("[1] card (nvidia-smi name, power.limit):")
     print(card)
     print(f"    torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -790,6 +1057,9 @@ def main() -> int:
     # -- 7. the cost experiments
     cost_kernels = check_cost_experiments(dev)
 
+    # -- 9. training from a point cloud
+    pcd, trained = check_training_from_pcd(dev)
+
     # -- 8. kernels line, result line
     kernels = [{
         "name": "blend_forward",
@@ -805,6 +1075,7 @@ def main() -> int:
         "library_ms": None,   # no single PyTorch call computes this blend
         "bound_all_pairs_ms": bound["bound_all_pairs_ms"],
         "gated_share": work["gated"] / work["in_range"],
+        "train_from_pcd": {"launches": pcd["k1_launches"], **trained["blend_forward"]},
     }, {
         "name": "blend_backward",
         "route": "cuda",
@@ -819,6 +1090,7 @@ def main() -> int:
         "library_ms": None,   # no single PyTorch call computes this gradient
         "bound_all_pairs_ms": bwd_bound["bound_all_pairs_ms"],
         "gated_share": bwd_work["gated"] / bwd_work["in_range"],
+        "train_from_pcd": {"launches": pcd["k2_launches"], **trained["blend_backward"]},
     }, *cost_kernels]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

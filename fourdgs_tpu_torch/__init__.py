@@ -6,7 +6,11 @@ needs. Module names follow the JAX package so each counterpart is easy to find.
 
 Slice 1 ports the serving path: the fine- (and coarse-) stage forward render
 (``fourdgs_tpu_torch.render.render``), whose tile blend runs as a hand-written
-CUDA kernel (``csrc/blend_forward.cu``, wrapped by ``ops.blend``).
+CUDA kernel (``csrc/blend_forward.cu``, wrapped by ``ops.blend``). Later
+slices add the train step with the backward blend kernel
+(``train.loop.make_train_step``), the TPU cost experiments (``scripts``) and
+training from a point cloud (``models.gaussians.create_from_pcd``,
+``models.densify``, ``train.loop.scene_reconstruction``).
 
 Every entry point takes ``device`` (default ``"cuda"``) and raises when CUDA is
 absent unless the caller asks for ``device="cpu"``, where each kernel wrapper

@@ -9,8 +9,12 @@ nested ``deform`` dict ``feature_out[i].{w,b}``, ``grid_s*_p*``,
 functions here transpose explicitly. Everything crosses as numpy: the port
 never sees JAX (callers convert with ``jax.tree.map(np.asarray, ...)``).
 
-The Adam state crosses with the same leaf mapping (:func:`adam_from_jax_numpy`,
-:func:`adam_to_numpy`): the moments of ``deform`` are keyed by the module's
+The whole ``GaussianState`` crosses at any capacity (:func:`state_from_jax`,
+:func:`state_to_numpy`): the parameters, alive mask, deformation table,
+the four statistics, the AABB, ``active_sh_degree`` and
+``spatial_lr_scale``. The Adam state crosses with the same leaf mapping
+(:func:`adam_from_jax_numpy`, :func:`adam_to_numpy`), at whatever capacity
+its moments have: the moments of ``deform`` are keyed by the module's
 parameter names on the port's side.
 
 ``flatten_tree`` reproduces ``jax.tree.flatten``'s leaf order on these trees
@@ -94,7 +98,7 @@ def load_deform_tree(deform: Deformation, tree: dict[str, Any]) -> Deformation:
     arrays = tree_to_named(tree, deform)
     with torch.no_grad():
         for name, p in deform.named_parameters():
-            p.copy_(torch.from_numpy(np.ascontiguousarray(arrays[name])))
+            p.copy_(torch.tensor(arrays[name]))
     return deform
 
 
@@ -143,6 +147,48 @@ def to_numpy(state: G.GaussianState):
               for k in G.PRIMITIVE_KEYS}
     params["deform"] = deform_to_tree(state.params["deform"])
     return (params, state.alive.cpu().numpy(), state.aabb.cpu().numpy())
+
+
+def state_from_jax(state_np, cfg, device="cuda") -> G.GaussianState:
+    """A JAX ``GaussianState`` with numpy leaves
+    (``jax.tree.map(np.asarray, state)``, or any object with its fields) →
+    a port :class:`GaussianState` on ``device``, every field carried."""
+    st = from_jax_numpy(state_np.params, state_np.alive, state_np.aabb, cfg,
+                        device=device)
+    dev = st.alive.device
+
+    def t(x, dtype):
+        return torch.tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    return st._replace(
+        max_radii2d=t(state_np.max_radii2d, torch.float32),
+        xyz_gradient_accum=t(state_np.xyz_gradient_accum, torch.float32),
+        denom=t(state_np.denom, torch.float32),
+        deformation_accum=t(state_np.deformation_accum, torch.float32),
+        deformation_table=t(state_np.deformation_table, torch.bool),
+        active_sh_degree=int(state_np.active_sh_degree),
+        spatial_lr_scale=float(state_np.spatial_lr_scale),
+    )
+
+
+def state_to_numpy(state: G.GaussianState) -> G.GaussianState:
+    """A port state → a :class:`GaussianState` of numpy leaves in the JAX
+    layout (the params tree of :func:`to_numpy`), field for field the JAX
+    ``GaussianState``'s: ``jax_gaussians.GaussianState(*state_to_numpy(s))``
+    rebuilds it."""
+    params, alive, aabb = to_numpy(state)
+
+    def a(x):
+        return x.detach().cpu().numpy()
+
+    return G.GaussianState(
+        params=params, alive=alive, max_radii2d=a(state.max_radii2d),
+        xyz_gradient_accum=a(state.xyz_gradient_accum), denom=a(state.denom),
+        deformation_accum=a(state.deformation_accum),
+        deformation_table=a(state.deformation_table), aabb=aabb,
+        active_sh_degree=state.active_sh_degree,
+        spatial_lr_scale=state.spatial_lr_scale,
+    )
 
 
 def adam_from_jax_numpy(mu, nu, count, params) -> adam.AdamState:

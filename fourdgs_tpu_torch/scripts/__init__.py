@@ -12,7 +12,8 @@ which prints the JAX script's lines and then the result as one JSON line.
 Their data come from the seed :data:`SEED`, as the JAX scripts' from 0.
 
 :func:`time_ms` is the one timer of the port's measurements: the
-experiments, the kernels line of ``chip_smoke.py`` and the profilers.
+experiments, the kernels line of ``chip_smoke.py`` and the profilers;
+:func:`card` names the card every measurement is written beside.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
+import subprocess
 import time
 
 import torch
@@ -34,6 +36,15 @@ WARMUP = 2    # untimed calls first
 # (10 ms and 2 s at 2 GHz)
 _SLEEP_CYCLES = (20_000_000, 4_000_000_000)
 _CYCLES_PER_S = 2e9   # at most the H100's boost clock (1.98 GHz)
+
+
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, dev: torch.device, iters: int | None = None,

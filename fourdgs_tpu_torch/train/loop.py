@@ -1,6 +1,10 @@
-"""The train step, PyTorch.
+"""The training loop, PyTorch: the train step, the maintenance and the
+coarse→fine schedule.
 
-Counterpart of ``fourdgs_tpu/train/loop.py::make_train_step`` (:51-220).
+Counterpart of ``fourdgs_tpu/train/loop.py``: ``make_train_step``
+(:51-220), ``make_maintenance`` (:274-307) and ``scene_reconstruction``
+(:317-888) on one device.
+
 One step renders each camera of the batch in tile space with a zero
 ``means2d_offset`` carrier (its gradient is the view-space gradient), takes
 the masked L1 loss against the GT tiled 5-wide, adds the fine stage's grid
@@ -10,25 +14,42 @@ learning rates, the densification statistics and the deformation
 accumulator. The backward runs K2 (the backward tile blend) and the
 deterministic per-Gaussian segment sum of ``ops/rasterize.py``.
 
-``scene_reconstruction``, the maintenance steps and SSIM (``lambda_dssim``)
-are not ported yet.
+``scene_reconstruction`` runs one stage on the reference schedule: the
+random-stack (or FineSampler) camera batches of JAX's ``random.Random``, the
+GT cached on the device, SH annealing, instance-budget and capacity growth,
+densify / prune / opacity reset on their gates, metrics read on the host
+only on a gate or log iteration, and the NaN watchdog. It takes one step
+per call (``cfg.tpu.scan_steps`` changes nothing: JAX's scan yields the
+same values). Not ported yet, and raising: SSIM (``lambda_dssim``), a
+``mesh``, the ``viewer``, the ``gradient_tracker``, ``debug_mode``,
+``cfg.model.render_process``, a ``timer`` and lazy (callable) GT.
 """
 
 from __future__ import annotations
 
+import random as pyrandom
+import time
+from dataclasses import dataclass, field
 from typing import Callable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from fourdgs_tpu_torch import resolve_device
+from fourdgs_tpu_torch.data.samplers import fine_sampler_order
 from fourdgs_tpu_torch.models import densify as dens
 from fourdgs_tpu_torch.models import gaussians as G
 from fourdgs_tpu_torch.models import hexplane as hp
 from fourdgs_tpu_torch.ops.rasterize import contain
 from fourdgs_tpu_torch.render import CameraArrays, render
 from fourdgs_tpu_torch.train import adam
-from fourdgs_tpu_torch.utils import losses
+from fourdgs_tpu_torch.utils import forensics, losses
+
+# at most this many instance-budget growths per stage (loop.py:48)
+_MAX_BUDGET_GROWTHS = 4
+# GT that fits in this many bytes is cached on the device (loop.py:486)
+_GT_CACHE_CAP = 2 << 30
 
 
 def sanitize_grads(grads: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -152,3 +173,304 @@ def make_train_step(cfg, width: int, height: int, stage: str,
     train_step.loss_fn = loss_fn     # the step's parts, for profiling
     train_step.gt_tiles = gt_tiles
     return train_step
+
+
+def make_maintenance(cfg):
+    """``(densify_fn, prune_fn, reset_fn)`` over :mod:`models.densify`
+    (``loop.py:274-307``):
+
+    - ``densify_fn(state, adam_state, grad_threshold, extent, normals) →
+      (state, adam_state, n_cloned, n_split)``: clone, then split with the
+      children's ``normals`` [2, cap, 3], both from the gradients of the
+      state before them;
+    - ``prune_fn(state, opacity_threshold, extent, size_threshold_on) →
+      (state, n_pruned)``;
+    - ``reset_fn(state, adam_state) → (state, adam_state)``."""
+    if cfg.model.use_isotropic_gaussian:
+        raise NotImplementedError("use_isotropic_gaussian is not ported")
+    percent_dense = cfg.opt.percent_dense
+
+    def densify_fn(state, adam_state, grad_threshold, extent, normals):
+        grads = dens.compute_grads(state)
+        moments = (adam_state.mu, adam_state.nu)
+        state, moments, n_cloned = dens.densify_and_clone(
+            state, moments, grads, grad_threshold, extent, percent_dense)
+        state, moments, n_split = dens.densify_and_split(
+            state, moments, grads, grad_threshold, extent, percent_dense,
+            normals)
+        return (state, adam_state._replace(mu=moments[0], nu=moments[1]),
+                n_cloned, n_split)
+
+    def prune_fn(state, opacity_threshold, extent, size_threshold_on):
+        return dens.prune(state, opacity_threshold, extent, size_threshold_on)
+
+    def reset_fn(state, adam_state):
+        state, (mu, nu) = dens.reset_opacity(state, (adam_state.mu, adam_state.nu))
+        return state, adam_state._replace(mu=mu, nu=nu)
+
+    return densify_fn, prune_fn, reset_fn
+
+
+@dataclass
+class TrainLog:
+    """What a stage reports: the logged metrics by iteration (``loop.py:311``),
+    their moving averages, and, beyond JAX's, the maintenance events (one
+    dict per growth, densify, prune or reset, with its counts) and the
+    seconds the maintenance took."""
+
+    iterations: list = field(default_factory=list)
+    ema_loss: float = 0.0
+    ema_psnr: float = 0.0
+    events: list = field(default_factory=list)
+    maintenance_s: float = 0.0
+
+
+def _unported(cfg, **options) -> None:
+    """Raise for the first option of ``scene_reconstruction`` the port does
+    not have yet."""
+    for name, value in options.items():
+        if value:
+            raise NotImplementedError(f"scene_reconstruction: {name} is not ported yet")
+    if cfg.model.render_process:
+        raise NotImplementedError("cfg.model.render_process is not ported yet")
+
+
+def scene_reconstruction(
+    cfg,
+    state: G.GaussianState,
+    adam_state: adam.AdamState,
+    train_cameras: list,
+    stage: str,
+    train_iter: int,
+    cameras_extent: float,
+    rng_seed: int = 6666,
+    log_interval: int = 50,
+    log_fn: Callable | None = None,
+    max_sh_degree: int | None = None,
+    extra_log_iters: frozenset | set = frozenset(),
+    model_path: str = "",
+    device="cuda",
+    *,
+    split_normals: Callable | None = None,
+    timer=None,
+    mesh=None,
+    viewer=None,
+    gradient_tracker=None,
+    debug_mode: bool = False,
+) -> tuple[G.GaussianState, adam.AdamState, TrainLog]:
+    """Train one stage (``"coarse"`` or ``"fine"``) of ``train_iter``
+    iterations on ``device`` (``loop.py:317-888``). Returns the state, the
+    Adam state and the :class:`TrainLog`.
+
+    ``train_cameras``: ``(graphics.Camera, GT)`` pairs of one resolution,
+    the GT a uint8 [H, W, C] or float [C, H, W] array. ``log_fn(iteration,
+    stage, metrics, state, adam_state)`` runs on every log iteration, after
+    that iteration's maintenance. ``cfg.tpu.instance_budget`` grows in
+    place, as in JAX.
+
+    ``split_normals(cap)`` gives the [2, cap, 3] normals of each split in
+    turn, to reproduce another generator's children (the tests pass JAX's);
+    by default they come from a ``torch.Generator`` seeded with
+    ``rng_seed``. ``timer``, ``mesh``, ``viewer``, ``gradient_tracker`` and
+    ``debug_mode`` raise ``NotImplementedError`` until they are ported.
+    """
+    dev = resolve_device(device)
+    _unported(cfg, timer=timer, mesh=mesh, viewer=viewer,
+              gradient_tracker=gradient_tracker, debug_mode=debug_mode)
+    if not train_cameras:
+        return state, adam_state, TrainLog()
+    if any(callable(g) for _, g in train_cameras):
+        raise NotImplementedError("lazy (callable) GT is not ported yet")
+    opt = cfg.opt
+    max_sh = cfg.model.sh_degree if max_sh_degree is None else max_sh_degree
+    img0 = np.asarray(train_cameras[0][1])
+    if img0.ndim == 3 and img0.shape[-1] in (3, 4):   # HWC uint8 loader format
+        height, width = img0.shape[:2]
+    else:                                             # CHW float format
+        height, width = img0.shape[-2:]
+    rng = pyrandom.Random(rng_seed)
+    generator = torch.Generator(device=dev).manual_seed(rng_seed)
+
+    # zerostamp_init: the coarse stage trains only timestamp-0 cameras
+    cams = train_cameras
+    if stage == "coarse" and opt.zerostamp_init:
+        t0 = cams[0][0].time
+        cams = [c for c in cams if abs(c[0].time - t0) < 1e-9]
+    cam_arrays = [CameraArrays.from_camera(c, device=dev) for c, _ in cams]
+    gt_list = [np.asarray(g) for _, g in cams]
+    densify_fn, prune_fn, reset_fn = make_maintenance(cfg)
+
+    # FineSampler (loop.py:430-450): n_poses from the distinct centres
+    use_fine = opt.custom_sampler in ("fine", "FineSampler", True)
+    n_poses = 0
+    if use_fine:
+        n_poses = max(len({tuple(np.round(c.camera_center, 5)) for c, _ in cams}), 1)
+        use_fine = len(cams) % n_poses == 0 and n_poses < len(cams)
+        if not use_fine:
+            print(f"[sampler] WARNING: custom_sampler={opt.custom_sampler!r} "
+                  f"requested but the camera-major layout could not be "
+                  f"inferred ({len(cams)} cameras, {n_poses} distinct "
+                  f"centers); falling back to random-stack sampling")
+    B = opt.batch_size
+    stack: list[int] = []
+    fine_order: list[int] = []
+
+    def draw_batch() -> list[int]:
+        """The next batch of camera indices, in the order of JAX's draws."""
+        nonlocal stack, fine_order
+        idx = []
+        for _ in range(B):
+            if use_fine:
+                if not fine_order:
+                    fine_order = fine_sampler_order(len(cams), n_poses, rng)
+                idx.append(fine_order.pop(0))
+            else:   # random pop without replacement, the stack refilled
+                if not stack:
+                    stack = list(range(len(cams)))
+                idx.append(stack.pop(rng.randrange(len(stack))))
+        return idx
+
+    # GT on the device when it fits: uint8 pre-tiled to [N, T, 3, 256],
+    # the tile-space loss's layout (loop.py:486-502); else per batch
+    cams_dev = gt_cache = None
+    if sum(g.nbytes for g in gt_list) <= _GT_CACHE_CAP:
+        cams_dev = CameraArrays(*(torch.stack(xs) for xs in zip(*cam_arrays)))
+        if gt_list[0].dtype == np.uint8:
+            gt_cache = torch.from_numpy(
+                np.stack([losses.tile_image_np(g) for g in gt_list])).to(dev)
+        else:
+            gt_cache = torch.from_numpy(np.stack(gt_list)).to(dev)
+
+    # the draws do not depend on the training, so every batch is drawn up
+    # front and the cached path's indices go to the device once (a
+    # per-step upload would wait for the stream)
+    batches = [draw_batch() for _ in range(train_iter)]
+    batches_dev = (torch.tensor(batches, device=dev) if gt_cache is not None
+                   else None)
+
+    sh_deg = state.active_sh_degree
+    spatial_lr = float(state.spatial_lr_scale)
+    steps: dict[int, Callable] = {}
+    budget_growths = 0
+    log = TrainLog()
+
+    def event(kind: str, **counts) -> None:
+        log.events.append({"iter": iteration, "stage": stage, "kind": kind, **counts})
+
+    iteration = 0
+    while iteration < train_iter:
+        iteration += 1
+        if iteration % 1000 == 0:   # SH annealing (loop.py:587-589)
+            state = G.one_up_sh_degree(state, max_sh)
+            sh_deg = state.active_sh_degree
+        batch_idx = batches[iteration - 1]
+        if gt_cache is not None:
+            idx = batches_dev[iteration - 1]
+            gts = gt_cache[idx]
+            batch_cams = CameraArrays(*(x[idx] for x in cams_dev))
+        else:
+            gts = torch.from_numpy(np.stack([gt_list[i] for i in batch_idx])).to(dev)
+            batch_cams = CameraArrays(*(torch.stack(xs) for xs in
+                                        zip(*(cam_arrays[i] for i in batch_idx))))
+        if sh_deg not in steps:
+            steps[sh_deg] = make_train_step(cfg, width, height, stage, sh_deg,
+                                            spatial_lr_scale=spatial_lr, device=dev)
+        with torch.enable_grad():
+            params, adam_state, state, metrics = steps[sh_deg](
+                state.params, adam_state, state, batch_cams, gts, iteration)
+        state = state._replace(params=params)
+
+        # instance-budget growth on the densify cadence (loop.py:708-749);
+        # the render reads cfg.tpu.instance_budget on every call
+        if iteration % opt.densification_interval == 0:
+            demand = int(metrics["num_rendered"])
+            budget = cfg.tpu.instance_budget
+            if demand > 0.7 * budget and budget < cfg.tpu.instance_budget_max:
+                if budget_growths >= _MAX_BUDGET_GROWTHS:
+                    if budget_growths == _MAX_BUDGET_GROWTHS:
+                        budget_growths += 1
+                        print(f"[budget] growth cap ({_MAX_BUDGET_GROWTHS}) "
+                              f"reached at {stage} it {iteration}; demand "
+                              f"{demand} stays on budget {budget} (overflow "
+                              "drops instances)")
+                else:
+                    new_budget = min(max(budget * 2, int(demand * 1.6)), budget * 4,
+                                     max(cfg.tpu.instance_budget_max, budget))
+                    new_budget = -(-new_budget // 65536) * 65536
+                    cfg.tpu.instance_budget = new_budget
+                    budget_growths += 1
+                    print(f"[budget] instances {demand} > 70% of {budget}; "
+                          f"growing to {new_budget} "
+                          f"({budget_growths}/{_MAX_BUDGET_GROWTHS})")
+                    event("budget", demand=demand, budget=new_budget)
+
+        # densify / prune / opacity reset on the reference schedule
+        # (loop.py:762-835); the live count is read only on their gates
+        if iteration < opt.densify_until_iter:
+            if stage == "coarse":
+                opacity_threshold = opt.opacity_threshold_coarse
+                densify_threshold = opt.densify_grad_threshold_coarse
+            else:
+                frac = iteration / opt.densify_until_iter
+                opacity_threshold = opt.opacity_threshold_fine_init - frac * (
+                    opt.opacity_threshold_fine_init - opt.opacity_threshold_fine_after)
+                densify_threshold = opt.densify_grad_threshold_fine_init - frac * (
+                    opt.densify_grad_threshold_fine_init - opt.densify_grad_threshold_after)
+            size_on = iteration > opt.opacity_reset_interval
+            densify_due = (iteration > opt.densify_from_iter
+                           and iteration % opt.densification_interval == 0)
+            prune_due = (iteration > opt.pruning_from_iter
+                         and iteration % opt.pruning_interval == 0)
+            reset_due = iteration % opt.opacity_reset_interval == 0
+            n_points = int(metrics["n_points"]) if (densify_due or prune_due) else 0
+            densify_due = densify_due and n_points < 360_000
+            prune_due = prune_due and n_points > 200_000
+            t_gate = time.perf_counter()
+            cur_cap = state.alive.shape[0]
+            # capacity growth at 60% before densifying (loop.py:799-815)
+            if densify_due and n_points > 0.6 * cur_cap and cur_cap < cfg.tpu.capacity:
+                new_cap = min(cur_cap * 2, cfg.tpu.capacity)
+                state, adam_state = G.grow_capacity(state, adam_state, new_cap)
+                print(f"[capacity] {n_points} alive > 60% of {cur_cap}; "
+                      f"growing to {new_cap}")
+                event("capacity", n_points=n_points, capacity=new_cap)
+            if densify_due:
+                cap = state.alive.shape[0]
+                normals = (split_normals(cap) if split_normals is not None
+                           else dens.split_normals(generator, 2, cap, dev))
+                state, adam_state, n_cloned, n_split = densify_fn(
+                    state, adam_state, densify_threshold, cameras_extent, normals)
+                event("densify", n_points=n_points, cloned=n_cloned, split=n_split)
+            if prune_due:
+                state, n_pruned = prune_fn(state, opacity_threshold,
+                                           cameras_extent, size_on)
+                event("prune", n_points=n_points, pruned=int(n_pruned))
+            if reset_due:
+                state, adam_state = reset_fn(state, adam_state)
+                event("reset")
+            if densify_due or prune_due or reset_due:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                log.maintenance_s += time.perf_counter() - t_gate
+
+        if (iteration % log_interval == 0 or iteration == train_iter
+                or iteration in extra_log_iters):
+            m = {k: float(v) for k, v in metrics.items()}
+            log.ema_loss = 0.4 * m["loss"] + 0.6 * log.ema_loss
+            log.ema_psnr = 0.4 * m["psnr"] + 0.6 * log.ema_psnr
+            log.iterations.append({"iter": iteration, "stage": stage, **m})
+            if log_fn:
+                log_fn(iteration, stage, m, state, adam_state)
+            if np.isnan(m["loss"]):
+                # NaN watchdog (loop.py:856-879): a replayable snapshot first
+                snap = forensics.dump_snapshot(
+                    model_path, f"nan_{stage}_{iteration}", state.params,
+                    state=state, cams=batch_cams, metrics=m,
+                    extra={"iteration": iteration,
+                           "instance_budget": cfg.tpu.instance_budget,
+                           "capacity": state.alive.shape[0],
+                           "batch_idx": np.asarray(batch_idx)})
+                raise FloatingPointError(
+                    f"loss is NaN at {stage} iteration {iteration}; "
+                    f"forensic snapshot: {snap}")
+    return state, adam_state, log

@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from collections import Counter
 
@@ -69,12 +68,10 @@ def main() -> int:
     from fourdgs_tpu_torch.ops import rasterize as R
     from fourdgs_tpu_torch.ops.binning import bin_gaussians_fast
     from fourdgs_tpu_torch.ops.preprocess import preprocess
+    from fourdgs_tpu_torch import scripts
     from fourdgs_tpu_torch.scripts import time_ms
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = scripts.card()
     print(card)
 
     dev = torch.device("cuda")

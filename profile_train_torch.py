@@ -1,11 +1,13 @@
 """Where the time of one fine-stage train step of the PyTorch + CUDA port goes.
 
-    python3 profile_train_torch.py [--reps 5]
+    python3 profile_train_torch.py [--reps 5] [--capacity 65536]
 
 Builds the train phase of ``chip_smoke.py`` (the ``lego`` preset at full
 width, 60,000 Gaussians, 800×800, batch 1, a GT rendered from a second
-seeded scene) on one NVIDIA card, takes 3 warm-up steps, then times the
-whole step and each of its parts run alone, on the same inputs:
+seeded scene) on one NVIDIA card, in ``--capacity`` rows (the dead rows
+run through every per-Gaussian op, as in training after a capacity
+growth), takes 3 warm-up steps, then times the whole step and each of its
+parts run alone, on the same inputs:
 
 - the forward (render in tile space with the carrier, loss, regularizer);
 - the backward (one ``torch.autograd.grad`` over the step's graph, kept);
@@ -26,7 +28,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 
 
@@ -35,6 +36,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--capacity", type=int, default=65_536,
+                    help="rows of the Gaussian set (60,000 live)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_train_torch: CUDA is not available", file=sys.stderr)
@@ -47,21 +50,19 @@ def main() -> int:
     from fourdgs_tpu_torch.models import gaussians as G
     from fourdgs_tpu_torch.ops import blend
     from fourdgs_tpu_torch.ops import rasterize as R
+    from fourdgs_tpu_torch import scripts
     from fourdgs_tpu_torch.scripts import time_ms
     from fourdgs_tpu_torch.train import adam
     from fourdgs_tpu_torch.train.loop import make_train_step, sanitize_grads
     from fourdgs_tpu_torch.utils.losses import tile_image
     from profile_render_torch import device_time
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = scripts.card()
     print(card)
 
     dev = torch.device("cuda")
     cfg = load_config(cs.LEGO)
-    cfg.tpu.capacity = cs.CAPACITY
+    cfg.tpu.capacity = args.capacity
     W, H, deg = cs.WIDTH, cs.HEIGHT, cfg.model.sh_degree
     state = cs.bench_scene(cfg, seed=0, device=dev)
     cam = TR.CameraArrays.from_camera(cs.ring_camera(0, cs.N_TIMED), device=dev)
@@ -160,7 +161,8 @@ def main() -> int:
     print("busiest device work of the whole step (ms per step):")
     for name, ms in top:
         print(f"  {ms:9.4f}  {name[:100]}")
-    print(json.dumps({"card": card, "stages": rows, "k2_kernel_ms": k2_kernel,
+    print(json.dumps({"card": card, "capacity": args.capacity, "stages": rows,
+                      "k2_kernel_ms": k2_kernel,
                       "top_device_ms": [[n[:100], ms] for n, ms in top]}))
     return 0
 
