@@ -23,9 +23,10 @@ GT, by ``--gt``:
   instance budget (its overflow raises): the trainer recovers a scene its
   own rasterizer drew.
 
-The payload stays float32 (``"payload": "f32"``; the bf16 payload is not
-ported). Prints one JSON line with ``bench_quality.py``'s keys (less its
-TPU-host budget) and the port's counts, and writes it to ``--out``.
+The payload table is rounded to bfloat16 (``"payload": "bf16"``), as
+``bench_quality.py:164`` sets it. Prints one JSON line with
+``bench_quality.py``'s keys (less its TPU-host budget) and the port's
+counts, and writes it to ``--out``.
 
 Usage (from the repo root):
     python3 bench_quality_torch.py --gt oracle      # full 3k+20k schedule
@@ -145,13 +146,13 @@ def load_oracle(size: int, n_train: int, n_test: int):
 
 def configure(cfg, scale: float) -> None:
     """The bouncingballs schedule scaled by ``scale`` (``bench_quality.py:157-167``)
-    with the f32 payload and a 256k starting budget."""
+    with the bf16 payload and a 256k starting budget."""
     cfg.opt.coarse_iterations = max(int(3000 * scale), 50)
     cfg.opt.iterations = max(int(20000 * scale), 100)
     cfg.opt.densify_until_iter = min(cfg.opt.densify_until_iter, int(15000 * scale))
     cfg.opt.position_lr_max_steps = cfg.opt.iterations
     cfg.tpu.backend = "pallas"
-    cfg.tpu.payload_bf16 = False
+    cfg.tpu.payload_bf16 = True
     cfg.tpu.instance_budget = 256 * 1024
 
 
@@ -312,7 +313,7 @@ def run(scale: float = 1.0, size: int = 800, n_train: int = 100, n_test: int = 1
         "ref_8min_equivalent_s": 480 * scale,
         "backend": dev.type,
         "device": scripts.card() if dev.type == "cuda" else "cpu",
-        "payload": "f32",
+        "payload": "bf16" if cfg.tpu.payload_bf16 else "f32",
         "batch_size": cfg.opt.batch_size,   # K1 and K2 launch once per camera
         "eval_views": len(test_cams),
         "k1_launches": blend.blend_forward.launches,

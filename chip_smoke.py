@@ -53,9 +53,9 @@ on failure:
    theirs (the bounds above), each launch counted; the times of the plain
    versions and of the one-call PyTorch yardsticks;
 8. one JSON line ``{"kernels": [...]}`` and, last, the result line
-   ``{"ok": true, "device": {...}}``; before them
-9. training from a point cloud (``bench_quality_torch.py``): (a) the
-   bouncingballs preset at ``--gt oracle --scale 0.05`` (150 coarse + 1,000
+   ``{"ok": true, "device": {...}}``; before them phases 9 and 10:
+9. training from a point cloud (``bench_quality_torch.py``, bf16 payload):
+   (a) the bouncingballs preset at ``--gt oracle --scale 0.05`` (150 coarse + 1,000
    fine steps at 800×800 from 2,000 random points, the launch counts zeroed
    just before the training and read after the eval): K2 launches equal
    the renders of its steps, K1 launches those plus the 10 eval views, every
@@ -72,7 +72,27 @@ on failure:
    fire. (c) The maintenance (capacity growth, clone, split, prune, opacity
    reset) on one state on the card and on the CPU: alive, table and counts
    equal, the parameters and moments within rtol 1e-6 of their operands
-   (:func:`check_maintenance_on_card`).
+   (:func:`check_maintenance_on_card`);
+10. the user's entry points, each with the launch counts zeroed just before
+   it and read just after: (a) ``bench_torch.py`` at its full size (K1 once
+   for the GT frame and once per step, K2 once per step: 24 and 23), its
+   JSON line, it/s and card printed; then K1 and K2 at the bench's last
+   step (its camera, GT, bf16 table and 393,216 slots, the state after the
+   step, the step's L1 cotangent) against their plain versions, the cull
+   against the walk and the strip masks against their mirror, with times
+   and bounds (``bench`` in the kernels line); (b) a D-NeRF scene written
+   with the port's PNG writer (800×800 RGBA frames that K1 renders from
+   ``bench_quality_torch.py``'s ground-truth scene, every row
+   Paeth-filtered, 20 train and 4 test views, no ``fused.ply``), whose
+   ``load_scene`` time is printed, then ``train_torch.py`` on it with the
+   bouncingballs preset at full width and a cut schedule (100 coarse + 300
+   fine steps), ``render_torch.py`` (test split) and ``metrics_torch.py``:
+   every output ``tests/test_cli.py::test_outputs_exist`` lists exists, the
+   fine checkpoint reloads to the same leaves, the rendered PNGs equal the
+   in-process render of the same snapshot within one level of 255,
+   ``results.json``'s PSNR is finite and above the blank image's, K2
+   launches once per step and K1 once per step, eval view and rendered view
+   (:func:`check_entry_points`).
 
 Agreement bound of K1 with its plain version: atol 1e-4 on color and final
 transmittance, except pixels riding T_STOP, where a different association of
@@ -601,12 +621,12 @@ def check_maintenance_on_card(dev, seed=0):
             "alive": int(got.alive.sum()), "max_abs_err": worst}
 
 
-def view_blend_inputs(model, view, dev):
-    """The blend inputs of train view ``view`` of a trained model
-    (``bench_quality_torch.Trained``) as its train step builds them (fine
-    stage, the active SH degree, the grown budget), and that step's
-    cotangent of the tile-space L1 against the view's GT frame. Returns
-    (K1's arguments, K2's arguments)."""
+def step_blend_inputs(cfg, state, cam, width, height, gt_tiles, bg, sh_degree, dev):
+    """The blend inputs of camera ``cam`` (``CameraArrays``) at ``width`` ×
+    ``height`` as a fine-stage
+    train step builds them (the SH degree ``sh_degree``, ``cfg``'s budget and
+    payload), and that step's cotangent of the tile-space L1 against
+    ``gt_tiles`` [T, 5, 256]. Returns (K1's arguments, K2's arguments)."""
     import torch
 
     from fourdgs_tpu_torch import render as TR
@@ -614,43 +634,56 @@ def view_blend_inputs(model, view, dev):
     from fourdgs_tpu_torch.ops import rasterize as R
     from fourdgs_tpu_torch.utils import losses
 
-    cfg, state, train_cams, bg = model
-    cam_np, frame = train_cams[view]
-    H, W = int(cam_np.height), int(cam_np.width)
-    cam = TR.CameraArrays.from_camera(cam_np, device=dev)
+    W, H = int(width), int(height)
     with torch.no_grad():
         xyz, sc, rot, op, shs, _ = TR.activated_gaussians(state.params, state, cam, "fine")
         bi = R.blend_inputs(xyz, sc, rot, op, shs, cam.camera_center, cam.world_view,
                             cam.full_proj, cam.tanfovx, cam.tanfovy, W, H,
-                            state.active_sh_degree, cfg.tpu.instance_budget,
-                            alive=state.alive)
+                            sh_degree, cfg.tpu.instance_budget,
+                            alive=state.alive, payload_bf16=cfg.tpu.payload_bf16)
     fwd_args = (bi.feat, bi.bins.tile_start, bi.bins.tile_stop, bi.row_off, bg, bi.grid_x)
     out5 = blend.blend_forward(*fwd_args)
-    gt = torch.tensor(np.asarray(frame), device=dev)
-    if gt.dtype == torch.uint8:                   # the oracle's [H, W, 3] frames
-        gt = gt.to(torch.float32).permute(2, 0, 1) / 255.0
     mask = torch.tensor([1.0, 1.0, 1.0, 0.0, 0.0], device=dev)[:, None]
     if H % 16 or W % 16:
         mask = mask * losses.tile_pixel_mask(H, W, device=dev)
     with torch.enable_grad():                     # the train step's L1 cotangent
         o = out5.clone().requires_grad_()
-        diff = (o - losses.tile_image(gt[:3], pad_cols=2)) * mask
+        diff = (o - gt_tiles) * mask
         (g_out,) = torch.autograd.grad(
             losses.abs_(diff).sum() / (cfg.opt.batch_size * 3 * H * W), o)
     return fwd_args, (*fwd_args[:5], out5, g_out, fwd_args[5])
 
 
-def check_trained_blend(model, dev, view=0):
-    """Phase 9 (a), after the run: K1 and K2 at the shapes of a train step
-    of the trained model (:func:`view_blend_inputs`) against their plain
-    versions, with the cull against the walk of every in-range instance and
-    the kernels' strip masks against their plain mirror's; their times and
-    bounds. Returns the kernels-line fields of K1 and K2 at this shape."""
+def view_blend_inputs(model, view, dev):
+    """:func:`step_blend_inputs` of train view ``view`` of a trained model
+    (``bench_quality_torch.Trained``) at its active SH degree, against the
+    view's GT frame."""
+    import torch
+
+    from fourdgs_tpu_torch import render as TR
+    from fourdgs_tpu_torch.utils import losses
+
+    cfg, state, train_cams, bg = model
+    cam_np, frame = train_cams[view]
+    gt = torch.tensor(np.asarray(frame), device=dev)
+    if gt.dtype == torch.uint8:                   # the oracle's [H, W, 3] frames
+        gt = gt.to(torch.float32).permute(2, 0, 1) / 255.0
+    return step_blend_inputs(cfg, state, TR.CameraArrays.from_camera(cam_np, device=dev),
+                             cam_np.width, cam_np.height,
+                             losses.tile_image(gt[:3], pad_cols=2), bg,
+                             state.active_sh_degree, dev)
+
+
+def check_step_blend(fwd_args, bwd_args, dev, where):
+    """K1 and K2 at the shapes of a train step (:func:`step_blend_inputs`)
+    against their plain versions, with the cull against the walk of every
+    in-range instance and the kernels' strip masks against their plain
+    mirror's; their times and bounds, printed under ``where``. Returns the
+    kernels-line fields of K1 and K2 at this shape."""
     from fourdgs_tpu_torch.ops import blend
     from fourdgs_tpu_torch.scripts import time_ms
 
-    fwd_args, bwd_args = view_blend_inputs(model, view, dev)
-    out5, g_out = bwd_args[5], bwd_args[6]
+    out5 = bwd_args[5]
     fwd = compare_blend(out5, blend.blend_forward_plain(*fwd_args))
     d_k = blend.blend_backward(*bwd_args)
     work = blend_work(*fwd_args[:4], fwd_args[5])
@@ -671,11 +704,8 @@ def check_trained_blend(model, dev, view=0):
             "max_abs_err": cmp["max_abs_err"], **bound,
             "gated_share": work["gated"] / max(work["in_range"], 1),
             "slots": k_pad, "instances": work["instances"]}
-    state = model.state
-    print(f"    (a) K1/K2 at train view {view} of the trained model ({n_tiles} tiles, "
-          f"K = {k_pad} slots, capacity {state.alive.shape[0]}, "
-          f"{int(state.alive.sum())} alive, SH degree {state.active_sh_degree}): "
-          f"K1 vs plain {fwd}; K2 vs plain with the step's cotangent {bwd}")
+    print(f"    K1/K2 at {where} ({n_tiles} tiles, K = {k_pad} slots): K1 vs plain "
+          f"{fwd}; K2 vs plain with the step's cotangent {bwd}")
     for name, r in res.items():
         print(f"    {name} at this shape: kernel {r['ms']:.4f} ms (cull off "
               f"{r['ms_without_cull']:.4f}), plain {r['plain_ms']:.4f} ms, bound on "
@@ -688,6 +718,36 @@ def check_trained_blend(model, dev, view=0):
           f"their walk of every in-range instance bit for bit, the strip masks their "
           f"plain mirror's")
     return res
+
+
+def check_trained_blend(model, dev, view=0):
+    """Phase 9 (a), after the run: :func:`check_step_blend` at train view
+    ``view`` of the trained model (:func:`view_blend_inputs`)."""
+    state = model.state
+    return check_step_blend(
+        *view_blend_inputs(model, view, dev), dev,
+        f"train view {view} of the trained model (capacity {state.alive.shape[0]}, "
+        f"{int(state.alive.sum())} alive, SH degree {state.active_sh_degree})")
+
+
+def check_bench_blend(w, dev):
+    """Phase 10 (a), after the run: :func:`check_step_blend` at the bench's
+    last step (``bench_torch.run``'s final workload ``w``: its camera, GT,
+    bf16 payload, 384k budget and SH degree, the state after the step)."""
+    import torch
+
+    from fourdgs_tpu_torch.render import CameraArrays
+
+    bg = torch.tensor([1.0, 1.0, 1.0] if w.cfg.model.white_background
+                      else [0.0, 0.0, 0.0], device=dev)
+    cam = CameraArrays(*(x[0] for x in w.cams))
+    state = w.state
+    return check_step_blend(
+        *step_blend_inputs(w.cfg, state, cam, w.cameras[0].width, w.cameras[0].height,
+                           w.gts[0], bg, w.cfg.model.sh_degree, dev), dev,
+        f"the bench's last step (capacity {state.alive.shape[0]}, "
+        f"{int(state.alive.sum())} alive, SH degree {w.cfg.model.sh_degree}, bf16 payload "
+        f"{w.cfg.tpu.payload_bf16})")
 
 
 def check_training_from_pcd(dev):
@@ -753,6 +813,253 @@ def check_training_from_pcd(dev):
     print(f"    (c) maintenance on card and CPU: alive, table and counts equal, "
           f"parameters and moments within rtol 1e-6 of their operands: {c}")
     return a, trained
+
+
+CLI_SCHEDULE = ("opt.coarse_iterations=100", "opt.iterations=300",
+                "opt.position_lr_max_steps=300")
+# the pose convention of data/blender.py: R = F·m[:3, :3]ᵀ, T = −m[:3, 3]
+# with m = inv(transform_matrix)
+_BLENDER_FLIP = np.diag([1.0, -1.0, -1.0])
+
+
+def write_dnerf_scene(root, dev, size=WIDTH, n_train=20, n_test=4):
+    """Write a D-NeRF (Blender) scene under ``root`` with the port's PNG
+    writer: RGBA frames that K1 renders from ``bench_quality_torch.py``'s
+    ground-truth scene (straight colour, the render's alpha; every row
+    Paeth-filtered, the reader's costliest filter) on ring cameras
+    at times i/(n−1), ``transforms_{train,test}.json``, no ``fused.ply``.
+    Returns the cameras per split."""
+    import torch
+
+    import bench_quality_torch as BQ
+    from fourdgs_tpu_torch.ops.rasterize import rasterize_pallas
+    from fourdgs_tpu_torch.render import CameraArrays
+    from fourdgs_tpu_torch.utils import png
+
+    pts, cols, scales, offsets = BQ.make_gt_scene()
+    extra = {k: torch.tensor(v, device=dev)
+             for k, v in BQ.gt_raster_args(pts, cols, scales).items()}
+    black = torch.zeros(3, device=dev)
+    cameras = {}
+    for split, n, seed in (("train", n_train, 1), ("test", n_test, 2)):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        r = np.random.default_rng(seed)
+        frames, cameras[split] = [], []
+        for i in range(n):
+            t = i / max(n - 1, 1)
+            cam = BQ.ring_camera(r.uniform(0, 2 * np.pi), r.uniform(0.15, 0.9),
+                                 size, size, t)
+            c = CameraArrays.from_camera(cam, device=dev)
+            with torch.no_grad():
+                out = rasterize_pallas(
+                    torch.tensor(pts + offsets(t), device=dev), extra["scales"],
+                    extra["rotations"], extra["opacities"], extra["shs"],
+                    c.camera_center, c.world_view, c.full_proj, c.tanfovx,
+                    c.tanfovy, size, size, 0, black, instance_budget=BQ.GT_BUDGET)
+            if int(out.num_rendered) > BQ.GT_BUDGET:
+                raise AssertionError(f"scene frame overflowed its budget: "
+                                     f"{int(out.num_rendered)}")
+            alpha = out.alpha.clamp(0, 1)
+            straight = (out.color / alpha.clamp(min=1 / 255)).clamp(0, 1)
+            rgba = torch.cat([straight, alpha]).permute(1, 2, 0).cpu().numpy()
+            name = f"r_{i:03d}"
+            png.write_png(os.path.join(root, split, name + ".png"),
+                          (rgba * 255 + 0.5).astype(np.uint8), filter_type=4)
+            w2c = np.asarray(cam.world_view, np.float64).T
+            m = np.eye(4)
+            m[:3, :3] = _BLENDER_FLIP @ w2c[:3, :3]
+            m[:3, 3] = -w2c[:3, 3]
+            frames.append({"file_path": f"./{split}/{name}", "time": t,
+                           "transform_matrix": np.linalg.inv(m).tolist()})
+            cameras[split].append(cam)
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": 0.6911112070083618, "frames": frames}, f)
+    return cameras
+
+
+def _checkpoint_leaves(state, opt):
+    """(name, tensor) of every leaf a training checkpoint holds."""
+    from fourdgs_tpu_torch.train import adam
+
+    out = [(f"params.{n}", x) for n, x in adam.named_leaves(state.params)]
+    out += [(f, getattr(state, f)) for f in (
+        "alive", "max_radii2d", "xyz_gradient_accum", "denom", "deformation_accum",
+        "deformation_table", "aabb")]
+    for which in ("mu", "nu"):
+        out += [(f"{which}.{n}", x)
+                for n, x in adam.named_leaves(getattr(opt, which))]
+    return out
+
+
+def run_cli_chain(data_dir, model_path, dev, overrides=CLI_SCHEDULE):
+    """``train_torch.py`` → ``render_torch.py`` (test split) →
+    ``metrics_torch.py`` on ``data_dir`` with the bouncingballs preset and
+    ``overrides``, then phase 10 (b)'s checks (module
+    docstring) but the PSNR's against the blank image, which
+    :func:`check_entry_points` makes. Returns the walls, the scene's load
+    time, the renders' FPS,
+    the PSNRs, the points and the launch counts of each script (zeroed just
+    before it)."""
+    import torch
+
+    import bench_quality_torch as BQ
+    import metrics_torch
+    import render_torch
+    import train_torch
+    from fourdgs_tpu_torch.configs.core import config_from_dict
+    from fourdgs_tpu_torch.data.scene import load_scene
+    from fourdgs_tpu_torch.models import gaussians as G
+    from fourdgs_tpu_torch.ops import blend
+    from fourdgs_tpu_torch.render import CameraArrays, render
+    from fourdgs_tpu_torch.train import checkpoint
+    from fourdgs_tpu_torch.utils import losses, png
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def counted(fn):
+        blend.blend_forward.launches = blend.blend_backward.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0, (blend.blend_forward.launches,
+                                               blend.blend_backward.launches)
+
+    iters = next(int(o.split("=")[1]) for o in overrides
+                 if o.startswith("opt.iterations="))
+    (state, opt), train_s, train_launches = counted(lambda: train_torch.main([
+        "-s", data_dir, "--configs", BQ.PRESET, "--model_path", model_path,
+        "--quiet", "--test_iterations", str(iters), "--save_iterations", str(iters),
+        "--device", dev.type, "--override", *overrides]))
+    rendered, render_s, render_launches = counted(lambda: render_torch.main([
+        "--model_path", model_path, "--skip_train", "--skip_video",
+        "--device", dev.type]))
+    results, metrics_s, metrics_launches = counted(
+        lambda: metrics_torch.main(["--model_path", model_path, "--device", dev.type]))
+    if metrics_launches != (0, 0):
+        raise AssertionError(f"metrics_torch launched the blend: {metrics_launches}")
+
+    for name in ("cfg_args.json", "timing_report.json", "training_logs.json",
+                 "eval_log.jsonl", "events.jsonl"):
+        if not os.path.exists(os.path.join(model_path, name)):
+            raise AssertionError(f"train_torch.py wrote no {name}")
+    eval_renders = sum("_render_" in f for f in os.listdir(
+        os.path.join(model_path, "eval_images")))
+    snap = os.path.join(model_path, "point_cloud", f"iteration_{iters}")
+    for name in ("point_cloud.ply", "deformation.npz"):
+        if not os.path.exists(os.path.join(snap, name)):
+            raise AssertionError(f"the snapshot has no {name}")
+    ckpt = checkpoint.find_stage_checkpoint(model_path, "fine")
+    if ckpt is None or not ckpt.endswith(f"chkpnt_fine_{iters}"):
+        raise AssertionError(f"no fine checkpoint at {iters}: {ckpt}")
+    if eval_renders == 0:
+        raise AssertionError("train_torch.py wrote no eval image")
+
+    with open(os.path.join(model_path, "cfg_args.json")) as f:
+        cfg = config_from_dict(json.load(f))
+    c_state, c_opt, c_iter = checkpoint.load_checkpoint(ckpt, cfg, device=dev)
+    pairs = list(zip(_checkpoint_leaves(c_state, c_opt), _checkpoint_leaves(state, opt)))
+    differ = [a for (a, x), (_, y) in pairs if not torch.equal(x, y)]
+    if (differ or c_iter != iters or c_opt.count != opt.count
+            or c_state.active_sh_degree != state.active_sh_degree):
+        raise AssertionError(f"the fine checkpoint does not reload the trained "
+                             f"state: {differ[:5]}")
+
+    snap_state = checkpoint.load_snapshot(snap, cfg, device=dev)
+    bg = torch.ones(3, device=dev) if cfg.model.white_background else torch.zeros(3, device=dev)
+    t0 = time.perf_counter()
+    test_cams = load_scene(cfg, data_dir).test_cameras
+    load_s = time.perf_counter() - t0
+    base = os.path.join(model_path, "test", f"ours_{iters}")
+    worst, blank = 0, []
+    for i, lc in enumerate(test_cams):
+        cam = lc.camera
+        with torch.no_grad():
+            img = render(snap_state.params, snap_state, CameraArrays.from_camera(cam, device=dev),
+                         cfg, cam.width, cam.height, "fine", bg, cfg.model.sh_degree,
+                         device=dev).color.cpu().numpy().transpose(1, 2, 0)
+        want = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+        got = png.read_png(os.path.join(base, "renders", f"{i:05d}.png"))
+        worst = max(worst, int(np.abs(got.astype(int) - want.astype(int)).max()))
+        gt = torch.tensor(png.read_png(os.path.join(base, "gt", f"{i:05d}.png")),
+                          dtype=torch.float32).permute(2, 0, 1) / 255.0
+        blank.append(float(losses.psnr(bg.cpu()[:, None, None].expand_as(gt), gt)))
+    if worst > 1:
+        raise AssertionError(f"render_torch.py's PNGs differ from the in-process "
+                             f"render by {worst} levels")
+    psnr = results[model_path][f"ours_{iters}"]["PSNR"]
+    if not math.isfinite(psnr):
+        raise AssertionError(f"held-out PSNR {psnr}")
+    return {"train_s": train_s, "render_s": render_s, "metrics_s": metrics_s,
+            "load_s": load_s,
+            "fps": rendered["fps"]["test"], "psnr": psnr, "blank_psnr": float(np.mean(blank)),
+            "metrics": results[model_path][f"ours_{iters}"],
+            "points": int(G.count_alive(state)), "steps": iters + int(next(
+                o.split("=")[1] for o in overrides if o.startswith("opt.coarse_iterations="))),
+            "eval_renders": eval_renders, "test_views": len(test_cams),
+            "render_max_level_diff": worst, "train_launches": train_launches,
+            "render_launches": render_launches}
+
+
+def check_entry_points(dev):
+    """Phase 10 (module docstring): ``bench_torch.py`` and K1/K2 at its last
+    step, then the D-NeRF CLI chain; returns the launch counts of each and
+    :func:`check_bench_blend`'s fields for the kernels line."""
+    import bench_torch
+    from fourdgs_tpu_torch.ops import blend
+
+    print("[10] the user's entry points: (a) bench_torch.py", flush=True)
+    blend.blend_forward.launches = blend.blend_backward.launches = 0
+    t0 = time.perf_counter()
+    line, info, final = bench_torch.run(device=dev)
+    bench_launches = (blend.blend_forward.launches, blend.blend_backward.launches)
+    print(json.dumps(line))
+    print(f"    {info['steps']} timed steps after {info['warmup']} warm-up in "
+          f"{info['seconds']:.3f} s = {info['it_per_s']:.3f} it/s, loss "
+          f"{info['loss']:.4f}, max instances {info['max_num_rendered']} "
+          f"({time.perf_counter() - t0:.1f} s with the set-up); card: {info['device']}")
+    print(f"    K1/K2 launches {bench_launches} (GT 1 + {info['warmup'] + info['steps']} "
+          f"steps; {info['warmup'] + info['steps']} steps)")
+    if bench_launches != (info["warmup"] + info["steps"] + 1,
+                          info["warmup"] + info["steps"]):
+        raise AssertionError(f"bench_torch launched K1/K2 {bench_launches} times")
+    bench_blend = check_bench_blend(final, dev)
+    del final
+
+    print("    (b) a D-NeRF scene, then train_torch.py -> render_torch.py -> "
+          "metrics_torch.py", flush=True)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_cli_") as tmp:
+        data_dir, model_path = os.path.join(tmp, "data"), os.path.join(tmp, "model")
+        t0 = time.perf_counter()
+        write_dnerf_scene(data_dir, dev)
+        scene_s = time.perf_counter() - t0
+        cli = run_cli_chain(data_dir, model_path, dev)
+    k1_train, k2_train = cli["train_launches"]
+    k1_render, k2_render = cli["render_launches"]
+    print(f"    scene {WIDTH}x{HEIGHT}, 20 train + 4 test views written in {scene_s:.1f} s; "
+          f"train wall {cli['train_s']:.3f} s ({cli['steps']} steps, "
+          f"{cli['steps'] / cli['train_s']:.3f} it/s with the evals and saves, "
+          f"{cli['points']} points), render wall {cli['render_s']:.3f} s "
+          f"(FPS {cli['fps']:.3f}), metrics {cli['metrics_s']:.3f} s; load_scene "
+          f"(every frame, Paeth-filtered rows) {cli['load_s']:.3f} s")
+    print(f"    held-out PSNR {cli['psnr']:.4f} dB (blank image {cli['blank_psnr']:.4f}); "
+          f"metrics {json.dumps(cli['metrics'])}; renders vs in-process render: "
+          f"max {cli['render_max_level_diff']} levels; the fine checkpoint reloads "
+          f"to the same leaves")
+    print(f"    K1/K2 launches: train {cli['train_launches']} ({cli['steps']} steps + "
+          f"{cli['eval_renders']} eval views), render {cli['render_launches']} "
+          f"({cli['test_views']} views + 1 warm-up)")
+    if not cli["psnr"] > cli["blank_psnr"]:
+        raise AssertionError(f"held-out PSNR {cli['psnr']} not above the blank "
+                             f"image's {cli['blank_psnr']}")
+    if (k2_train != cli["steps"] or k1_train != cli["steps"] + cli["eval_renders"]
+            or (k1_render, k2_render) != (cli["test_views"] + 1, 0)):
+        raise AssertionError(f"CLI launches: train {cli['train_launches']}, render "
+                             f"{cli['render_launches']}")
+    return {"bench": bench_launches, "bench_blend": bench_blend,
+            "cli": (k1_train + k1_render, k2_train)}
 
 
 def ring_camera(i, n_views):
@@ -1060,6 +1367,9 @@ def main() -> int:
     # -- 9. training from a point cloud
     pcd, trained = check_training_from_pcd(dev)
 
+    # -- 10. the user's entry points
+    entry = check_entry_points(dev)
+
     # -- 8. kernels line, result line
     kernels = [{
         "name": "blend_forward",
@@ -1076,6 +1386,8 @@ def main() -> int:
         "bound_all_pairs_ms": bound["bound_all_pairs_ms"],
         "gated_share": work["gated"] / work["in_range"],
         "train_from_pcd": {"launches": pcd["k1_launches"], **trained["blend_forward"]},
+        "bench": {"launches": entry["bench"][0], **entry["bench_blend"]["blend_forward"]},
+        "cli": {"launches": entry["cli"][0]},
     }, {
         "name": "blend_backward",
         "route": "cuda",
@@ -1091,6 +1403,8 @@ def main() -> int:
         "bound_all_pairs_ms": bwd_bound["bound_all_pairs_ms"],
         "gated_share": bwd_work["gated"] / bwd_work["in_range"],
         "train_from_pcd": {"launches": pcd["k2_launches"], **trained["blend_backward"]},
+        "bench": {"launches": entry["bench"][1], **entry["bench_blend"]["blend_backward"]},
+        "cli": {"launches": entry["cli"][1]},
     }, *cost_kernels]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

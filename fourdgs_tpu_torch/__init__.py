@@ -10,7 +10,11 @@ CUDA kernel (``csrc/blend_forward.cu``, wrapped by ``ops.blend``). Later
 slices add the train step with the backward blend kernel
 (``train.loop.make_train_step``), the TPU cost experiments (``scripts``) and
 training from a point cloud (``models.gaussians.create_from_pcd``,
-``models.densify``, ``train.loop.scene_reconstruction``).
+``models.densify``, ``train.loop.scene_reconstruction``), and the pieces of
+the user's entry points (the root scripts ``bench_torch.py``,
+``train_torch.py``, ``render_torch.py``, ``metrics_torch.py``): the Blender
+loader (``data.scene``), training checkpoints, the PNG codec
+(``utils.png``), the phase timer and the event log.
 
 Every entry point takes ``device`` (default ``"cuda"``) and raises when CUDA is
 absent unless the caller asks for ``device="cpu"``, where each kernel wrapper

@@ -3,9 +3,10 @@
 Counterpart of ``rasterize_pallas`` (``fourdgs_tpu/ops/rasterize.py:151-219``),
 ``build_table`` (:222-248), ``rasterize_from_table`` (:251-397) and the
 payload gather with its scatter-free backward (``_gathered_payload``,
-:84-148). The gather ``table[gauss_id].T`` is plain ``index_select``; its
-gradient is a deterministic segment sum over the binning's slot order (no
-``index_add_``, no atomics). The blend is the CUDA kernels behind
+:84-148), with JAX's optional bf16 payload (``payload_bf16``). The
+gather ``table[gauss_id].T`` is plain ``index_select``; its gradient is a
+deterministic segment sum over the binning's slot order (no ``index_add_``,
+no atomics). The blend is the CUDA kernels behind
 :func:`fourdgs_tpu_torch.ops.blend.blend`. Everything is differentiable with
 respect to the Gaussians' parameters and ``means2d_offset``.
 """
@@ -102,32 +103,51 @@ def payload_grad(d_feat: torch.Tensor, bins: BinningOut, P: int) -> torch.Tensor
     return torch.empty_like(seg).index_copy_(0, bins.order, seg)
 
 
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bfloat16 (to nearest even, as XLA's ``astype``) and
+    held as float32; differentiable, and its backward rounds the gradient
+    to bfloat16 too."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
 class _GatheredPayload(torch.autograd.Function):
     """``feat = table[gauss_id].T`` with :func:`payload_grad` as its
-    backward (``_gathered_payload``'s custom VJP)."""
+    backward (``_gathered_payload``'s custom VJP). With ``bf16`` the
+    incoming ``d_feat`` is rounded to bfloat16 first: JAX's blend backward
+    casts its cotangent to the payload's dtype (``pallas_blend.py:885-886``)
+    before ``_gathered_payload``'s backward upcasts it (``rasterize.py:112``)."""
 
     @staticmethod
-    def forward(ctx, table, bins: BinningOut):
+    def forward(ctx, table, bins: BinningOut, bf16: bool = False):
         ctx.bins = bins
         ctx.P = table.shape[0]
+        ctx.bf16 = bf16
         # padding slots gather Gaussian 0's (finite) row; the blend's range
         # gates make them inert and K2 leaves their gradient 0
         return table.index_select(0, bins.gauss_id).T.contiguous()
 
     @staticmethod
     def backward(ctx, d_feat):
-        return payload_grad(d_feat, ctx.bins, ctx.P), None
+        if ctx.bf16:
+            d_feat = round_bf16(d_feat)
+        return payload_grad(d_feat, ctx.bins, ctx.P), None, None
 
 
 def blend_inputs(
     means3d, scales, rotations, opacities, shs,
     camera_center, world_view, full_proj, tanfovx, tanfovy,
     width: int, height: int, sh_degree: int, instance_budget: int,
-    alive=None, means2d_offset=None,
+    alive=None, means2d_offset=None, payload_bf16: bool = False,
 ) -> BlendInputs:
     """Preprocess, bin and gather one camera's blend inputs (activated
     Gaussian parameters in, as ``rasterize_pallas`` takes them);
-    ``means2d_offset`` [P, 2] is added to the means before the table."""
+    ``means2d_offset`` [P, 2] is added to the means before the table.
+
+    ``payload_bf16``: the table is rounded to bfloat16 (``rasterize.py:248``)
+    and kept in float32, so the kernels read the values JAX's kernels see
+    after their upcast (``pallas_blend.py:318-325``); the autograd of the
+    rounding rounds ``d_table`` to bfloat16 as JAX's cast does
+    (``rasterize.py:142``), and the gather's backward rounds ``d_feat``."""
     opac = opacities.reshape(-1)
     pre = preprocess(
         means3d, scales, rotations, shs, camera_center, world_view,
@@ -136,6 +156,8 @@ def blend_inputs(
     )
     means2d = pre.means2d if means2d_offset is None else pre.means2d + means2d_offset
     table = build_table(pre, opac, means2d)
+    if payload_bf16:
+        table = round_bf16(table)
     grid_x = (width + C.TILE_X - 1) // C.TILE_X
     grid_y = (height + C.TILE_Y - 1) // C.TILE_Y
     # K: the budget rounded up to a CHUNK multiple (rasterize.py:286)
@@ -144,7 +166,7 @@ def blend_inputs(
         pre.tile_min, pre.tile_max, pre.tiles_touched, pre.depths.detach(),
         grid_x, grid_y, K,
     )
-    feat = _GatheredPayload.apply(table, bins)                       # [16, K]
+    feat = _GatheredPayload.apply(table, bins, payload_bf16)         # [16, K]
     row_off = torch.tensor([0, 1], dtype=torch.int32, device=feat.device)
     return BlendInputs(feat, row_off, bins, pre, grid_x, grid_y)
 
@@ -164,7 +186,7 @@ def rasterize_pallas(
     camera_center, world_view, full_proj, tanfovx, tanfovy,
     width: int, height: int, sh_degree: int, bg: torch.Tensor,
     instance_budget: int, alive=None, means2d_offset=None,
-    tile_space: bool = False,
+    tile_space: bool = False, payload_bf16: bool = False,
 ) -> RasterOut:
     """Render one camera; keeps the JAX name so the counterpart is easy to
     find (the blend here is the CUDA kernels, or their plain versions on
@@ -176,6 +198,7 @@ def rasterize_pallas(
         means3d, scales, rotations, opacities, shs, camera_center,
         world_view, full_proj, tanfovx, tanfovy, width, height, sh_degree,
         instance_budget, alive=alive, means2d_offset=means2d_offset,
+        payload_bf16=payload_bf16,
     )
     bins = bi.bins
     out5 = blend(

@@ -65,8 +65,6 @@ def _check_config(cfg) -> None:
     if cfg.tpu.backend != "pallas":
         raise NotImplementedError(
             f"backend {cfg.tpu.backend!r} is not ported (only 'pallas')")
-    if cfg.tpu.payload_bf16:
-        raise NotImplementedError("payload_bf16 is not ported")
     if cfg.tpu.ellipse_tile_cull:
         raise NotImplementedError("ellipse_tile_cull is not ported")
     if cfg.model.use_isotropic_gaussian:
@@ -141,6 +139,7 @@ def render(
         alive=state.alive,
         means2d_offset=means2d_offset,
         tile_space=tile_space,
+        payload_bf16=cfg.tpu.payload_bf16,
     )
     return RenderOut(
         color=out.color, depth=out.depth, alpha=out.alpha, radii=out.radii,

@@ -20,9 +20,11 @@ GT cached on the device, SH annealing, instance-budget and capacity growth,
 densify / prune / opacity reset on their gates, metrics read on the host
 only on a gate or log iteration, and the NaN watchdog. It takes one step
 per call (``cfg.tpu.scan_steps`` changes nothing: JAX's scan yields the
-same values). Not ported yet, and raising: SSIM (``lambda_dssim``), a
-``mesh``, the ``viewer``, the ``gradient_tracker``, ``debug_mode``,
-``cfg.model.render_process``, a ``timer`` and lazy (callable) GT.
+same values). A ``utils/timer.py`` ``DetailedTimer`` times its phases and an
+``utils/observability.py`` ``EventLog`` records the growths, as in JAX. Not
+ported yet, and raising: SSIM (``lambda_dssim``), a ``mesh``, the
+``viewer``, the ``gradient_tracker``, ``debug_mode``,
+``cfg.model.render_process`` and lazy (callable) GT.
 """
 
 from __future__ import annotations
@@ -253,6 +255,7 @@ def scene_reconstruction(
     *,
     split_normals: Callable | None = None,
     timer=None,
+    event_log=None,
     mesh=None,
     viewer=None,
     gradient_tracker=None,
@@ -271,11 +274,16 @@ def scene_reconstruction(
     ``split_normals(cap)`` gives the [2, cap, 3] normals of each split in
     turn, to reproduce another generator's children (the tests pass JAX's);
     by default they come from a ``torch.Generator`` seeded with
-    ``rng_seed``. ``timer``, ``mesh``, ``viewer``, ``gradient_tracker`` and
-    ``debug_mode`` raise ``NotImplementedError`` until they are ported.
+    ``rng_seed``. ``timer`` (a ``utils/timer.py`` ``DetailedTimer``, or any
+    object with its methods) times each iteration's
+    data loading, render (the step), densification and logging phases and
+    logs every logged iteration (``loop.py:584-883``); ``event_log`` (an
+    ``EventLog``) records each budget and capacity growth. ``mesh``,
+    ``viewer``, ``gradient_tracker`` and ``debug_mode`` raise
+    ``NotImplementedError`` until they are ported.
     """
     dev = resolve_device(device)
-    _unported(cfg, timer=timer, mesh=mesh, viewer=viewer,
+    _unported(cfg, mesh=mesh, viewer=viewer,
               gradient_tracker=gradient_tracker, debug_mode=debug_mode)
     if not train_cameras:
         return state, adam_state, TrainLog()
@@ -360,6 +368,9 @@ def scene_reconstruction(
     iteration = 0
     while iteration < train_iter:
         iteration += 1
+        if timer:
+            timer.start_iteration(iteration)
+            timer.start_timer(f"{stage}_data_loading")
         if iteration % 1000 == 0:   # SH annealing (loop.py:587-589)
             state = G.one_up_sh_degree(state, max_sh)
             sh_deg = state.active_sh_degree
@@ -372,6 +383,9 @@ def scene_reconstruction(
             gts = torch.from_numpy(np.stack([gt_list[i] for i in batch_idx])).to(dev)
             batch_cams = CameraArrays(*(torch.stack(xs) for xs in
                                         zip(*(cam_arrays[i] for i in batch_idx))))
+        if timer:
+            timer.end_timer(f"{stage}_data_loading")
+            timer.start_timer(f"{stage}_render")
         if sh_deg not in steps:
             steps[sh_deg] = make_train_step(cfg, width, height, stage, sh_deg,
                                             spatial_lr_scale=spatial_lr, device=dev)
@@ -403,6 +417,13 @@ def scene_reconstruction(
                           f"growing to {new_budget} "
                           f"({budget_growths}/{_MAX_BUDGET_GROWTHS})")
                     event("budget", demand=demand, budget=new_budget)
+                    if event_log is not None:
+                        event_log.add_scalar("budget/demand", demand, iteration)
+                        event_log.add_scalar("budget/instance_budget", new_budget,
+                                             iteration)
+        if timer:
+            timer.end_timer(f"{stage}_render")
+            timer.start_timer(f"{stage}_densification")
 
         # densify / prune / opacity reset on the reference schedule
         # (loop.py:762-835); the live count is read only on their gates
@@ -434,6 +455,8 @@ def scene_reconstruction(
                 print(f"[capacity] {n_points} alive > 60% of {cur_cap}; "
                       f"growing to {new_cap}")
                 event("capacity", n_points=n_points, capacity=new_cap)
+                if event_log is not None:
+                    event_log.add_scalar("budget/capacity", new_cap, iteration)
             if densify_due:
                 cap = state.alive.shape[0]
                 normals = (split_normals(cap) if split_normals is not None
@@ -452,13 +475,22 @@ def scene_reconstruction(
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 log.maintenance_s += time.perf_counter() - t_gate
+        if timer:
+            timer.end_timer(f"{stage}_densification")
 
         if (iteration % log_interval == 0 or iteration == train_iter
                 or iteration in extra_log_iters):
+            if timer:
+                timer.start_timer(f"{stage}_logging")
             m = {k: float(v) for k, v in metrics.items()}
             log.ema_loss = 0.4 * m["loss"] + 0.6 * log.ema_loss
             log.ema_psnr = 0.4 * m["psnr"] + 0.6 * log.ema_psnr
             log.iterations.append({"iter": iteration, "stage": stage, **m})
+            if timer:
+                timer.log_iteration(
+                    iteration=iteration, loss=m["loss"], psnr=m["psnr"],
+                    l1_loss=m["l1"], stage=stage, total_points=int(m["n_points"]),
+                    ema_loss=log.ema_loss, ema_psnr=log.ema_psnr)
             if log_fn:
                 log_fn(iteration, stage, m, state, adam_state)
             if np.isnan(m["loss"]):
@@ -473,4 +505,8 @@ def scene_reconstruction(
                 raise FloatingPointError(
                     f"loss is NaN at {stage} iteration {iteration}; "
                     f"forensic snapshot: {snap}")
+            if timer:
+                timer.end_timer(f"{stage}_logging")
+        if timer:
+            timer.end_iteration(iteration, stage)
     return state, adam_state, log

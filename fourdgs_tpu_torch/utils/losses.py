@@ -1,14 +1,17 @@
 """Image losses, PSNR and the tile layout of the training loss. PyTorch.
 
-Counterpart of ``fourdgs_tpu/utils/losses.py:17-95``: ``l1_loss``, ``psnr``
+Counterpart of ``fourdgs_tpu/utils/losses.py:17-160``: ``l1_loss``, ``psnr``
 (20·log10(1/√mse) per image), ``tile_image`` / ``tile_image_np`` (an image to
-channel-major [T, C, 256] tile blocks, the rasterizer's packed layout) and
-``tile_pixel_mask``, with ``abs_`` and ``clip``, which take JAX's
-derivatives at 0 and at a tie. ``ssim`` and ``ssim_tiles`` are not ported
-yet.
+channel-major [T, C, 256] tile blocks, the rasterizer's packed layout),
+``tile_pixel_mask``, ``masked_psnr`` and the windowed ``ssim`` of the
+evaluation, with ``abs_`` and ``clip``, which take JAX's derivatives at 0 and
+at a tie. ``ssim_tiles`` (SSIM in the train step's tile layout,
+``lambda_dssim != 0``) is not ported yet.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -104,3 +107,52 @@ def tile_pixel_mask(height: int, width: int, tile_x: int = 16,
     xx = torch.arange(gx * tile_x, device=device) < width
     m = (yy[:, None] & xx[None, :]).to(torch.float32)
     return tile_image(m[None], tile_x, tile_y)
+
+
+def masked_psnr(pred: torch.Tensor, gt: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+    """PSNR over mask≠0 pixels only (utils/image_utils.py:16-38).
+
+    pred/gt: [C, H, W]; mask: [H, W] (or [1, H, W]): one MSE over all
+    selected elements across channels (``losses.py:98-113``)."""
+    if mask.dim() == 3:
+        mask = mask[0]
+    sel = (mask != 0).to(pred.dtype)[None]
+    n = torch.clamp(torch.sum(sel) * pred.shape[0], min=1.0)
+    mse = torch.sum(((pred - gt) ** 2) * sel) / n
+    return 20.0 * torch.log10(1.0 / torch.sqrt(torch.clamp(mse, min=1e-20)))
+
+
+def gaussian_window(window_size: int = 11, sigma: float = 1.5) -> np.ndarray:
+    """The normalized 2-D Gaussian window of SSIM (``losses.py:116-124``)."""
+    g = np.array([math.exp(-((x - window_size // 2) ** 2) / (2 * sigma**2))
+                  for x in range(window_size)])
+    g = g / g.sum()
+    return np.outer(g, g).astype(np.float32)
+
+
+def ssim(img1: torch.Tensor, img2: torch.Tensor,
+         window_size: int = 11) -> torch.Tensor:
+    """Windowed SSIM (utils/loss_utils.py:32-68, ``losses.py:127-160``):
+    per-channel Gaussian window, zero 'same' padding, C1 = 0.01²,
+    C2 = 0.03², the mean over everything. img1/img2: [C, H, W] or
+    [B, C, H, W]."""
+    if img1.dim() == 3:
+        img1, img2 = img1[None], img2[None]
+    C = img1.shape[1]
+    w = torch.tensor(gaussian_window(window_size), dtype=img1.dtype,
+                     device=img1.device)
+    kernel = w[None, None].repeat(C, 1, 1, 1)          # [C, 1, K, K] depthwise
+
+    def conv(x):
+        return F.conv2d(x, kernel, padding=window_size // 2, groups=C)
+
+    mu1, mu2 = conv(img1), conv(img2)
+    mu1_sq, mu2_sq, mu12 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+    sigma1_sq = conv(img1 * img1) - mu1_sq
+    sigma2_sq = conv(img2 * img2) - mu2_sq
+    sigma12 = conv(img1 * img2) - mu12
+    C1, C2 = 0.01**2, 0.03**2
+    ssim_map = ((2 * mu12 + C1) * (2 * sigma12 + C2)) / (
+        (mu1_sq + mu2_sq + C1) * (sigma1_sq + sigma2_sq + C2))
+    return torch.mean(ssim_map)

@@ -88,7 +88,7 @@ def test_cpu_run_prints_every_key(monkeypatch, capsys, tmp_path):
                  "final_instance_budget", "capacity_growths", "final_capacity",
                  "densify_events", "last_train_psnr", "stage_s"}
     assert port_keys <= set(res)
-    assert res["backend"] == res["device"] == "cpu" and res["payload"] == "f32"
+    assert res["backend"] == res["device"] == "cpu" and res["payload"] == "bf16"
     assert res["schedule"] == {"coarse": 4, "fine": 4}
     assert np.isfinite(res["test_psnr_db"]) and len(res["test_psnrs_db"]) == 2
     assert res["capacity_growths"] >= 1 and res["final_capacity"] > 2048

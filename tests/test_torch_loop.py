@@ -247,14 +247,14 @@ def test_nan_loss_dumps_a_snapshot_with_jax_keys(tmp_path):
     assert float(np.load(path)["metrics.n_points"]) == 24
 
 
-@pytest.mark.parametrize("option", ["timer", "mesh", "viewer", "gradient_tracker",
+@pytest.mark.parametrize("option", ["mesh", "viewer", "gradient_tracker",
                                     "debug_mode", "render_process", "lazy_gt",
                                     "lambda_dssim", "isotropic"])
 def test_unported_options_raise(option):
     cfg = _port_cfg()
     cams, state, opt = _port_start(cfg)
     kw = {}
-    if option in ("timer", "mesh", "viewer", "gradient_tracker", "debug_mode"):
+    if option in ("mesh", "viewer", "gradient_tracker", "debug_mode"):
         kw[option] = True if option == "debug_mode" else object()
     elif option == "render_process":
         cfg.model.render_process = True
@@ -267,6 +267,26 @@ def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError):
         tloop.scene_reconstruction(cfg, state, opt, cams, "coarse", 1, EXTENT,
                                    device="cpu", **kw)
+
+
+def test_any_timer_with_detailed_timers_methods():
+    """The timer is duck-typed, as in JAX: an object with
+    ``DetailedTimer``'s methods times each iteration's phases."""
+    cfg = _port_cfg()
+    cams, state, opt = _port_start(cfg)
+    calls = []
+
+    class Recorder:
+        def __getattr__(self, name):
+            return lambda *args, **kw: calls.append((name, *args))
+
+    tloop.scene_reconstruction(cfg, state, opt, cams, "coarse", 2, EXTENT,
+                               log_interval=1, timer=Recorder(), device="cpu")
+    names = [c[0] for c in calls]
+    assert names.count("start_iteration") == names.count("end_iteration") == 2
+    assert ("start_timer", "coarse_render") in calls
+    assert ("end_iteration", 2, "coarse") in calls
+    assert names.count("start_timer") == names.count("end_timer")
 
 
 def test_samplers_match_jax():

@@ -1,0 +1,200 @@
+#!/usr/bin/env python3
+"""Train a 4D Gaussian Splatting model with the PyTorch + CUDA port.
+
+The port's ``train.py``, with its flags and outputs:
+
+    python3 train_torch.py -s <dataset path> --configs <preset.py> --expname <name>
+                           [--test_iterations ...] [--save_iterations ...]
+                           [--checkpoint_iterations ...] [--start_checkpoint ...]
+                           [--override opt.iterations=100 ...] [--device cuda|cpu]
+
+Stages: coarse (static canonical model) then fine (deformation on). Writes
+``cfg_args.json``, ``timing_report.json``, ``training_logs.json``,
+``events.jsonl``, ``eval_log.jsonl``, ``eval_images/``, snapshots
+(``point_cloud/iteration_*``) and checkpoints (``chkpnt_<stage>_<iter>``)
+under ``output/<expname>/`` or ``--model_path``; ``--start_checkpoint``
+resumes from a checkpoint (a fine one skips the coarse stage). Only the
+Blender (D-NeRF) loader is ported. ``--mesh``, ``--shard_primitives``,
+``--distributed``, ``--port``, ``--gradient_tracking`` and ``--debug_mode``
+raise ``NotImplementedError``. ``--device cpu`` runs the plain PyTorch
+versions of the kernels.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+# flags of train.py whose paths are not ported
+UNPORTED_FLAGS = ("mesh", "shard_primitives", "distributed", "port",
+                  "gradient_tracking", "debug_mode")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("-s", "--source_path", type=str, required=True)
+    parser.add_argument("--configs", type=str, default=None)
+    parser.add_argument("--expname", type=str, default="default")
+    parser.add_argument("--model_path", type=str, default="")
+    parser.add_argument("--test_iterations", nargs="+", type=int,
+                        default=[3000, 7000, 14000])
+    parser.add_argument("--save_iterations", nargs="+", type=int,
+                        default=[14000, 20000, 30000])
+    parser.add_argument("--checkpoint_iterations", nargs="+", type=int, default=[])
+    parser.add_argument("--start_checkpoint", type=str, default=None)
+    parser.add_argument("--seed", type=int, default=6666)
+    parser.add_argument("--quiet", action="store_true")
+    parser.add_argument("--gradient_tracking", action="store_true")
+    parser.add_argument("--debug_mode", action="store_true")
+    parser.add_argument("--port", type=int, default=None)
+    parser.add_argument("--mesh", type=str, default=None)
+    parser.add_argument("--shard_primitives", action="store_true")
+    parser.add_argument("--distributed", action="store_true")
+    parser.add_argument("--coordinator_address", type=str, default=None)
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
+    parser.add_argument("--override", nargs="*", default=[],
+                        help="dotted config overrides, e.g. opt.iterations=100")
+    parser.add_argument("--device", default="cuda", help="cuda, or cpu for the plain path")
+    args = parser.parse_args(argv)
+    for flag in UNPORTED_FLAGS:
+        if getattr(args, flag) not in (None, False):
+            raise NotImplementedError(f"--{flag} is not ported")
+
+    import numpy as np
+    import torch
+
+    from fourdgs_tpu_torch import resolve_device
+    from fourdgs_tpu_torch.configs.core import config_to_dict, load_config
+    from fourdgs_tpu_torch.data.scene import build_scene
+    from fourdgs_tpu_torch.models import gaussians as G
+    from fourdgs_tpu_torch.render import CameraArrays, render as render_fn
+    from fourdgs_tpu_torch.train import adam, checkpoint
+    from fourdgs_tpu_torch.train.loop import scene_reconstruction
+    from fourdgs_tpu_torch.utils import losses as loss_lib
+    from fourdgs_tpu_torch.utils.observability import EventLog, log_scene_stats
+    from fourdgs_tpu_torch.utils.timer import DetailedTimer, Timer
+
+    dev = resolve_device(args.device)
+    overrides = {}   # group.knob=value; JSON-looking values parsed (train.py)
+    for item in args.override:
+        k, _, v = item.partition("=")
+        overrides[k] = json.loads(v) if v and v[0] in "[{0123456789-tf.\"" else v
+    cfg = load_config(args.configs, **overrides)
+    cfg.model.source_path = args.source_path
+    model_path = args.model_path or os.path.join("output", args.expname)
+    cfg.model.model_path = model_path
+    os.makedirs(model_path, exist_ok=True)
+    # the config replay dump render_torch.py reads (JSON, not eval())
+    with open(os.path.join(model_path, "cfg_args.json"), "w") as f:
+        json.dump(config_to_dict(cfg), f, indent=1, default=str)
+
+    timer = DetailedTimer(model_path)
+    wall = Timer()
+    wall.start()
+
+    print(f"loading scene from {args.source_path} ...")
+    scene = build_scene(cfg, args.seed, device=dev)
+    state = scene.state
+    adam_state = adam.init(state.params)
+    print(f"scene: {len(scene.data.train_cameras)} train / "
+          f"{len(scene.data.test_cameras)} test cameras, "
+          f"extent={scene.cameras_extent:.3f}, "
+          f"init points={int(G.count_alive(state))}")
+
+    start_stage, start_iter = "coarse", 0
+    if args.start_checkpoint:
+        state, adam_state, start_iter = checkpoint.load_checkpoint(
+            args.start_checkpoint, cfg, device=dev)
+        if "fine" in args.start_checkpoint:
+            start_stage = "fine"
+        print(f"resumed from {args.start_checkpoint} ({start_stage} @ {start_iter})")
+
+    cams = [(lc.camera, lc.image) for lc in scene.data.train_cameras]
+    ev = EventLog(model_path)
+    bg = torch.tensor([1.0, 1.0, 1.0] if cfg.model.white_background
+                      else [0.0, 0.0, 0.0], device=dev)
+
+    def run_eval(iteration, stage, cur_state):
+        """PSNR/L1 over strided test + train cameras (≤5 each per split;
+        training_report, reference train.py:488-538)."""
+        report = {}
+        data = scene.data
+        splits = {
+            "test": data.test_cameras[::max(len(data.test_cameras) // 5, 1)][:5],
+            "train": data.train_cameras[::max(len(data.train_cameras) // 5, 1)][:5],
+        }
+        for split, lcs in splits.items():
+            if not lcs:
+                continue
+            l1s, psnrs = [], []
+            for vi, lc in enumerate(lcs):
+                w, h = lc.camera.width, lc.camera.height
+                with torch.no_grad():
+                    color = render_fn(cur_state.params, cur_state,
+                                      CameraArrays.from_camera(lc.camera, device=dev),
+                                      cfg, w, h, stage, bg,
+                                      cur_state.active_sh_degree, device=dev).color
+                gt = np.asarray(lc.image)
+                if gt.dtype == np.uint8:
+                    gt = gt.astype(np.float32).transpose(2, 0, 1) / 255.0
+                gt = torch.tensor(gt[:3], device=dev)
+                l1s.append(float(loss_lib.l1_loss(color, gt)))
+                psnrs.append(float(loss_lib.psnr(color[None], gt[None])[0]))
+                # first 5 eval views as images (train.py:513-516); the GT
+                # once, on the first eval of the run
+                ev.add_image(f"{stage}/{split}_view_{vi}/render",
+                             color.cpu().numpy(), iteration)
+                if iteration == min(args.test_iterations, default=0):
+                    ev.add_image(f"{stage}/{split}_view_{vi}/gt",
+                                 gt.cpu().numpy(), iteration)
+            report[split] = {"l1": float(np.mean(l1s)), "psnr": float(np.mean(psnrs))}
+            ev.add_scalar(f"{stage}/{split}/loss_viewpoint - l1_loss",
+                          report[split]["l1"], iteration)
+            ev.add_scalar(f"{stage}/{split}/loss_viewpoint - psnr",
+                          report[split]["psnr"], iteration)
+            print(f"[ITER {iteration}] eval {stage}/{split}: "
+                  f"L1 {report[split]['l1']:.5f} PSNR {report[split]['psnr']:.2f}")
+        log_scene_stats(ev, cur_state, stage, iteration)
+        with open(os.path.join(model_path, "eval_log.jsonl"), "a") as f:
+            f.write(json.dumps({"iteration": iteration, "stage": stage, **report}) + "\n")
+
+    def log_fn(iteration, stage, m, cur_state, cur_adam):
+        if not args.quiet:
+            print(f"[{stage} {iteration:6d}] loss={m['loss']:.5f} "
+                  f"psnr={m['psnr']:.2f} points={int(m['n_points'])}")
+        ev.add_scalar(f"{stage}/train_loss_patches/l1_loss", m["l1"], iteration)
+        ev.add_scalar(f"{stage}/train_loss_patches/total_loss", m["loss"], iteration)
+        if iteration in args.test_iterations:
+            run_eval(iteration, stage, cur_state)
+        if iteration in args.save_iterations:
+            checkpoint.save_snapshot(model_path, cur_state, iteration, stage)
+        if iteration in args.checkpoint_iterations:
+            checkpoint.save_checkpoint(model_path, cur_state, cur_adam, iteration, stage)
+
+    extra_iters = (set(args.save_iterations) | set(args.checkpoint_iterations)
+                   | set(args.test_iterations))
+    common = dict(timer=timer, event_log=ev, log_fn=log_fn,
+                  extra_log_iters=extra_iters, model_path=model_path, device=dev)
+    if start_stage == "coarse":
+        state, adam_state, _ = scene_reconstruction(
+            cfg, state, adam_state, cams, "coarse", cfg.opt.coarse_iterations,
+            scene.cameras_extent, rng_seed=args.seed, **common)
+    state, adam_state, _ = scene_reconstruction(
+        cfg, state, adam_state, cams, "fine", cfg.opt.iterations,
+        scene.cameras_extent, rng_seed=args.seed + 1, **common)
+
+    wall.pause()
+    checkpoint.save_snapshot(model_path, state, cfg.opt.iterations, "fine")
+    checkpoint.save_checkpoint(model_path, state, adam_state, cfg.opt.iterations, "fine")
+    timer.save_timing_report()
+    timer.save_training_logs()
+    timer.print_summary()
+    ev.close()
+    print(f"training done in {wall.get_elapsed_time():.1f}s → {model_path}")
+    return state, adam_state
+
+
+if __name__ == "__main__":
+    main()
