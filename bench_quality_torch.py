@@ -324,6 +324,7 @@ def run(scale: float = 1.0, size: int = 800, n_train: int = 100, n_test: int = 1
         "final_capacity": int(state.alive.shape[0]),
         "resets": count("reset"),
         "densify_events": [e for e in events if e["kind"] in ("densify", "prune")],
+        "growth_events": [e for e in events if e["kind"] in ("budget", "capacity")],
         "last_train_psnr": logged[-1]["psnr"],
         "train_log": [{k: e[k] for k in ("iter", "stage", "loss", "psnr", "n_points")}
                       for e in logged],

@@ -49,7 +49,9 @@ on failure:
    tiles) and ``exp_kernel_overhead`` (K1 and K2 on empty, 98- and
    128-per-tile grids: per-tile fixed cost and per-instance cost). Then K3
    bit for bit against its plain version at both shapes, each probe bit for
-   bit against its plain version, K1 and K2 on the three grids against
+   bit against its plain version at the experiment's 2,500 tiles and at T =
+   1, 7, 2,500 and 2,501 (K8 at even T; K10 with zero, positive and mixed
+   negative loop counts at each), K1 and K2 on the three grids against
    theirs (the bounds above), each launch counted; the times of the plain
    versions and of the one-call PyTorch yardsticks;
 8. one JSON line ``{"kernels": [...]}`` and, last, the result line
@@ -479,16 +481,16 @@ def check_cost_experiments(dev):
     print(f"    probes over T = {T} tiles, floor (1 block) {r_grid['floor_ms']:.5f} ms:")
     for p in GC.PROBES:
         name = p.fn.__name__
-        cases = [p.args(T, dev)]
-        if p.fn is GC.while_ones:   # the experiment's zero loop counts, then 0..6
-            cases.append((torch.arange(T, dtype=torch.int32, device=dev) % 7,))
+        # the experiment's arguments, then the edges of the grid
+        cases = [p.args(T, dev)] + p.check_args(dev)
         for args in cases:
             before = p.fn.launches
             got = p.fn(*args)
             torch.cuda.synchronize()
             if p.fn.launches != before + 1:
                 raise AssertionError(f"{name} did not count its launch")
-            err = same(got, p.plain(*args), name)
+            t = len(args[0]) if isinstance(args[0], torch.Tensor) else args[0]
+            err = same(got, p.plain(*args), f"{name} at T = {t}")
         # the inputs read once, the outputs written once
         n_bytes = sum(4 * a.numel() for a in cases[0] if isinstance(a, torch.Tensor))
         bound = _bound(0, n_bytes + T * 256 * p.floats * 4)
@@ -496,8 +498,9 @@ def check_cost_experiments(dev):
         lib_ms = (timed(lambda: torch.ones((T, 256, p.floats), dtype=torch.float32,
                                            device=dev)) if p.ones else None)
         plain_ms = timed(lambda: p.plain(*cases[0]))
-        lib = "none" if lib_ms is None else f"{lib_ms:.5f} ms"
-        print(f"      {p.id:3s} {name:16s} bit-equal, {pr['ms']:.5f} ms, {pr['blocks']} "
+        lib = "none" if lib_ms is None else f"{lib_ms:.5f} ms ({pr['ms'] / lib_ms:.3f}x)"
+        print(f"      {p.id:3s} {name:16s} bit-equal in {len(cases)} cases, "
+              f"{pr['ms']:.5f} ms, {pr['blocks']} "
               f"blocks, {pr['per_block_us']} us/block over the floor, bound "
               f"{bound['bound_ms']:.5f} ms, plain {plain_ms:.5f} ms, torch.ones {lib}")
         kernels.append(dict(

@@ -16,10 +16,20 @@
 //   K5  k3 (:62-65, call :67), ones into three outputs [T,256,3], [T,256,1],
 //       [T,256,1]: one block per tile, thread n writes its pixel of all three.
 //   K6  k1 into a (1,256,5) block (call :78). The JAX kernel is ill-formed: it
-//       stores a (256,1) value into a (256,5) block, which its trace rejects.
+//       stores a (256,1) value into a (256,5) block, which its trace rejects
+//       when it is traced (the script rebinds f5 at :88 before calling it).
 //       Ported as its intended function, the (256,1) value broadcast across
-//       the 5 channels: thread n computes its pixel's value once and stores it
-//       5 times (a stride-5 store per thread). Its output is K7's.
+//       the 5 channels. Its output is K7's. One block per tile: thread n
+//       computes pixel n's value once, in a register, and each warp writes
+//       its 32 pixels' 160 contiguous floats (a multiple of 640 B into a
+//       tile that starts at a multiple of 5120 B) as 40 float4 stores, the
+//       values of float4 j gathered by shuffles from lanes 4j/5 .. (4j+3)/5.
+//       Measured on an H100 80GB HBM3 at 700 W against it: the tile staged in shared memory
+//       behind a barrier (4 tiles per block 1.04-1.07x torch.ones), 2 or 4
+//       tiles per block (about 1% slower), and Hopper's bulk asynchronous
+//       store of the staged tile (cp.async.bulk, 1.06x). PR 3's mapping,
+//       thread n storing its value at 5n .. 5n+4, spread each warp store
+//       over 20 sectors and took four times K7's time.
 //   K7  k5 (:85-86, call :88), ones [T,256,5]: one block per tile fills its
 //       1280 contiguous floats, thread n at n, n+256, ... (coalesced).
 //   K8  kp (:97-98, call :100), ones [T,256,5], two tiles per grid step: one
@@ -27,12 +37,21 @@
 //   K9  kw (:111-117, call :119), out[t,n,0] = n % 16 + tri[0,0]: every block
 //       builds the 128x128 strict upper triangle (i < j) in shared memory, as
 //       every TPU grid step built its iotas, and adds its [0,0] entry (0).
-//   K10 kwl (:128-139, call :146): block t loads its own s[t] (the TPU's
-//       scalar prefetch), runs a loop of s[t] iterations, then writes ones
-//       [T,256,1]. An empty asm statement that takes the counter as an in/out
-//       operand keeps the compiler from folding the loop into c = s[t], and
-//       the stored value is 1 only when the counter ended at max(s[t], 0), so
-//       a loop that ran wrong shows in the output.
+//   K10 kwl (:128-139, call :146): a warp per tile, kWarps tiles per block
+//       of 256 threads. Each warp loads its tile's loop count s[t] (the TPU's
+//       scalar prefetch; one 4-byte load for the warp, the block's 8 counts
+//       adjacent), stores its tile's 256 ones [T,256,1] as two float4 a lane,
+//       runs the loop of s[t] iterations, and stores zeros over its ones if
+//       the counter did not end at max(s[t], 0), so a loop that ran wrong
+//       shows in the output. An empty asm statement that takes the counter
+//       as an in/out operand keeps the compiler from folding the loop into
+//       c = s[t]. The JAX kernel's store does not depend on its loop; here
+//       neither does the first store, so the load's latency overlaps the
+//       stores (measured: with the store after the loop, or the block's
+//       counts staged in shared memory behind a barrier, K10 took 0.2 us
+//       more, 1.07-1.10x torch.ones). PR 3's mapping, one block per tile
+//       whose first act was the dependent load of its s[t], launched 2500
+//       blocks and lost 1.5x to torch.ones.
 //
 // Bound. Bytes written once: 2.56 MB for K4, K9 and K10 (about 0.76 us at
 // 3.35 TB/s; K10 also reads s, 4 T bytes), 12.8 MB for K5-K8 (about 3.8 us).
@@ -45,6 +64,8 @@ namespace {
 
 constexpr int kN = 256;   // pixels per tile, threads per block
 constexpr int kTri = 128;
+constexpr int kTile5 = kN * 5 / 4;   // float4 per tile of 5 floats a pixel
+constexpr int kWarps = kN / 32;      // K10's tiles per block, a warp each
 
 __global__ void __launch_bounds__(kN) ones_parallel_kernel(float* __restrict__ out) {
   out[(size_t)blockIdx.x * kN + threadIdx.x] = 1.0f;
@@ -68,11 +89,25 @@ ones_three_kernel(float* __restrict__ a, float* __restrict__ b,
   c[px] = 1.0f;
 }
 
-__global__ void __launch_bounds__(kN) ones_broadcast5_kernel(float* __restrict__ out) {
+__global__ void __launch_bounds__(kN) ones_broadcast5_kernel(float4* __restrict__ out) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const float v = 1.0f;   // k1's (256, 1) value of this pixel
-  float* o = out + ((size_t)blockIdx.x * kN + threadIdx.x) * 5;
-#pragma unroll
-  for (int ch = 0; ch < 5; ++ch) o[ch] = v;
+  // the warp's 32 pixels are the tile's floats [160 w, 160 w + 160): float4
+  // j of them holds pixels (4 j) / 5 .. (4 j + 3) / 5 of the warp
+  const int j = lane + 32;   // a lane's second float4, stored by lanes < 8
+  float4 a, b;
+  a.x = __shfl_sync(kAll, v, (4 * lane) / 5);
+  a.y = __shfl_sync(kAll, v, (4 * lane + 1) / 5);
+  a.z = __shfl_sync(kAll, v, (4 * lane + 2) / 5);
+  a.w = __shfl_sync(kAll, v, (4 * lane + 3) / 5);
+  b.x = __shfl_sync(kAll, v, ((4 * j) / 5) & 31);
+  b.y = __shfl_sync(kAll, v, ((4 * j + 1) / 5) & 31);
+  b.z = __shfl_sync(kAll, v, ((4 * j + 2) / 5) & 31);
+  b.w = __shfl_sync(kAll, v, ((4 * j + 3) / 5) & 31);
+  float4* o = out + (size_t)blockIdx.x * kTile5 + w * 40;
+  o[lane] = a;
+  if (lane < 8) o[j] = b;
 }
 
 template <int kTiles>
@@ -92,14 +127,24 @@ __global__ void __launch_bounds__(kN) iota_px_kernel(float* __restrict__ out) {
 }
 
 __global__ void __launch_bounds__(kN)
-while_ones_kernel(const int* __restrict__ s, float* __restrict__ out) {
-  const int start = s[blockIdx.x];
+while_ones_kernel(const int* __restrict__ s, float4* __restrict__ out, int num_tiles) {
+  const int t = blockIdx.x * kWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (t >= num_tiles) return;
+  const int start = __ldg(s + t);   // issued first; nothing below waits on it
+  float4* o = out + (size_t)t * (kN / 4);
+  const float4 ones = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+  o[lane] = ones;
+  o[lane + 32] = ones;
   int c = 0;
   while (c < start) {
     c = c + 1;
     asm volatile("" : "+r"(c));
   }
-  out[(size_t)blockIdx.x * kN + threadIdx.x] = (c == max(start, 0)) ? 1.0f : 0.0f;
+  if (c != max(start, 0)) {   // a loop that ran wrong leaves zeros
+    const float4 zeros = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    o[lane] = zeros;
+    o[lane + 32] = zeros;
+  }
 }
 
 }  // namespace
@@ -131,7 +176,8 @@ extern "C" int fourdgs_ones_three(float* a, float* b, float* c, int num_tiles,
 
 extern "C" int fourdgs_ones_broadcast5(float* out, int num_tiles, void* stream) {
   if (num_tiles <= 0) return 0;
-  ones_broadcast5_kernel<<<num_tiles, kN, 0, (cudaStream_t)stream>>>(out);
+  ones_broadcast5_kernel<<<num_tiles, kN, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<float4*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -156,7 +202,9 @@ extern "C" int fourdgs_iota_px(float* out, int num_tiles, void* stream) {
 extern "C" int fourdgs_while_ones(const int* s, float* out, int num_tiles,
                                   void* stream) {
   if (num_tiles <= 0) return 0;
-  while_ones_kernel<<<num_tiles, kN, 0, (cudaStream_t)stream>>>(s, out);
+  const int blocks = (num_tiles + kWarps - 1) / kWarps;
+  while_ones_kernel<<<blocks, kN, 0, (cudaStream_t)stream>>>(
+      s, reinterpret_cast<float4*>(out), num_tiles);
   return (int)cudaGetLastError();
 }
 

@@ -20,8 +20,9 @@ K10    ``kwl`` :146          :func:`while_ones`       ones [T, 256, 1]
 =====  ====================  =======================  ======================
 
 K6's JAX kernel stores a (256, 1) value into a (256, 5) block, which its
-trace rejects (``ValueError``); the port computes its intended function,
-the value broadcast over the 5 channels, which is K7's output.
+trace rejects (``ValueError``) when it is traced: the script never calls it,
+since it rebinds ``f5`` at :88 first. The port computes its intended
+function, the value broadcast over the 5 channels, which is K7's output.
 
 Each wrapper takes the tile count T and ``device`` (default ``"cuda"``,
 raising without CUDA unless ``device="cpu"``); :func:`while_ones` takes the
@@ -96,8 +97,8 @@ def while_ones_plain(s: torch.Tensor) -> torch.Tensor:
 
 
 def _probe(entry: str, channels: int, plain, doc: str):
-    """The wrapper of ``fourdgs_<entry>``, a block per tile filling one
-    [T, 256, channels] output."""
+    """The wrapper of ``fourdgs_<entry>``, filling one [T, 256, channels]
+    output."""
 
     def wrapper(num_tiles: int, device="cuda") -> torch.Tensor:
         dev = _device(num_tiles, device)
@@ -118,7 +119,8 @@ def _probe(entry: str, channels: int, plain, doc: str):
 ones_parallel = _probe("ones_parallel", 1, ones_plain,
                        'K4, "parallel": ones [T, 256, 1], one block per tile.')
 ones_broadcast5 = _probe("ones_broadcast5", 5, ones_broadcast5_plain,
-                         "K6: k1's per-pixel value stored into each of 5 channels.")
+                         "K6: k1's per-pixel value broadcast over 5 channels, "
+                         "each warp storing its pixels' floats as float4.")
 ones5 = _probe("ones5", 5, ones5_plain,
                "K7: ones [T, 256, 5], each block filling its tile's 1280 floats.")
 iota_px = _probe("iota_px", 1, iota_px_plain,
@@ -168,8 +170,9 @@ def ones5_pairs(num_tiles: int, device="cuda") -> torch.Tensor:
 
 
 def while_ones(s: torch.Tensor) -> torch.Tensor:
-    """K10: block t runs a loop of ``s[t]`` iterations, then writes ones
-    [T, 256, 1]."""
+    """K10: ones [T, 256, 1], the warp of tile t storing its ones and then
+    running a loop of ``s[t]`` iterations (zeros where the counter ends
+    wrong); 8 tiles per block."""
     if s.dtype != torch.int32 or s.dim() != 1 or not s.is_contiguous():
         raise ValueError(f"s must be contiguous int32 [T], got {s.dtype} {tuple(s.shape)}")
     num_tiles = s.shape[0]
@@ -200,7 +203,8 @@ class Probe(NamedTuple):
     plain: Callable    # the plain version, on the wrapper's arguments
     floats: int        # floats written per pixel, all outputs together
     grid: str          # "tile": a block per tile, "pair": one per two
-    #                    tiles, "sm": a persistent block per SM
+    #                    tiles, "warp": one per 8 tiles, a warp each,
+    #                    "sm": a persistent block per SM
     site: str          # the JAX ``pallas_call``
     label: str         # the JAX script's printed label
     ones: bool         # ``torch.ones((T, 256, floats))`` is the same output
@@ -212,6 +216,23 @@ class Probe(NamedTuple):
             return (torch.zeros(num_tiles, dtype=torch.int32, device=dev),)
         return (num_tiles, dev)
 
+    def check_args(self, dev: torch.device) -> list[tuple]:
+        """Arguments that hold the kernel to its plain version at the edges
+        of its grid: T in :data:`EDGE_TILES` (1, 7 and 2,501 are no
+        multiple of K10's 8 tiles per block; K8 takes the even T at or above
+        each), and K10 with zero, positive (t % 7) and mixed negative
+        ((t % 7) − 3) loop counts at each."""
+        cases = []
+        for t in EDGE_TILES:
+            if self.grid == "pair":
+                t += t % 2
+            if self.fn is while_ones:
+                i = torch.arange(t, dtype=torch.int32, device=dev)
+                cases += [(torch.zeros_like(i),), (i % 7,), (i % 7 - 3,)]
+            else:
+                cases.append((t, dev))
+        return cases
+
     def blocks(self, num_tiles: int, dev: torch.device) -> int | None:
         """Blocks of one launch over T tiles (None on the CPU for "sm",
         which has no SM count there)."""
@@ -219,7 +240,11 @@ class Probe(NamedTuple):
             if dev.type != "cuda":
                 return None
             return min(num_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
-        return num_tiles // 2 if self.grid == "pair" else num_tiles
+        return -(-num_tiles // TILES_PER_BLOCK[self.grid])
+
+
+TILES_PER_BLOCK = {"tile": 1, "pair": 2, "warp": 8}
+EDGE_TILES = (1, 7, 2500, 2501)
 
 
 _SITE = "scripts/exp_grid_cost.py"
@@ -238,6 +263,6 @@ PROBES = (
           "paired grid/2 blk[2,5]", True),
     Probe("K9", iota_px, iota_px_plain, 1, "tile", f"{_SITE}:119",
           "1 blk + tri/px iotas", False),
-    Probe("K10", while_ones, while_ones_plain, 1, "tile", f"{_SITE}:146",
+    Probe("K10", while_ones, while_ones_plain, 1, "warp", f"{_SITE}:146",
           "1 blk + 0-iter while", True),
 )

@@ -2,7 +2,7 @@
 
 Counterpart of ``scripts/exp_grid_cost.py``: times each grid-cost probe of
 ``ops/grid_cost.py`` (K4–K10, its table :data:`~fourdgs_tpu_torch.ops.grid_cost.PROBES`;
-the port's per-tile blocks in place of the TPU's grid steps) per call,
+the port's blocks in place of the TPU's grid steps) per call,
 beside the floor of the same launch with one block (K4 ``parallel`` at
 T = 1). Per-block cost = (time − floor) / blocks. K10 runs with zero loop
 counts, as the JAX script does. Times: see :mod:`fourdgs_tpu_torch.scripts`.

@@ -19,8 +19,12 @@ random-stack (or FineSampler) camera batches of JAX's ``random.Random``, the
 GT cached on the device, SH annealing, instance-budget and capacity growth,
 densify / prune / opacity reset on their gates, metrics read on the host
 only on a gate or log iteration, and the NaN watchdog. It takes one step
-per call (``cfg.tpu.scan_steps`` changes nothing: JAX's scan yields the
-same values). A ``utils/timer.py`` ``DetailedTimer`` times its phases and an
+per call. Where JAX scans ``cfg.tpu.scan_steps`` steps as one program (GT
+cached on the device) and reads a chunk's ``num_rendered`` and
+``max_tile_len`` as their max over the chunk (``loop.py:547-624``), the
+port forms the same chunks on the host and replaces those two metrics by
+the chunk's max at its last step, so the budget gate and the log read
+JAX's values. A ``utils/timer.py`` ``DetailedTimer`` times its phases and an
 ``utils/observability.py`` ``EventLog`` records the growths, as in JAX. Not
 ported yet, and raising: SSIM (``lambda_dssim``), a ``mesh``, the
 ``viewer``, the ``gradient_tracker``, ``debug_mode``,
@@ -356,9 +360,32 @@ def scene_reconstruction(
     batches_dev = (torch.tensor(batches, device=dev) if gt_cache is not None
                    else None)
 
+    # JAX's chunks (loop.py:547-598): up to scan_steps steps with no host
+    # gate strictly inside, when the GT is cached on the device
+    scan = cfg.tpu.scan_steps > 1 and gt_cache is not None
+
+    def gate_after(j: int) -> bool:
+        """Host work right after step j (loop.py:552-565)."""
+        due = (j % log_interval == 0 or j in extra_log_iters or j == train_iter
+               or j % opt.densification_interval == 0)
+        if j < opt.densify_until_iter:
+            due = (due or j % opt.pruning_interval == 0
+                   or j % opt.opacity_reset_interval == 0)
+        return due
+
+    def chunk_length(j: int) -> int:
+        """Steps of the chunk that starts at step j (loop.py:591-598)."""
+        n = 1
+        while (n < cfg.tpu.scan_steps and j + n <= train_iter
+               and not gate_after(j + n - 1) and (j + n) % 1000 != 0):
+            n += 1
+        return n
+
     sh_deg = state.active_sh_degree
     spatial_lr = float(state.spatial_lr_scale)
     steps: dict[int, Callable] = {}
+    chunk_end = 0
+    peaks: list[tuple[torch.Tensor, torch.Tensor]] = []   # the chunk's so far
     budget_growths = 0
     log = TrainLog()
 
@@ -393,6 +420,16 @@ def scene_reconstruction(
             params, adam_state, state, metrics = steps[sh_deg](
                 state.params, adam_state, state, batch_cams, gts, iteration)
         state = state._replace(params=params)
+        if scan:
+            if iteration > chunk_end:   # a chunk starts
+                chunk_end = iteration + chunk_length(iteration) - 1
+                peaks = []
+            peaks.append((metrics["num_rendered"], metrics["max_tile_len"]))
+            if iteration == chunk_end and len(peaks) > 1:
+                # JAX's reduction (loop.py:620-624): the two metrics at a
+                # chunk's last step are their max over it, on the device
+                metrics["num_rendered"], metrics["max_tile_len"] = (
+                    torch.stack(v).amax() for v in zip(*peaks))
 
         # instance-budget growth on the densify cadence (loop.py:708-749);
         # the render reads cfg.tpu.instance_budget on every call

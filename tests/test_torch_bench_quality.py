@@ -86,7 +86,7 @@ def test_cpu_run_prints_every_key(monkeypatch, capsys, tmp_path):
     assert jax_keys - set(res) == {"chip_minutes_vs_host_budget"}
     port_keys = {"device", "payload", "k1_launches", "k2_launches", "budget_growths",
                  "final_instance_budget", "capacity_growths", "final_capacity",
-                 "densify_events", "last_train_psnr", "stage_s"}
+                 "densify_events", "growth_events", "last_train_psnr", "stage_s"}
     assert port_keys <= set(res)
     assert res["backend"] == res["device"] == "cpu" and res["payload"] == "bf16"
     assert res["schedule"] == {"coarse": 4, "fine": 4}
@@ -94,6 +94,9 @@ def test_cpu_run_prints_every_key(monkeypatch, capsys, tmp_path):
     assert res["capacity_growths"] >= 1 and res["final_capacity"] > 2048
     assert res["resets"] == 2 and res["final_points"] > 2000
     assert all(e["kind"] in ("densify", "prune") for e in res["densify_events"])
+    kinds = [e["kind"] for e in res["growth_events"]]
+    assert (kinds.count("capacity"), kinds.count("budget")) == (
+        res["capacity_growths"], res["budget_growths"])
     # the plain blend runs on the CPU: no kernel launch is counted
     assert res["k1_launches"] == res["k2_launches"] == 0
 

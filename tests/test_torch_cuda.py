@@ -134,11 +134,9 @@ def test_gather_kernel_matches_plain(cuda_device, K):
 
 @pytest.mark.parametrize("probe", grid_cost.PROBES, ids=lambda p: p.fn.__name__)
 def test_grid_probe_matches_plain(cuda_device, probe):
-    T = 2500
-    cases = [probe.args(T, cuda_device)]
-    if probe.fn is grid_cost.while_ones:   # nonzero loop counts too
-        cases.append((torch.arange(T, dtype=torch.int32, device=cuda_device) % 7,))
-    for args in cases:
+    """At T = 1, 7, 2,500 and 2,501 (K8 at even T), K10 with zero, positive
+    and negative loop counts: bit-equal, each launch counted."""
+    for args in [probe.args(2500, cuda_device)] + probe.check_args(cuda_device):
         before = probe.fn.launches
         got = probe.fn(*args)
         torch.cuda.synchronize()

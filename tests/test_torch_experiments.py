@@ -66,8 +66,9 @@ def test_exp_grid_cost_run_returns_its_keys(one_call):
     assert set(res["probes"]) == {p.fn.__name__ for p in G.PROBES}
     for key, row in res["probes"].items():
         assert row["ms"] > 0
-        assert row["blocks"] == (None if key == "ones_sequential"
-                                 else T // 2 if key == "ones5_pairs" else T)
+        # K8 a block per two tiles, K10 one per 8 (a warp each)
+        assert row["blocks"] == {"ones_sequential": None, "ones5_pairs": T // 2,
+                                 "while_ones": -(-T // 8)}.get(key, T)
 
 
 def test_exp_kernel_overhead_run_returns_its_keys(one_call):

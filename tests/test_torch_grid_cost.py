@@ -3,7 +3,8 @@
 the JAX kernel of ``scripts/exp_grid_cost.py`` rebuilt under the Pallas
 interpreter at T = 8. The bodies are copied verbatim (the script defines them
 inside ``main``); the outputs are constants and iotas, so the tolerance is 0.
-K6's JAX kernel fails at trace time; the port's K6 gives K7's output."""
+K6's JAX kernel fails at trace time (the script never calls it: it rebinds
+``f5`` first); the port's K6 gives K7's output."""
 
 import jax
 import jax.numpy as jnp
@@ -146,6 +147,37 @@ def test_probe_matches_jax_kernel(name):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("counts", ["zero", "t % 7", "(t % 7) - 3", "-5"])
+def test_while_ones_loop_counts_match_jax(counts):
+    """K10 with zero, positive, mixed negative and all negative loop counts:
+    the port's plain version against the JAX kernel, which writes ones
+    whatever the loop ran."""
+    t = np.arange(T, dtype=np.int32)
+    s = {"zero": 0 * t, "t % 7": t % 7, "(t % 7) - 3": t % 7 - 3, "-5": t * 0 - 5}[counts]
+    got = G.while_ones(torch.from_numpy(s.astype(np.int32)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_probe("while_ones", s)))
+
+
+def test_check_args_cover_the_grid_edges():
+    """Each probe's chip-check arguments run on the CPU (their plain
+    versions) and reach a T that is not a multiple of its tiles per block;
+    K10 gets negative loop counts."""
+    cpu = torch.device("cpu")
+    for p in G.PROBES:
+        cases = p.check_args(cpu)
+        tiles = [len(a[0]) if isinstance(a[0], torch.Tensor) else a[0] for a in cases]
+        if p.grid == "pair":
+            assert all(t % 2 == 0 for t in tiles)
+        elif p.grid == "warp":
+            assert any(t % G.TILES_PER_BLOCK[p.grid] for t in tiles), p.id
+        for args, t in zip(cases, tiles):
+            out = p.fn(*args)
+            for o in out if isinstance(out, tuple) else (out,):
+                assert o.shape[0] == t, p.id
+    loops = [a[0] for a in G.PROBES[-1].check_args(cpu)]
+    assert G.PROBES[-1].fn is G.while_ones and any(bool((s < 0).any()) for s in loops)
+
+
 def test_k6_jax_kernel_fails_at_trace_and_port_gives_k7():
     """exp_grid_cost.py:78 stores ``k1``'s (256, 1) value into a (256, 5)
     block; the trace rejects the store. The port's K6 broadcasts the value,
@@ -185,5 +217,9 @@ def test_probe_table_matches_the_outputs():
             torch.testing.assert_close(out, torch.ones((T, N, p.floats)), rtol=0, atol=0)
         else:
             assert not (len(outs) == 1 and bool((outs[0] == 1).all())), p.id
-        assert p.blocks(T, cpu) == {"tile": T, "pair": T // 2, "sm": None}[p.grid], p.id
+        for t in (T, 7, 2501):
+            if p.grid == "pair" and t % 2:
+                continue        # K8 takes an even T
+            want = {"tile": t, "pair": t // 2, "warp": -(-t // 8), "sm": None}[p.grid]
+            assert p.blocks(t, cpu) == want, (p.id, t)
         assert p.site.startswith("scripts/exp_grid_cost.py:"), p.id
