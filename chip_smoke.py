@@ -48,10 +48,15 @@ on failure:
    2,097,152-slot shape), ``exp_grid_cost`` (the probes K4–K10 over 2500
    tiles) and ``exp_kernel_overhead`` (K1 and K2 on empty, 98- and
    128-per-tile grids: per-tile fixed cost and per-instance cost). Then K3
-   bit for bit against its plain version at both shapes, each probe bit for
-   bit against its plain version at the experiment's 2,500 tiles and at T =
-   1, 7, 2,500 and 2,501 (K8 at even T; K10 with zero, positive and mixed
-   negative loop counts at each), K1 and K2 on the three grids against
+   bit for bit against ``index_select(1)`` at P in 1, 17, 65,536, 65,537 by
+   K in 1, 31, 33, 393,216, 2,097,152, with NaN columns for ids −1 and P and
+   nothing launched at K = 0, and at both shapes, with its two passes'
+   hooks bit for bit against ``table.T`` and the call, and their times
+   (staging, gather) beside ``index_select(1)`` and the render path's
+   ``index_select(0).T``; each probe bit for bit against its plain version
+   at the experiment's 2,500 tiles and at T = 1, 7, 2,500 and 2,501 (K8
+   at even T; K10 with zero, positive and mixed negative loop counts at
+   each), K1 and K2 on the three grids against
    theirs (the bounds above), each launch counted; the times of the plain
    versions and of the one-call PyTorch yardsticks;
 8. one JSON line ``{"kernels": [...]}`` and, last, the result line
@@ -403,6 +408,76 @@ def check_cull_exact(fn, *args):
         raise AssertionError(f"{fn.__name__}: the cull changed {bad} output elements")
 
 
+GATHER_EDGE_P = (1, 17, 65_536, 65_537)
+GATHER_EDGE_K = (1, 31, 33, 393_216, 2_097_152)
+
+
+def gather_edge_inputs(P, K, device, seed=0):
+    """K3 at an edge of its grids: a [16, P] table and K uniform ids, the
+    first P − 1 and the last 0 (P = 17, 65,537: no multiple of the staging
+    pass's 128 columns; K = 31, 33: a warp's 32 slots ± 1)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.standard_normal((16, P), dtype=np.float32))
+    idx = rng.integers(0, P, K, dtype=np.int32)
+    idx[-1:] = 0
+    idx[:1] = P - 1
+    return table.to(device), torch.from_numpy(idx).to(device)
+
+
+def check_gather(table, idx):
+    """One K3 call (``gather.gather_cols``) on the card: raise unless it
+    counts one launch (none at K = 0) and gives ``index_select(1)``'s bits
+    on the ids in [0, P) and NaN columns on the others; returns the output."""
+    import torch
+
+    from fourdgs_tpu_torch.ops import gather
+
+    before = gather.gather_cols.launches
+    out = gather.gather_cols(table, idx)
+    torch.cuda.synchronize()
+    K = idx.numel()
+    if gather.gather_cols.launches != before + (K > 0):
+        raise AssertionError(f"gather_cols at K = {K} counted "
+                             f"{gather.gather_cols.launches - before} launches")
+    if out.shape != (16, K):
+        raise AssertionError(f"gather_cols gave {tuple(out.shape)} at K = {K}")
+    bad = (idx < 0) | (idx >= table.shape[1])
+    if not bool(torch.isnan(out[:, bad]).all()):
+        raise AssertionError("gather_cols: an id outside [0, P) gave a non-NaN value")
+    if not torch.equal(out[:, ~bad], gather.gather_cols_plain(table, idx[~bad])):
+        raise AssertionError(f"K3 differs from index_select(1) at P = "
+                             f"{table.shape[1]}, K = {K}")
+    return out
+
+
+def check_gather_ranges(dev):
+    """K3 with ids −1 and P among in-range ids (NaN columns there) and at
+    K = 0 (an empty [16, 0], no launch)."""
+    table, idx = gather_edge_inputs(17, 33, dev)
+    idx[5], idx[6] = -1, 17
+    check_gather(table, idx)
+    check_gather(table, idx[:0])
+
+
+def check_gather_back_to_back(dev):
+    """Two K3 calls queued back to back on two tables of one shape (the
+    second staging into the first's freed scratch while nothing waits in
+    between): each gives its own table's columns."""
+    import torch
+
+    from fourdgs_tpu_torch.ops import gather
+
+    a, idx = gather_edge_inputs(65_537, 393_216, dev, seed=1)
+    b = gather_edge_inputs(65_537, 393_216, dev, seed=2)[0]
+    outs = [gather.gather_cols(t, idx) for t in (a, b, a)]
+    torch.cuda.synchronize()
+    for t, out in zip((a, b, a), outs):
+        if not torch.equal(out, gather.gather_cols_plain(t, idx)):
+            raise AssertionError("K3 calls back to back read another call's rows")
+
+
 def check_cost_experiments(dev):
     """Phase 7: the three cost experiments through their ``run()``, then each
     new kernel against its plain version; returns the kernels-line entries of
@@ -444,7 +519,17 @@ def check_cost_experiments(dev):
             raise AssertionError(f"{what} differs from its plain version: {errs}")
         return 0.0
 
-    # K3 against its plain version at the script's and the render's shape
+    # K3 at its edge cases, then at the script's and the render's shape
+    n_edges = 0
+    for P_e in GATHER_EDGE_P:
+        for K_e in GATHER_EDGE_K:
+            check_gather(*gather_edge_inputs(P_e, K_e, dev))
+            n_edges += 1
+    check_gather_ranges(dev)
+    check_gather_back_to_back(dev)
+    print(f"    K3 bit-equal to index_select(1) at {n_edges} edge cases (P in "
+          f"{GATHER_EDGE_P}, K in {GATHER_EDGE_K}), NaN columns for ids -1 and P, "
+          f"nothing launched at K = 0, three calls back to back each its own")
     rng = np.random.default_rng(0)
     P, K, KR = r_gather["P"], r_gather["K"], r_gather["render_K"]
     tableT = torch.from_numpy(rng.standard_normal((16, P), dtype=np.float32)).to(dev)
@@ -452,29 +537,32 @@ def check_cost_experiments(dev):
     for shape, idx in (
             ("script", torch.from_numpy(rng.integers(0, P, K, dtype=np.int32)).to(dev)),
             ("render", exp_gather.render_ids(P, KR, r_gather["render_n_ids"], rng, dev))):
-        before = gather.gather_cols.launches
-        out = gather.gather_cols(tableT, idx)
-        torch.cuda.synchronize()
-        if gather.gather_cols.launches != before + 1:
-            raise AssertionError("gather_cols did not count its launch")
-        err = same(out, gather.gather_cols_plain(tableT, idx), f"K3 at the {shape} shape")
+        out = check_gather(tableT, idx)
+        err = float((out - gather.gather_cols_plain(tableT, idx)).abs().max())
+        rows = gather._stage_rows(tableT)
+        if not (torch.equal(rows, tableT.T) and torch.equal(gather._gather_rows(rows, idx), out)):
+            raise AssertionError(f"K3's pass hooks differ from table.T and the call "
+                                 f"at the {shape} shape")
         n = idx.numel()
         bound = _bound(0, 4 * n + 64 * n + 64 * P)
-        k_ms = r_gather["ms"][f"{shape}/gather_cols/float32"]
+        ms = {v: r_gather["ms"][f"{shape}/{v}/float32"] for v in (
+            "gather_cols", "stage", "gather_pass", "take_axis0_T", "take_axis1")}
         plain_ms = timed(lambda: gather.gather_cols_plain(tableT, idx))
-        lib_ms = timed(lambda: torch.index_select(tableT, 1, idx))
-        port_ms = r_gather["ms"][f"{shape}/take_axis0_T/float32"]
-        print(f"    K3 at the {shape} shape (P {P}, K {n}): bit-equal to plain, kernel "
-              f"{k_ms:.4f} ms, plain {plain_ms:.4f} ms, index_select(1) {lib_ms:.4f} ms, "
-              f"render path index_select(0).T {port_ms:.4f} ms, bound "
-              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), kernel/bound "
-              f"{k_ms / bound['bound_ms']:.2f}")
+        print(f"    K3 at the {shape} shape (P {P}, K {n}): bit-equal to plain; call "
+              f"{ms['gather_cols']:.4f} ms = staging pass {ms['stage']:.4f} + gather "
+              f"pass {ms['gather_pass']:.4f} (each hook bit-equal); "
+              f"index_select(1) {ms['take_axis1']:.4f} ms; the render path's "
+              f"index_select(0).T {ms['take_axis0_T']:.4f} ms against the gather pass; "
+              f"plain {plain_ms:.4f} ms; bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}), call/bound {ms['gather_cols'] / bound['bound_ms']:.2f}, "
+              f"index_select(1)/call {ms['take_axis1'] / ms['gather_cols']:.2f}")
         if shape == "script":
             kernels.append(dict(
                 name="gather_cols", route="cuda",
                 source="fourdgs_tpu_torch/csrc/gather_cols.cu",
                 replaces="scripts/exp_gather.py:93", launches=n_gather["gather_cols"],
-                max_abs_err=err, ms=k_ms, plain_ms=plain_ms, library_ms=lib_ms, **bound))
+                max_abs_err=err, ms=ms["gather_cols"], plain_ms=plain_ms,
+                library_ms=ms["take_axis1"], **bound))
 
     # K4-K10 against their plain versions over the experiment's tiles
     T = r_grid["T"]

@@ -8,11 +8,21 @@
 //
 // The TPU grid and its Hopper mapping, per probe (out [T, 256, c] float32,
 // row-major, c channels per pixel):
-//   K4  k1 (:49-50, call :53), ones [T,256,1].
-//       "parallel": one block of 256 threads per tile (T blocks).
-//       "arbitrary" (the sequential grid of one TPU core): a persistent loop,
-//       one block per SM (the caller passes the SM count), each striding over
-//       the tiles t = blockIdx.x, blockIdx.x + gridDim.x, ...
+//   K4  k1 (:49-50, call :53), ones [T,256,1], both mappings storing a
+//       tile's 1 KB as float4, a warp per tile (K10's mapping without its
+//       load and loop). "parallel": 8 tiles per block of 256 threads, each
+//       lane storing two float4 of its tile, ceil(T/8) blocks (313 at
+//       T = 2500; surplus warps of the last block return). "arbitrary" (the
+//       sequential grid of one TPU core): a persistent grid of one block of
+//       256 threads per SM (the caller passes the block count), each warp
+//       striding over the tiles t = blockIdx.x * 8 + warp + i * gridDim.x * 8.
+//       Measured against them and removed (exp_grid_cost.run(), an H100
+//       80GB HBM3 at 700 W), all within 0.01 us of the kept ones:
+//       4 tiles per block of 128 threads, 4 tiles per block with two warps
+//       per tile storing one float4 a lane, and the persistent grid at 2
+//       blocks per SM. The first port's mappings, a block per tile storing
+//       one float a thread (2500 blocks) and the persistent block storing
+//       1 KB a trip, lost 1.38x and 1.03x to torch.ones.
 //   K5  k3 (:62-65, call :67), ones into three outputs [T,256,3], [T,256,1],
 //       [T,256,1]: one block per tile, thread n writes its pixel of all three.
 //   K6  k1 into a (1,256,5) block (call :78). The JAX kernel is ill-formed: it
@@ -65,16 +75,29 @@ namespace {
 constexpr int kN = 256;   // pixels per tile, threads per block
 constexpr int kTri = 128;
 constexpr int kTile5 = kN * 5 / 4;   // float4 per tile of 5 floats a pixel
-constexpr int kWarps = kN / 32;      // K10's tiles per block, a warp each
+constexpr int kWarps = kN / 32;      // K4's and K10's tiles per block, a warp each
 
-__global__ void __launch_bounds__(kN) ones_parallel_kernel(float* __restrict__ out) {
-  out[(size_t)blockIdx.x * kN + threadIdx.x] = 1.0f;
+// K4 "parallel": a warp per tile, kWarps tiles per block, each lane storing
+// two float4 of its tile's 64.
+__global__ void __launch_bounds__(kN)
+ones_parallel_kernel(float4* __restrict__ out, int num_tiles) {
+  const int t = blockIdx.x * kWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (t >= num_tiles) return;
+  float4* o = out + (size_t)t * (kN / 4);
+  const float4 ones = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+  o[lane] = ones;
+  o[lane + 32] = ones;
 }
 
 __global__ void __launch_bounds__(kN)
-ones_sequential_kernel(float* __restrict__ out, int num_tiles) {
-  for (int t = blockIdx.x; t < num_tiles; t += gridDim.x) {
-    out[(size_t)t * kN + threadIdx.x] = 1.0f;
+ones_sequential_kernel(float4* __restrict__ out, int num_tiles) {
+  const int lane = threadIdx.x % 32;
+  const float4 ones = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+  for (int t = blockIdx.x * kWarps + threadIdx.x / 32; t < num_tiles;
+       t += gridDim.x * kWarps) {
+    float4* o = out + (size_t)t * (kN / 4);
+    o[lane] = ones;
+    o[lane + 32] = ones;
   }
 }
 
@@ -153,17 +176,22 @@ while_ones_kernel(const int* __restrict__ s, float4* __restrict__ out, int num_t
 // `stream`, does not synchronise, allocates nothing and returns
 // cudaGetLastError() of its launch; `num_tiles` is T.
 
+// K4 "parallel": ceil(T / 8) blocks.
 extern "C" int fourdgs_ones_parallel(float* out, int num_tiles, void* stream) {
   if (num_tiles <= 0) return 0;
-  ones_parallel_kernel<<<num_tiles, kN, 0, (cudaStream_t)stream>>>(out);
+  const int blocks = (num_tiles + kWarps - 1) / kWarps;
+  ones_parallel_kernel<<<blocks, kN, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<float4*>(out), num_tiles);
   return (int)cudaGetLastError();
 }
 
+// K4 "arbitrary": `num_blocks` persistent blocks (the caller's grid).
 extern "C" int fourdgs_ones_sequential(float* out, int num_tiles, int num_blocks,
                                        void* stream) {
   if (num_tiles <= 0) return 0;
-  const int blocks = num_blocks < num_tiles ? num_blocks : num_tiles;
-  ones_sequential_kernel<<<blocks, kN, 0, (cudaStream_t)stream>>>(out, num_tiles);
+  if (num_blocks <= 0) return (int)cudaErrorInvalidValue;
+  ones_sequential_kernel<<<num_blocks, kN, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<float4*>(out), num_tiles);
   return (int)cudaGetLastError();
 }
 

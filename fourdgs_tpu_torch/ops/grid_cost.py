@@ -24,6 +24,14 @@ trace rejects (``ValueError``) when it is traced: the script never calls it,
 since it rebinds ``f5`` at :88 first. The port computes its intended
 function, the value broadcast over the 5 channels, which is K7's output.
 
+K4's two mappings store a tile's 1 KB as float4, a warp per tile:
+``parallel`` at 8 tiles per block of 256 threads (ceil(T / 8) blocks, 313 at
+T = 2,500), ``arbitrary`` as one persistent block per SM whose warps stride
+over the tiles (:func:`sequential_blocks`); ``csrc/grid_cost.cu`` gives the
+layouts they were measured against. Their bound is the 2.56 MB output
+written once, 0.76 µs at 3.35 TB/s: below a launch's own latency, so the
+probes measure the launch and its blocks.
+
 Each wrapper takes the tile count T and ``device`` (default ``"cuda"``,
 raising without CUDA unless ``device="cpu"``); :func:`while_ones` takes the
 per-tile loop counts ``s`` [T] int32 and runs where they lie. On the CPU a
@@ -116,8 +124,6 @@ def _probe(entry: str, channels: int, plain, doc: str):
     return wrapper
 
 
-ones_parallel = _probe("ones_parallel", 1, ones_plain,
-                       'K4, "parallel": ones [T, 256, 1], one block per tile.')
 ones_broadcast5 = _probe("ones_broadcast5", 5, ones_broadcast5_plain,
                          "K6: k1's per-pixel value broadcast over 5 channels, "
                          "each warp storing its pixels' floats as float4.")
@@ -128,16 +134,43 @@ iota_px = _probe("iota_px", 1, iota_px_plain,
                  "triangle first.")
 
 
-def ones_sequential(num_tiles: int, device="cuda") -> torch.Tensor:
-    """K4, "arbitrary": ones [T, 256, 1], one persistent block per SM
-    striding over the tiles."""
+def ones_parallel(num_tiles: int, device="cuda") -> torch.Tensor:
+    """K4, "parallel": ones [T, 256, 1], a warp per tile storing it as two
+    float4 a lane, 8 tiles per block of 256 threads."""
     dev = _device(num_tiles, device)
     if dev.type == "cpu":
         return ones_plain(num_tiles, dev)
     out = _empty(num_tiles, 1, dev)
     if num_tiles:
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        _launch("ones_sequential", [_P, _I, _I, _P], dev, out, num_tiles, n_sm)
+        _launch("ones_parallel", [_P, _I, _P], dev, out, num_tiles)
+        ones_parallel.launches += 1
+    return out
+
+
+def sm_count(dev: torch.device) -> int | None:
+    """The card's SM count; None off the card."""
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def sequential_blocks(num_tiles: int, n_sm: int) -> int:
+    """K4 "arbitrary"'s grid: one persistent block per SM, no more than the
+    ceil(T / 8) blocks that give each warp a tile."""
+    return min(n_sm, -(-num_tiles // TILES_PER_BLOCK["warp"]))
+
+
+def ones_sequential(num_tiles: int, device="cuda") -> torch.Tensor:
+    """K4, "arbitrary": ones [T, 256, 1], one persistent block of 256
+    threads per SM (:func:`sequential_blocks`), each warp striding over the
+    tiles and storing each as two float4 a lane."""
+    dev = _device(num_tiles, device)
+    if dev.type == "cpu":
+        return ones_plain(num_tiles, dev)
+    out = _empty(num_tiles, 1, dev)
+    if num_tiles:
+        blocks = sequential_blocks(num_tiles, sm_count(dev))
+        _launch("ones_sequential", [_P, _I, _I, _P], dev, out, num_tiles, blocks)
         ones_sequential.launches += 1
     return out
 
@@ -186,7 +219,7 @@ def while_ones(s: torch.Tensor) -> torch.Tensor:
     return out
 
 
-for _f in (ones_sequential, ones_three, ones5_pairs, while_ones):
+for _f in (ones_parallel, ones_sequential, ones_three, ones5_pairs, while_ones):
     _f.launches = 0
 del _f
 
@@ -204,7 +237,8 @@ class Probe(NamedTuple):
     floats: int        # floats written per pixel, all outputs together
     grid: str          # "tile": a block per tile, "pair": one per two
     #                    tiles, "warp": one per 8 tiles, a warp each,
-    #                    "sm": a persistent block per SM
+    #                    "sm": a persistent block per SM, its warps
+    #                    striding over the tiles
     site: str          # the JAX ``pallas_call``
     label: str         # the JAX script's printed label
     ones: bool         # ``torch.ones((T, 256, floats))`` is the same output
@@ -234,12 +268,11 @@ class Probe(NamedTuple):
         return cases
 
     def blocks(self, num_tiles: int, dev: torch.device) -> int | None:
-        """Blocks of one launch over T tiles (None on the CPU for "sm",
+        """Blocks of one launch over T tiles (None for "sm" off the card,
         which has no SM count there)."""
         if self.grid == "sm":
-            if dev.type != "cuda":
-                return None
-            return min(num_tiles, torch.cuda.get_device_properties(dev).multi_processor_count)
+            n_sm = sm_count(dev)
+            return None if n_sm is None else sequential_blocks(num_tiles, n_sm)
         return -(-num_tiles // TILES_PER_BLOCK[self.grid])
 
 
@@ -249,7 +282,7 @@ EDGE_TILES = (1, 7, 2500, 2501)
 
 _SITE = "scripts/exp_grid_cost.py"
 PROBES = (
-    Probe("K4", ones_parallel, ones_plain, 1, "tile", f"{_SITE}:53",
+    Probe("K4", ones_parallel, ones_plain, 1, "warp", f"{_SITE}:53",
           "1 out blk, parallel", True),
     Probe("K4", ones_sequential, ones_plain, 1, "sm", f"{_SITE}:53",
           "1 out blk, arbitrary", True),

@@ -14,7 +14,13 @@ Gaussians, K = 393,216 slots, uniform ids, float32 and bfloat16) it times:
   bookkeeping, then ``ops/rasterize.py::payload_grad`` (its segment sum, in
   float32 whatever the cotangent's type);
 - ``K3 gather_cols`` (float32 only, as the TPU kernel): the CUDA kernel
-  ``csrc/gather_cols.cu`` on the transposed table.
+  ``csrc/gather_cols.cu`` on the transposed table, its staging and its
+  gather pass;
+- ``K3 staging pass`` and ``K3 gather pass`` apart (``ops/gather.py``'s
+  hooks; the gather pass on the [P, 16] table is the render path's gather,
+  ``take axis0 + T``);
+- ``write [16,K] ones``: ``torch.ones`` of K3's output, what writing it
+  alone costs.
 
 Then the render's shape: K = 2,097,152 slots (the lego preset's instance
 budget) of which ``render_n_ids`` = 250,000 hold uniform ids and every padding
@@ -30,7 +36,7 @@ import torch
 from fourdgs_tpu_torch import resolve_device
 from fourdgs_tpu_torch.ops import constants as C
 from fourdgs_tpu_torch.ops.binning import BinningOut
-from fourdgs_tpu_torch.ops.gather import gather_cols
+from fourdgs_tpu_torch.ops.gather import _gather_rows, _stage_rows, gather_cols
 from fourdgs_tpu_torch.ops.rasterize import payload_grad
 from fourdgs_tpu_torch.scripts import SEED, header, main_with, time_ms
 
@@ -41,6 +47,9 @@ LABELS = {
     "scatter_add_bwd": "scatter-add bwd  ",
     "sort_segsum_bwd": "sort+segsum bwd  ",
     "gather_cols": "K3 gather_cols   ",
+    "stage": "K3 staging pass  ",
+    "gather_pass": "K3 gather pass   ",
+    "write_out": "write [16,K] ones",
 }
 
 
@@ -83,6 +92,9 @@ def _variants(table, idx, P, dt, with_bwd):
         fns["sort_segsum_bwd"] = lambda: payload_grad(gT, bins_for_ids(idx, P), P)
     if dt == torch.float32:
         fns["gather_cols"] = lambda: gather_cols(tableT, idx)
+        fns["stage"] = lambda: _stage_rows(tableT)
+        fns["gather_pass"] = lambda: _gather_rows(table, idx)
+        fns["write_out"] = lambda: torch.ones((C.FEAT_ROWS, K), device=table.device)
     return fns
 
 

@@ -4,8 +4,9 @@ Counterpart of ``scripts/exp_grid_cost.py``: times each grid-cost probe of
 ``ops/grid_cost.py`` (K4–K10, its table :data:`~fourdgs_tpu_torch.ops.grid_cost.PROBES`;
 the port's blocks in place of the TPU's grid steps) per call,
 beside the floor of the same launch with one block (K4 ``parallel`` at
-T = 1). Per-block cost = (time − floor) / blocks. K10 runs with zero loop
-counts, as the JAX script does. Times: see :mod:`fourdgs_tpu_torch.scripts`.
+T = 1: one block of 256 threads in which one warp stores and seven return).
+Per-block cost = (time − floor) / blocks. K10 runs with zero loop counts, as
+the JAX script does. Times: see :mod:`fourdgs_tpu_torch.scripts`.
 """
 
 from __future__ import annotations

@@ -13,8 +13,10 @@ installed; the repository's conftest imports JAX, hence on such a machine:
 import pytest
 import torch
 
-from chip_smoke import (blend_work, compare_blend, compare_blend_backward,
-                        cull_edge_inputs, synthetic_blend_inputs)
+from chip_smoke import (GATHER_EDGE_K, GATHER_EDGE_P, blend_work, check_gather,
+                        check_gather_back_to_back, check_gather_ranges, compare_blend,
+                        compare_blend_backward, cull_edge_inputs, gather_edge_inputs,
+                        synthetic_blend_inputs)
 from fourdgs_tpu_torch.ops import blend, gather, grid_cost
 
 pytestmark = pytest.mark.cuda
@@ -130,6 +132,49 @@ def test_gather_kernel_matches_plain(cuda_device, K):
     assert torch.equal(out, gather.gather_cols_plain(table, idx))
     with pytest.raises(ValueError):
         gather.gather_cols(table, idx.cpu())
+
+
+@pytest.mark.parametrize("K", GATHER_EDGE_K)
+@pytest.mark.parametrize("P", GATHER_EDGE_P)
+def test_gather_kernel_edges(cuda_device, P, K):
+    """K3 (staging, then gather) bit-equal to ``index_select(1)`` where P is
+    no multiple of the staging pass's columns and K none of a warp's slots,
+    ids P − 1 and 0 included; one launch counted."""
+    check_gather(*gather_edge_inputs(P, K, cuda_device))
+
+
+def test_gather_kernel_out_of_range_and_empty(cuda_device):
+    """NaN columns for ids −1 and P; K = 0 gives [16, 0] and launches
+    nothing."""
+    check_gather_ranges(cuda_device)
+
+
+def test_gather_kernel_back_to_back(cuda_device):
+    """The gather pass launches while the staging pass runs and waits for
+    its rows: calls queued back to back on other tables in one scratch
+    never read the previous call's rows."""
+    check_gather_back_to_back(cuda_device)
+
+
+@pytest.mark.parametrize("P", [17, 65_537])
+def test_gather_pass_hooks(cuda_device, P):
+    """The staging hook is ``table.T``; the gather hook on that [P, 16]
+    table is ``index_select(0).T`` (the render path's gather), NaN for ids
+    outside [0, P); neither counts as a K3 call."""
+    table, idx = gather_edge_inputs(P, 393_216, cuda_device)
+    before = gather.gather_cols.launches
+    rows = gather._stage_rows(table)
+    assert torch.equal(rows, table.T.contiguous())
+    want = rows.index_select(0, idx).T
+    bad = idx.clone()
+    bad[7], bad[8] = -1, P
+    got = gather._gather_rows(rows, idx)
+    torch.cuda.synchronize()
+    assert got.is_contiguous() and torch.equal(got, want)
+    got = gather._gather_rows(rows, bad)
+    assert bool(torch.isnan(got[:, 7:9]).all())
+    assert torch.equal(got[:, 9:], want[:, 9:]) and torch.equal(got[:, :7], want[:, :7])
+    assert gather.gather_cols.launches == before
 
 
 @pytest.mark.parametrize("probe", grid_cost.PROBES, ids=lambda p: p.fn.__name__)

@@ -43,9 +43,10 @@ def test_exp_gather_run_returns_its_keys(one_call):
     variants = ("take_axis0_T", "take_axis1", "take_axis0", "scatter_add_bwd",
                 "sort_segsum_bwd")
     want = ({f"script/{v}/{dt}" for v in variants for dt in ("float32", "bfloat16")}
-            | {"script/gather_cols/float32"}
+            | {f"{s}/{v}/float32" for s in ("script", "render", "render_uniform")
+               for v in ("gather_cols", "stage", "gather_pass", "write_out")}
             | {f"{s}/{v}/float32" for s in ("render", "render_uniform")
-               for v in ("take_axis0_T", "take_axis1", "take_axis0", "gather_cols")})
+               for v in ("take_axis0_T", "take_axis1", "take_axis0")})
     assert set(res["ms"]) == want
     assert all(r["ms"] > 0 and r["wall_ms"] > 0 for r in res["rows"])
 
@@ -66,8 +67,9 @@ def test_exp_grid_cost_run_returns_its_keys(one_call):
     assert set(res["probes"]) == {p.fn.__name__ for p in G.PROBES}
     for key, row in res["probes"].items():
         assert row["ms"] > 0
-        # K8 a block per two tiles, K10 one per 8 (a warp each)
+        # K8 a block per two tiles, K4 parallel and K10 one per 8 (a warp each)
         assert row["blocks"] == {"ones_sequential": None, "ones5_pairs": T // 2,
+                                 "ones_parallel": -(-T // 8),
                                  "while_ones": -(-T // 8)}.get(key, T)
 
 

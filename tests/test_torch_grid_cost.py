@@ -202,6 +202,20 @@ def test_probe_wrapper_checks():
             assert o.shape[0] == 0
 
 
+@pytest.mark.parametrize("t", [1, 7, 8, 9, 2500, 2501])
+def test_k4_blocks_follow_the_new_grids(monkeypatch, t):
+    """K4 "parallel" launches a block per 8 tiles (a warp each), "arbitrary"
+    one persistent block per SM but no more than those: at 132 SMs, 313 and
+    132 blocks at T = 2,500. Off the card "arbitrary" has no SM count."""
+    cpu = torch.device("cpu")
+    par, seq = (p for p in G.PROBES if p.id == "K4")
+    assert (par.fn, seq.fn) == (G.ones_parallel, G.ones_sequential)
+    assert par.blocks(t, cpu) == -(-t // 8)
+    assert seq.blocks(t, cpu) is None
+    monkeypatch.setattr(G, "sm_count", lambda dev: 132)
+    assert seq.blocks(t, cpu) == min(132, -(-t // 8))
+
+
 def test_probe_table_matches_the_outputs():
     """Each row of ``PROBES`` against its plain version's output: the floats
     per pixel (the bound of chip_smoke.py), the ``torch.ones`` yardstick,
