@@ -53,12 +53,14 @@ on failure:
    nothing launched at K = 0, and at both shapes, with its two passes'
    hooks bit for bit against ``table.T`` and the call, and their times
    (staging, gather) beside ``index_select(1)`` and the render path's
-   ``index_select(0).T``; each probe bit for bit against its plain version
-   at the experiment's 2,500 tiles and at T = 1, 7, 2,500 and 2,501 (K8
-   at even T; K10 with zero, positive and mixed negative loop counts at
-   each), K1 and K2 on the three grids against
+   ``index_select(0).T``; each probe bit for bit against its plain version,
+   writing into memory filled with NaN just before (:func:`check_probe`),
+   at the experiment's 2,500 tiles and at T = 1, 7, 16, 2,500 and 2,501
+   (K8 at the even T at or above each; K10 with zero, positive and mixed
+   negative loop counts at each), K1 and K2 on the three grids against
    theirs (the bounds above), each launch counted; the times of the plain
-   versions and of the one-call PyTorch yardsticks;
+   versions and of the one-call PyTorch yardsticks, ``torch.ones`` as
+   ``exp_grid_cost.run()`` read it in turns with each probe (``vs_ones``);
 8. one JSON line ``{"kernels": [...]}`` and, last, the result line
    ``{"ok": true, "device": {...}}``; before them phases 9 and 10:
 9. training from a point cloud (``bench_quality_torch.py``, bf16 payload):
@@ -478,6 +480,33 @@ def check_gather_back_to_back(dev):
             raise AssertionError("K3 calls back to back read another call's rows")
 
 
+def check_probe(p, args):
+    """One call of grid-cost probe ``p`` (an entry of ``ops/grid_cost.py::
+    PROBES``) on the card, into memory that held NaN just before (blocks of
+    the outputs' sizes filled and freed, which the caching allocator hands
+    back), so a tile the kernel leaves unwritten shows: its launch counted
+    and its outputs bit-equal to the plain version's. Returns the max abs
+    error, 0."""
+    import torch
+
+    want = p.plain(*args)
+    want = want if isinstance(want, tuple) else (want,)
+    poison = [torch.full_like(w, float("nan")) for w in want]
+    del poison
+    before = p.fn.launches
+    got = p.fn(*args)
+    torch.cuda.synchronize()
+    t = len(args[0]) if isinstance(args[0], torch.Tensor) else args[0]
+    name = f"{p.fn.__name__} at T = {t}"
+    if p.fn.launches != before + 1:
+        raise AssertionError(f"{name} did not count its launch")
+    got = got if isinstance(got, tuple) else (got,)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        errs = [float((a - b).abs().nan_to_num(float("inf")).max()) for a, b in zip(got, want)]
+        raise AssertionError(f"{name} differs from its plain version: {errs}")
+    return 0.0
+
+
 def check_cost_experiments(dev):
     """Phase 7: the three cost experiments through their ``run()``, then each
     new kernel against its plain version; returns the kernels-line entries of
@@ -508,16 +537,6 @@ def check_cost_experiments(dev):
 
     def timed(fn):
         return time_ms(fn, dev)[0]
-
-    def same(got, want, what):
-        """Raise unless the kernel's output equals its plain version's bit
-        for bit; returns the max abs error, 0."""
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        if not all(torch.equal(a, b) for a, b in zip(got, want)):
-            errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
-            raise AssertionError(f"{what} differs from its plain version: {errs}")
-        return 0.0
 
     # K3 at its edge cases, then at the script's and the render's shape
     n_edges = 0
@@ -571,22 +590,15 @@ def check_cost_experiments(dev):
         name = p.fn.__name__
         # the experiment's arguments, then the edges of the grid
         cases = [p.args(T, dev)] + p.check_args(dev)
-        for args in cases:
-            before = p.fn.launches
-            got = p.fn(*args)
-            torch.cuda.synchronize()
-            if p.fn.launches != before + 1:
-                raise AssertionError(f"{name} did not count its launch")
-            t = len(args[0]) if isinstance(args[0], torch.Tensor) else args[0]
-            err = same(got, p.plain(*args), f"{name} at T = {t}")
+        err = max(check_probe(p, args) for args in cases)
         # the inputs read once, the outputs written once
         n_bytes = sum(4 * a.numel() for a in cases[0] if isinstance(a, torch.Tensor))
         bound = _bound(0, n_bytes + T * 256 * p.floats * 4)
         pr = r_grid["probes"][name]
-        lib_ms = (timed(lambda: torch.ones((T, 256, p.floats), dtype=torch.float32,
-                                           device=dev)) if p.ones else None)
+        # the yardstick the experiment read in turns with the probe
+        lib_ms = pr["ones_ms"]
         plain_ms = timed(lambda: p.plain(*cases[0]))
-        lib = "none" if lib_ms is None else f"{lib_ms:.5f} ms ({pr['ms'] / lib_ms:.3f}x)"
+        lib = "none" if lib_ms is None else f"{lib_ms:.5f} ms (vs_ones {pr['vs_ones']:.3f}x)"
         print(f"      {p.id:3s} {name:16s} bit-equal in {len(cases)} cases, "
               f"{pr['ms']:.5f} ms, {pr['blocks']} "
               f"blocks, {pr['per_block_us']} us/block over the floor, bound "

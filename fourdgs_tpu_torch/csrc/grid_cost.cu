@@ -40,10 +40,36 @@
 //       store of the staged tile (cp.async.bulk, 1.06x). PR 3's mapping,
 //       thread n storing its value at 5n .. 5n+4, spread each warp store
 //       over 20 sectors and took four times K7's time.
-//   K7  k5 (:85-86, call :88), ones [T,256,5]: one block per tile fills its
-//       1280 contiguous floats, thread n at n, n+256, ... (coalesced).
-//   K8  kp (:97-98, call :100), ones [T,256,5], two tiles per grid step: one
-//       block per pair of tiles fills 2560 contiguous floats (T even).
+//   K7  k5 (:85-86, call :88), ones [T,256,5]: a warp per tile (the TPU's
+//       (1,256,5) block, 1280 contiguous floats starting at byte 5120 t, so
+//       16-byte aligned), each lane storing 10 float4 at lane + 32 i, a warp
+//       store covering 512 contiguous bytes; 4 tiles per block of 128
+//       threads, ceil(T/4) blocks (625 at T = 2500).
+//   K8  kp (:97-98, call :100), ones [T,256,5], two tiles per grid step: a
+//       warp per pair (the TPU's (2,256,5) block, 2560 contiguous floats),
+//       20 float4 a lane; 2 pairs per block of 64 threads, ceil(T/4) blocks
+//       (T even).
+//       K7 and K8 are bound by their 12.8 MB written once (3.8 us at
+//       3.35 TB/s), under the launch's own latency, and what sets their time
+//       past it is how evenly the bytes spread over the 132 SMs: a block of
+//       4 tiles (20 KB) leaves at most 5 blocks (100 KB) on an SM where the
+//       mean is 97 KB. Measured in turns on an H100 80GB HBM3 at 700 W
+//       (exp_grid_cost's timer, T = 2500, ms, three runs of 4-8 readings
+//       each; torch.ones 0.00519-0.00527): kept K7 0.00510-0.00530 (medians
+//       0.00513-0.00525), K8 0.00508-0.00529 (0.00514-0.00522). Against
+//       them, K7 / K8: 8 tiles (pairs) per block of 256 threads, 313 / 157
+//       blocks, 0.00536-0.00548 / 0.00605-0.00626 (an SM holds 120 or
+//       160 KB), with streaming stores (__stcs) no faster; 4 pairs per block
+//       of 128 threads (313 blocks) 0.00534-0.00552; a tile (pair) per block
+//       of 32 threads 0.00516-0.00543 / 0.00508-0.00523, 2 tiles per block
+//       of 64 threads 0.00508-0.00525, a tile (pair) per block split over 2
+//       or 4 warps 0.00516-0.00544 / 0.00505-0.00529; a persistent block per
+//       SM, units dealt to the blocks in turn, 0.00514-0.00525 /
+//       0.00508-0.00527 (K7 with K4 "arbitrary"'s striding, 0.00555-0.00565);
+//       K7 as a tile of ones staged in shared memory and stored by
+//       cp.async.bulk, 0.00545-0.00553. The first port's mapping, a block of
+//       256 threads per tile (pair) storing a float each, read
+//       0.00525-0.00532 / 0.00520-0.00527.
 //   K9  kw (:111-117, call :119), out[t,n,0] = n % 16 + tri[0,0]: every block
 //       builds the 128x128 strict upper triangle (i < j) in shared memory, as
 //       every TPU grid step built its iotas, and adds its [0,0] entry (0).
@@ -76,6 +102,7 @@ constexpr int kN = 256;   // pixels per tile, threads per block
 constexpr int kTri = 128;
 constexpr int kTile5 = kN * 5 / 4;   // float4 per tile of 5 floats a pixel
 constexpr int kWarps = kN / 32;      // K4's and K10's tiles per block, a warp each
+constexpr int kTiles5 = 4;           // K7's and K8's tiles per block, 20 KB
 
 // K4 "parallel": a warp per tile, kWarps tiles per block, each lane storing
 // two float4 of its tile's 64.
@@ -133,10 +160,19 @@ __global__ void __launch_bounds__(kN) ones_broadcast5_kernel(float4* __restrict_
   if (lane < 8) o[j] = b;
 }
 
-template <int kTiles>
-__global__ void __launch_bounds__(kN) ones5_kernel(float* __restrict__ out) {
-  float* o = out + (size_t)blockIdx.x * kTiles * kN * 5;
-  for (int i = threadIdx.x; i < kTiles * kN * 5; i += kN) o[i] = 1.0f;
+// K7 and K8: a warp per unit of kUnit tiles (K7 a tile, K8 the TPU's pair),
+// kPer units per block, so that a block writes 4 tiles (20 KB) in both. Lane
+// l stores the unit's float4 l, l + 32, ... (10 a tile): each warp store
+// covers 512 contiguous bytes.
+template <int kUnit, int kPer>
+__global__ void __launch_bounds__(kPer * 32)
+ones5_warp_kernel(float4* __restrict__ out, int num_units) {
+  const int u = blockIdx.x * kPer + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (u >= num_units) return;
+  float4* o = out + (size_t)u * kUnit * kTile5 + lane;
+  const float4 ones = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+#pragma unroll
+  for (int i = 0; i < kUnit * kTile5 / 32; ++i) o[32 * i] = ones;
 }
 
 __global__ void __launch_bounds__(kN) iota_px_kernel(float* __restrict__ out) {
@@ -209,15 +245,24 @@ extern "C" int fourdgs_ones_broadcast5(float* out, int num_tiles, void* stream) 
   return (int)cudaGetLastError();
 }
 
+// K7: a warp per tile, 4 tiles per block of 128 threads, ceil(T / 4) blocks.
 extern "C" int fourdgs_ones5(float* out, int num_tiles, void* stream) {
   if (num_tiles <= 0) return 0;
-  ones5_kernel<1><<<num_tiles, kN, 0, (cudaStream_t)stream>>>(out);
+  ones5_warp_kernel<1, kTiles5><<<(num_tiles + kTiles5 - 1) / kTiles5, kTiles5 * 32, 0,
+                                  (cudaStream_t)stream>>>(
+      reinterpret_cast<float4*>(out), num_tiles);
   return (int)cudaGetLastError();
 }
 
+// K8: a warp per pair of tiles (T even), 2 pairs per block of 64 threads,
+// ceil(T / 4) blocks.
 extern "C" int fourdgs_ones5_pairs(float* out, int num_tiles, void* stream) {
-  if (num_tiles <= 0) return 0;
-  ones5_kernel<2><<<num_tiles / 2, kN, 0, (cudaStream_t)stream>>>(out);
+  const int pairs = num_tiles / 2;
+  if (pairs <= 0) return 0;
+  constexpr int kPairs = kTiles5 / 2;
+  ones5_warp_kernel<2, kPairs><<<(pairs + kPairs - 1) / kPairs, kPairs * 32, 0,
+                                 (cudaStream_t)stream>>>(
+      reinterpret_cast<float4*>(out), pairs);
   return (int)cudaGetLastError();
 }
 

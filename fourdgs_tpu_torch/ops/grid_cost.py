@@ -32,6 +32,16 @@ layouts they were measured against. Their bound is the 2.56 MB output
 written once, 0.76 µs at 3.35 TB/s: below a launch's own latency, so the
 probes measure the launch and its blocks.
 
+K7 and K8 store their tiles' 12.8 MB (bound 3.8 µs at 3.35 TB/s, also
+under the launch's latency) as float4, a warp per TPU block: K7 a warp per
+tile, 4 tiles per block of 128 threads; K8 a warp per pair of tiles, 2 pairs
+per block of 64 threads; ceil(T / 4) blocks each (625 at T = 2,500). Past
+the launch, their time follows the bytes the busiest SM stores, so a block
+writes 20 KB and an SM holds at most 5 blocks; 8 tiles (or pairs) per block
+of 256 threads, 313 (157) blocks, put 120 (160) KB on some SMs and lost
+4–6% (17–19%) to it on an H100. ``csrc/grid_cost.cu`` lists the mappings measured
+against these, with their times.
+
 Each wrapper takes the tile count T and ``device`` (default ``"cuda"``,
 raising without CUDA unless ``device="cpu"``); :func:`while_ones` takes the
 per-tile loop counts ``s`` [T] int32 and runs where they lie. On the CPU a
@@ -128,7 +138,8 @@ ones_broadcast5 = _probe("ones_broadcast5", 5, ones_broadcast5_plain,
                          "K6: k1's per-pixel value broadcast over 5 channels, "
                          "each warp storing its pixels' floats as float4.")
 ones5 = _probe("ones5", 5, ones5_plain,
-               "K7: ones [T, 256, 5], each block filling its tile's 1280 floats.")
+               "K7: ones [T, 256, 5], a warp storing each tile's 1280 floats as "
+               "float4, 4 tiles per block of 128 threads.")
 iota_px = _probe("iota_px", 1, iota_px_plain,
                  "K9: n % 16 [T, 256, 1], every block building the 128×128 "
                  "triangle first.")
@@ -188,8 +199,9 @@ def ones_three(num_tiles: int, device="cuda"):
 
 
 def ones5_pairs(num_tiles: int, device="cuda") -> torch.Tensor:
-    """K8: ones [T, 256, 5], one block per pair of tiles; T must be even
-    (the JAX grid of T // 2 steps leaves an odd T's last tile unwritten)."""
+    """K8: ones [T, 256, 5], a warp storing each pair of tiles' 2560
+    floats as float4, 2 pairs per block of 64 threads; T must be even (the
+    JAX grid of T // 2 steps leaves an odd T's last tile unwritten)."""
     if isinstance(num_tiles, int) and num_tiles % 2:
         raise ValueError(f"num_tiles = {num_tiles} must be even")
     dev = _device(num_tiles, device)
@@ -235,10 +247,11 @@ class Probe(NamedTuple):
     fn: Callable       # the wrapper; ``fn.launches`` counts its launches
     plain: Callable    # the plain version, on the wrapper's arguments
     floats: int        # floats written per pixel, all outputs together
-    grid: str          # "tile": a block per tile, "pair": one per two
-    #                    tiles, "warp": one per 8 tiles, a warp each,
-    #                    "sm": a persistent block per SM, its warps
-    #                    striding over the tiles
+    grid: str          # "tile": a block per tile, "warp": one per 8
+    #                    tiles, a warp each, "warp4": one per 4 tiles, a
+    #                    warp each, "warp_pair": one per 2 pairs of tiles
+    #                    (4 tiles), a warp each, "sm": a persistent block
+    #                    per SM, its warps striding over the tiles
     site: str          # the JAX ``pallas_call``
     label: str         # the JAX script's printed label
     ones: bool         # ``torch.ones((T, 256, floats))`` is the same output
@@ -252,13 +265,14 @@ class Probe(NamedTuple):
 
     def check_args(self, dev: torch.device) -> list[tuple]:
         """Arguments that hold the kernel to its plain version at the edges
-        of its grid: T in :data:`EDGE_TILES` (1, 7 and 2,501 are no
-        multiple of K10's 8 tiles per block; K8 takes the even T at or above
-        each), and K10 with zero, positive (t % 7) and mixed negative
-        ((t % 7) − 3) loop counts at each."""
+        of its grid: T in :data:`EDGE_TILES` (1, 7 and 2,501 end in a
+        part-filled block of 4 or 8 tiles, 16 fills whole blocks of both;
+        K8 takes the even T at or above each, whose last block of 2 pairs is
+        half full at 2 and 2,502), and K10 with zero, positive (t % 7) and
+        mixed negative ((t % 7) − 3) loop counts at each."""
         cases = []
         for t in EDGE_TILES:
-            if self.grid == "pair":
+            if self.grid == "warp_pair":
                 t += t % 2
             if self.fn is while_ones:
                 i = torch.arange(t, dtype=torch.int32, device=dev)
@@ -276,8 +290,8 @@ class Probe(NamedTuple):
         return -(-num_tiles // TILES_PER_BLOCK[self.grid])
 
 
-TILES_PER_BLOCK = {"tile": 1, "pair": 2, "warp": 8}
-EDGE_TILES = (1, 7, 2500, 2501)
+TILES_PER_BLOCK = {"tile": 1, "warp": 8, "warp4": 4, "warp_pair": 4}
+EDGE_TILES = (1, 7, 16, 2500, 2501)
 
 
 _SITE = "scripts/exp_grid_cost.py"
@@ -290,9 +304,9 @@ PROBES = (
           "3 out blks, arbitrary", False),
     Probe("K6", ones_broadcast5, ones_broadcast5_plain, 5, "tile", f"{_SITE}:78",
           "k1 into blk[5] (K6)", True),
-    Probe("K7", ones5, ones5_plain, 5, "tile", f"{_SITE}:88",
+    Probe("K7", ones5, ones5_plain, 5, "warp4", f"{_SITE}:88",
           "1 out blk[5], arbitrary", True),
-    Probe("K8", ones5_pairs, ones5_plain, 5, "pair", f"{_SITE}:100",
+    Probe("K8", ones5_pairs, ones5_plain, 5, "warp_pair", f"{_SITE}:100",
           "paired grid/2 blk[2,5]", True),
     Probe("K9", iota_px, iota_px_plain, 1, "tile", f"{_SITE}:119",
           "1 blk + tri/px iotas", False),

@@ -14,9 +14,9 @@ import pytest
 import torch
 
 from chip_smoke import (GATHER_EDGE_K, GATHER_EDGE_P, blend_work, check_gather,
-                        check_gather_back_to_back, check_gather_ranges, compare_blend,
-                        compare_blend_backward, cull_edge_inputs, gather_edge_inputs,
-                        synthetic_blend_inputs)
+                        check_gather_back_to_back, check_gather_ranges, check_probe,
+                        compare_blend, compare_blend_backward, cull_edge_inputs,
+                        gather_edge_inputs, synthetic_blend_inputs)
 from fourdgs_tpu_torch.ops import blend, gather, grid_cost
 
 pytestmark = pytest.mark.cuda
@@ -179,14 +179,8 @@ def test_gather_pass_hooks(cuda_device, P):
 
 @pytest.mark.parametrize("probe", grid_cost.PROBES, ids=lambda p: p.fn.__name__)
 def test_grid_probe_matches_plain(cuda_device, probe):
-    """At T = 1, 7, 2,500 and 2,501 (K8 at even T), K10 with zero, positive
-    and negative loop counts: bit-equal, each launch counted."""
+    """At T = 1, 7, 16, 2,500 and 2,501 (K8 at the even T at or above each),
+    K10 with zero, positive and negative loop counts: bit-equal into memory
+    that held NaN, each launch counted (``chip_smoke.check_probe``)."""
     for args in [probe.args(2500, cuda_device)] + probe.check_args(cuda_device):
-        before = probe.fn.launches
-        got = probe.fn(*args)
-        torch.cuda.synchronize()
-        assert probe.fn.launches == before + 1
-        got = got if isinstance(got, tuple) else (got,)
-        want = probe.plain(*args)
-        want = want if isinstance(want, tuple) else (want,)
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert check_probe(probe, args) == 0.0

@@ -65,12 +65,66 @@ def test_exp_grid_cost_run_returns_its_keys(one_call):
     res = exp_grid_cost.run(device="cpu", T=T)
     assert res["T"] == T and res["floor_ms"] > 0
     assert set(res["probes"]) == {p.fn.__name__ for p in G.PROBES}
+    ones = {p.fn.__name__: p.ones for p in G.PROBES}
     for key, row in res["probes"].items():
         assert row["ms"] > 0
-        # K8 a block per two tiles, K4 parallel and K10 one per 8 (a warp each)
-        assert row["blocks"] == {"ones_sequential": None, "ones5_pairs": T // 2,
-                                 "ones_parallel": -(-T // 8),
+        # K4 parallel and K10 a block per 8 tiles, K7 per 4 (a warp each),
+        # K8 per 2 pairs (a warp per pair)
+        assert row["blocks"] == {"ones_sequential": None, "ones5_pairs": -(-T // 4),
+                                 "ones5": -(-T // 4), "ones_parallel": -(-T // 8),
                                  "while_ones": -(-T // 8)}.get(key, T)
+        # torch.ones read in turns where it computes the same output
+        if ones[key]:
+            assert row["ones_ms"] > 0 and row["vs_ones"] == row["ms"] / row["ones_ms"]
+        else:
+            assert row["ones_ms"] is None and row["vs_ones"] is None
+    assert {k for k, o in ones.items() if not o} == {"ones_three", "iota_px"}
+
+
+def test_exp_grid_cost_reads_torch_ones_in_turns(monkeypatch):
+    """Each probe whose output ``torch.ones`` computes is read in the order
+    probe, ``torch.ones``, ``torch.ones``, probe; ``ms`` and ``ones_ms`` are
+    the means of the two readings each. K5 and K9 are read once."""
+    ran = []
+
+    def recording(p):
+        def fn(*args):
+            ran.append(p.fn.__name__)
+            return p.fn(*args)
+
+        fn.__name__ = p.fn.__name__
+        return p._replace(fn=fn)
+
+    probes = tuple(recording(p) for p in G.PROBES)
+    monkeypatch.setattr(G, "PROBES", probes)
+    # Probe.args knows K10 by its wrapper
+    monkeypatch.setattr(G, "while_ones", next(p.fn for p in probes if p.id == "K10"))
+    seq = []
+
+    def fake_time_ms(fn, dev):
+        n = len(ran)
+        fn()
+        v = float(len(seq) + 1) ** 2          # distinct readings 1, 4, 9, ...
+        seq.append((ran[-1] if len(ran) > n else "ones", v))
+        return v, v
+
+    monkeypatch.setattr(exp_grid_cost, "time_ms", fake_time_ms)
+    res = exp_grid_cost.run(device="cpu", T=T)
+    assert res["floor_ms"] == 1.0 and seq[0][0] == "ones"   # the floor, K4 at T = 1
+    i = 1
+    for p in G.PROBES:
+        name, row = p.fn.__name__, res["probes"][p.fn.__name__]
+        if p.ones:
+            (a, va), (b, vb), (c, vc), (d, vd) = seq[i:i + 4]
+            assert (a, b, c, d) == (name, "ones", "ones", name)
+            assert row["ms"] == (va + vd) / 2 and row["ones_ms"] == (vb + vc) / 2
+            assert row["vs_ones"] == row["ms"] / row["ones_ms"]
+            i += 4
+        else:
+            assert seq[i][0] == name and row["ms"] == seq[i][1]
+            assert row["ones_ms"] is None and row["vs_ones"] is None
+            i += 1
+    assert i == len(seq)
 
 
 def test_exp_kernel_overhead_run_returns_its_keys(one_call):

@@ -160,16 +160,23 @@ def test_while_ones_loop_counts_match_jax(counts):
 
 def test_check_args_cover_the_grid_edges():
     """Each probe's chip-check arguments run on the CPU (their plain
-    versions) and reach a T that is not a multiple of its tiles per block;
+    versions) and reach, for a grid of several tiles per block, a T that ends
+    in a part-filled block and one (16) that fills whole blocks: K8 a last
+    block of pairs half full (2 and 2,502 tiles) and whole blocks of pairs;
     K10 gets negative loop counts."""
     cpu = torch.device("cpu")
+    assert 16 in G.EDGE_TILES
     for p in G.PROBES:
         cases = p.check_args(cpu)
         tiles = [len(a[0]) if isinstance(a[0], torch.Tensor) else a[0] for a in cases]
-        if p.grid == "pair":
+        if p.grid == "warp_pair":
             assert all(t % 2 == 0 for t in tiles)
-        elif p.grid == "warp":
+            pairs_per_block = G.TILES_PER_BLOCK[p.grid] // 2
+            assert any((t // 2) % pairs_per_block for t in tiles), p.id
+            assert any((t // 2) % pairs_per_block == 0 for t in tiles), p.id
+        if p.grid in ("warp", "warp4", "warp_pair"):
             assert any(t % G.TILES_PER_BLOCK[p.grid] for t in tiles), p.id
+            assert 16 in tiles and 16 % G.TILES_PER_BLOCK[p.grid] == 0, p.id
         for args, t in zip(cases, tiles):
             out = p.fn(*args)
             for o in out if isinstance(out, tuple) else (out,):
@@ -216,6 +223,18 @@ def test_k4_blocks_follow_the_new_grids(monkeypatch, t):
     assert seq.blocks(t, cpu) == min(132, -(-t // 8))
 
 
+@pytest.mark.parametrize("t", [2, 8, 16, 18, 2500, 2502])
+def test_k7_k8_blocks_follow_the_new_grids(t):
+    """K7 launches a block per 4 tiles (a warp each), K8 a block per 2 pairs
+    of tiles (a warp per pair): ceil(T / 4) blocks each, 625 at T = 2,500."""
+    cpu = torch.device("cpu")
+    k7, k8 = (next(p for p in G.PROBES if p.id == i) for i in ("K7", "K8"))
+    assert (k7.fn, k8.fn) == (G.ones5, G.ones5_pairs)
+    assert k7.blocks(t, cpu) == -(-t // 4)
+    assert k8.blocks(t, cpu) == -(-(t // 2) // 2) == -(-t // 4)
+    assert k7.blocks(2500, cpu) == k8.blocks(2500, cpu) == 625
+
+
 def test_probe_table_matches_the_outputs():
     """Each row of ``PROBES`` against its plain version's output: the floats
     per pixel (the bound of chip_smoke.py), the ``torch.ones`` yardstick,
@@ -232,8 +251,9 @@ def test_probe_table_matches_the_outputs():
         else:
             assert not (len(outs) == 1 and bool((outs[0] == 1).all())), p.id
         for t in (T, 7, 2501):
-            if p.grid == "pair" and t % 2:
+            if p.grid == "warp_pair" and t % 2:
                 continue        # K8 takes an even T
-            want = {"tile": t, "pair": t // 2, "warp": -(-t // 8), "sm": None}[p.grid]
+            want = {"tile": t, "warp": -(-t // 8), "warp4": -(-t // 4),
+                    "warp_pair": -(-(t // 2) // 2), "sm": None}[p.grid]
             assert p.blocks(t, cpu) == want, (p.id, t)
         assert p.site.startswith("scripts/exp_grid_cost.py:"), p.id
