@@ -9,7 +9,8 @@ on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel of ``fourdgs_tpu_torch/csrc`` (nvcc, sm_90a) and print
-   the build time and ptxas report;
+   the build time and ptxas report, each kernel's by name; K9's
+   ``iota_px_kernel`` must use no shared memory and no barrier;
 3. the forward blend kernel (K1) and the backward blend kernel (K2) against
    their plain PyTorch versions on synthetic inputs: windows straddling
    chunk boundaries, a tile longer than 3 chunks, a saturated tile, a tile
@@ -59,8 +60,9 @@ on failure:
    (K8 at the even T at or above each; K10 with zero, positive and mixed
    negative loop counts at each), K1 and K2 on the three grids against
    theirs (the bounds above), each launch counted; the times of the plain
-   versions and of the one-call PyTorch yardsticks, ``torch.ones`` as
-   ``exp_grid_cost.run()`` read it in turns with each probe (``vs_ones``);
+   versions and of the one-call PyTorch yardsticks, and ``torch.ones`` of
+   each probe's bytes as ``exp_grid_cost.run()`` read it in turns with the
+   probe (``vs_fill``; the library call where it computes the probe's output);
 8. one JSON line ``{"kernels": [...]}`` and, last, the result line
    ``{"ok": true, "device": {...}}``; before them phases 9 and 10:
 9. training from a point cloud (``bench_quality_torch.py``, bf16 payload):
@@ -480,6 +482,19 @@ def check_gather_back_to_back(dev):
             raise AssertionError("K3 calls back to back read another call's rows")
 
 
+def ptxas_report(log):
+    """(kernel, line) for each ``nvcc -Xptxas -v`` line of ``log`` that gives
+    a kernel's registers, barriers, shared memory or spills; the kernel is the
+    mangled name of the entry function that line belongs to."""
+    out, kernel = [], "?"
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif "registers" in line or "spill" in line or "smem" in line:
+            out.append((kernel, line.strip()))
+    return out
+
+
 def check_probe(p, args):
     """One call of grid-cost probe ``p`` (an entry of ``ops/grid_cost.py::
     PROBES``) on the card, into memory that held NaN just before (blocks of
@@ -595,18 +610,21 @@ def check_cost_experiments(dev):
         n_bytes = sum(4 * a.numel() for a in cases[0] if isinstance(a, torch.Tensor))
         bound = _bound(0, n_bytes + T * 256 * p.floats * 4)
         pr = r_grid["probes"][name]
-        # the yardstick the experiment read in turns with the probe
+        # the same-bytes fill the experiment read in turns with the probe; it
+        # is the library call where it computes the probe's output
         lib_ms = pr["ones_ms"]
         plain_ms = timed(lambda: p.plain(*cases[0]))
-        lib = "none" if lib_ms is None else f"{lib_ms:.5f} ms (vs_ones {pr['vs_ones']:.3f}x)"
+        lib = "the library call" if p.ones else "no library call"
         print(f"      {p.id:3s} {name:16s} bit-equal in {len(cases)} cases, "
               f"{pr['ms']:.5f} ms, {pr['blocks']} "
               f"blocks, {pr['per_block_us']} us/block over the floor, bound "
-              f"{bound['bound_ms']:.5f} ms, plain {plain_ms:.5f} ms, torch.ones {lib}")
+              f"{bound['bound_ms']:.5f} ms, plain {plain_ms:.5f} ms, torch.ones of "
+              f"its bytes {pr['fill_ms']:.5f} ms (vs_fill {pr['vs_fill']:.3f}x; {lib})")
         kernels.append(dict(
             name=name, route="cuda", source="fourdgs_tpu_torch/csrc/grid_cost.cu",
             replaces=p.site, launches=n_grid[name], max_abs_err=err,
-            ms=pr["ms"], plain_ms=plain_ms, library_ms=lib_ms, **bound))
+            ms=pr["ms"], plain_ms=plain_ms, library_ms=lib_ms,
+            fill_ms=pr["fill_ms"], **bound))
 
     # K1 and K2 on the synthetic grids against their plain versions
     for grid, (feat, starts, stops, row_off, bg, g_out) in EKO.inputs(
@@ -1246,9 +1264,11 @@ def main() -> int:
     print(f"[2] kernel build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(sorted(libs))})")
     for stem, log in _build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"    {stem}: {line.strip()}")
+        for kernel, line in ptxas_report(log):
+            print(f"    {stem} {kernel}: {line}")
+            if "iota_px_kernel" in kernel and "Used" in line and (
+                    "smem" in line or "used 0 barriers" not in line):
+                raise AssertionError(f"K9 should use no shared memory and no barrier: {line}")
     print(f"    resident blocks per SM: K1 {blend.blocks_per_sm('blend_forward')}, "
           f"K2 {blend.blocks_per_sm('blend_backward')}")
 

@@ -70,9 +70,24 @@
 //       cp.async.bulk, 0.00545-0.00553. The first port's mapping, a block of
 //       256 threads per tile (pair) storing a float each, read
 //       0.00525-0.00532 / 0.00520-0.00527.
-//   K9  kw (:111-117, call :119), out[t,n,0] = n % 16 + tri[0,0]: every block
-//       builds the 128x128 strict upper triangle (i < j) in shared memory, as
-//       every TPU grid step built its iotas, and adds its [0,0] entry (0).
+//   K9  kw (:111-117, call :119), out[t,n,0] = n % 16 + tri[0,0], where tri
+//       is the 128x128 strict upper triangle i < j: K4 "parallel"'s mapping,
+//       a warp per tile, 8 tiles per block of 256 threads (313 blocks at
+//       T = 2500), lane l storing float4 l and l + 32 of its tile, pixels
+//       4l .. 4l+3 and 4l+128 .. 4l+131, whose columns n % 16 are both
+//       4 (l % 4) + 0..3. The other 16,383 entries of the TPU kernel's
+//       triangle reach no output; on the TPU each grid step built them, here
+//       the function is computed and the triangle is not: the one entry read,
+//       i < j at (0, 0), is a compare in registers. No shared memory, no
+//       barrier. Measured in turns on an H100 80GB HBM3 at 700 W
+//       (scripts.time_ms, T = 2500, ms, 12 readings each; torch.ones of the
+//       same 2.56 MB 0.00256-0.00266): this mapping 0.00256-0.00259; 4 tiles
+//       per block of 128 threads (625 blocks) 0.00255-0.00259, no faster in
+//       5 of 6 rounds; the first port's kernel, a block per tile building
+//       the triangle in 16 KB of shared memory behind a barrier,
+//       0.02129-0.02132; a block per tile storing a float a thread without
+//       the triangle 0.00360-0.00363. So on this card the triangle cost
+//       0.0177 ms (7.1 ns a tile) and the block-per-tile mapping 0.0011 ms.
 //   K10 kwl (:128-139, call :146): a warp per tile, kWarps tiles per block
 //       of 256 threads. Each warp loads its tile's loop count s[t] (the TPU's
 //       scalar prefetch; one 4-byte load for the warp, the block's 8 counts
@@ -99,9 +114,8 @@
 namespace {
 
 constexpr int kN = 256;   // pixels per tile, threads per block
-constexpr int kTri = 128;
 constexpr int kTile5 = kN * 5 / 4;   // float4 per tile of 5 floats a pixel
-constexpr int kWarps = kN / 32;      // K4's and K10's tiles per block, a warp each
+constexpr int kWarps = kN / 32;      // K4's, K9's and K10's tiles per block, a warp each
 constexpr int kTiles5 = 4;           // K7's and K8's tiles per block, 20 KB
 
 // K4 "parallel": a warp per tile, kWarps tiles per block, each lane storing
@@ -175,14 +189,20 @@ ones5_warp_kernel(float4* __restrict__ out, int num_units) {
   for (int i = 0; i < kUnit * kTile5 / 32; ++i) o[32 * i] = ones;
 }
 
-__global__ void __launch_bounds__(kN) iota_px_kernel(float* __restrict__ out) {
-  __shared__ unsigned char tri[kTri][kTri];
-  for (int e = threadIdx.x; e < kTri * kTri; e += kN) {
-    tri[e / kTri][e % kTri] = (e / kTri) < (e % kTri);
-  }
-  __syncthreads();
-  const int n = threadIdx.x;
-  out[(size_t)blockIdx.x * kN + n] = (float)(n % 16) + (float)tri[0][0] * 1.0f;
+// K9: K4 "parallel"'s warp per tile, storing each pixel's column plus the
+// triangle's one entry that reaches the output.
+__global__ void __launch_bounds__(kN)
+iota_px_kernel(float4* __restrict__ out, int num_tiles) {
+  const int t = blockIdx.x * kWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (t >= num_tiles) return;
+  constexpr int i = 0, j = 0;   // tri[0, 0]
+  const float tri = (float)(i < j);
+  const float c = (float)(4 * (lane % 4));   // the column of the float4's first pixel
+  const float4 v = make_float4(c + tri * 1.0f, (c + 1.0f) + tri * 1.0f,
+                               (c + 2.0f) + tri * 1.0f, (c + 3.0f) + tri * 1.0f);
+  float4* o = out + (size_t)t * (kN / 4);
+  o[lane] = v;
+  o[lane + 32] = v;
 }
 
 __global__ void __launch_bounds__(kN)
@@ -266,9 +286,12 @@ extern "C" int fourdgs_ones5_pairs(float* out, int num_tiles, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// K9: ceil(T / 8) blocks.
 extern "C" int fourdgs_iota_px(float* out, int num_tiles, void* stream) {
   if (num_tiles <= 0) return 0;
-  iota_px_kernel<<<num_tiles, kN, 0, (cudaStream_t)stream>>>(out);
+  const int blocks = (num_tiles + kWarps - 1) / kWarps;
+  iota_px_kernel<<<blocks, kN, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<float4*>(out), num_tiles);
   return (int)cudaGetLastError();
 }
 

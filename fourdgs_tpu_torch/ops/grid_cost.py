@@ -28,9 +28,13 @@ K4's two mappings store a tile's 1 KB as float4, a warp per tile:
 ``parallel`` at 8 tiles per block of 256 threads (ceil(T / 8) blocks, 313 at
 T = 2,500), ``arbitrary`` as one persistent block per SM whose warps stride
 over the tiles (:func:`sequential_blocks`); ``csrc/grid_cost.cu`` gives the
-layouts they were measured against. Their bound is the 2.56 MB output
-written once, 0.76 µs at 3.35 TB/s: below a launch's own latency, so the
-probes measure the launch and its blocks.
+layouts they were measured against. K9 takes K4 ``parallel``'s mapping with
+each pixel's column n % 16 in place of the ones; of the TPU kernel's
+128×128 triangle ``i < j`` only the entry at (0, 0) reaches the output, and
+the kernel computes that compare in registers instead of building the
+triangle, so it uses no shared memory and no barrier. Their bound is the
+2.56 MB output written once, 0.76 µs at 3.35 TB/s: below a launch's own
+latency, so the probes measure the launch and its blocks.
 
 K7 and K8 store their tiles' 12.8 MB (bound 3.8 µs at 3.35 TB/s, also
 under the launch's latency) as float4, a warp per TPU block: K7 a warp per
@@ -141,8 +145,10 @@ ones5 = _probe("ones5", 5, ones5_plain,
                "K7: ones [T, 256, 5], a warp storing each tile's 1280 floats as "
                "float4, 4 tiles per block of 128 threads.")
 iota_px = _probe("iota_px", 1, iota_px_plain,
-                 "K9: n % 16 [T, 256, 1], every block building the 128×128 "
-                 "triangle first.")
+                 "K9: n % 16 [T, 256, 1], a warp storing each tile's 256 "
+                 "columns as float4, 8 tiles per block of 256 threads; the "
+                 "triangle's one entry that reaches the output is a compare "
+                 "in registers.")
 
 
 def ones_parallel(num_tiles: int, device="cuda") -> torch.Tensor:
@@ -254,7 +260,8 @@ class Probe(NamedTuple):
     #                    per SM, its warps striding over the tiles
     site: str          # the JAX ``pallas_call``
     label: str         # the JAX script's printed label
-    ones: bool         # ``torch.ones((T, 256, floats))`` is the same output
+    ones: bool         # ``torch.ones((T, 256, floats))``, the fill of the
+    #                    same bytes, is the same output
 
     def args(self, num_tiles: int, dev: torch.device) -> tuple:
         """The experiment's arguments: K10 gets zero loop counts, as in the
@@ -308,7 +315,7 @@ PROBES = (
           "1 out blk[5], arbitrary", True),
     Probe("K8", ones5_pairs, ones5_plain, 5, "warp_pair", f"{_SITE}:100",
           "paired grid/2 blk[2,5]", True),
-    Probe("K9", iota_px, iota_px_plain, 1, "tile", f"{_SITE}:119",
+    Probe("K9", iota_px, iota_px_plain, 1, "warp", f"{_SITE}:119",
           "1 blk + tri/px iotas", False),
     Probe("K10", while_ones, while_ones_plain, 1, "warp", f"{_SITE}:146",
           "1 blk + 0-iter while", True),

@@ -6,10 +6,12 @@ the port's blocks in place of the TPU's grid steps) per call,
 beside the floor of the same launch with one block (K4 ``parallel`` at
 T = 1: one block of 256 threads in which one warp stores and seven return).
 Per-block cost = (time − floor) / blocks. K10 runs with zero loop counts, as
-the JAX script does. A probe whose output ``torch.ones`` computes in one call
-(``Probe.ones``) is timed in turns with that call: probe, ``torch.ones``,
-``torch.ones``, probe, so that the ratio compares readings of one moment.
-Times: see :mod:`fourdgs_tpu_torch.scripts`.
+the JAX script does. Each probe is timed in turns with ``torch.ones`` of the
+bytes it writes, ``(T, 256, floats)``: probe, ``torch.ones``, ``torch.ones``,
+probe, so that the ratio compares readings of one moment. That fill is the
+floor a store of those bytes reaches on the card; where it is also the
+probe's output (``Probe.ones``), it is the one PyTorch call that computes the
+same function. Times: see :mod:`fourdgs_tpu_torch.scripts`.
 """
 
 from __future__ import annotations
@@ -23,10 +25,11 @@ from fourdgs_tpu_torch.scripts import header, main_with, time_ms
 
 def run(device="cuda", T=2500) -> dict:
     """Returns ``{"device", "clock", "T", "floor_ms", "probes": {wrapper
-    name: {"ms", "wall_ms", "blocks", "per_block_us", "ones_ms",
-    "vs_ones"}}}``: ``ms`` and ``ones_ms`` the means of the probe's and
-    ``torch.ones``'s two readings in turns, ``vs_ones = ms / ones_ms``;
-    both None for a probe without that yardstick."""
+    name: {"ms", "wall_ms", "blocks", "per_block_us", "fill_ms", "vs_fill",
+    "ones_ms", "vs_ones"}}}``: ``ms`` and ``fill_ms`` the means of the
+    probe's and its same-bytes ``torch.ones``'s two readings in turns,
+    ``vs_fill = ms / fill_ms``; ``ones_ms`` and ``vs_ones`` the same two
+    numbers where ``torch.ones`` computes the probe's output, else None."""
     dev = resolve_device(device)
     floor_ms, _ = time_ms(lambda: G.ones_parallel(1, dev), dev)
     res = dict(header(dev), T=T, floor_ms=floor_ms, probes={})
@@ -37,25 +40,23 @@ def run(device="cuda", T=2500) -> dict:
         def probe():
             return p.fn(*args)
 
-        if p.ones:
-            def ones():
-                return torch.ones((T, G.N, p.floats), dtype=torch.float32, device=dev)
+        def fill():
+            return torch.ones((T, G.N, p.floats), dtype=torch.float32, device=dev)
 
-            (a, wa), (o1, _), (o2, _), (b, wb) = [
-                time_ms(f, dev) for f in (probe, ones, ones, probe)]
-            ms, wall_ms, ones_ms = (a + b) / 2, (wa + wb) / 2, (o1 + o2) / 2
-            vs_ones = ms / ones_ms
-        else:
-            (ms, wall_ms), ones_ms, vs_ones = time_ms(probe, dev), None, None
+        (a, wa), (f1, _), (f2, _), (b, wb) = [
+            time_ms(f, dev) for f in (probe, fill, fill, probe)]
+        ms, wall_ms, fill_ms = (a + b) / 2, (wa + wb) / 2, (f1 + f2) / 2
+        vs_fill = ms / fill_ms
         blocks = p.blocks(T, dev)
         per_block = None if not blocks else (ms - floor_ms) / blocks * 1e3
         res["probes"][p.fn.__name__] = dict(
             ms=ms, wall_ms=wall_ms, blocks=blocks, per_block_us=per_block,
-            ones_ms=ones_ms, vs_ones=vs_ones)
+            fill_ms=fill_ms, vs_fill=vs_fill,
+            ones_ms=fill_ms if p.ones else None, vs_ones=vs_fill if p.ones else None)
         pb = "n/a" if per_block is None else f"{per_block:.5f} us/block"
-        yard = "" if ones_ms is None else f"; torch.ones {ones_ms:.5f} ms ({vs_ones:.3f}x)"
+        what = "torch.ones" if p.ones else "same-bytes fill"
         print(f"{p.label:26s} {ms:9.5f} ms  ({blocks} blocks, {pb}; "
-              f"wall {wall_ms:.5f} ms/call{yard})")
+              f"wall {wall_ms:.5f} ms/call; {what} {fill_ms:.5f} ms ({vs_fill:.3f}x))")
     return res
 
 

@@ -68,23 +68,28 @@ def test_exp_grid_cost_run_returns_its_keys(one_call):
     ones = {p.fn.__name__: p.ones for p in G.PROBES}
     for key, row in res["probes"].items():
         assert row["ms"] > 0
-        # K4 parallel and K10 a block per 8 tiles, K7 per 4 (a warp each),
-        # K8 per 2 pairs (a warp per pair)
+        # K4 parallel, K9 and K10 a block per 8 tiles, K7 per 4 (a warp
+        # each), K8 per 2 pairs (a warp per pair)
         assert row["blocks"] == {"ones_sequential": None, "ones5_pairs": -(-T // 4),
                                  "ones5": -(-T // 4), "ones_parallel": -(-T // 8),
+                                 "iota_px": -(-T // 8),
                                  "while_ones": -(-T // 8)}.get(key, T)
-        # torch.ones read in turns where it computes the same output
+        # the same-bytes fill read in turns with every probe; it is the
+        # torch.ones yardstick where it computes the same output
+        assert row["fill_ms"] > 0 and row["vs_fill"] == row["ms"] / row["fill_ms"]
         if ones[key]:
-            assert row["ones_ms"] > 0 and row["vs_ones"] == row["ms"] / row["ones_ms"]
+            assert (row["ones_ms"], row["vs_ones"]) == (row["fill_ms"], row["vs_fill"])
         else:
             assert row["ones_ms"] is None and row["vs_ones"] is None
     assert {k for k, o in ones.items() if not o} == {"ones_three", "iota_px"}
 
 
 def test_exp_grid_cost_reads_torch_ones_in_turns(monkeypatch):
-    """Each probe whose output ``torch.ones`` computes is read in the order
-    probe, ``torch.ones``, ``torch.ones``, probe; ``ms`` and ``ones_ms`` are
-    the means of the two readings each. K5 and K9 are read once."""
+    """Each probe is read in the order probe, ``torch.ones`` of its bytes,
+    ``torch.ones``, probe; ``ms`` and ``fill_ms`` are the means of the two
+    readings each and ``vs_fill`` their ratio. Where ``torch.ones`` computes
+    the probe's output they are also ``ones_ms`` and ``vs_ones``; for K5 and
+    K9, which no single call computes, those stay None."""
     ran = []
 
     def recording(p):
@@ -103,27 +108,33 @@ def test_exp_grid_cost_reads_torch_ones_in_turns(monkeypatch):
 
     def fake_time_ms(fn, dev):
         n = len(ran)
-        fn()
+        out = fn()
         v = float(len(seq) + 1) ** 2          # distinct readings 1, 4, 9, ...
         seq.append((ran[-1] if len(ran) > n else "ones", v))
+        if len(ran) == n:                     # a fill: of the probe's bytes
+            fills.append(tuple(out.shape))
         return v, v
+
+    fills = []
 
     monkeypatch.setattr(exp_grid_cost, "time_ms", fake_time_ms)
     res = exp_grid_cost.run(device="cpu", T=T)
     assert res["floor_ms"] == 1.0 and seq[0][0] == "ones"   # the floor, K4 at T = 1
+    assert fills[0] == (1, G.N, 1)
     i = 1
-    for p in G.PROBES:
+    for k, p in enumerate(G.PROBES):
         name, row = p.fn.__name__, res["probes"][p.fn.__name__]
+        (a, va), (b, vb), (c, vc), (d, vd) = seq[i:i + 4]
+        assert (a, b, c, d) == (name, "ones", "ones", name)
+        assert fills[1 + 2 * k] == fills[2 + 2 * k] == (T, G.N, p.floats)
+        assert row["ms"] == (va + vd) / 2 and row["fill_ms"] == (vb + vc) / 2
+        assert row["vs_fill"] == row["ms"] / row["fill_ms"]
         if p.ones:
-            (a, va), (b, vb), (c, vc), (d, vd) = seq[i:i + 4]
-            assert (a, b, c, d) == (name, "ones", "ones", name)
-            assert row["ms"] == (va + vd) / 2 and row["ones_ms"] == (vb + vc) / 2
-            assert row["vs_ones"] == row["ms"] / row["ones_ms"]
-            i += 4
+            assert (row["ones_ms"], row["vs_ones"]) == (row["fill_ms"], row["vs_fill"])
         else:
-            assert seq[i][0] == name and row["ms"] == seq[i][1]
+            assert p.id in ("K5", "K9")
             assert row["ones_ms"] is None and row["vs_ones"] is None
-            i += 1
+        i += 4
     assert i == len(seq)
 
 

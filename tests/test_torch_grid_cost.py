@@ -85,9 +85,10 @@ def _f32(*shapes):
     return outs if len(outs) > 1 else outs[0]
 
 
-def jax_probe(name, s=None):
+def jax_probe(name, s=None, T=T):
     """The script's ``pallas_call`` of each probe (calls :53, :67, :78, :88,
-    :100, :119, :146), with ``interpret=True``."""
+    :100, :119, :146) over a grid of ``T`` tiles (K10: ``len(s)``), with
+    ``interpret=True``."""
     if name in ("ones_parallel", "ones_sequential"):
         sem = "parallel" if name == "ones_parallel" else "arbitrary"
         f = pl.pallas_call(k1, grid=(T,), out_specs=blk(1), out_shape=_f32((T, N, 1)),
@@ -119,6 +120,7 @@ def jax_probe(name, s=None):
                            compiler_params=_params("arbitrary"), interpret=True)
         return f()
     assert name == "while_ones"
+    T = len(s)
     gs = pltpu.PrefetchScalarGridSpec(num_scalar_prefetch=1, grid=(T,), in_specs=[],
                                       out_specs=blk(1))
     f = pl.pallas_call(kwl, grid_spec=gs, out_shape=_f32((T, N, 1)),
@@ -147,6 +149,17 @@ def test_probe_matches_jax_kernel(name):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("t", [1, 7, 16])
+def test_iota_px_matches_jax_kernel_at_the_grid_edges(t):
+    """K9 at a part-filled block of 8 tiles (1, 7) and at whole blocks (16):
+    the port's plain version bit for bit against the JAX kernel's triangle
+    and iotas, over a grid of t steps."""
+    before = G.iota_px.launches
+    got = G.iota_px(t, device="cpu")
+    assert got.shape == (t, N, 1) and G.iota_px.launches == before
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_probe("iota_px", T=t)))
+
+
 @pytest.mark.parametrize("counts", ["zero", "t % 7", "(t % 7) - 3", "-5"])
 def test_while_ones_loop_counts_match_jax(counts):
     """K10 with zero, positive, mixed negative and all negative loop counts:
@@ -163,9 +176,11 @@ def test_check_args_cover_the_grid_edges():
     versions) and reach, for a grid of several tiles per block, a T that ends
     in a part-filled block and one (16) that fills whole blocks: K8 a last
     block of pairs half full (2 and 2,502 tiles) and whole blocks of pairs;
-    K10 gets negative loop counts."""
+    K9 and K10 are warp grids of 8 tiles a block; K10 gets negative loop
+    counts."""
     cpu = torch.device("cpu")
     assert 16 in G.EDGE_TILES
+    assert {p.id for p in G.PROBES if p.grid == "warp"} == {"K4", "K9", "K10"}
     for p in G.PROBES:
         cases = p.check_args(cpu)
         tiles = [len(a[0]) if isinstance(a[0], torch.Tensor) else a[0] for a in cases]
@@ -233,6 +248,16 @@ def test_k7_k8_blocks_follow_the_new_grids(t):
     assert k7.blocks(t, cpu) == -(-t // 4)
     assert k8.blocks(t, cpu) == -(-(t // 2) // 2) == -(-t // 4)
     assert k7.blocks(2500, cpu) == k8.blocks(2500, cpu) == 625
+
+
+@pytest.mark.parametrize("t", [1, 7, 2500, 2501])
+def test_k9_blocks_follow_the_new_grid(t):
+    """K9 launches K4 "parallel"'s grid: a block per 8 tiles, a warp each,
+    313 blocks at T = 2,500."""
+    k9 = next(p for p in G.PROBES if p.id == "K9")
+    assert k9.fn is G.iota_px and k9.grid == "warp"
+    assert k9.blocks(t, torch.device("cpu")) == -(-t // 8)
+    assert k9.blocks(2500, torch.device("cpu")) == 313
 
 
 def test_probe_table_matches_the_outputs():
