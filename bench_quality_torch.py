@@ -24,13 +24,16 @@ GT, by ``--gt``:
   own rasterizer drew.
 
 The payload table is rounded to bfloat16 (``"payload": "bf16"``), as
-``bench_quality.py:164`` sets it. Prints one JSON line with
+``bench_quality.py:164`` sets it. ``--instant4d`` trains the reference's
+Instant4D ablation (``bench_quality.py:123-125, 168-172``): isotropic
+Gaussians and SH degree 0. Prints one JSON line with
 ``bench_quality.py``'s keys (less its TPU-host budget) and the port's
 counts, and writes it to ``--out``.
 
 Usage (from the repo root):
     python3 bench_quality_torch.py --gt oracle      # full 3k+20k schedule
     python3 bench_quality_torch.py --scale 0.25     # 750+5000, GT from K1
+    python3 bench_quality_torch.py --scale 0.25 --instant4d
 """
 
 from __future__ import annotations
@@ -156,6 +159,13 @@ def configure(cfg, scale: float) -> None:
     cfg.tpu.instance_budget = 256 * 1024
 
 
+def instant4d_config(cfg) -> None:
+    """The Instant4D ablation (``bench_quality.py:168-172``): isotropic
+    Gaussians and SH degree 0."""
+    cfg.model.use_isotropic_gaussian = True
+    cfg.model.sh_degree = 0
+
+
 class Trained(NamedTuple):
     """The model a run trained: its config (with the grown instance budget),
     state, the train views as (camera, GT frame) and the background."""
@@ -167,7 +177,7 @@ class Trained(NamedTuple):
 
 def run(scale: float = 1.0, size: int = 800, n_train: int = 100, n_test: int = 10,
         gt: str = "kernel", log_interval: int = 500, device="cuda",
-        adjust: Callable | None = None) -> tuple[dict, Trained]:
+        adjust: Callable | None = None, instant4d: bool = False) -> tuple[dict, Trained]:
     """Train and evaluate; returns the result dict and the :class:`Trained`
     model. ``adjust(cfg)`` runs after the schedule is set (a shorter or
     denser schedule for a smoke run)."""
@@ -188,6 +198,8 @@ def run(scale: float = 1.0, size: int = 800, n_train: int = 100, n_test: int = 1
         raise ValueError(f"--gt {gt!r}: kernel or oracle")
     cfg = load_config(PRESET)
     configure(cfg, scale)
+    if instant4d:
+        instant4d_config(cfg)
     if gt == "oracle":   # the oracle cache composites on black
         cfg.model.white_background = False
     if adjust is not None:
@@ -302,7 +314,7 @@ def run(scale: float = 1.0, size: int = 800, n_train: int = 100, n_test: int = 1
         "gt_pallas_vs_oracle": gt_diff,
         "background": ("black (oracle cache convention)" if gt == "oracle"
                        else ("white" if cfg.model.white_background else "black")),
-        "instant4d": False,
+        "instant4d": instant4d,
         "resolution": size,
         "schedule": {"coarse": cfg.opt.coarse_iterations, "fine": cfg.opt.iterations},
         "scale": scale,
@@ -342,6 +354,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--n_train", type=int, default=100)
     ap.add_argument("--n_test", type=int, default=10)
     ap.add_argument("--gt", choices=("kernel", "oracle"), default="kernel")
+    ap.add_argument("--instant4d", action="store_true",
+                    help="the Instant4D ablation: isotropic Gaussians and sh_degree 0")
     ap.add_argument("--log_interval", type=int, default=500)
     ap.add_argument("--device", default="cuda", help="cuda, or cpu for the plain path")
     ap.add_argument("--out", default=None, help="result JSON (default "
@@ -350,7 +364,7 @@ def main(argv=None) -> dict:
     out = args.out or ("BENCH_QUALITY_TORCH_ORACLE.json" if args.gt == "oracle"
                        else "BENCH_QUALITY_TORCH.json")
     result, _ = run(args.scale, args.size, args.n_train, args.n_test, args.gt,
-                    args.log_interval, args.device)
+                    args.log_interval, args.device, instant4d=args.instant4d)
     print(json.dumps(result))
     with open(out, "w") as f:
         json.dump(result, f, indent=2)

@@ -27,7 +27,8 @@ on failure:
    1 warm-up view and 20 timed views through ``render``; the K1 launch count
    must rise by exactly 21. Then K1 at that view's shapes: device time per
    call with and without the cull, the plain version's time, the bound on
-   kept pairs and on all in-range pairs, the share of pairs the cull leaves
+   the kept pairs reached before T_STOP, on kept pairs and on all in-range
+   pairs, the share of pairs the cull leaves
    to the gates, the tile lengths and agreement (``profile_render_torch.py``
    breaks a view down by stage);
 5. a snapshot round trip (save, load, render) that must match bit for bit;
@@ -64,7 +65,7 @@ on failure:
    each probe's bytes as ``exp_grid_cost.run()`` read it in turns with the
    probe (``vs_fill``; the library call where it computes the probe's output);
 8. one JSON line ``{"kernels": [...]}`` and, last, the result line
-   ``{"ok": true, "device": {...}}``; before them phases 9 and 10:
+   ``{"ok": true, "device": {...}}``; before them phases 9, 10 and 11:
 9. training from a point cloud (``bench_quality_torch.py``, bf16 payload):
    (a) the bouncingballs preset at ``--gt oracle --scale 0.05`` (150 coarse + 1,000
    fine steps at 800×800 from 2,000 random points, the launch counts zeroed
@@ -103,7 +104,38 @@ on failure:
    in-process render of the same snapshot within one level of 255,
    ``results.json``'s PSNR is finite and above the blank image's, K2
    launches once per step and K1 once per step, eval view and rendered view
-   (:func:`check_entry_points`).
+   (:func:`check_entry_points`);
+11. the DyNeRF path (:func:`check_dynerf_path`), each run with the launch
+   counts zeroed just before it and read just after: (a)
+   ``bench_quality_dynerf_torch.py`` at ``--scale 0.05`` (the dynerf preset at
+   full width as users run it, sh 3, anisotropic: 150 coarse + 700 fine
+   steps of batch 4 with the FineSampler over 11 ring cameras × 150
+   timestamps at 676×507, GT from K1 held in memory, its launches counted
+   apart): K2 launches equal the renders of its steps, K1 launches those
+   plus the 15 eval views, every logged loss finite, the last logged train
+   PSNR above the first, no FineSampler warning; the held-out PSNR, points,
+   wall, it/s, the grown budget and capacity printed. Then K1 and K2 at the
+   shapes of a train step of the trained model (train view 0, batch 4, the
+   padded 43×32 grid, the grown budget, the step's L1 cotangent) against
+   their plain versions, the cull against the walk and the strip masks
+   against their mirror, with times and bounds (``dynerf`` in the kernels
+   line); on the grid's padding pixels K1's colour and T equal the plain
+   version's, the step's cotangent is 0 and the L1 does not change when
+   they are replaced by noise (:func:`check_padding`). (b) The same bench
+   at ``--scale 0.02 --instant4d``: finite losses, a rising train PSNR, SH
+   degree 0 and three equal scales for every live Gaussian after the
+   broadcast. (c) A DyNeRF scene written with the port's PNG writer
+   (:func:`write_dynerf_scene`: ``poses_bounds.npy`` for 4 of the bench's
+   ring cameras, 6 frames each at the loader's 1352×1014 rendered by K1,
+   every filter type in turn, ``points3D_downsample2.ply``), then
+   ``train_torch.py`` on it with the dynerf preset at full width, a cut
+   schedule (20 coarse + 60 fine steps) and the FineSampler,
+   ``render_torch.py`` (test split: camera 0) and ``metrics_torch.py``: the
+   outputs of phase 10 (b), the PSNR above the blank image's, every train
+   frame decoded by the native prefetcher (none sent to the ref), K2 once
+   per render of a step, K1 also once per eval view and rendered view;
+   ``load_scene``'s time and the data-loading ms and share of a step
+   (``timing_report.json``) printed.
 
 Agreement bound of K1 with its plain version: atol 1e-4 on color and final
 transmittance, except pixels riding T_STOP, where a different association of
@@ -339,12 +371,17 @@ def _bound(ops, n_bytes):
 
 
 def _blend_bounds(work, ops_live, n_bytes):
-    """The bound with the gates counted on kept pairs (the least work: the
-    cull leaves unkept pairs nothing to compute), and as ``bound_all_pairs_ms``
-    with the gates counted on every in-range pair (the bound before the
-    cull)."""
+    """The bound with the gates counted on the kept pairs a pixel reaches
+    before it freezes at T_STOP (the least work: the cull leaves unkept
+    pairs nothing to compute, and a frozen pixel needs no gate for the rest
+    of its chunk); as ``bound_kept_pairs_ms`` with the gates counted on
+    every kept pair, whatever T (the earlier count, which saturated tiles
+    overstate); and as ``bound_all_pairs_ms`` with the gates counted
+    on every in-range pair (the bound before the cull)."""
     live = work["live_pairs"] * ops_live
-    return {**_bound(work["kept_pairs"] * OPS_GATE + live, n_bytes),
+    return {**_bound(work["reached_pairs"] * OPS_GATE + live, n_bytes),
+            "bound_kept_pairs_ms": _bound(work["kept_pairs"] * OPS_GATE + live,
+                                          n_bytes)["bound_ms"],
             "bound_all_pairs_ms": _bound(work["in_range"] * OPS_GATE + live,
                                          n_bytes)["bound_ms"]}
 
@@ -382,6 +419,8 @@ def work_line(work):
     return (f"{work['instances']} instances, {n} pairs in range; the cull leaves "
             f"{work['gated']} to the gates (gated share {work['gated'] / n:.4f}; by "
             f"warp {shares}), {work['kept_pairs']} kept ({work['kept_pairs'] / n:.4f}), "
+            f"{work['reached_pairs']} reached before T_STOP "
+            f"({work['reached_pairs'] / n:.4f}), "
             f"{work['live_pairs']} live ({work['live_pairs'] / n:.4f}); "
             f"{work['live_warp_instances']} live warp-instances in "
             f"{work['k2_reductions']} K2 reductions, "
@@ -757,7 +796,8 @@ def step_blend_inputs(cfg, state, cam, width, height, gt_tiles, bg, sh_degree, d
 
     W, H = int(width), int(height)
     with torch.no_grad():
-        xyz, sc, rot, op, shs, _ = TR.activated_gaussians(state.params, state, cam, "fine")
+        xyz, sc, rot, op, shs, _ = TR.activated_gaussians(
+            state.params, state, cam, "fine", cfg.model.use_isotropic_gaussian)
         bi = R.blend_inputs(xyz, sc, rot, op, shs, cam.camera_center, cam.world_view,
                             cam.full_proj, cam.tanfovx, cam.tanfovy, W, H,
                             sh_degree, cfg.tpu.instance_budget,
@@ -830,8 +870,9 @@ def check_step_blend(fwd_args, bwd_args, dev, where):
     for name, r in res.items():
         print(f"    {name} at this shape: kernel {r['ms']:.4f} ms (cull off "
               f"{r['ms_without_cull']:.4f}), plain {r['plain_ms']:.4f} ms, bound on "
-              f"kept pairs {r['bound_ms']:.4f} ms ({r['bound_by']}), kernel/bound "
-              f"{r['ms'] / r['bound_ms']:.2f}; all in-range pairs "
+              f"reached pairs {r['bound_ms']:.4f} ms ({r['bound_by']}), kernel/bound "
+              f"{r['ms'] / r['bound_ms']:.2f}; on kept pairs "
+              f"{r['bound_kept_pairs_ms']:.4f} ms; on all in-range pairs "
               f"{r['bound_all_pairs_ms']:.4f} ms")
     opaque = float((out5[:, 4] < 0.01).float().mean())
     print(f"    {work_line(work)}; pixels with final T < 0.01: {opaque:.4f}")
@@ -1012,15 +1053,17 @@ def _checkpoint_leaves(state, opt):
     return out
 
 
-def run_cli_chain(data_dir, model_path, dev, overrides=CLI_SCHEDULE):
+def run_cli_chain(data_dir, model_path, dev, overrides=CLI_SCHEDULE, preset=None):
     """``train_torch.py`` → ``render_torch.py`` (test split) →
-    ``metrics_torch.py`` on ``data_dir`` with the bouncingballs preset and
-    ``overrides``, then phase 10 (b)'s checks (module
-    docstring) but the PSNR's against the blank image, which
+    ``metrics_torch.py`` on ``data_dir`` with ``preset`` (default the
+    bouncingballs preset) and ``overrides``, then phase 10 (b)'s checks
+    (module docstring) but the PSNR's against the blank image, which
     :func:`check_entry_points` makes. Returns the walls, the scene's load
-    time, the renders' FPS,
-    the PSNRs, the points and the launch counts of each script (zeroed just
-    before it)."""
+    time, the renders' FPS, the PSNRs, the points, the batch size, the
+    launch counts of each script (zeroed just before it), the native
+    prefetcher's frame counts over the training (``events.jsonl``), and
+    each stage's data-loading ms per step and share of the step's wall
+    from ``timing_report.json`` (``utils/timer.py``)."""
     import torch
 
     import bench_quality_torch as BQ
@@ -1051,7 +1094,7 @@ def run_cli_chain(data_dir, model_path, dev, overrides=CLI_SCHEDULE):
     iters = next(int(o.split("=")[1]) for o in overrides
                  if o.startswith("opt.iterations="))
     (state, opt), train_s, train_launches = counted(lambda: train_torch.main([
-        "-s", data_dir, "--configs", BQ.PRESET, "--model_path", model_path,
+        "-s", data_dir, "--configs", preset or BQ.PRESET, "--model_path", model_path,
         "--quiet", "--test_iterations", str(iters), "--save_iterations", str(iters),
         "--device", dev.type, "--override", *overrides]))
     rendered, render_s, render_launches = counted(lambda: render_torch.main([
@@ -1080,6 +1123,21 @@ def run_cli_chain(data_dir, model_path, dev, overrides=CLI_SCHEDULE):
 
     with open(os.path.join(model_path, "cfg_args.json")) as f:
         cfg = config_from_dict(json.load(f))
+    prefetch = {"submitted": 0, "native": 0, "to_ref": 0}
+    with open(os.path.join(model_path, "events.jsonl")) as f:   # train_torch's counts
+        for event in map(json.loads, f):
+            key = event["tag"].partition("/prefetch/")[2]
+            if key:
+                prefetch[key] += int(event["scalar"])
+    with open(os.path.join(model_path, "timing_report.json")) as f:
+        timing = json.load(f)["iterations"]
+    loading = {}
+    for stage in ("coarse", "fine"):
+        rows = [r for r in timing if r["stage"] == stage]
+        load = sum(r["phases"].get(f"{stage}_data_loading", 0.0) for r in rows)
+        total = sum(r["total_time"] for r in rows)
+        loading[stage] = {"ms_per_step": 1e3 * load / max(len(rows), 1),
+                          "share": load / total if total else 0.0}
     c_state, c_opt, c_iter = checkpoint.load_checkpoint(ckpt, cfg, device=dev)
     pairs = list(zip(_checkpoint_leaves(c_state, c_opt), _checkpoint_leaves(state, opt)))
     differ = [a for (a, x), (_, y) in pairs if not torch.equal(x, y)]
@@ -1121,7 +1179,8 @@ def run_cli_chain(data_dir, model_path, dev, overrides=CLI_SCHEDULE):
                 o.split("=")[1] for o in overrides if o.startswith("opt.coarse_iterations="))),
             "eval_renders": eval_renders, "test_views": len(test_cams),
             "render_max_level_diff": worst, "train_launches": train_launches,
-            "render_launches": render_launches}
+            "render_launches": render_launches, "batch_size": cfg.opt.batch_size,
+            "prefetch": prefetch, "data_loading": loading}
 
 
 def check_entry_points(dev):
@@ -1180,6 +1239,270 @@ def check_entry_points(dev):
         raise AssertionError(f"CLI launches: train {cli['train_launches']}, render "
                              f"{cli['render_launches']}")
     return {"bench": bench_launches, "bench_blend": bench_blend,
+            "cli": (k1_train + k1_render, k2_train)}
+
+
+DYNERF_FRAMES = 6          # frames per camera of phase 11 (c)'s scene
+DYNERF_CLI_SCHEDULE = ("opt.coarse_iterations=20", "opt.iterations=60",
+                       "opt.position_lr_max_steps=60", 'opt.custom_sampler="fine"')
+
+
+class _Tee:
+    """Standard output copied into a buffer (to find a line a run printed)."""
+
+    def __init__(self):
+        import io
+        self.buf, self.out = io.StringIO(), sys.stdout
+
+    def write(self, s):
+        self.buf.write(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def printed(fn):
+    """(fn(), what it printed), the output still printed."""
+    tee = _Tee()
+    sys.stdout = tee
+    try:
+        return fn(), tee.buf.getvalue()
+    finally:
+        sys.stdout = tee.out
+
+
+def check_padding(out5, plain5, g_out, gt_tiles, height, width, dev):
+    """The tile grid's padding pixels (outside ``height`` × ``width``) at a
+    train step's shapes: K1's colour and T there against its plain
+    version's under :func:`compare_blend`'s contract, the step's L1
+    cotangent exactly 0 there, and the L1 unchanged when those pixels of
+    the render are replaced by noise. Returns the counts and errors."""
+    import torch
+
+    from fourdgs_tpu_torch.utils import losses
+
+    mask = losses.tile_pixel_mask(height, width, device=dev)       # [T, 1, 256]
+    pad = (mask[:, 0] == 0)                                        # [T, 256]
+    n_pad = int(pad.sum())
+    if n_pad == 0:
+        raise AssertionError(f"{width}x{height} has no padding pixel")
+
+    def rows(x):                                                   # [N, 5, 1]
+        return x.permute(0, 2, 1)[pad][:, :, None]
+
+    cmp = compare_blend(rows(out5), rows(plain5))
+    cot_zero = bool((g_out.permute(0, 2, 1)[pad] == 0).all())
+    keep = torch.tensor([1.0, 1.0, 1.0, 0.0, 0.0], device=dev)[:, None] * mask
+
+    def l1(o):
+        return float(losses.abs_((o - gt_tiles) * keep).sum())
+
+    noise = torch.rand(out5.shape, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(0))
+    noisy = out5 + noise * (1 - mask)
+    same_loss = l1(out5) == l1(noisy)
+    res = {"padding_pixels": n_pad, "of_pixels": pad.numel(),
+           "max_abs_err": cmp["max_abs_err"], "over_1e-4": cmp["over_1e-4"],
+           "cotangent_zero": cot_zero, "loss_unchanged_by_noise": same_loss}
+    if not (cot_zero and same_loss):
+        raise AssertionError(f"the loss reads the padding pixels: {res}")
+    return res
+
+
+def check_dynerf_bench(dev, scale, instant4d=False):
+    """Phase 11 (a) or (b): ``bench_quality_dynerf_torch.run`` at ``scale``
+    with the launch counts zeroed just before it (by the run, after its GT
+    renders) and read just after; returns the result, the trained model
+    and the launches."""
+    import bench_quality_dynerf_torch as BD
+    from fourdgs_tpu_torch.ops import blend
+
+    t0 = time.perf_counter()
+    (res, model), out = printed(lambda: BD.run(scale=scale, instant4d=instant4d,
+                                                log_interval=50, device=dev))
+    launches = (blend.blend_forward.launches, blend.blend_backward.launches)
+    steps = res["schedule"]["coarse"] + res["schedule"]["fine"]
+    renders = steps * res["batch_size"] if dev.type == "cuda" else 0   # the plain path
+    log = res["train_log"]
+    print(f"    {res['resolution'][0]}x{res['resolution'][1]}, {res['cams_train']} cams x "
+          f"{res['timestamps']} t, batch {res['batch_size']}, sh {res['sh_degree']}, "
+          f"isotropic {res['isotropic']}, {res['schedule']} steps "
+          f"({time.perf_counter() - t0:.1f} s with the GT and the eval): held-out PSNR "
+          f"{res['test_psnr_db']:.4f} dB, final points {res['final_points']}, train wall "
+          f"{res['train_wall_clock_s']:.3f} s, it/s {res['it_per_s']:.3f}")
+    print(f"    K1 launches {res['k1_launches']} (renders {renders} + eval views "
+          f"{res['eval_views']}; GT {res['gt_launches']} apart), K2 launches "
+          f"{res['k2_launches']}; budget growths {res['budget_growths']} (final "
+          f"{res['final_instance_budget']}), capacity growths {res['capacity_growths']} "
+          f"(final {res['final_capacity']}), resets {res['resets']}; train PSNR "
+          f"{res['first_train_psnr']:.4f} -> {res['last_train_psnr']:.4f}")
+    print(f"    stage seconds {json.dumps(res['stage_s'])}")
+    if launches != (res["k1_launches"], res["k2_launches"]):
+        raise AssertionError(f"the counts moved after the run: {launches}")
+    evals = res["eval_views"] if dev.type == "cuda" else 0
+    if (res["k2_launches"], res["k1_launches"]) != (renders, renders + evals):
+        raise AssertionError(f"launches K1 {res['k1_launches']}, K2 {res['k2_launches']}; "
+                             f"expected {renders + evals}, {renders}")
+    if "[sampler] WARNING" in out:
+        raise AssertionError("the FineSampler did not engage on the camera-major layout")
+    bad = [e for e in log if not math.isfinite(e["loss"])]
+    if bad:
+        raise AssertionError(f"a logged loss is not finite: first at {bad[0]['stage']} "
+                             f"iteration {bad[0]['iter']}")
+    if not res["last_train_psnr"] > res["first_train_psnr"]:
+        raise AssertionError(f"train PSNR did not rise: {res['first_train_psnr']} -> "
+                             f"{res['last_train_psnr']}")
+    return res, model, launches
+
+
+def write_dynerf_scene(root, dev, n_frames=DYNERF_FRAMES, size=(1352, 1014)):
+    """Write a DyNeRF (Neu3D) scene under ``root`` with the port's PNG
+    writer: ``poses_bounds.npy`` for 4 cameras of the DyNeRF bench's ring,
+    ``cam00…cam03/images/0000.png…`` (``n_frames`` each, at ``size``, the
+    loader's 1352×1014 by default, every filter type in turn) that K1
+    renders from the GT scene on black at the loader's times i/300, and the
+    bench's 8,000-point init cloud as ``points3D_downsample2.ply``. The
+    poses invert the loader's LLFF convention so that it rebuilds each
+    ring camera. Returns the cameras per camera index."""
+    import torch
+
+    import bench_quality_dynerf_torch as BD
+    import bench_quality_torch as BQ
+    from fourdgs_tpu_torch.data.ply import store_pointcloud
+    from fourdgs_tpu_torch.ops.rasterize import rasterize_pallas
+    from fourdgs_tpu_torch.render import CameraArrays
+    from fourdgs_tpu_torch.utils import graphics, png
+
+    W, H = size
+    fov = 0.6911112070083618
+    focal = graphics.fov2focal(fov, W)
+    fovy = graphics.focal2fov(focal, H)
+    pts, cols, scales, offsets = BQ.make_gt_scene()
+    extra = {k: torch.tensor(v, device=dev)
+             for k, v in BQ.gt_raster_args(pts, cols, scales).items()}
+    black = torch.zeros(3, device=dev)
+    rows, cameras = [], {}
+    for ci, (ang, elev) in enumerate(BD.camera_poses()[:4]):
+        ring = BQ.ring_camera(ang, elev, W, H, 0.0)
+        R = np.asarray(ring.world_view, np.float64)[:3, :3]     # world_view[:3, :3] = R
+        eye = np.asarray(ring.camera_center, np.float64)
+        m = R @ np.diag([1.0, -1.0, -1.0])                       # the loader's pose [:3, :3]
+        llff = np.concatenate([-m[:, 1:2], m[:, 0:1], m[:, 2:3], eye[:, None],
+                               np.array([[H * 2.0], [W * 2.0], [focal * 2704.0 / W]])],
+                              axis=1)
+        rows.append(np.concatenate([llff.reshape(-1), [0.5, 10.0]]))
+        img_dir = os.path.join(root, f"cam{ci:02d}", "images")
+        os.makedirs(img_dir)
+        cameras[ci] = []
+        for fi in range(n_frames):
+            t = fi / 300
+            cam = graphics.make_camera(R, -R.T @ eye, fov, fovy, W, H, time=t)
+            c = CameraArrays.from_camera(cam, device=dev)
+            with torch.no_grad():
+                out = rasterize_pallas(
+                    torch.tensor(pts + offsets(t), device=dev), extra["scales"],
+                    extra["rotations"], extra["opacities"], extra["shs"],
+                    c.camera_center, c.world_view, c.full_proj, c.tanfovx,
+                    c.tanfovy, W, H, 0, black, instance_budget=BQ.GT_BUDGET)
+            if int(out.num_rendered) > BQ.GT_BUDGET:
+                raise AssertionError(f"scene frame overflowed its budget: "
+                                     f"{int(out.num_rendered)}")
+            img8 = (out.color.permute(1, 2, 0) * 255 + 0.5).clamp(0, 255).to(torch.uint8)
+            png.write_png(os.path.join(img_dir, f"{fi:04d}.png"), img8.cpu().numpy(),
+                          filter_type=(ci + fi) % 5)
+            cameras[ci].append(cam)
+    np.save(os.path.join(root, "poses_bounds.npy"), np.stack(rows))
+    init_pts, init_cols = BD.init_cloud(pts)
+    store_pointcloud(os.path.join(root, "points3D_downsample2.ply"), init_pts,
+                     init_cols * 255)
+    return cameras
+
+
+def check_dynerf_path(dev):
+    """Phase 11 (module docstring): the DyNeRF bench at scale 0.05 with
+    K1/K2 and the padding on its trained model, at 0.02 with
+    ``--instant4d``, then the DyNeRF CLI chain on lazy frames. Returns the
+    launches and :func:`check_trained_blend`'s fields for the kernels
+    line."""
+    import torch
+
+    import bench_quality_dynerf_torch as BD
+    from fourdgs_tpu_torch import render as TR
+    from fourdgs_tpu_torch.ops import blend
+    from fourdgs_tpu_torch.utils import losses
+
+    print("[11] the DyNeRF path: (a) bench_quality_dynerf_torch --scale 0.05", flush=True)
+    a, model, a_launches = check_dynerf_bench(dev, 0.05)
+    fwd_args, bwd_args = view_blend_inputs(model, 0, dev)
+    cfg, state = model.cfg, model.state
+    W, H = a["resolution"]
+    trained = check_step_blend(
+        fwd_args, bwd_args, dev,
+        f"train view 0 of the DyNeRF model ({W}x{H}, {fwd_args[1].numel()} tiles, "
+        f"batch {cfg.opt.batch_size}, capacity {state.alive.shape[0]}, "
+        f"{int(state.alive.sum())} alive, budget {cfg.tpu.instance_budget})")
+    frame = torch.tensor(model.train_cams[0][1], device=dev).to(torch.float32)
+    gt_tiles = losses.tile_image(frame.permute(2, 0, 1) / 255.0, pad_cols=2)
+    pad = check_padding(bwd_args[5], blend.blend_forward_plain(*fwd_args), bwd_args[6],
+                        gt_tiles, H, W, dev)
+    print(f"    padding of the {W}x{H} grid: {pad}")
+    del model
+
+    print("    (b) bench_quality_dynerf_torch --scale 0.02 --instant4d", flush=True)
+    b, model, _ = check_dynerf_bench(dev, 0.02, instant4d=True)
+    st = model.state
+    cam = TR.CameraArrays.from_camera(model.train_cams[0][0], device=dev)
+    with torch.no_grad():
+        sc = TR.activated_gaussians(st.params, st, cam, "fine", True)[1][st.alive]
+    iso = bool((sc[:, 1] == sc[:, 0]).all() & (sc[:, 2] == sc[:, 0]).all())
+    print(f"    {int(st.alive.sum())} live Gaussians: three equal scales after the "
+          f"broadcast = {iso}")
+    if not iso or model.cfg.model.sh_degree != 0:
+        raise AssertionError("the Instant4D model is not isotropic at SH degree 0")
+    del model
+
+    print("    (c) a DyNeRF scene on disk, then train_torch.py -> render_torch.py -> "
+          "metrics_torch.py on its lazy frames", flush=True)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_dynerf_") as tmp:
+        data_dir, model_path = os.path.join(tmp, "data"), os.path.join(tmp, "model")
+        t0 = time.perf_counter()
+        written = write_dynerf_scene(data_dir, dev)
+        scene_s = time.perf_counter() - t0
+        cli, out = printed(lambda: run_cli_chain(data_dir, model_path, dev,
+                                                 DYNERF_CLI_SCHEDULE, BD.PRESET))
+    (k1_train, k2_train), (k1_render, k2_render) = cli["train_launches"], cli["render_launches"]
+    renders = cli["steps"] * cli["batch_size"]
+    on_card = int(dev.type == "cuda")       # the plain path launches nothing
+    pf = cli["prefetch"]
+    cam0 = written[0][0]
+    print(f"    scene: {len(written)} cams x {len(written[0])} frames at {cam0.width}x"
+          f"{cam0.height} written in "
+          f"{scene_s:.1f} s; load_scene {cli['load_s']:.3f} s (lazy frames); train wall "
+          f"{cli['train_s']:.3f} s ({cli['steps']} steps, batch {cli['batch_size']}, "
+          f"{cli['points']} points), render wall {cli['render_s']:.3f} s (FPS "
+          f"{cli['fps']:.3f}), metrics {cli['metrics_s']:.3f} s")
+    print(f"    prefetcher: {pf['submitted']} frames submitted, {pf['native']} decoded "
+          f"natively, {pf['to_ref']} sent to the ref; data loading per step "
+          f"{json.dumps(cli['data_loading'])}")
+    print(f"    held-out PSNR {cli['psnr']:.4f} dB (blank image {cli['blank_psnr']:.4f}); "
+          f"renders vs in-process render: max {cli['render_max_level_diff']} levels")
+    print(f"    K1/K2 launches: train {cli['train_launches']} ({renders} renders of "
+          f"{cli['steps']} steps + {cli['eval_renders']} eval views), render "
+          f"{cli['render_launches']} ({cli['test_views']} views + 1 warm-up)")
+    if "[sampler] WARNING" in out:
+        raise AssertionError("the FineSampler did not engage on the DyNeRF scene")
+    if pf["submitted"] != renders or pf["native"] != renders or pf["to_ref"]:
+        raise AssertionError(f"the prefetcher decoded {pf}, expected {renders} natively")
+    if not cli["psnr"] > cli["blank_psnr"]:
+        raise AssertionError(f"held-out PSNR {cli['psnr']} not above the blank "
+                             f"image's {cli['blank_psnr']}")
+    if ((k2_train, k1_train) != (on_card * renders, on_card * (renders + cli["eval_renders"]))
+            or (k1_render, k2_render) != (on_card * (cli["test_views"] + 1), 0)):
+        raise AssertionError(f"CLI launches: train {cli['train_launches']}, render "
+                             f"{cli['render_launches']}")
+    return {"bench": a_launches, "bench_blend": trained, "padding": pad,
+            "instant4d": (b["k1_launches"], b["k2_launches"]),
             "cli": (k1_train + k1_render, k2_train)}
 
 
@@ -1359,9 +1682,10 @@ def main() -> int:
     work = blend_work(*args[:4], bi.grid_x)
     bound = blend_bound(work, bi.bins.tile_start.numel())
     print(f"    K1 at view {k_view} ({bi.bins.tile_start.numel()} tiles): kernel "
-          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound on kept pairs "
+          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound on reached pairs "
           f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), kernel/bound "
-          f"{kernel_ms / bound['bound_ms']:.2f}; bound on all in-range pairs "
+          f"{kernel_ms / bound['bound_ms']:.2f}; on kept pairs "
+          f"{bound['bound_kept_pairs_ms']:.4f} ms; on all in-range pairs "
           f"{bound['bound_all_pairs_ms']:.4f} ms; without the cull (test hook) "
           f"{walk_ms:.4f} ms")
     print(f"    {work_line(work)}")
@@ -1460,9 +1784,10 @@ def main() -> int:
                            iters=1, reps=3)[0]
     print(f"    K2 at the last step ({bi.bins.tile_start.numel()} tiles): kernel "
           f"{bwd_ms:.4f} ms (with the wrapper's zeroing of dfeat), plain "
-          f"{bwd_plain_ms:.4f} ms, bound on kept pairs {bwd_bound['bound_ms']:.4f} ms "
+          f"{bwd_plain_ms:.4f} ms, bound on reached pairs {bwd_bound['bound_ms']:.4f} ms "
           f"({bwd_bound['bound_by']}), kernel/bound "
-          f"{bwd_ms / bwd_bound['bound_ms']:.2f}; bound on all in-range pairs "
+          f"{bwd_ms / bwd_bound['bound_ms']:.2f}; on kept pairs "
+          f"{bwd_bound['bound_kept_pairs_ms']:.4f} ms; on all in-range pairs "
           f"{bwd_bound['bound_all_pairs_ms']:.4f} ms; without the cull (test hook) "
           f"{bwd_walk_ms:.4f} ms")
     print(f"    {work_line(bwd_work)}")
@@ -1493,6 +1818,9 @@ def main() -> int:
     # -- 10. the user's entry points
     entry = check_entry_points(dev)
 
+    # -- 11. the DyNeRF path
+    dynerf = check_dynerf_path(dev)
+
     # -- 8. kernels line, result line
     kernels = [{
         "name": "blend_forward",
@@ -1506,11 +1834,16 @@ def main() -> int:
         "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"],
         "library_ms": None,   # no single PyTorch call computes this blend
+        "bound_kept_pairs_ms": bound["bound_kept_pairs_ms"],
         "bound_all_pairs_ms": bound["bound_all_pairs_ms"],
         "gated_share": work["gated"] / work["in_range"],
         "train_from_pcd": {"launches": pcd["k1_launches"], **trained["blend_forward"]},
         "bench": {"launches": entry["bench"][0], **entry["bench_blend"]["blend_forward"]},
         "cli": {"launches": entry["cli"][0]},
+        "dynerf": {"launches": dynerf["bench"][0], **dynerf["bench_blend"]["blend_forward"],
+                   "padding": dynerf["padding"]},
+        "dynerf_instant4d": {"launches": dynerf["instant4d"][0]},
+        "dynerf_cli": {"launches": dynerf["cli"][0]},
     }, {
         "name": "blend_backward",
         "route": "cuda",
@@ -1523,11 +1856,15 @@ def main() -> int:
         "bound_ms": bwd_bound["bound_ms"],
         "bound_by": bwd_bound["bound_by"],
         "library_ms": None,   # no single PyTorch call computes this gradient
+        "bound_kept_pairs_ms": bwd_bound["bound_kept_pairs_ms"],
         "bound_all_pairs_ms": bwd_bound["bound_all_pairs_ms"],
         "gated_share": bwd_work["gated"] / bwd_work["in_range"],
         "train_from_pcd": {"launches": pcd["k2_launches"], **trained["blend_backward"]},
         "bench": {"launches": entry["bench"][1], **entry["bench_blend"]["blend_backward"]},
         "cli": {"launches": entry["cli"][1]},
+        "dynerf": {"launches": dynerf["bench"][1], **dynerf["bench_blend"]["blend_backward"]},
+        "dynerf_instant4d": {"launches": dynerf["instant4d"][1]},
+        "dynerf_cli": {"launches": dynerf["cli"][1]},
     }, *cost_kernels]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@ init point cloud, apply the Instant4D grid pruning, and build the Gaussian
 state on a device. ``build_scene`` takes a seed or a ``torch.Generator``
 (for the deformation's initial weights) where the JAX function takes a key.
 
-Only the Blender (D-NeRF) loader is ported; the other dataset types are
-recognised and raise ``NotImplementedError`` naming their loader.
+The Blender (D-NeRF) and DyNeRF (Neu3D) loaders are ported; the other
+dataset types are recognised and raise ``NotImplementedError`` naming their
+loader.
 
 Marker-file registry (scene/__init__.py:48-68 + dataset_readers.py:680-687):
   sparse/                     → colmap
@@ -25,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from fourdgs_tpu_torch.data import blender
+from fourdgs_tpu_torch.data import blender, dynerf
 from fourdgs_tpu_torch.data.blender import SceneData
 from fourdgs_tpu_torch.data.grid_pruning import grid_prune_pointcloud
 from fourdgs_tpu_torch.models import gaussians as G
@@ -33,9 +34,11 @@ from fourdgs_tpu_torch.models import gaussians as G
 # the Blender loader's frame size (JAX's default; a frame of another size
 # raises, as Pillow's resize is not ported)
 TARGET_SIZE = (800, 800)
+# the DyNeRF loader's frame size, (W, H): JAX's default (scene.py:58-60,
+# dynerf.py); frames of another size raise when they are read
+DYNERF_SIZE = (1352, 1014)
 # dataset type → the JAX package's loader still to be ported
 _UNPORTED = {
-    "dynerf": "data/dynerf.py::load_dynerf_scene",
     "nerfies": "data/hypernerf.py::load_hypernerf_scene",
     "colmap": "data/colmap.py::load_colmap_scene",
     "PanopticSports": "data/panoptic.py::load_panoptic_scene",
@@ -62,8 +65,9 @@ def sniff_dataset_type(path: str) -> str:
 def load_scene(cfg, path: str | None = None) -> SceneData:
     """The scene at ``path`` (default ``cfg.model.source_path``). The
     Blender loader's random init cloud is unseeded, as in JAX, and its
-    frames must be :data:`TARGET_SIZE`: JAX resizes others with Pillow,
-    which is not ported."""
+    frames must be :data:`TARGET_SIZE`; the DyNeRF loader's lazy frames must
+    be :data:`DYNERF_SIZE`: JAX resizes others with Pillow, which is not
+    ported."""
     path = path or cfg.model.source_path
     kind = sniff_dataset_type(path)
     if kind == "blender":
@@ -74,6 +78,8 @@ def load_scene(cfg, path: str | None = None) -> SceneData:
             extension=cfg.model.extension,
             target_size=TARGET_SIZE,
         )
+    if kind == "dynerf":
+        return dynerf.load_dynerf_scene(path, cfg, target_wh=DYNERF_SIZE)
     raise NotImplementedError(
         f"the {kind!r} loader (fourdgs_tpu/{_UNPORTED[kind]}) is not ported yet")
 

@@ -110,11 +110,12 @@ def _postfix_reset(state: GaussianState) -> GaussianState:
 
 def densify_and_clone(state: GaussianState, moments: tuple, grads: torch.Tensor,
                       grad_threshold: float, scene_extent: float,
-                      percent_dense: float):
+                      percent_dense: float, isotropic: bool = False):
     """Copy the small, high-gradient live Gaussians into free slots
-    (``densify.py:110-139``). Returns (state, moments, n_new) with the
-    accumulators reset; n_new is an int."""
-    scaling = G.get_scaling(state.params)
+    (``densify.py:110-139``); ``isotropic`` sizes them by the first scale
+    (:func:`~fourdgs_tpu_torch.models.gaussians.get_scaling`). Returns
+    (state, moments, n_new) with the accumulators reset; n_new is an int."""
+    scaling = G.get_scaling(state.params, isotropic)
     sel = ((grads >= grad_threshold)
            & (torch.amax(scaling, dim=1) <= _f32_product(percent_dense, scene_extent))
            & state.alive)
@@ -142,7 +143,7 @@ def split_normals(generator: torch.Generator, n_split: int, cap: int,
 def densify_and_split(state: GaussianState, moments: tuple, grads: torch.Tensor,
                       grad_threshold: float, scene_extent: float,
                       percent_dense: float, normals: torch.Tensor,
-                      n_split: int = 2):
+                      n_split: int = 2, isotropic: bool = False):
     """Split the large, high-gradient live Gaussians into ``n_split``
     children each, drawn from the parent's own distribution, and prune the
     parents whose children were all placed (``densify.py:142-198``).
@@ -150,12 +151,13 @@ def densify_and_split(state: GaussianState, moments: tuple, grads: torch.Tensor,
     ``normals`` [n_split, cap, 3] are the standard normals of the children
     (child j of row p takes ``normals[j, p]``): :func:`split_normals`, or
     JAX's ``jax.random.normal(fold_in(key, j), (cap, 3))`` to reproduce a
-    JAX run. Returns (state, moments, n_new as an int) with the
-    accumulators reset."""
+    JAX run. ``isotropic`` takes the repeated first scale for the selection,
+    the samples and the children's three log-scales (``densify.py:158-176``).
+    Returns (state, moments, n_new as an int) with the accumulators reset."""
     cap = state.alive.shape[0]
     if tuple(normals.shape) != (n_split, cap, 3):
         raise ValueError(f"normals {tuple(normals.shape)} != {(n_split, cap, 3)}")
-    scaling = G.get_scaling(state.params)
+    scaling = G.get_scaling(state.params, isotropic)
     sel = ((grads >= grad_threshold)
            & (torch.amax(scaling, dim=1) > _f32_product(percent_dense, scene_extent))
            & state.alive)
@@ -180,15 +182,17 @@ def densify_and_split(state: GaussianState, moments: tuple, grads: torch.Tensor,
 
 
 def prune(state: GaussianState, min_opacity: float, scene_extent: float,
-          size_threshold_on: bool, max_screen_size: float = 20.0):
+          size_threshold_on: bool, max_screen_size: float = 20.0,
+          isotropic: bool = False):
     """Clear the live Gaussians whose opacity is below ``min_opacity`` and,
     with ``size_threshold_on`` (after the first opacity reset), those wider
     than ``max_screen_size`` px on screen or 0.1·extent in the world
-    (``densify.py:201-225``). Returns (state, n_pruned as a 0-d tensor)."""
+    (``densify.py:201-225``; ``isotropic``: by the first scale). Returns
+    (state, n_pruned as a 0-d tensor)."""
     mask = G.get_opacity(state.params)[:, 0] < min_opacity
     if size_threshold_on:
         big_vs = state.max_radii2d > max_screen_size
-        big_ws = (torch.amax(G.get_scaling(state.params), dim=1)
+        big_ws = (torch.amax(G.get_scaling(state.params, isotropic), dim=1)
                   > _f32_product(0.1, scene_extent))
         mask = mask | big_vs | big_ws
     mask = mask & state.alive

@@ -183,11 +183,13 @@ def create_from_pcd(cfg, points: np.ndarray, colors: np.ndarray,
 
 
 def get_scaling(params, isotropic: bool = False) -> torch.Tensor:
-    """exp of the log-scales (``gaussians.py:135``); the isotropic mode
-    raises, as ``render._check_config`` does."""
+    """exp of the log-scales (``gaussians.py:135-142``). ``isotropic`` (the
+    Instant4D mode) repeats the first column into all three: the stored
+    log-scales keep three columns, and only the first reaches the result."""
+    s = torch.exp(params["scaling"])
     if isotropic:
-        raise NotImplementedError("use_isotropic_gaussian is not ported")
-    return torch.exp(params["scaling"])
+        s = s[:, :1].repeat(1, 3)
+    return s
 
 
 def get_rotation(params) -> torch.Tensor:

@@ -309,6 +309,10 @@ def pair_counts(feat, starts, stops, row_off, grid_x: int, k2_batch: int = 0) ->
       the kernels' own masks);
     - ``kept_pairs``: the in-range pairs that pass the gates (power ≤ 0,
       α ≥ 1/255), whatever T;
+    - ``reached_pairs``: the kept pairs a pixel's walk reaches before it
+      freezes at T_STOP for the rest of the chunk (its T before the pair
+      still ≥ T_STOP), the freezing pair included: the kept pairs whose
+      gates the kernels need;
     - ``live_pairs``: the kept pairs met before the pixel's T_STOP, which
       blend;
     - ``gated_by_warp``: ``gated`` of each warp's strip (rows 2w, 2w + 1);
@@ -317,7 +321,8 @@ def pair_counts(feat, starts, stops, row_off, grid_x: int, k2_batch: int = 0) ->
       ``k2_reductions``: its reduce-scatters, one per ``k2_batch`` of them
       in a warp's list of a chunk.
     """
-    keys = ("in_range", "kept_pairs", "live_pairs", "live_warp_instances")
+    keys = ("in_range", "kept_pairs", "reached_pairs", "live_pairs",
+            "live_warp_instances")
     n = dict.fromkeys(keys + (("k2_reductions",) if k2_batch else ()), 0)
     n_warps = C.N_PIX // 32
     for tiles, start, stop, off0, n_chunks in _tile_groups(starts, stops, feat.shape[1]):
@@ -328,6 +333,7 @@ def pair_counts(feat, starts, stops, row_off, grid_x: int, k2_batch: int = 0) ->
             per_warp = live.reshape(live.shape[0], n_warps, 32, -1).any(2).sum(2)
             n["in_range"] += C.N_PIX * int(ch.inside.sum())
             n["kept_pairs"] += int(ch.keep.sum())
+            n["reached_pairs"] += int((ch.keep & (ch.t_excl >= C.T_STOP)).sum())
             n["live_pairs"] += int(live.sum())
             n["live_warp_instances"] += int(per_warp.sum())
             if k2_batch:

@@ -67,14 +67,16 @@ def _check_config(cfg) -> None:
             f"backend {cfg.tpu.backend!r} is not ported (only 'pallas')")
     if cfg.tpu.ellipse_tile_cull:
         raise NotImplementedError("ellipse_tile_cull is not ported")
-    if cfg.model.use_isotropic_gaussian:
-        raise NotImplementedError("use_isotropic_gaussian is not ported")
 
 
 def activated_gaussians(params: dict[str, Any], state: G.GaussianState,
-                        cam: CameraArrays, stage: str):
+                        cam: CameraArrays, stage: str, isotropic: bool = False):
     """(means3d, scales, rotations, opacities, shs, dxyz_abs): the stage's
-    (deformed) parameters after their activations."""
+    (deformed) parameters after their activations. ``isotropic``
+    (``cfg.model.use_isotropic_gaussian``) repeats the first activated scale
+    into all three columns after the deformation and the ``exp``
+    (``render.py:113-115``): the deformation's scale head moves all three
+    log-scales, and only the first counts."""
     xyz = params["xyz"]
     scaling = params["scaling"]
     rotation = params["rotation"]
@@ -87,6 +89,8 @@ def activated_gaussians(params: dict[str, Any], state: G.GaussianState,
         raise ValueError(f"unknown stage {stage!r}")
     dxyz_abs = torch.abs(xyz - params["xyz"])
     scales_act = torch.exp(scaling)
+    if isotropic:
+        scales_act = scales_act[:, :1].repeat(1, 3)
     rot_act = rotation / torch.clamp(
         torch.linalg.vector_norm(rotation, dim=-1, keepdim=True), min=1e-12)
     return xyz, scales_act, rot_act, torch.sigmoid(opacity), shs, dxyz_abs
@@ -123,7 +127,7 @@ def render(
             raise ValueError(f"{name} lies on {x.device}, not on {dev}")
     _check_config(cfg)
     xyz, scales, rots, opac, shs, dxyz_abs = activated_gaussians(
-        params, state, cam, stage)
+        params, state, cam, stage, cfg.model.use_isotropic_gaussian)
     out = R.rasterize_pallas(
         xyz, scales, rots, opac, shs,
         camera_center=cam.camera_center,

@@ -16,8 +16,10 @@ deterministic per-Gaussian segment sum of ``ops/rasterize.py``.
 
 ``scene_reconstruction`` runs one stage on the reference schedule: the
 random-stack (or FineSampler) camera batches of JAX's ``random.Random``, the
-GT cached on the device, SH annealing, instance-budget and capacity growth,
-densify / prune / opacity reset on their gates, metrics read on the host
+GT cached on the device (or, for lazy frames, decoded per batch on the
+native prefetcher while the previous step runs), SH annealing,
+instance-budget and capacity growth, densify / prune / opacity reset on
+their gates, metrics read on the host
 only on a gate or log iteration, and the NaN watchdog. It takes one step
 per call. Where JAX scans ``cfg.tpu.scan_steps`` steps as one program (GT
 cached on the device) and reads a chunk's ``num_rendered`` and
@@ -27,8 +29,8 @@ the chunk's max at its last step, so the budget gate and the log read
 JAX's values. A ``utils/timer.py`` ``DetailedTimer`` times its phases and an
 ``utils/observability.py`` ``EventLog`` records the growths, as in JAX. Not
 ported yet, and raising: SSIM (``lambda_dssim``), a ``mesh``, the
-``viewer``, the ``gradient_tracker``, ``debug_mode``,
-``cfg.model.render_process`` and lazy (callable) GT.
+``viewer``, the ``gradient_tracker``, ``debug_mode`` and
+``cfg.model.render_process``.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from fourdgs_tpu_torch import resolve_device
+from fourdgs_tpu_torch.data.fastloader import PrefetchPool
 from fourdgs_tpu_torch.data.samplers import fine_sampler_order
 from fourdgs_tpu_torch.models import densify as dens
 from fourdgs_tpu_torch.models import gaussians as G
@@ -191,24 +194,27 @@ def make_maintenance(cfg):
       state before them;
     - ``prune_fn(state, opacity_threshold, extent, size_threshold_on) →
       (state, n_pruned)``;
-    - ``reset_fn(state, adam_state) → (state, adam_state)``."""
-    if cfg.model.use_isotropic_gaussian:
-        raise NotImplementedError("use_isotropic_gaussian is not ported")
+    - ``reset_fn(state, adam_state) → (state, adam_state)``.
+
+    Each passes ``cfg.model.use_isotropic_gaussian`` on as ``isotropic``."""
     percent_dense = cfg.opt.percent_dense
+    iso = cfg.model.use_isotropic_gaussian
 
     def densify_fn(state, adam_state, grad_threshold, extent, normals):
         grads = dens.compute_grads(state)
         moments = (adam_state.mu, adam_state.nu)
         state, moments, n_cloned = dens.densify_and_clone(
-            state, moments, grads, grad_threshold, extent, percent_dense)
+            state, moments, grads, grad_threshold, extent, percent_dense,
+            isotropic=iso)
         state, moments, n_split = dens.densify_and_split(
             state, moments, grads, grad_threshold, extent, percent_dense,
-            normals)
+            normals, isotropic=iso)
         return (state, adam_state._replace(mu=moments[0], nu=moments[1]),
                 n_cloned, n_split)
 
     def prune_fn(state, opacity_threshold, extent, size_threshold_on):
-        return dens.prune(state, opacity_threshold, extent, size_threshold_on)
+        return dens.prune(state, opacity_threshold, extent, size_threshold_on,
+                          isotropic=iso)
 
     def reset_fn(state, adam_state):
         state, (mu, nu) = dens.reset_opacity(state, (adam_state.mu, adam_state.nu))
@@ -221,14 +227,16 @@ def make_maintenance(cfg):
 class TrainLog:
     """What a stage reports: the logged metrics by iteration (``loop.py:311``),
     their moving averages, and, beyond JAX's, the maintenance events (one
-    dict per growth, densify, prune or reset, with its counts) and the
-    seconds the maintenance took."""
+    dict per growth, densify, prune or reset, with its counts), the
+    seconds the maintenance took and, when the GT was lazy frames read by
+    the native prefetcher, its counts (``PrefetchPool.counts``)."""
 
     iterations: list = field(default_factory=list)
     ema_loss: float = 0.0
     ema_psnr: float = 0.0
     events: list = field(default_factory=list)
     maintenance_s: float = 0.0
+    prefetch: dict | None = None
 
 
 def _unported(cfg, **options) -> None:
@@ -270,9 +278,14 @@ def scene_reconstruction(
     Adam state and the :class:`TrainLog`.
 
     ``train_cameras``: ``(graphics.Camera, GT)`` pairs of one resolution,
-    the GT a uint8 [H, W, C] or float [C, H, W] array. ``log_fn(iteration,
-    stage, metrics, state, adam_state)`` runs on every log iteration, after
-    that iteration's maintenance. ``cfg.tpu.instance_budget`` grows in
+    the GT a uint8 [H, W, C] or float [C, H, W] array, or a lazy frame: a
+    callable that returns one, with its ``shape`` and ``ndim``
+    (``data/dynerf.py::ImageRef``). Lazy frames are never stacked or cached
+    on the device (``loop.py:471-506``); frames with a ``path`` and ``size``
+    are decoded by a :class:`~fourdgs_tpu_torch.data.fastloader.PrefetchPool`,
+    batch t + 1 while step t runs, and the others by calling them.
+    ``log_fn(iteration, stage, metrics, state, adam_state)`` runs on every
+    log iteration, after that iteration's maintenance. ``cfg.tpu.instance_budget`` grows in
     place, as in JAX.
 
     ``split_normals(cap)`` gives the [2, cap, 3] normals of each split in
@@ -291,11 +304,11 @@ def scene_reconstruction(
               gradient_tracker=gradient_tracker, debug_mode=debug_mode)
     if not train_cameras:
         return state, adam_state, TrainLog()
-    if any(callable(g) for _, g in train_cameras):
-        raise NotImplementedError("lazy (callable) GT is not ported yet")
     opt = cfg.opt
     max_sh = cfg.model.sh_degree if max_sh_degree is None else max_sh_degree
-    img0 = np.asarray(train_cameras[0][1])
+    img0 = train_cameras[0][1]
+    if not callable(img0):
+        img0 = np.asarray(img0)
     if img0.ndim == 3 and img0.shape[-1] in (3, 4):   # HWC uint8 loader format
         height, width = img0.shape[:2]
     else:                                             # CHW float format
@@ -309,7 +322,9 @@ def scene_reconstruction(
         t0 = cams[0][0].time
         cams = [c for c in cams if abs(c[0].time - t0) < 1e-9]
     cam_arrays = [CameraArrays.from_camera(c, device=dev) for c, _ in cams]
-    gt_list = [np.asarray(g) for _, g in cams]
+    # uint8 HWC, float CHW, or lazy callables (data/dynerf.py::ImageRef)
+    gt_list = [g if callable(g) else np.asarray(g) for _, g in cams]
+    lazy = any(callable(g) for g in gt_list)
     densify_fn, prune_fn, reset_fn = make_maintenance(cfg)
 
     # FineSampler (loop.py:430-450): n_poses from the distinct centres
@@ -342,10 +357,11 @@ def scene_reconstruction(
                 idx.append(stack.pop(rng.randrange(len(stack))))
         return idx
 
-    # GT on the device when it fits: uint8 pre-tiled to [N, T, 3, 256],
-    # the tile-space loss's layout (loop.py:486-502); else per batch
+    # GT on the device when every frame is an array and they fit: uint8
+    # pre-tiled to [N, T, 3, 256], the tile-space loss's layout
+    # (loop.py:486-502); else per batch
     cams_dev = gt_cache = None
-    if sum(g.nbytes for g in gt_list) <= _GT_CACHE_CAP:
+    if not lazy and sum(g.nbytes for g in gt_list) <= _GT_CACHE_CAP:
         cams_dev = CameraArrays(*(torch.stack(xs) for xs in zip(*cam_arrays)))
         if gt_list[0].dtype == np.uint8:
             gt_cache = torch.from_numpy(
@@ -359,6 +375,12 @@ def scene_reconstruction(
     batches = [draw_batch() for _ in range(train_iter)]
     batches_dev = (torch.tensor(batches, device=dev) if gt_cache is not None
                    else None)
+    # lazy frames with a path: batch t + 1 decodes on the native threads
+    # while step t runs (loop.py:471-478, :635-647)
+    prefetcher = None
+    if lazy and all(hasattr(g, "path") and hasattr(g, "size") for g in gt_list):
+        prefetcher = PrefetchPool(n_threads=8)
+        prefetcher.submit_batch([gt_list[i] for i in batches[0]])
 
     # JAX's chunks (loop.py:547-598): up to scan_steps steps with no host
     # gate strictly inside, when the GT is cached on the device
@@ -407,7 +429,14 @@ def scene_reconstruction(
             gts = gt_cache[idx]
             batch_cams = CameraArrays(*(x[idx] for x in cams_dev))
         else:
-            gts = torch.from_numpy(np.stack([gt_list[i] for i in batch_idx])).to(dev)
+            if prefetcher is not None:
+                gts_np = prefetcher.wait_batch()
+                if iteration < train_iter:
+                    prefetcher.submit_batch([gt_list[i] for i in batches[iteration]])
+            else:
+                gts_np = np.stack([np.asarray(g() if callable(g) else g)
+                                   for g in (gt_list[i] for i in batch_idx)])
+            gts = torch.from_numpy(gts_np).to(dev)
             batch_cams = CameraArrays(*(torch.stack(xs) for xs in
                                         zip(*(cam_arrays[i] for i in batch_idx))))
         if timer:
@@ -546,4 +575,7 @@ def scene_reconstruction(
                 timer.end_timer(f"{stage}_logging")
         if timer:
             timer.end_iteration(iteration, stage)
+    if prefetcher is not None:
+        log.prefetch = prefetcher.counts()
+        prefetcher.close()
     return state, adam_state, log

@@ -25,7 +25,8 @@ import time
 
 def render_set(model_path, name, iteration, cameras, gts, render_fn, sync):
     """Render ``cameras`` with ``render_fn(cam) → [3, H, W]`` and write the
-    renders and ``gts`` (uint8 [H, W, 3] or float [3, H, W]) as PNGs.
+    renders and ``gts`` (uint8 [H, W, 3], float [3, H, W], or lazy frames,
+    which are called) as PNGs.
     Returns (the uint8 frames, FPS)."""
     import numpy as np
 
@@ -54,7 +55,7 @@ def render_set(model_path, name, iteration, cameras, gts, render_fn, sync):
         png.write_png(os.path.join(rdir, f"{i:05d}.png"), img8)
         frames.append(img8)
         if gts is not None and i < len(gts):
-            g = np.asarray(gts[i])
+            g = np.asarray(gts[i]() if callable(gts[i]) else gts[i])
             if g.dtype != np.uint8:
                 g = (np.clip(g.transpose(1, 2, 0), 0, 1) * 255).astype(np.uint8)
             png.write_png(os.path.join(gdir, f"{i:05d}.png"), g)

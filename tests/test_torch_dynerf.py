@@ -1,0 +1,160 @@
+"""The port's DyNeRF (Neu3D) loader against the JAX package's, on a
+``poses_bounds.npy`` scene fabricated as ``tests/test_loaders.py``'s
+``TestDynerfScene`` does (frames written by the port's PNG writer, every
+filter type in turn): cameras, times, splits, the spiral video cameras,
+the normalization, the point cloud and every lazy frame equal JAX's
+(exactly: both loaders run the same float64 NumPy, and both decoders are
+lossless). ``load_scene`` dispatches ``"dynerf"`` with JAX's default frame
+size; a frame of another size raises when it is read, and videos without
+extracted frames raise, naming the step that is not ported."""
+
+import inspect
+
+import numpy as np
+import pytest
+
+from fourdgs_tpu.data import dynerf as jdynerf
+from fourdgs_tpu_torch.configs.core import load_config as tload
+from fourdgs_tpu_torch.data import dynerf as tdynerf
+from fourdgs_tpu_torch.data import scene as tscene
+from fourdgs_tpu_torch.data.ply import store_pointcloud
+from fourdgs_tpu_torch.utils import png
+
+W, H = 32, 24
+CAMERA_FIELDS = ("world_view", "full_proj", "camera_center", "tanfovx",
+                 "tanfovy", "width", "height", "time")
+
+
+def make_dynerf_scene(root, n_cams=3, n_frames=4, size=(W, H), seed=0):
+    """``test_loaders.py:110-135``'s scene: identity rotations, random
+    translations, (H, W, focal) = (24, 32, 40), near/far (1, 10), random
+    RGB frames, a 50-point cloud."""
+    rng = np.random.default_rng(seed)
+    poses = np.zeros((n_cams, 3, 5))
+    for i in range(n_cams):
+        poses[i, :, :3] = np.eye(3)
+        poses[i, :, 3] = rng.normal(size=3)
+        poses[i, :, 4] = [24, 32, 40.0]
+    pb = np.concatenate([poses.reshape(n_cams, -1), np.tile([[1.0, 10.0]], (n_cams, 1))],
+                        axis=1)
+    np.save(root / "poses_bounds.npy", pb)
+    for c in range(n_cams):
+        d = root / f"cam{c:02d}" / "images"
+        d.mkdir(parents=True)
+        for f in range(n_frames):
+            png.write_png(str(d / f"{f:04d}.png"),
+                          rng.integers(0, 255, (size[1], size[0], 3), dtype=np.uint8),
+                          filter_type=(c + f) % 5)
+    store_pointcloud(str(root / "points3D_downsample2.ply"),
+                     rng.normal(size=(50, 3)).astype(np.float32),
+                     rng.uniform(0, 255, (50, 3)))
+
+
+def _same_camera(got, want, what):
+    for f in CAMERA_FIELDS:
+        np.testing.assert_array_equal(np.asarray(getattr(got, f)),
+                                      np.asarray(getattr(want, f)), err_msg=f"{what}: {f}")
+
+
+def _same_scene(got, want):
+    assert got.dataset_type == want.dataset_type == "dynerf"
+    assert got.maxtime == want.maxtime
+    for split in ("train_cameras", "test_cameras"):
+        g, w = getattr(got, split), getattr(want, split)
+        assert len(g) == len(w) > 0
+        for i, (lg, lw) in enumerate(zip(g, w)):
+            _same_camera(lg.camera, lw.camera, f"{split}[{i}]")
+            assert lg.image.path == lw.image.path
+            assert tuple(lg.image.size) == tuple(lw.image.size)
+            assert lg.image.shape == lw.image.shape and lg.image.ndim == lw.image.ndim == 3
+            np.testing.assert_array_equal(lg.image(), lw.image())
+    assert len(got.video_cameras) == len(want.video_cameras) == 300
+    for i, (g, w) in enumerate(zip(got.video_cameras, want.video_cameras)):
+        _same_camera(g, w, f"video[{i}]")
+    for f in ("points", "colors", "normals"):
+        np.testing.assert_array_equal(getattr(got.point_cloud, f),
+                                      getattr(want.point_cloud, f))
+    np.testing.assert_array_equal(got.nerf_normalization["translate"],
+                                  want.nerf_normalization["translate"])
+    assert got.nerf_normalization["radius"] == want.nerf_normalization["radius"]
+
+
+def test_loader_matches_jax(tmp_path):
+    make_dynerf_scene(tmp_path)
+    got = tdynerf.load_dynerf_scene(str(tmp_path), target_wh=(W, H), n_frames=4)
+    want = jdynerf.load_dynerf_scene(str(tmp_path), target_wh=(W, H), n_frames=4)
+    _same_scene(got, want)
+    # camera 0 held out; camera-major order; times fi / n_frames
+    assert len(got.train_cameras) == 8 and len(got.test_cameras) == 4
+    assert [lc.camera.time for lc in got.test_cameras] == [0.0, 0.25, 0.5, 0.75]
+    assert got.train_cameras[0].image.path.endswith("cam01/images/0000.png")
+    assert got.train_cameras[4].image.path.endswith("cam02/images/0000.png")
+
+
+def test_loader_default_frames_and_eval_index(tmp_path):
+    """300-frame times (the loader's default ``n_frames``) and another
+    held-out camera."""
+    make_dynerf_scene(tmp_path, n_frames=3)
+    got = tdynerf.load_dynerf_scene(str(tmp_path), eval_index=2, target_wh=(W, H))
+    want = jdynerf.load_dynerf_scene(str(tmp_path), eval_index=2, target_wh=(W, H))
+    _same_scene(got, want)
+    assert got.test_cameras[1].camera.time == 1 / 300 and got.maxtime == 300.0
+
+
+def test_load_scene_dispatches_dynerf(tmp_path, monkeypatch):
+    make_dynerf_scene(tmp_path)
+    assert tscene.sniff_dataset_type(str(tmp_path)) == "dynerf"
+    # JAX's default frame size (scene.py:58-60 calls the loader without one)
+    default = inspect.signature(jdynerf.load_dynerf_scene).parameters["target_wh"].default
+    assert tscene.DYNERF_SIZE == tuple(default) == (1352, 1014)
+    data = tscene.load_scene(tload(), str(tmp_path))
+    assert data.train_cameras[0].image.size == (1352, 1014)
+    with pytest.raises(NotImplementedError, match="resizing is not ported"):
+        data.train_cameras[0].image()     # 32×24 frames, 1352×1014 wanted
+    monkeypatch.setattr(tscene, "DYNERF_SIZE", (W, H))
+    got = tscene.load_scene(tload(), str(tmp_path))
+    want = jdynerf.load_dynerf_scene(str(tmp_path), target_wh=(W, H))
+    _same_scene(got, want)
+
+
+def test_frame_of_another_size_raises(tmp_path):
+    make_dynerf_scene(tmp_path)
+    path = tmp_path / "cam01" / "images" / "0002.png"
+    png.write_png(str(path), np.zeros((H, W + 1, 3), np.uint8))
+    data = tdynerf.load_dynerf_scene(str(tmp_path), target_wh=(W, H), n_frames=4)
+    ref = next(lc.image for lc in data.train_cameras if lc.image.path == str(path))
+    with pytest.raises(NotImplementedError, match="33x24 frame, target 32x24"):
+        ref()
+    assert data.train_cameras[0].image().shape == (H, W, 3)
+
+
+def test_frame_modes_read_as_rgb(tmp_path):
+    """RGBA drops its alpha and gray is replicated, as Pillow's
+    ``convert("RGB")`` does in JAX's ref."""
+    make_dynerf_scene(tmp_path)
+    rng = np.random.default_rng(3)
+    d = tmp_path / "cam00" / "images"
+    rgba = rng.integers(0, 255, (H, W, 4), dtype=np.uint8)
+    gray = rng.integers(0, 255, (H, W), dtype=np.uint8)
+    png.write_png(str(d / "0000.png"), rgba)
+    png.write_png(str(d / "0001.png"), gray)
+    got = tdynerf.load_dynerf_scene(str(tmp_path), target_wh=(W, H), n_frames=4)
+    want = jdynerf.load_dynerf_scene(str(tmp_path), target_wh=(W, H), n_frames=4)
+    np.testing.assert_array_equal(got.test_cameras[0].image(), rgba[:, :, :3])
+    np.testing.assert_array_equal(got.test_cameras[1].image(), np.repeat(gray[:, :, None], 3, 2))
+    for i in (0, 1):
+        np.testing.assert_array_equal(got.test_cameras[i].image(), want.test_cameras[i].image())
+
+
+def test_videos_without_frames_raise(tmp_path):
+    """The mp4 extraction (cv2 and Pillow's resize) is not ported: a scene
+    of videos only raises and names the step."""
+    make_dynerf_scene(tmp_path, n_cams=2, n_frames=1)
+    for c in range(2):
+        (tmp_path / f"cam{c:02d}.mp4").write_bytes(b"")
+    for d in tmp_path.glob("cam0*/images"):
+        for f in d.iterdir():
+            f.unlink()
+        d.rmdir()
+    with pytest.raises(NotImplementedError, match="_extract_video_frames"):
+        tdynerf.load_dynerf_scene(str(tmp_path), target_wh=(W, H))

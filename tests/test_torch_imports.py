@@ -2,9 +2,10 @@
 default.
 
 - every port module and the import graphs of ``chip_smoke.py``,
-  ``profile_render_torch.py``, ``profile_train_torch.py`` and
-  ``bench_quality_torch.py`` load in a fresh interpreter without ``jax`` or
-  ``fourdgs_tpu`` in ``sys.modules``;
+  ``profile_render_torch.py``, ``profile_train_torch.py``,
+  ``bench_quality_torch.py`` and ``bench_quality_dynerf_torch.py`` load in
+  a fresh interpreter without ``jax`` or ``fourdgs_tpu`` in
+  ``sys.modules``;
 - an AST scan finds no such import in the package or those scripts;
 - with CUDA absent, each entry point raises unless asked for the CPU;
 - the port's constants equal the JAX package's.
@@ -48,7 +49,7 @@ def test_import_graph_has_no_jax():
         f"sys.path.insert(0, {str(ROOT)!r})\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "import chip_smoke, profile_render_torch, profile_train_torch\n"
-        "import bench_quality_torch\n"
+        "import bench_quality_torch, bench_quality_dynerf_torch\n"
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'fourdgs_tpu'))\n"
         "print('BAD', bad)\n"
@@ -64,7 +65,8 @@ def test_ast_scan_has_no_jax_imports():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "profile_render_torch.py",
                                          ROOT / "profile_train_torch.py",
-                                         ROOT / "bench_quality_torch.py"]
+                                         ROOT / "bench_quality_torch.py",
+                                         ROOT / "bench_quality_dynerf_torch.py"]
     found = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -140,6 +142,9 @@ def test_entry_points_default_to_cuda():
         scene_reconstruction(cfg, pcd, adam.init(pcd.params), cams, "coarse", 1, 1.0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bench_quality_torch.run(size=64, n_train=1, n_test=1)
+    import bench_quality_dynerf_torch
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench_quality_dynerf_torch.run(scale=0.01)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tile_pixel_mask(56, 72)
     assert tile_pixel_mask(56, 72, device="cpu").shape == (20, 1, 256)

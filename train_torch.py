@@ -13,8 +13,10 @@ Stages: coarse (static canonical model) then fine (deformation on). Writes
 ``events.jsonl``, ``eval_log.jsonl``, ``eval_images/``, snapshots
 (``point_cloud/iteration_*``) and checkpoints (``chkpnt_<stage>_<iter>``)
 under ``output/<expname>/`` or ``--model_path``; ``--start_checkpoint``
-resumes from a checkpoint (a fine one skips the coarse stage). Only the
-Blender (D-NeRF) loader is ported. ``--mesh``, ``--shard_primitives``,
+resumes from a checkpoint (a fine one skips the coarse stage). The Blender
+(D-NeRF) and DyNeRF (Neu3D) loaders are ported; a DyNeRF scene's lazy
+frames are decoded per batch by the native prefetcher, and the eval calls
+them. ``--mesh``, ``--shard_primitives``,
 ``--distributed``, ``--port``, ``--gradient_tracking`` and ``--debug_mode``
 raise ``NotImplementedError``. ``--device cpu`` runs the plain PyTorch
 versions of the kernels.
@@ -136,7 +138,7 @@ def main(argv=None):
                                       CameraArrays.from_camera(lc.camera, device=dev),
                                       cfg, w, h, stage, bg,
                                       cur_state.active_sh_degree, device=dev).color
-                gt = np.asarray(lc.image)
+                gt = np.asarray(lc.image() if callable(lc.image) else lc.image)
                 if gt.dtype == np.uint8:
                     gt = gt.astype(np.float32).transpose(2, 0, 1) / 255.0
                 gt = torch.tensor(gt[:3], device=dev)
@@ -177,13 +179,25 @@ def main(argv=None):
                    | set(args.test_iterations))
     common = dict(timer=timer, event_log=ev, log_fn=log_fn,
                   extra_log_iters=extra_iters, model_path=model_path, device=dev)
+
+    def report_prefetch(stage, log, iteration):
+        """The native prefetcher's frame counts of a stage on lazy frames."""
+        if log.prefetch is not None:
+            print(f"[prefetch] {stage}: {log.prefetch['submitted']} frames submitted, "
+                  f"{log.prefetch['native']} decoded natively, "
+                  f"{log.prefetch['to_ref']} sent to the ref's decoder")
+            for k, v in log.prefetch.items():
+                ev.add_scalar(f"{stage}/prefetch/{k}", v, iteration)
+
     if start_stage == "coarse":
-        state, adam_state, _ = scene_reconstruction(
+        state, adam_state, log = scene_reconstruction(
             cfg, state, adam_state, cams, "coarse", cfg.opt.coarse_iterations,
             scene.cameras_extent, rng_seed=args.seed, **common)
-    state, adam_state, _ = scene_reconstruction(
+        report_prefetch("coarse", log, cfg.opt.coarse_iterations)
+    state, adam_state, log = scene_reconstruction(
         cfg, state, adam_state, cams, "fine", cfg.opt.iterations,
         scene.cameras_extent, rng_seed=args.seed + 1, **common)
+    report_prefetch("fine", log, cfg.opt.iterations)
 
     wall.pause()
     checkpoint.save_snapshot(model_path, state, cfg.opt.iterations, "fine")
