@@ -65,7 +65,8 @@ on failure:
    each probe's bytes as ``exp_grid_cost.run()`` read it in turns with the
    probe (``vs_fill``; the library call where it computes the probe's output);
 8. one JSON line ``{"kernels": [...]}`` and, last, the result line
-   ``{"ok": true, "device": {...}}``; before them phases 9, 10 and 11:
+   ``{"ok": true, "device": {...}}``; before them phases 9 to 12 and the
+   script's own time:
 9. training from a point cloud (``bench_quality_torch.py``, bf16 payload):
    (a) the bouncingballs preset at ``--gt oracle --scale 0.05`` (150 coarse + 1,000
    fine steps at 800×800 from 2,000 random points, the launch counts zeroed
@@ -107,8 +108,8 @@ on failure:
    (:func:`check_entry_points`);
 11. the DyNeRF path (:func:`check_dynerf_path`), each run with the launch
    counts zeroed just before it and read just after: (a)
-   ``bench_quality_dynerf_torch.py`` at ``--scale 0.05`` (the dynerf preset at
-   full width as users run it, sh 3, anisotropic: 150 coarse + 700 fine
+   ``bench_quality_dynerf_torch.py`` at ``--scale 0.03`` (the dynerf preset at
+   full width as users run it, sh 3, anisotropic: 90 coarse + 420 fine
    steps of batch 4 with the FineSampler over 11 ring cameras × 150
    timestamps at 676×507, GT from K1 held in memory, its launches counted
    apart): K2 launches equal the renders of its steps, K1 launches those
@@ -136,6 +137,36 @@ on failure:
    per render of a step, K1 also once per eval view and rendered view;
    ``load_scene``'s time and the data-loading ms and share of a step
    (``timing_report.json``) printed.
+12. the remaining loaders, each run with the launch counts zeroed just
+   before it and read just after: (a) a HyperNeRF scene in the vrig layout
+   (:func:`write_hypernerf_scene`: 48 portrait phone frames at 540×960 from
+   two cameras in turn on an arc, ``warp_id`` = frame index, GT rendered by
+   K1 on the preset's white background, covisible masks 0 over the right
+   fifth of the val frames, 4,000 noisy surface points as ``points.npy``), then
+   ``train_torch.py --debug_mode`` with the
+   hypernerf preset at full width (K-planes [64, 64, 64, 150] × 16, multires
+   (1, 2, 4), width 128, depth 1, batch 2, ``render_process`` on) and a cut
+   schedule (100 coarse + 300 fine steps), ``render_torch.py`` and
+   ``metrics_torch.py``: the ``render_process`` frames at exactly
+   ``should_save_progress``'s iterations of each stage and the debug panels
+   every 100, ``render_torch.py``'s ``masks/`` equal to the sources,
+   ``metrics_torch.py``'s masked PSNR equal to the same computed here within
+   1e-5 dB and above a blank (white) image's, every frame decoded natively
+   by the prefetcher, K2 once per render of a step and K1 also once per eval
+   view, ``render_process`` frame, debug panel and rendered view; then K1 and
+   K2 at a train step of the trained model on the padded 34×60 grid against
+   their plain versions, the cull against the walk, the strip masks and the
+   padding (:func:`check_padding`), with times and bounds (``hypernerf`` in
+   the kernels line). (b) The JPEG decoder on every committed fixture of
+   ``tests/torch_fixtures/jpeg`` against Pillow's decodes
+   (``pillow_decode.npz``) within 2 levels, mean 0.02, with its ms per
+   160×120 frame; a MultipleView scene of the twelve committed frames (3
+   cameras × 4, ``sparse_/0`` by the port's COLMAP writers) through the CLI
+   chain with the multipleview preset at full width (12 + 36 steps): finite
+   losses, every frame sent by the prefetcher to the ref's JPEG decoder,
+   renders equal to the in-process render; Panoptic and COLMAP scenes of the
+   same frames through ``load_scene``: the cameras' counts and times, every
+   frame within the tolerance of Pillow's decode.
 
 Agreement bound of K1 with its plain version: atol 1e-4 on color and final
 transmittance, except pixels riding T_STOP, where a different association of
@@ -153,6 +184,7 @@ call holds host time too.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1053,17 +1085,20 @@ def _checkpoint_leaves(state, opt):
     return out
 
 
-def run_cli_chain(data_dir, model_path, dev, overrides=CLI_SCHEDULE, preset=None):
+def run_cli_chain(data_dir, model_path, dev, overrides=CLI_SCHEDULE, preset=None,
+                  extra_args=()):
     """``train_torch.py`` → ``render_torch.py`` (test split) →
     ``metrics_torch.py`` on ``data_dir`` with ``preset`` (default the
-    bouncingballs preset) and ``overrides``, then phase 10 (b)'s checks
+    bouncingballs preset), ``overrides`` and ``train_torch.py``'s
+    ``extra_args``, then phase 10 (b)'s checks
     (module docstring) but the PSNR's against the blank image, which
     :func:`check_entry_points` makes. Returns the walls, the scene's load
     time, the renders' FPS, the PSNRs, the points, the batch size, the
     launch counts of each script (zeroed just before it), the native
-    prefetcher's frame counts over the training (``events.jsonl``), and
+    prefetcher's frame counts over the training (``events.jsonl``),
     each stage's data-loading ms per step and share of the step's wall
-    from ``timing_report.json`` (``utils/timer.py``)."""
+    from ``timing_report.json`` (``utils/timer.py``), and the trained
+    config and state."""
     import torch
 
     import bench_quality_torch as BQ
@@ -1096,7 +1131,7 @@ def run_cli_chain(data_dir, model_path, dev, overrides=CLI_SCHEDULE, preset=None
     (state, opt), train_s, train_launches = counted(lambda: train_torch.main([
         "-s", data_dir, "--configs", preset or BQ.PRESET, "--model_path", model_path,
         "--quiet", "--test_iterations", str(iters), "--save_iterations", str(iters),
-        "--device", dev.type, "--override", *overrides]))
+        "--device", dev.type, *extra_args, "--override", *overrides]))
     rendered, render_s, render_launches = counted(lambda: render_torch.main([
         "--model_path", model_path, "--skip_train", "--skip_video",
         "--device", dev.type]))
@@ -1149,7 +1184,8 @@ def run_cli_chain(data_dir, model_path, dev, overrides=CLI_SCHEDULE, preset=None
     snap_state = checkpoint.load_snapshot(snap, cfg, device=dev)
     bg = torch.ones(3, device=dev) if cfg.model.white_background else torch.zeros(3, device=dev)
     t0 = time.perf_counter()
-    test_cams = load_scene(cfg, data_dir).test_cameras
+    scene = load_scene(cfg, data_dir)
+    test_cams = scene.test_cameras
     load_s = time.perf_counter() - t0
     base = os.path.join(model_path, "test", f"ours_{iters}")
     worst, blank = 0, []
@@ -1180,7 +1216,8 @@ def run_cli_chain(data_dir, model_path, dev, overrides=CLI_SCHEDULE, preset=None
             "eval_renders": eval_renders, "test_views": len(test_cams),
             "render_max_level_diff": worst, "train_launches": train_launches,
             "render_launches": render_launches, "batch_size": cfg.opt.batch_size,
-            "prefetch": prefetch, "data_loading": loading}
+            "prefetch": prefetch, "data_loading": loading, "cfg": cfg, "state": state,
+            "scene": scene}
 
 
 def check_entry_points(dev):
@@ -1356,6 +1393,39 @@ def check_dynerf_bench(dev, scale, instant4d=False):
     return res, model, launches
 
 
+def render_gt(cam, dev, bg):
+    """uint8 [H, W, 3] of ``bench_quality_torch.py``'s GT scene at
+    ``cam.time`` through K1 on ``bg``."""
+    import torch
+
+    import bench_quality_torch as BQ
+    from fourdgs_tpu_torch.ops.rasterize import rasterize_pallas
+    from fourdgs_tpu_torch.render import CameraArrays
+
+    pts, cols, scales, offsets = BQ.make_gt_scene()
+    extra = {k: torch.tensor(v, device=dev)
+             for k, v in BQ.gt_raster_args(pts, cols, scales).items()}
+    c = CameraArrays.from_camera(cam, device=dev)
+    with torch.no_grad():
+        out = rasterize_pallas(
+            torch.tensor(pts + offsets(cam.time), device=dev), extra["scales"],
+            extra["rotations"], extra["opacities"], extra["shs"], c.camera_center,
+            c.world_view, c.full_proj, c.tanfovx, c.tanfovy, cam.width, cam.height, 0,
+            torch.tensor(bg, dtype=torch.float32, device=dev), instance_budget=BQ.GT_BUDGET)
+    if int(out.num_rendered) > BQ.GT_BUDGET:
+        raise AssertionError(f"a GT frame overflowed its budget: {int(out.num_rendered)}")
+    return (out.color.permute(1, 2, 0) * 255 + 0.5).clamp(0, 255).to(torch.uint8).cpu().numpy()
+
+
+def _init_cloud():
+    """(points, colours) of the DyNeRF bench's 8,000-point init cloud of the
+    GT scene: 4,000 noisy surface points, then 4,000 uniform ones."""
+    import bench_quality_dynerf_torch as BD
+    import bench_quality_torch as BQ
+
+    return BD.init_cloud(BQ.make_gt_scene()[0])
+
+
 def write_dynerf_scene(root, dev, n_frames=DYNERF_FRAMES, size=(1352, 1014)):
     """Write a DyNeRF (Neu3D) scene under ``root`` with the port's PNG
     writer: ``poses_bounds.npy`` for 4 cameras of the DyNeRF bench's ring,
@@ -1365,23 +1435,15 @@ def write_dynerf_scene(root, dev, n_frames=DYNERF_FRAMES, size=(1352, 1014)):
     bench's 8,000-point init cloud as ``points3D_downsample2.ply``. The
     poses invert the loader's LLFF convention so that it rebuilds each
     ring camera. Returns the cameras per camera index."""
-    import torch
-
     import bench_quality_dynerf_torch as BD
     import bench_quality_torch as BQ
     from fourdgs_tpu_torch.data.ply import store_pointcloud
-    from fourdgs_tpu_torch.ops.rasterize import rasterize_pallas
-    from fourdgs_tpu_torch.render import CameraArrays
     from fourdgs_tpu_torch.utils import graphics, png
 
     W, H = size
     fov = 0.6911112070083618
     focal = graphics.fov2focal(fov, W)
     fovy = graphics.focal2fov(focal, H)
-    pts, cols, scales, offsets = BQ.make_gt_scene()
-    extra = {k: torch.tensor(v, device=dev)
-             for k, v in BQ.gt_raster_args(pts, cols, scales).items()}
-    black = torch.zeros(3, device=dev)
     rows, cameras = [], {}
     for ci, (ang, elev) in enumerate(BD.camera_poses()[:4]):
         ring = BQ.ring_camera(ang, elev, W, H, 0.0)
@@ -1398,29 +1460,18 @@ def write_dynerf_scene(root, dev, n_frames=DYNERF_FRAMES, size=(1352, 1014)):
         for fi in range(n_frames):
             t = fi / 300
             cam = graphics.make_camera(R, -R.T @ eye, fov, fovy, W, H, time=t)
-            c = CameraArrays.from_camera(cam, device=dev)
-            with torch.no_grad():
-                out = rasterize_pallas(
-                    torch.tensor(pts + offsets(t), device=dev), extra["scales"],
-                    extra["rotations"], extra["opacities"], extra["shs"],
-                    c.camera_center, c.world_view, c.full_proj, c.tanfovx,
-                    c.tanfovy, W, H, 0, black, instance_budget=BQ.GT_BUDGET)
-            if int(out.num_rendered) > BQ.GT_BUDGET:
-                raise AssertionError(f"scene frame overflowed its budget: "
-                                     f"{int(out.num_rendered)}")
-            img8 = (out.color.permute(1, 2, 0) * 255 + 0.5).clamp(0, 255).to(torch.uint8)
-            png.write_png(os.path.join(img_dir, f"{fi:04d}.png"), img8.cpu().numpy(),
-                          filter_type=(ci + fi) % 5)
+            png.write_png(os.path.join(img_dir, f"{fi:04d}.png"),
+                          render_gt(cam, dev, [0.0, 0.0, 0.0]), filter_type=(ci + fi) % 5)
             cameras[ci].append(cam)
     np.save(os.path.join(root, "poses_bounds.npy"), np.stack(rows))
-    init_pts, init_cols = BD.init_cloud(pts)
+    init_pts, init_cols = _init_cloud()
     store_pointcloud(os.path.join(root, "points3D_downsample2.ply"), init_pts,
                      init_cols * 255)
     return cameras
 
 
 def check_dynerf_path(dev):
-    """Phase 11 (module docstring): the DyNeRF bench at scale 0.05 with
+    """Phase 11 (module docstring): the DyNeRF bench at scale 0.03 with
     K1/K2 and the padding on its trained model, at 0.02 with
     ``--instant4d``, then the DyNeRF CLI chain on lazy frames. Returns the
     launches and :func:`check_trained_blend`'s fields for the kernels
@@ -1432,8 +1483,8 @@ def check_dynerf_path(dev):
     from fourdgs_tpu_torch.ops import blend
     from fourdgs_tpu_torch.utils import losses
 
-    print("[11] the DyNeRF path: (a) bench_quality_dynerf_torch --scale 0.05", flush=True)
-    a, model, a_launches = check_dynerf_bench(dev, 0.05)
+    print("[11] the DyNeRF path: (a) bench_quality_dynerf_torch --scale 0.03", flush=True)
+    a, model, a_launches = check_dynerf_bench(dev, 0.03)
     fwd_args, bwd_args = view_blend_inputs(model, 0, dev)
     cfg, state = model.cfg, model.state
     W, H = a["resolution"]
@@ -1506,6 +1557,459 @@ def check_dynerf_path(dev):
             "cli": (k1_train + k1_render, k2_train)}
 
 
+HYPERNERF_PRESET = os.path.join(ROOT, "fourdgs_tpu", "configs", "presets", "hypernerf",
+                                "default.py")
+MULTIPLEVIEW_PRESET = os.path.join(ROOT, "fourdgs_tpu", "configs", "presets", "multipleview",
+                                   "default.py")
+HYPERNERF_FRAMES = 48              # frames of phase 12 (a)'s scene, two cameras in turn
+HYPERNERF_IMAGE_SIZE = (1080, 1920)   # camera/<id>.json's (W, H); rgb/2x holds half
+HYPERNERF_FOCAL = 1400.0           # at the full size
+JPEG_FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "jpeg")
+JPEG_SCENE_CAMS, JPEG_SCENE_FRAMES = 3, 4    # phase 12 (b)'s scenes: 12 committed frames
+JPEG_SCENE_SIZE = (160, 120)
+MULTIPLEVIEW_SCHEDULE = ("opt.coarse_iterations=12", "opt.iterations=36",
+                         "opt.position_lr_max_steps=36")
+# the JPEG tolerance against Pillow (tests/test_torch_jpeg.py): two conforming
+# decoders may round the IDCT differently (T.81 leaves it to the decoder),
+# and the colour transform multiplies a chroma difference of 1 by up to 1.772
+JPEG_MAX_LEVELS, JPEG_MEAN_LEVELS = 2, 0.02
+
+
+def hypernerf_camera_json(i, n_frames=HYPERNERF_FRAMES, image_size=HYPERNERF_IMAGE_SIZE,
+                          focal=HYPERNERF_FOCAL):
+    """``camera/<id>.json`` of frame ``i``: two phone cameras in turn (even
+    frames the left, odd the right, 0.06 rad apart) walking an arc of 1 rad
+    around the GT scene at elevation 0.35, looking at its centre, pinhole
+    (the released rgb/2x frames are rectified)."""
+    import bench_quality_torch as BQ
+
+    ang = -0.5 + i / max(n_frames - 1, 1) + (0.06 if i % 2 else 0.0)
+    ring = BQ.ring_camera(ang, 0.35, 8, 8, 0.0)
+    R = np.asarray(ring.world_view, np.float64)[:3, :3]      # camera-to-world axes
+    W, H = image_size
+    return {"orientation": R.T.tolist(), "position": np.asarray(
+                ring.camera_center, np.float64).tolist(),
+            "focal_length": focal, "principal_point": [W / 2, H / 2],
+            "image_size": [W, H], "skew": 0.0, "pixel_aspect_ratio": 1.0,
+            "radial_distortion": [0.0, 0.0, 0.0], "tangential_distortion": [0.0, 0.0]}
+
+
+def write_hypernerf_scene(root, dev, n_frames=HYPERNERF_FRAMES,
+                          image_size=HYPERNERF_IMAGE_SIZE):
+    """Write a HyperNeRF (Nerfies) scene in the vrig layout under ``root``
+    with the port's PNG writer: ``scene.json``, ``metadata.json`` (``warp_id``
+    = frame index), ``dataset.json`` (the left camera's frames train, the
+    right's validate), ``camera/<id>.json`` (:func:`hypernerf_camera_json`),
+    ``rgb/2x/<id>.png`` at half of ``image_size`` (the focal length scaled
+    with it, so that any size frames the same view) that K1 renders from the GT
+    scene on the hypernerf preset's white background at the loader's times
+    (warp_id / max warp_id), covisible masks ``covisible/2x/val/<id>.png``
+    for the val ids (0 over the columns [0.8 W, W), the right camera's edge
+    that the left one does not see, 255 elsewhere), and the
+    4,000 surface points of the DyNeRF bench's init cloud (the GT scene's,
+    with N(0, 0.05) noise; a capture's ``points.npy`` holds its sparse
+    reconstruction) as ``points.npy``. Returns (the loader's cameras by id,
+    the masks by id)."""
+    from fourdgs_tpu_torch.utils import graphics, png
+
+    ids = [f"{i:06d}" for i in range(n_frames)]
+    w, h = int(image_size[0] * 0.5), int(image_size[1] * 0.5)
+    focal = HYPERNERF_FOCAL * image_size[0] / HYPERNERF_IMAGE_SIZE[0]   # the same view
+    for d in ("camera", os.path.join("rgb", "2x"), os.path.join("covisible", "2x", "val")):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    with open(os.path.join(root, "scene.json"), "w") as f:
+        json.dump({"scale": 1.0, "center": [0.0, 0.0, 0.0], "near": 0.5, "far": 10.0}, f)
+    with open(os.path.join(root, "metadata.json"), "w") as f:
+        json.dump({k: {"warp_id": i, "appearance_id": i, "camera_id": i % 2}
+                   for i, k in enumerate(ids)}, f)
+    with open(os.path.join(root, "dataset.json"), "w") as f:
+        json.dump({"count": n_frames, "num_exemplars": n_frames // 2, "ids": ids,
+                   "train_ids": ids[0::2], "val_ids": ids[1::2]}, f)
+    mask = np.full((h, w), 255, np.uint8)
+    mask[:, int(0.8 * w):] = 0        # what the left (train) camera does not see
+    cameras, masks = {}, {}
+    for i, k in enumerate(ids):
+        cj = hypernerf_camera_json(i, n_frames, image_size, focal)
+        with open(os.path.join(root, "camera", f"{k}.json"), "w") as f:
+            json.dump(cj, f)
+        R = np.asarray(cj["orientation"]).T                    # the loader's pose
+        T = -np.asarray(cj["position"]) @ R
+        fovx, fovy = graphics.focal2fov(focal * 0.5, w), graphics.focal2fov(focal * 0.5, h)
+        cam = graphics.make_camera(R, T, fovx, fovy, w, h, time=i / (n_frames - 1))
+        png.write_png(os.path.join(root, "rgb", "2x", f"{k}.png"), render_gt(cam, dev, [1.0] * 3),
+                      filter_type=i % 5)
+        if i % 2:
+            png.write_png(os.path.join(root, "covisible", "2x", "val", f"{k}.png"), mask)
+            masks[k] = mask
+        cameras[k] = cam
+    np.save(os.path.join(root, "points.npy"), _init_cloud()[0][:4000])
+    return cameras, masks
+
+
+def progress_saves(iterations):
+    """The ``render_process`` frames of a stage of ``iterations`` steps."""
+    from fourdgs_tpu_torch.utils import debug_images
+
+    return [i for i in range(1, iterations + 1) if debug_images.should_save_progress(i)]
+
+
+def check_hypernerf_path(dev, n_frames=HYPERNERF_FRAMES, image_size=HYPERNERF_IMAGE_SIZE,
+                         schedule=CLI_SCHEDULE, preset=HYPERNERF_PRESET, root=None):
+    """Phase 12 (a) (module docstring): the HyperNeRF scene, the CLI chain
+    with ``--debug_mode``, the outputs of ``render_process``, the masks and
+    the masked PSNRs, then K1/K2 at a train step of the trained model on its
+    padded grid, in ``root`` (kept) or a temporary directory. Returns the
+    launches, the kernels-line fields and the masked PSNRs of the model and
+    of a blank image, which the caller compares (a cut schedule's model need
+    not beat the blank)."""
+    import torch
+
+    from fourdgs_tpu_torch.data.hypernerf import read_mask
+    from fourdgs_tpu_torch.render import CameraArrays, render
+    from fourdgs_tpu_torch.ops import blend
+    from fourdgs_tpu_torch.utils import losses, png
+
+    print("[12] the loaders: (a) a HyperNeRF scene (vrig, portrait phone frames), then "
+          "train_torch.py --debug_mode -> render_torch.py -> metrics_torch.py", flush=True)
+    with (contextlib.nullcontext(root) if root else
+          tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_hypernerf_")) as tmp:
+        data_dir, model_path = os.path.join(tmp, "data"), os.path.join(tmp, "model")
+        t0 = time.perf_counter()
+        cameras, masks = write_hypernerf_scene(data_dir, dev, n_frames, image_size)
+        scene_s = time.perf_counter() - t0
+        cli, _ = printed(lambda: run_cli_chain(data_dir, model_path, dev, schedule, preset,
+                                               extra_args=("--debug_mode",)))
+        cfg, state = cli["cfg"], cli["state"]
+        stages = {"coarse": cfg.opt.coarse_iterations, "fine": cfg.opt.iterations}
+        # render_process frames and debug panels at JAX's iterations
+        def listed(*parts):
+            d = os.path.join(model_path, *parts)
+            return sorted(os.listdir(d)) if os.path.isdir(d) else []
+
+        frames = {st: [int(f[:-4]) for f in listed("train_render", f"{st}test")]
+                  for st in stages}
+        panels = listed("debug_images")
+        want_panels = sorted(f"{st}_{i:06d}.png" for st, n in stages.items()
+                             for i in range(100, n + 1, 100))
+        for st, n in stages.items():
+            if frames[st] != progress_saves(n):
+                raise AssertionError(f"render_process frames of {st}: {frames[st]}")
+        if panels != want_panels:
+            raise AssertionError(f"debug panels {panels}, expected {want_panels}")
+        extra_renders = sum(len(v) for v in frames.values()) + len(panels)
+        with open(os.path.join(model_path, "eval_log.jsonl")) as f:
+            eval_log = [json.loads(line) for line in f][-1]
+        # masks/ of render_torch.py against the sources; the masked PSNR of
+        # metrics_torch.py against the same computed here from the PNGs
+        iters = cfg.opt.iterations
+        base = os.path.join(model_path, "test", f"ours_{iters}")
+        data = cli["scene"]
+        bg = torch.ones(3, device=dev)
+        own, blank = [], []
+        for vi, lc in enumerate(data.test_cameras):
+            key = os.path.basename(lc.mask_path)[:-4]
+            got_mask = png.read_png(os.path.join(base, "masks", f"{vi:05d}.png"))
+            if not np.array_equal(got_mask, masks[key]):
+                raise AssertionError(f"masks/{vi:05d}.png differs from its source")
+            mask = torch.tensor(read_mask(lc.mask_path, lc.camera.width, lc.camera.height),
+                                dtype=torch.float32, device=dev)
+            ren = torch.tensor(png.read_png(os.path.join(base, "renders", f"{vi:05d}.png")),
+                               dtype=torch.float32, device=dev).permute(2, 0, 1) / 255.0
+            gt = torch.tensor(lc.image(), dtype=torch.float32,
+                              device=dev).permute(2, 0, 1) / 255.0
+            own.append(float(losses.masked_psnr(ren, gt, mask)))
+            blank.append(float(losses.masked_psnr(bg[:, None, None].expand_as(gt), gt, mask)))
+            unmasked = float(losses.psnr(ren[None], gt[None])[0])
+        masked_own, masked_blank = float(np.mean(own)), float(np.mean(blank))
+        # K1/K2 at a train step of the trained model: train view 0
+        lc0 = data.train_cameras[0]
+        cam0 = lc0.camera
+        gt0 = torch.tensor(lc0.image(), device=dev).to(torch.float32).permute(2, 0, 1) / 255.0
+        gt_tiles = losses.tile_image(gt0, pad_cols=2)
+        fwd_args, bwd_args = step_blend_inputs(
+            cfg, state, CameraArrays.from_camera(cam0, device=dev), cam0.width, cam0.height,
+            gt_tiles, bg, state.active_sh_degree, dev)
+        trained = check_step_blend(
+            fwd_args, bwd_args, dev,
+            f"train view 0 of the HyperNeRF model ({cam0.width}x{cam0.height} portrait, "
+            f"{fwd_args[1].numel()} tiles, batch {cfg.opt.batch_size}, capacity "
+            f"{state.alive.shape[0]}, {int(state.alive.sum())} alive, budget "
+            f"{cfg.tpu.instance_budget})")
+        pad = check_padding(bwd_args[5], blend.blend_forward_plain(*fwd_args), bwd_args[6],
+                            gt_tiles, cam0.height, cam0.width, dev)
+    (k1_train, k2_train), (k1_render, k2_render) = cli["train_launches"], cli["render_launches"]
+    renders = cli["steps"] * cli["batch_size"]
+    on_card = int(dev.type == "cuda")
+    pf = cli["prefetch"]
+    w, h = cam0.width, cam0.height
+    print(f"    scene: {n_frames} frames at {w}x{h} ({len(data.train_cameras)} train, "
+          f"{len(data.test_cameras)} val with covisible masks) written in {scene_s:.1f} s; "
+          f"load_scene {cli['load_s']:.3f} s; train wall {cli['train_s']:.3f} s "
+          f"({cli['steps']} steps of batch {cli['batch_size']}, "
+          f"{cli['steps'] / cli['train_s']:.3f} it/s with the evals, saves and debug images, "
+          f"{cli['points']} points), render wall {cli['render_s']:.3f} s (FPS "
+          f"{cli['fps']:.3f}), metrics {cli['metrics_s']:.3f} s")
+    print(f"    render_process frames {json.dumps({k: len(v) for k, v in frames.items()})} at "
+          f"should_save_progress's iterations, debug panels {len(panels)} every 100")
+    print(f"    prefetcher: {pf['submitted']} frames submitted, {pf['native']} decoded "
+          f"natively, {pf['to_ref']} sent to the ref; data loading per step "
+          f"{json.dumps(cli['data_loading'])}")
+    print(f"    eval_log.jsonl at {eval_log['iteration']}: test (masked) PSNR "
+          f"{eval_log['test']['psnr']:.4f} dB, train PSNR {eval_log['train']['psnr']:.4f}")
+    print(f"    metrics_torch.py masked PSNR {cli['psnr']:.6f} dB, computed here "
+          f"{masked_own:.6f}; blank (white) image masked {masked_blank:.4f}; the last view "
+          f"unmasked {unmasked:.4f}; masks/ equal to the sources; renders vs in-process "
+          f"render: max {cli['render_max_level_diff']} levels")
+    print(f"    padding of the {w}x{h} grid: {pad}")
+    print(f"    K1/K2 launches: train {cli['train_launches']} ({renders} renders of "
+          f"{cli['steps']} steps + {cli['eval_renders']} eval views + {extra_renders} "
+          f"render_process and debug renders), render {cli['render_launches']} "
+          f"({cli['test_views']} views + 1 warm-up)")
+    if abs(cli["psnr"] - masked_own) > 1e-5:
+        raise AssertionError(f"metrics_torch.py's masked PSNR {cli['psnr']} against "
+                             f"{masked_own} computed here")
+    if pf["submitted"] != renders or pf["native"] != renders or pf["to_ref"]:
+        raise AssertionError(f"the prefetcher decoded {pf}, expected {renders} natively")
+    if ((k2_train, k1_train) != (on_card * renders,
+                                 on_card * (renders + cli["eval_renders"] + extra_renders))
+            or (k1_render, k2_render) != (on_card * (cli["test_views"] + 1), 0)):
+        raise AssertionError(f"CLI launches: train {cli['train_launches']}, render "
+                             f"{cli['render_launches']}")
+    return {"cli": (k1_train + k1_render, k2_train), "blend": trained, "padding": pad,
+            "masked_psnr": cli["psnr"], "blank_masked_psnr": masked_blank}
+
+
+def jpeg_scene_camera(c, f, size=JPEG_SCENE_SIZE):
+    """Camera ``c`` of phase 12 (b)'s scenes at frame ``f``: the DyNeRF
+    bench's ring camera ``c`` at ``size``, one focal length for both axes
+    (as the MultipleView loader reads it), time f / JPEG_SCENE_FRAMES.
+    Returns (camera, focal, camera-to-world rotation, centre)."""
+    import bench_quality_dynerf_torch as BD
+    import bench_quality_torch as BQ
+    from fourdgs_tpu_torch.utils import graphics
+
+    W, H = size
+    ang, elev = BD.camera_poses()[c]
+    ring = BQ.ring_camera(ang, elev, W, H, 0.0)
+    R = np.asarray(ring.world_view, np.float64)[:3, :3]
+    eye = np.asarray(ring.camera_center, np.float64)
+    focal = graphics.fov2focal(0.6911112070083618, W)
+    cam = graphics.make_camera(R, -R.T @ eye, graphics.focal2fov(focal, W),
+                               graphics.focal2fov(focal, H), W, H,
+                               time=f / JPEG_SCENE_FRAMES)
+    return cam, focal, R, eye
+
+
+def jpeg_frame(c, f):
+    """The committed JPEG of camera ``c`` at frame ``f``."""
+    return os.path.join(JPEG_FIXTURES, f"frame_c{c}_f{f}.jpg")
+
+
+def write_multipleview_scene(root):
+    """A MultipleView scene of the committed frames: ``cam01…cam03/
+    frame_00001.jpg…``, ``sparse_/0`` (one PINHOLE camera, an image per
+    rig camera named ``image<NN>.jpg``, no points) by the port's COLMAP
+    writers, ``poses_bounds_multipleview.npy`` in the LLFF convention and
+    the init cloud as ``points3D_multipleview.ply``."""
+    import shutil
+
+    from fourdgs_tpu_torch.data import colmap_io
+    from fourdgs_tpu_torch.data.ply import store_pointcloud
+
+    W, H = JPEG_SCENE_SIZE
+    images, rows = {}, []
+    for c in range(JPEG_SCENE_CAMS):
+        folder = os.path.join(root, f"cam{c + 1:02d}")
+        os.makedirs(folder)
+        for f in range(JPEG_SCENE_FRAMES):
+            shutil.copy(jpeg_frame(c, f), os.path.join(folder, f"frame_{f + 1:05d}.jpg"))
+        cam, focal, R, eye = jpeg_scene_camera(c, 0)
+        wv = np.asarray(cam.world_view, np.float64)
+        images[c + 1] = colmap_io.ColmapImage(
+            c + 1, colmap_io.rotmat2qvec(R.T), wv[3, :3].copy(), 1, f"image{c + 1:02d}.jpg",
+            np.zeros((0, 2)), np.zeros(0, np.int64))
+        m = R @ np.diag([1.0, -1.0, -1.0])
+        llff = np.concatenate([-m[:, 1:2], m[:, 0:1], m[:, 2:3], eye[:, None],
+                               np.array([[H], [W], [focal]])], axis=1)
+        rows.append(np.concatenate([llff.reshape(-1), [0.5, 10.0]]))
+    cams = {1: colmap_io.ColmapCamera(1, "PINHOLE", W, H,
+                                      np.array([focal, focal, W / 2, H / 2]))}
+    colmap_io.write_model(cams, images, {}, os.path.join(root, "sparse_", "0"))
+    np.save(os.path.join(root, "poses_bounds_multipleview.npy"), np.stack(rows))
+    pts, cols = _init_cloud()
+    store_pointcloud(os.path.join(root, "points3D_multipleview.ply"), pts, cols * 255)
+
+
+def write_panoptic_scene(root):
+    """A PanopticSports scene of the committed frames: ``ims/<c>/<f>.jpg``,
+    ``train_meta.json`` and ``test_meta.json`` (K and w2c of each camera at
+    each of the frames) and ``init_pt_cld.npz``."""
+    import shutil
+
+    W, H = JPEG_SCENE_SIZE
+    meta = {"w": W, "h": H, "k": [], "w2c": [], "fn": [], "cam_id": []}
+    for f in range(JPEG_SCENE_FRAMES):
+        ks, w2cs, fns = [], [], []
+        for c in range(JPEG_SCENE_CAMS):
+            cam, focal, R, eye = jpeg_scene_camera(c, f)
+            w2c = np.eye(4)
+            w2c[:3, :3], w2c[:3, 3] = R.T, -R.T @ eye
+            fn = f"{c}/{f:06d}.jpg"
+            os.makedirs(os.path.join(root, "ims", str(c)), exist_ok=True)
+            shutil.copy(jpeg_frame(c, f), os.path.join(root, "ims", fn))
+            ks.append([[focal, 0.0, W / 2], [0.0, focal, H / 2], [0.0, 0.0, 1.0]])
+            w2cs.append(w2c.tolist())
+            fns.append(fn)
+        meta["k"].append(ks)
+        meta["w2c"].append(w2cs)
+        meta["fn"].append(fns)
+        meta["cam_id"].append(list(range(JPEG_SCENE_CAMS)))
+    for name in ("train_meta.json", "test_meta.json"):
+        with open(os.path.join(root, name), "w") as fh:
+            json.dump(meta, fh)
+    pts, cols = _init_cloud()
+    np.savez(os.path.join(root, "init_pt_cld.npz"),
+             data=np.concatenate([pts, cols, np.ones((len(pts), 1), np.float32)], axis=1))
+
+
+def write_colmap_scene(root):
+    """A COLMAP scene of the committed frames: ``images/frame_c<c>_f<f>.jpg``
+    and ``sparse/0`` (one PINHOLE camera, an image per frame, 500 points of
+    the init cloud with one-observation tracks) by the port's writers."""
+    import shutil
+
+    from fourdgs_tpu_torch.data import colmap_io
+
+    W, H = JPEG_SCENE_SIZE
+    os.makedirs(os.path.join(root, "images"))
+    images, iid = {}, 0
+    for c in range(JPEG_SCENE_CAMS):
+        for f in range(JPEG_SCENE_FRAMES):
+            iid += 1
+            name = os.path.basename(jpeg_frame(c, f))
+            shutil.copy(jpeg_frame(c, f), os.path.join(root, "images", name))
+            cam, focal, R, eye = jpeg_scene_camera(c, f)
+            images[iid] = colmap_io.ColmapImage(
+                iid, colmap_io.rotmat2qvec(R.T), -R.T @ eye, 1, name,
+                np.zeros((0, 2)), np.zeros(0, np.int64))
+    pts, cols = _init_cloud()
+    points = {i + 1: colmap_io.ColmapPoint3D(
+        i + 1, pts[i].astype(np.float64), (cols[i] * 255).astype(np.uint8), 0.5,
+        np.array([1], np.int32), np.array([0], np.int32)) for i in range(500)}
+    cams = {1: colmap_io.ColmapCamera(1, "PINHOLE", W, H,
+                                      np.array([focal, focal, W / 2, H / 2]))}
+    colmap_io.write_model(cams, images, points, os.path.join(root, "sparse", "0"))
+
+
+def check_jpeg_frames(frames, want, where):
+    """Each decoded frame (name → uint8 [H, W, 3], or [H, W] grey) against
+    Pillow's decode of its source (grey replicated for an RGB frame), to
+    :data:`JPEG_MAX_LEVELS` / :data:`JPEG_MEAN_LEVELS`; returns the worst
+    level and the share of exact values."""
+    worst, exact, n = 0, 0, 0
+    for name, got in frames.items():
+        ref = want[name]
+        if ref.ndim == 2 and got.ndim == 3:
+            ref = np.repeat(ref[:, :, None], 3, axis=2)
+        d = np.abs(got.astype(int) - ref.astype(int))
+        if d.max() > JPEG_MAX_LEVELS or d.mean() > JPEG_MEAN_LEVELS:
+            raise AssertionError(f"{where}: {name} differs from Pillow's decode by max "
+                                 f"{d.max()}, mean {d.mean():.4f} levels")
+        worst, exact, n = max(worst, int(d.max())), exact + int((d == 0).sum()), n + d.size
+    return worst, exact / max(n, 1)
+
+
+def check_jpeg_path(dev, schedule=MULTIPLEVIEW_SCHEDULE, preset=MULTIPLEVIEW_PRESET):
+    """Phase 12 (b) (module docstring): the committed JPEGs against Pillow's
+    decodes, then the MultipleView scene through the CLI chain and the
+    Panoptic and COLMAP scenes through ``load_scene``. Returns the
+    launches."""
+    from fourdgs_tpu_torch.configs.core import load_config
+    from fourdgs_tpu_torch.data.scene import load_scene
+    from fourdgs_tpu_torch.utils.jpeg import read_jpeg
+
+    print("    (b) the JPEG decoder on the committed fixtures, then the MultipleView, "
+          "Panoptic and COLMAP loaders on the twelve committed frames", flush=True)
+    with np.load(os.path.join(JPEG_FIXTURES, "pillow_decode.npz")) as z:
+        want = {k: z[k] for k in z.files}
+    got = {name: read_jpeg(os.path.join(JPEG_FIXTURES, name + ".jpg")) for name in want}
+    for name, g in got.items():
+        if g.shape != want[name].shape:
+            raise AssertionError(f"{name}: shape {g.shape}, Pillow's {want[name].shape}")
+    worst, exact = check_jpeg_frames(got, want, "read_jpeg")
+    frames = [jpeg_frame(c, f) for c in range(JPEG_SCENE_CAMS)
+              for f in range(JPEG_SCENE_FRAMES)]
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for p in frames:
+            read_jpeg(p)
+    ms = 1e3 * (time.perf_counter() - t0) / (reps * len(frames))
+    print(f"    read_jpeg: {len(want)} committed fixtures against Pillow's decodes: max "
+          f"{worst} levels, {exact:.6f} of the values exact; {ms:.4f} ms per "
+          f"{JPEG_SCENE_SIZE[0]}x{JPEG_SCENE_SIZE[1]} frame (host)")
+
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_multipleview_") as tmp:
+        data_dir, model_path = os.path.join(tmp, "data"), os.path.join(tmp, "model")
+        write_multipleview_scene(data_dir)
+        cli = run_cli_chain(data_dir, model_path, dev, schedule, preset)
+        with open(os.path.join(model_path, "training_logs.json")) as f:
+            logged = [r["loss"] for r in json.load(f)]
+    pf = cli["prefetch"]
+    renders = cli["steps"] * cli["batch_size"]
+    on_card = int(dev.type == "cuda")
+    (k1_train, k2_train), (k1_render, _) = cli["train_launches"], cli["render_launches"]
+    print(f"    MultipleView ({JPEG_SCENE_CAMS} cams x {JPEG_SCENE_FRAMES} JPEG frames, "
+          f"multipleview preset): train wall {cli['train_s']:.3f} s ({cli['steps']} steps, "
+          f"{cli['points']} points, losses {logged[0]:.5f} -> {logged[-1]:.5f}), "
+          f"render FPS {cli['fps']:.3f}, held-out PSNR {cli['psnr']:.4f} dB (blank "
+          f"{cli['blank_psnr']:.4f}); renders vs in-process render: max "
+          f"{cli['render_max_level_diff']} levels; prefetcher {json.dumps(pf)}; K1/K2 "
+          f"launches train {cli['train_launches']}, render {cli['render_launches']}")
+    if not all(math.isfinite(x) for x in logged):
+        raise AssertionError(f"a logged loss is not finite: {logged}")
+    if pf["submitted"] != renders or pf["to_ref"] != renders or pf["native"]:
+        raise AssertionError(f"the prefetcher's counts {pf}: every JPEG frame goes to the "
+                             f"ref ({renders})")
+    if ((k2_train, k1_train) != (on_card * renders, on_card * (renders + cli["eval_renders"]))
+            or k1_render != on_card * (cli["test_views"] + 1)):
+        raise AssertionError(f"CLI launches: train {cli['train_launches']}, render "
+                             f"{cli['render_launches']}")
+
+    by_frame = {f"frame_c{c}_f{f}": (c, f) for c in range(JPEG_SCENE_CAMS)
+                for f in range(JPEG_SCENE_FRAMES)}
+    for kind, writer in (("PanopticSports", write_panoptic_scene),
+                         ("colmap", write_colmap_scene)):
+        with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_jpeg_scene_") as tmp:
+            writer(tmp)
+            t0 = time.perf_counter()
+            data = load_scene(load_config(), tmp)
+            load_s = time.perf_counter() - t0
+            lcs = data.train_cameras + data.test_cameras
+            loaded = {}
+            for lc in lcs:
+                base = os.path.basename(lc.image.path)[:-4]
+                name = (base if kind == "colmap" else   # Panoptic: ims/<c>/<f>.jpg
+                        f"frame_c{os.path.basename(os.path.dirname(lc.image.path))}"
+                        f"_f{int(base)}")
+                loaded[name] = lc.image()
+                c, f = by_frame[name]
+                t = (f / JPEG_SCENE_FRAMES if kind == "PanopticSports"
+                     else (c * JPEG_SCENE_FRAMES + f) / len(by_frame))
+                if lc.camera.time != t:
+                    raise AssertionError(f"{kind}: {name} at time {lc.camera.time}, not {t}")
+            k_worst, _ = check_jpeg_frames(loaded, want, kind)
+        n_train, n_test = len(data.train_cameras), len(data.test_cameras)
+        print(f"    {kind}: load_scene {load_s:.4f} s, {n_train} train + {n_test} test "
+              f"cameras, times {sorted({lc.camera.time for lc in lcs})}, every frame "
+              f"within {k_worst} levels of Pillow's decode")
+        expect = ((12, 12) if kind == "PanopticSports" else (10, 2))
+        if (n_train, n_test) != expect or len(loaded) != 12 or data.dataset_type != kind:
+            raise AssertionError(f"{kind}: {n_train} train, {n_test} test cameras, "
+                                 f"{len(loaded)} frames")
+    return {"cli": (k1_train + k1_render, k2_train)}
+
+
 def ring_camera(i, n_views):
     """bench.py's camera ring: 800×800, fov π/3, at time i/(n_views−1)."""
     from fourdgs_tpu_torch.utils import graphics
@@ -1575,6 +2079,7 @@ def main() -> int:
     from fourdgs_tpu_torch.scripts import time_ms
     from fourdgs_tpu_torch.train import checkpoint
 
+    t_script = time.perf_counter()
     dev = torch.device("cuda")
     card = scripts.card()
     print("[1] card (nvidia-smi name, power.limit):")
@@ -1821,6 +2326,13 @@ def main() -> int:
     # -- 11. the DyNeRF path
     dynerf = check_dynerf_path(dev)
 
+    # -- 12. the remaining loaders: HyperNeRF, then the JPEG ones
+    hypernerf = check_hypernerf_path(dev)
+    if not hypernerf["masked_psnr"] > hypernerf["blank_masked_psnr"]:
+        raise AssertionError(f"masked held-out PSNR {hypernerf['masked_psnr']} not above "
+                             f"the blank image's {hypernerf['blank_masked_psnr']}")
+    jpeg_path = check_jpeg_path(dev)
+
     # -- 8. kernels line, result line
     kernels = [{
         "name": "blend_forward",
@@ -1844,6 +2356,9 @@ def main() -> int:
                    "padding": dynerf["padding"]},
         "dynerf_instant4d": {"launches": dynerf["instant4d"][0]},
         "dynerf_cli": {"launches": dynerf["cli"][0]},
+        "hypernerf": {"launches": hypernerf["cli"][0], **hypernerf["blend"]["blend_forward"],
+                      "padding": hypernerf["padding"]},
+        "multipleview_cli": {"launches": jpeg_path["cli"][0]},
     }, {
         "name": "blend_backward",
         "route": "cuda",
@@ -1865,7 +2380,10 @@ def main() -> int:
         "dynerf": {"launches": dynerf["bench"][1], **dynerf["bench_blend"]["blend_backward"]},
         "dynerf_instant4d": {"launches": dynerf["instant4d"][1]},
         "dynerf_cli": {"launches": dynerf["cli"][1]},
+        "hypernerf": {"launches": hypernerf["cli"][1], **hypernerf["blend"]["blend_backward"]},
+        "multipleview_cli": {"launches": jpeg_path["cli"][1]},
     }, *cost_kernels]
+    print(f"chip_smoke.py took {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

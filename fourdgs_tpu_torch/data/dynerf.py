@@ -1,7 +1,9 @@
 """Neu3D / DyNeRF multi-view video loader.
 
 A copy of ``fourdgs_tpu/data/dynerf.py`` whose frames are read by the
-port's PNG codec (``utils/png.py``) instead of Pillow.
+port's PNG codec (``utils/png.py``) or JPEG decoder (``utils/jpeg.py``)
+instead of Pillow; its :class:`ImageRef` is the lazy frame of every loader
+but Blender's.
 
 Parity target: scene/neural_3D_dataset_NDC.py + readdynerfInfo
 (dataset_readers.py:479-520) in the reference:
@@ -39,14 +41,15 @@ import numpy as np
 
 from fourdgs_tpu_torch.data.blender import SceneData, get_nerfpp_norm
 from fourdgs_tpu_torch.data.ply import fetch_pointcloud
-from fourdgs_tpu_torch.utils import graphics, png
+from fourdgs_tpu_torch.utils import graphics, jpeg, png
 
 
 class ImageRef:
     """Lazy uint8 [H, W, 3] frame of ``size`` = (W, H); called by the loop
-    when batching. Decodes with the port's PNG codec (alpha dropped, gray
-    replicated) and raises on a frame of another size: Pillow's resize is
-    not ported."""
+    when batching. Decodes a PNG with the port's PNG codec and a JPEG with
+    its JPEG decoder, chosen by the file's first bytes (alpha dropped, gray
+    replicated, as Pillow's ``convert("RGB")``), and raises on a frame of
+    another size: Pillow's resize is not ported."""
 
     __slots__ = ("path", "size")
 
@@ -55,7 +58,15 @@ class ImageRef:
         self.size = tuple(size)
 
     def __call__(self) -> np.ndarray:
-        img = png.convert(png.read_png(self.path), "RGB")
+        with open(self.path, "rb") as f:
+            magic = f.read(len(png.SIGNATURE))
+        if magic == png.SIGNATURE:
+            img = png.read_png(self.path)
+        elif magic.startswith(jpeg.SOI):
+            img = jpeg.read_jpeg(self.path)
+        else:
+            raise ValueError(f"{self.path}: neither a PNG nor a JPEG file")
+        img = png.convert(img, "RGB")
         if (img.shape[1], img.shape[0]) != self.size:
             raise NotImplementedError(
                 f"{self.path}: {img.shape[1]}x{img.shape[0]} frame, target "

@@ -5,8 +5,8 @@ Counterpart of ``fourdgs_tpu/data/fastloader.py`` over the port's own copy
 of ``native/fastloader.cpp`` (8-bit RGB / RGBA, non-interlaced PNGs of the
 size the caller names, decoded with zlib into caller buffers). The library
 builds at first use with ``g++ -O2 -shared -fPIC … -lz -lpthread`` into
-``fourdgs_tpu_torch/_build/``, its name keyed by a hash of the source and
-the flags (as ``ops/_build.py`` keys the kernels), and loads with ``ctypes``.
+``fourdgs_tpu_torch/_build/`` through ``utils/native.py`` (its name keyed
+by a hash of the source and the flags), and loads with ``ctypes``.
 
 Nothing falls back silently, where JAX's module turns to PIL:
 
@@ -22,56 +22,18 @@ Nothing falls back silently, where JAX's module turns to PIL:
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import tempfile
 import threading
 import time
 
 import numpy as np
 
-PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
-SRC = PKG_DIR / "native" / "fastloader.cpp"
-BUILD_DIR = PKG_DIR / "_build"
-CXX_FLAGS = ("-O2", "-shared", "-fPIC")
+from fourdgs_tpu_torch.utils import native
+
+SRC = native.NATIVE_DIR / "fastloader.cpp"
 LINK_FLAGS = ("-lz", "-lpthread")
 
 _lib = None
 _lib_lock = threading.Lock()
-
-
-def lib_path(src: pathlib.Path = SRC) -> pathlib.Path:
-    """The library built from ``src``: its name carries a hash of the
-    source and the flags, so an edited source or flag builds anew."""
-    h = hashlib.sha256(src.read_bytes())
-    h.update("\0".join(CXX_FLAGS + LINK_FLAGS).encode())
-    return BUILD_DIR / f"libfastloader-{h.hexdigest()[:16]}.so"
-
-
-def build(src: pathlib.Path = SRC) -> pathlib.Path:
-    """Build ``src`` unless its library exists; returns the library's path.
-    Raises ``RuntimeError`` with the compiler's output if the build fails."""
-    lib = lib_path(src)
-    if lib.exists():
-        return lib
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        raise RuntimeError("no C++ compiler (g++ or c++) on PATH: the native "
-                           "PNG prefetcher cannot be built")
-    BUILD_DIR.mkdir(exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run([cxx, *CXX_FLAGS, str(src), "-o", tmp, *LINK_FLAGS],
-                          capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"the native PNG prefetcher failed to build "
-                           f"({cxx} exit {proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
 
 
 def get_lib() -> ctypes.CDLL:
@@ -79,7 +41,7 @@ def get_lib() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            lib = ctypes.CDLL(str(native.build(SRC, LINK_FLAGS)))
             lib.fl_pool_create.restype = ctypes.c_void_p
             lib.fl_pool_create.argtypes = [ctypes.c_int]
             lib.fl_pool_destroy.argtypes = [ctypes.c_void_p]

@@ -6,9 +6,8 @@ init point cloud, apply the Instant4D grid pruning, and build the Gaussian
 state on a device. ``build_scene`` takes a seed or a ``torch.Generator``
 (for the deformation's initial weights) where the JAX function takes a key.
 
-The Blender (D-NeRF) and DyNeRF (Neu3D) loaders are ported; the other
-dataset types are recognised and raise ``NotImplementedError`` naming their
-loader.
+Every dataset type of the JAX package loads: Blender (D-NeRF), DyNeRF
+(Neu3D), HyperNeRF (Nerfies), COLMAP, PanopticSports and MultipleView.
 
 Marker-file registry (scene/__init__.py:48-68 + dataset_readers.py:680-687):
   sparse/                     → colmap
@@ -26,7 +25,8 @@ from typing import NamedTuple
 
 import torch
 
-from fourdgs_tpu_torch.data import blender, dynerf
+from fourdgs_tpu_torch.data import (blender, colmap, dynerf, hypernerf, multipleview,
+                                    panoptic)
 from fourdgs_tpu_torch.data.blender import SceneData
 from fourdgs_tpu_torch.data.grid_pruning import grid_prune_pointcloud
 from fourdgs_tpu_torch.models import gaussians as G
@@ -37,13 +37,6 @@ TARGET_SIZE = (800, 800)
 # the DyNeRF loader's frame size, (W, H): JAX's default (scene.py:58-60,
 # dynerf.py); frames of another size raise when they are read
 DYNERF_SIZE = (1352, 1014)
-# dataset type → the JAX package's loader still to be ported
-_UNPORTED = {
-    "nerfies": "data/hypernerf.py::load_hypernerf_scene",
-    "colmap": "data/colmap.py::load_colmap_scene",
-    "PanopticSports": "data/panoptic.py::load_panoptic_scene",
-    "MultipleView": "data/multipleview.py::load_multipleview_scene",
-}
 
 
 def sniff_dataset_type(path: str) -> str:
@@ -66,8 +59,9 @@ def load_scene(cfg, path: str | None = None) -> SceneData:
     """The scene at ``path`` (default ``cfg.model.source_path``). The
     Blender loader's random init cloud is unseeded, as in JAX, and its
     frames must be :data:`TARGET_SIZE`; the DyNeRF loader's lazy frames must
-    be :data:`DYNERF_SIZE`: JAX resizes others with Pillow, which is not
-    ported."""
+    be :data:`DYNERF_SIZE`, the HyperNeRF loader's half the cameras'
+    ``image_size`` and the others' their cameras' size: JAX resizes others
+    with Pillow, which is not ported."""
     path = path or cfg.model.source_path
     kind = sniff_dataset_type(path)
     if kind == "blender":
@@ -80,8 +74,10 @@ def load_scene(cfg, path: str | None = None) -> SceneData:
         )
     if kind == "dynerf":
         return dynerf.load_dynerf_scene(path, cfg, target_wh=DYNERF_SIZE)
-    raise NotImplementedError(
-        f"the {kind!r} loader (fourdgs_tpu/{_UNPORTED[kind]}) is not ported yet")
+    return {"nerfies": hypernerf.load_hypernerf_scene,
+            "colmap": colmap.load_colmap_scene,
+            "PanopticSports": panoptic.load_panoptic_scene,
+            "MultipleView": multipleview.load_multipleview_scene}[kind](path, cfg)
 
 
 class Scene(NamedTuple):

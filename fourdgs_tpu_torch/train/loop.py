@@ -27,10 +27,11 @@ cached on the device) and reads a chunk's ``num_rendered`` and
 port forms the same chunks on the host and replaces those two metrics by
 the chunk's max at its last step, so the budget gate and the log read
 JAX's values. A ``utils/timer.py`` ``DetailedTimer`` times its phases and an
-``utils/observability.py`` ``EventLog`` records the growths, as in JAX. Not
-ported yet, and raising: SSIM (``lambda_dssim``), a ``mesh``, the
-``viewer``, the ``gradient_tracker``, ``debug_mode`` and
-``cfg.model.render_process``.
+``utils/observability.py`` ``EventLog`` records the growths, as in JAX;
+``debug_mode`` and ``cfg.model.render_process`` write JAX's debug panels and
+progress frames (``utils/debug_images.py``). Not ported yet, and raising:
+SSIM (``lambda_dssim``), a ``mesh``, the ``viewer`` and the
+``gradient_tracker``.
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ from fourdgs_tpu_torch.models import hexplane as hp
 from fourdgs_tpu_torch.ops.rasterize import contain
 from fourdgs_tpu_torch.render import CameraArrays, render
 from fourdgs_tpu_torch.train import adam
-from fourdgs_tpu_torch.utils import forensics, losses
+from fourdgs_tpu_torch.utils import debug_images, forensics, losses
 
 # at most this many instance-budget growths per stage (loop.py:48)
 _MAX_BUDGET_GROWTHS = 4
@@ -239,14 +240,45 @@ class TrainLog:
     prefetch: dict | None = None
 
 
-def _unported(cfg, **options) -> None:
+def scan_chunks(cfg, train_iter: int, log_interval: int = 50,
+                extra_log_iters: frozenset | set = frozenset(),
+                debug_mode: bool = False) -> list[tuple[int, int]]:
+    """JAX's chunks of a stage of ``train_iter`` steps (loop.py:547-598): the
+    (first, last) steps of each run of up to ``cfg.tpu.scan_steps`` steps
+    with no host gate strictly inside. A gate follows a step that logs, ends
+    the stage, densifies, prunes, resets the opacity or saves a debug image
+    (loop.py:552-565), or precedes one that anneals the SH degree."""
+    opt = cfg.opt
+
+    def gate_after(j: int) -> bool:
+        due = (j % log_interval == 0 or j in extra_log_iters or j == train_iter
+               or j % opt.densification_interval == 0)
+        if j < opt.densify_until_iter:
+            due = (due or j % opt.pruning_interval == 0
+                   or j % opt.opacity_reset_interval == 0)
+        if debug_mode and j % 100 == 0:
+            due = True
+        if cfg.model.render_process and debug_images.should_save_progress(j):
+            due = True
+        return due
+
+    chunks, j = [], 1
+    while j <= train_iter:
+        n = 1
+        while (n < cfg.tpu.scan_steps and j + n <= train_iter
+               and not gate_after(j + n - 1) and (j + n) % 1000 != 0):
+            n += 1
+        chunks.append((j, j + n - 1))
+        j += n
+    return chunks
+
+
+def _unported(**options) -> None:
     """Raise for the first option of ``scene_reconstruction`` the port does
     not have yet."""
     for name, value in options.items():
         if value:
             raise NotImplementedError(f"scene_reconstruction: {name} is not ported yet")
-    if cfg.model.render_process:
-        raise NotImplementedError("cfg.model.render_process is not ported yet")
 
 
 def scene_reconstruction(
@@ -295,13 +327,16 @@ def scene_reconstruction(
     object with its methods) times each iteration's
     data loading, render (the step), densification and logging phases and
     logs every logged iteration (``loop.py:584-883``); ``event_log`` (an
-    ``EventLog``) records each budget and capacity growth. ``mesh``,
-    ``viewer``, ``gradient_tracker`` and ``debug_mode`` raise
-    ``NotImplementedError`` until they are ported.
+    ``EventLog``) records each budget and capacity growth. ``debug_mode``
+    writes a render|GT panel of the batch's first camera every 100
+    iterations, and ``cfg.model.render_process`` a GT|render|depth frame on
+    ``debug_images.should_save_progress``'s schedule with the seconds since
+    the stage began, under ``model_path`` (``loop.py:679-698``). ``mesh``,
+    ``viewer`` and ``gradient_tracker`` raise ``NotImplementedError`` until
+    they are ported.
     """
     dev = resolve_device(device)
-    _unported(cfg, mesh=mesh, viewer=viewer,
-              gradient_tracker=gradient_tracker, debug_mode=debug_mode)
+    _unported(mesh=mesh, viewer=viewer, gradient_tracker=gradient_tracker)
     if not train_cameras:
         return state, adam_state, TrainLog()
     opt = cfg.opt
@@ -382,31 +417,16 @@ def scene_reconstruction(
         prefetcher = PrefetchPool(n_threads=8)
         prefetcher.submit_batch([gt_list[i] for i in batches[0]])
 
-    # JAX's chunks (loop.py:547-598): up to scan_steps steps with no host
-    # gate strictly inside, when the GT is cached on the device
+    # JAX's chunks (loop.py:547-598), when the GT is cached on the device
     scan = cfg.tpu.scan_steps > 1 and gt_cache is not None
 
-    def gate_after(j: int) -> bool:
-        """Host work right after step j (loop.py:552-565)."""
-        due = (j % log_interval == 0 or j in extra_log_iters or j == train_iter
-               or j % opt.densification_interval == 0)
-        if j < opt.densify_until_iter:
-            due = (due or j % opt.pruning_interval == 0
-                   or j % opt.opacity_reset_interval == 0)
-        return due
-
-    def chunk_length(j: int) -> int:
-        """Steps of the chunk that starts at step j (loop.py:591-598)."""
-        n = 1
-        while (n < cfg.tpu.scan_steps and j + n <= train_iter
-               and not gate_after(j + n - 1) and (j + n) % 1000 != 0):
-            n += 1
-        return n
+    chunk_ends = ({last for _, last in scan_chunks(cfg, train_iter, log_interval,
+                                                   extra_log_iters, debug_mode)}
+                  if scan else set())
 
     sh_deg = state.active_sh_degree
     spatial_lr = float(state.spatial_lr_scale)
     steps: dict[int, Callable] = {}
-    chunk_end = 0
     peaks: list[tuple[torch.Tensor, torch.Tensor]] = []   # the chunk's so far
     budget_growths = 0
     log = TrainLog()
@@ -414,6 +434,25 @@ def scene_reconstruction(
     def event(kind: str, **counts) -> None:
         log.events.append({"iter": iteration, "stage": stage, "kind": kind, **counts})
 
+    bg = torch.tensor([1.0, 1.0, 1.0] if cfg.model.white_background
+                      else [0.0, 0.0, 0.0], device=dev)
+
+    def aux_render(i: int) -> tuple[np.ndarray, np.ndarray]:
+        """(colour [3, H, W], depth [1, H, W]) of camera ``i`` by the
+        current state (loop.py:522-533)."""
+        with torch.no_grad():
+            out = render(state.params, state, cam_arrays[i], cfg, width, height, stage,
+                         bg, sh_deg, device=dev)
+        return out.color.cpu().numpy(), out.depth.cpu().numpy()
+
+    def gt_np(i: int) -> np.ndarray:
+        """Camera ``i``'s GT as float CHW, as JAX's ``_gt_np`` (loop.py:535-539)."""
+        g = np.asarray(gt_list[i]() if callable(gt_list[i]) else gt_list[i])
+        if g.dtype == np.uint8:
+            g = g.astype(np.float32).transpose(2, 0, 1) / 255.0
+        return g[:3]
+
+    t_start = time.time()
     iteration = 0
     while iteration < train_iter:
         iteration += 1
@@ -450,15 +489,28 @@ def scene_reconstruction(
                 state.params, adam_state, state, batch_cams, gts, iteration)
         state = state._replace(params=params)
         if scan:
-            if iteration > chunk_end:   # a chunk starts
-                chunk_end = iteration + chunk_length(iteration) - 1
-                peaks = []
             peaks.append((metrics["num_rendered"], metrics["max_tile_len"]))
-            if iteration == chunk_end and len(peaks) > 1:
-                # JAX's reduction (loop.py:620-624): the two metrics at a
-                # chunk's last step are their max over it, on the device
-                metrics["num_rendered"], metrics["max_tile_len"] = (
-                    torch.stack(v).amax() for v in zip(*peaks))
+            if iteration in chunk_ends:
+                if len(peaks) > 1:
+                    # JAX's reduction (loop.py:620-624): the two metrics at a
+                    # chunk's last step are their max over it, on the device
+                    metrics["num_rendered"], metrics["max_tile_len"] = (
+                        torch.stack(v).amax() for v in zip(*peaks))
+                peaks = []
+
+        # debug panels every 100 iterations and progress frames on the dense
+        # early schedule, of the batch's first camera (loop.py:679-698)
+        if debug_mode and iteration % 100 == 0:
+            i = batch_idx[0]
+            debug_images.save_debug_image(
+                aux_render(i)[0], gt_np(i), stage, iteration,
+                float(cam_arrays[i].time), model_path)
+        if cfg.model.render_process and debug_images.should_save_progress(iteration):
+            i = batch_idx[0]
+            color, depth = aux_render(i)
+            debug_images.render_training_image(
+                color, gt_np(i), depth, stage, iteration, time.time() - t_start,
+                model_path)
 
         # instance-budget growth on the densify cadence (loop.py:708-749);
         # the render reads cfg.tpu.instance_budget on every call

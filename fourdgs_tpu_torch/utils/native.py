@@ -1,0 +1,56 @@
+"""Build helper for the port's host C++ libraries (``native/*.cpp``): the
+PNG prefetcher (``data/fastloader.py``) and the JPEG decoder
+(``utils/jpeg.py``).
+
+A library builds at first use with ``g++ -O2 -shared -fPIC`` and its own
+link flags into ``fourdgs_tpu_torch/_build/``, its name keyed by a hash of
+the source and the flags (as ``ops/_build.py`` keys the kernels), so an
+edited source or flag builds anew. A failed build raises with the
+compiler's output.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
+NATIVE_DIR = PKG_DIR / "native"
+BUILD_DIR = PKG_DIR / "_build"
+CXX_FLAGS = ("-O2", "-shared", "-fPIC")
+
+
+def lib_path(src: pathlib.Path, link_flags: tuple = ()) -> pathlib.Path:
+    """The library built from ``src`` (``lib<stem>-<hash>.so``): its name
+    carries a hash of the source and the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    h.update("\0".join(CXX_FLAGS + tuple(link_flags)).encode())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def build(src: pathlib.Path, link_flags: tuple = ()) -> pathlib.Path:
+    """Build the host C++ file ``src`` with ``g++ -O2 -shared -fPIC`` and
+    ``link_flags`` unless its library exists; returns the library's path.
+    Raises ``RuntimeError`` with the compiler's output if the build fails."""
+    lib = lib_path(src, link_flags)
+    if lib.exists():
+        return lib
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError(f"no C++ compiler (g++ or c++) on PATH: {src.name} "
+                           f"cannot be built")
+    BUILD_DIR.mkdir(exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.run([cxx, *CXX_FLAGS, str(src), "-o", tmp, *link_flags],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"{src.name} failed to build "
+                           f"({cxx} exit {proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib

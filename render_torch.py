@@ -9,7 +9,10 @@ The port's ``render.py``:
 
 For each split, renders every camera through the fine stage, prints the
 measured FPS ((n−1)/elapsed after one warm-up view, render.py:69-70) and
-writes ``<split>/ours_<iter>/{renders,gt}/%05d.png`` for ``metrics_torch.py``.
+writes ``<split>/ours_<iter>/{renders,gt}/%05d.png`` for ``metrics_torch.py``,
+and ``masks/%05d.png`` for a split whose cameras carry covisible masks
+(HyperNeRF's test views), which ``metrics_torch.py`` reads for the masked
+PSNR.
 The training config is replayed from ``cfg_args.json`` unless ``--configs``
 is given. The video split's frames are rendered, but ``video_rgb.mp4`` is not
 written: its writer (imageio) is not ported.
@@ -23,13 +26,17 @@ import os
 import time
 
 
-def render_set(model_path, name, iteration, cameras, gts, render_fn, sync):
+def render_set(model_path, name, iteration, cameras, gts, render_fn, sync,
+               mask_paths=None):
     """Render ``cameras`` with ``render_fn(cam) → [3, H, W]`` and write the
     renders and ``gts`` (uint8 [H, W, 3], float [3, H, W], or lazy frames,
-    which are called) as PNGs.
+    which are called) as PNGs, and the covisible masks of ``mask_paths``
+    (render.py:33-45; a mask must be its camera's size: JAX resizes it with
+    Pillow's BILINEAR, which is not ported).
     Returns (the uint8 frames, FPS)."""
     import numpy as np
 
+    from fourdgs_tpu_torch.data.hypernerf import read_mask
     from fourdgs_tpu_torch.utils import png
 
     base = os.path.join(model_path, name, f"ours_{iteration}")
@@ -37,6 +44,13 @@ def render_set(model_path, name, iteration, cameras, gts, render_fn, sync):
     gdir = os.path.join(base, "gt")
     os.makedirs(rdir, exist_ok=True)
     os.makedirs(gdir, exist_ok=True)
+    if mask_paths and any(mask_paths):
+        mdir = os.path.join(base, "masks")
+        os.makedirs(mdir, exist_ok=True)
+        for i, mp in enumerate(mask_paths):
+            if mp and os.path.exists(mp):
+                png.write_png(os.path.join(mdir, f"{i:05d}.png"),
+                              read_mask(mp, cameras[i].width, cameras[i].height))
 
     if cameras:                      # warm-up, then the timed loop
         render_fn(cameras[0])
@@ -124,7 +138,8 @@ def main(argv=None) -> dict:
         if cams_gt:
             _, fps[name] = render_set(args.model_path, name, iteration,
                                       [lc.camera for lc in cams_gt],
-                                      [lc.image for lc in cams_gt], render_fn, sync)
+                                      [lc.image for lc in cams_gt], render_fn, sync,
+                                      [getattr(lc, "mask_path", None) for lc in cams_gt])
     if not args.skip_video and data.video_cameras:
         _, fps["video"] = render_set(args.model_path, "video", iteration,
                                      data.video_cameras, None, render_fn, sync)

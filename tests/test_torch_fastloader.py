@@ -12,7 +12,7 @@ import pytest
 from fourdgs_tpu.data import fastloader as jfast
 from fourdgs_tpu_torch.data import fastloader as tfast
 from fourdgs_tpu_torch.data.dynerf import ImageRef
-from fourdgs_tpu_torch.utils import png
+from fourdgs_tpu_torch.utils import native, png
 
 W, H = 53, 37
 
@@ -33,10 +33,13 @@ def frames(tmp_path_factory):
 
 
 def test_build_is_keyed_and_reused():
-    lib = tfast.build()
-    assert lib.exists() and lib.parent == tfast.BUILD_DIR
-    assert lib.name.startswith("libfastloader-") and lib == tfast.lib_path()
-    assert tfast.build() == lib          # an unchanged source is not rebuilt
+    lib = native.build(tfast.SRC, tfast.LINK_FLAGS)
+    assert lib.exists() and lib.parent == native.BUILD_DIR
+    assert lib.name.startswith("libfastloader-")
+    assert lib == native.lib_path(tfast.SRC, tfast.LINK_FLAGS)
+    assert lib != native.lib_path(tfast.SRC)   # the flags are in the key
+    assert native.build(tfast.SRC, tfast.LINK_FLAGS) == lib   # not rebuilt
+    assert tfast.get_lib()._name == str(lib)
 
 
 def test_pool_decodes_as_png_and_jax(frames):
@@ -93,7 +96,7 @@ def test_a_rejected_frame_the_ref_cannot_read_raises(frames, tmp_path):
 def test_a_failed_build_raises(tmp_path, monkeypatch):
     src = tmp_path / "broken.cpp"
     src.write_text("this is not C++\n")
-    monkeypatch.setattr(tfast, "BUILD_DIR", tmp_path / "_build")
-    with pytest.raises(RuntimeError, match="failed to build"):
-        tfast.build(src)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
+    with pytest.raises(RuntimeError, match="broken.cpp failed to build"):
+        native.build(src, tfast.LINK_FLAGS)
     assert not list((tmp_path / "_build").glob("*.so"))

@@ -1,12 +1,16 @@
-"""The PyTorch port stands alone: no JAX, nothing of fourdgs_tpu, CUDA by
-default.
+"""The PyTorch port stands alone: no JAX, nothing of fourdgs_tpu, no image
+library the card's host lacks, CUDA by default.
 
 - every port module and the import graphs of ``chip_smoke.py``,
   ``profile_render_torch.py``, ``profile_train_torch.py``,
   ``bench_quality_torch.py`` and ``bench_quality_dynerf_torch.py`` load in
-  a fresh interpreter without ``jax`` or ``fourdgs_tpu`` in
-  ``sys.modules``;
-- an AST scan finds no such import in the package or those scripts;
+  a fresh interpreter without ``jax``, ``fourdgs_tpu``, ``PIL``, ``cv2`` or
+  ``imageio`` in ``sys.modules``;
+- an AST scan finds no such import in the package or those scripts, nor in
+  the CLIs (``train_torch.py``, ``render_torch.py``, ``metrics_torch.py``),
+  lazy imports inside functions included (JAX's ``debug_images.py`` and
+  ``ImageRef`` import Pillow there, which only the card would find);
+- the native libraries build without a JPEG library (no ``-ljpeg``);
 - with CUDA absent, each entry point raises unless asked for the CPU;
 - the port's constants equal the JAX package's.
 """
@@ -37,9 +41,14 @@ def _port_modules():
     return mods
 
 
+# JAX and the reference package, and the image libraries the card's host
+# does not have
+FORBIDDEN = ("jax", "jaxlib", "fourdgs_tpu", "PIL", "cv2", "imageio")
+CLIS = ("train_torch.py", "render_torch.py", "metrics_torch.py")
+
+
 def _is_forbidden(name: str) -> bool:
-    top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "fourdgs_tpu")
+    return name.split(".")[0] in FORBIDDEN
 
 
 def test_import_graph_has_no_jax():
@@ -50,15 +59,16 @@ def test_import_graph_has_no_jax():
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "import chip_smoke, profile_render_torch, profile_train_torch\n"
         "import bench_quality_torch, bench_quality_dynerf_torch\n"
+        "import train_torch, render_torch, metrics_torch\n"
         "bad = sorted(m for m in sys.modules "
-        "if m.split('.')[0] in ('jax', 'jaxlib', 'fourdgs_tpu'))\n"
+        f"if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert len(mods) >= 22
+    assert len(mods) >= 33
 
 
 def test_ast_scan_has_no_jax_imports():
@@ -66,7 +76,8 @@ def test_ast_scan_has_no_jax_imports():
                                          ROOT / "profile_render_torch.py",
                                          ROOT / "profile_train_torch.py",
                                          ROOT / "bench_quality_torch.py",
-                                         ROOT / "bench_quality_dynerf_torch.py"]
+                                         ROOT / "bench_quality_dynerf_torch.py",
+                                         *(ROOT / c for c in CLIS)]
     found = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -79,6 +90,16 @@ def test_ast_scan_has_no_jax_imports():
                 continue
             found += [f"{path.name}: {n}" for n in names if _is_forbidden(n)]
     assert not found, found
+
+
+def test_native_builds_link_no_jpeg_library():
+    from fourdgs_tpu_torch.data import fastloader
+    from fourdgs_tpu_torch.utils import jpeg, native
+
+    for flags in (native.CXX_FLAGS, fastloader.LINK_FLAGS, jpeg.LINK_FLAGS):
+        assert not [f for f in flags if "jpeg" in f], flags
+    src = (PKG / "native" / "jpeg.cpp").read_text()
+    assert "#include <jpeglib.h>" not in src and "jpeg_read_header" not in src
 
 
 def test_entry_points_default_to_cuda():

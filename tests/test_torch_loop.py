@@ -250,10 +250,10 @@ def test_nan_loss_dumps_a_snapshot_with_jax_keys(tmp_path):
 @pytest.mark.parametrize("option", ["mesh", "viewer", "gradient_tracker",
                                     "debug_mode", "render_process", "lazy_gt",
                                     "lambda_dssim", "isotropic"])
-def test_unported_options_raise(option):
+def test_unported_options_raise(option, tmp_path):
     cfg = _port_cfg()
     cams, state, opt = _port_start(cfg)
-    kw = {}
+    kw = {"model_path": str(tmp_path)}
     if option in ("mesh", "viewer", "gradient_tracker", "debug_mode"):
         kw[option] = True if option == "debug_mode" else object()
     elif option == "render_process":
@@ -264,10 +264,10 @@ def test_unported_options_raise(option):
         cfg.opt.lambda_dssim = 0.2
     else:
         cfg.model.use_isotropic_gaussian = True
-    if option in ("lazy_gt", "isotropic"):
-        # ported now (tests/test_torch_lazy.py and
-        # tests/test_torch_isotropic.py hold them against arrays and JAX):
-        # they no longer raise
+    if option in ("lazy_gt", "isotropic", "debug_mode", "render_process"):
+        # ported now (tests/test_torch_lazy.py, tests/test_torch_isotropic.py
+        # and tests/test_torch_debug_images.py hold them against arrays and
+        # JAX): they no longer raise
         _, _, log = tloop.scene_reconstruction(cfg, state, opt, cams, "coarse", 1,
                                                EXTENT, device="cpu", **kw)
         assert np.isfinite(log.iterations[-1]["loss"])

@@ -6,7 +6,7 @@ the JAX package's.
   for bit, the timeline, the init cloud, the normalization and the video
   cameras equal JAX's;
 - ``sniff_dataset_type`` on the marker files of every dataset kind the JAX
-  tests fabricate; ``load_scene`` raises for the kinds not ported;
+  tests fabricate; ``load_scene`` of a marker alone fails as JAX's does;
 - ``load_scene`` takes JAX's 800×800 frames and raises on others (Pillow's
   resize is not ported); ``build_scene`` from a seed or a ``torch.Generator``;
 - ``grid_prune_pointcloud`` equals JAX's;
@@ -20,6 +20,7 @@ import pytest
 import torch
 from PIL import Image
 
+from fourdgs_tpu.configs.core import load_config as jload
 from fourdgs_tpu.data import blender as jblender
 from fourdgs_tpu.data import grid_pruning as jgp
 from fourdgs_tpu.data import scene as jscene
@@ -96,7 +97,11 @@ def test_sniff_and_unported_loaders(tmp_path, kind):
         with pytest.raises(EOFError):
             tscene.load_scene(tload(), str(tmp_path))
     elif kind != "blender":
-        with pytest.raises(NotImplementedError, match="not ported"):
+        # ported (tests/test_torch_hypernerf.py, tests/test_torch_colmap.py):
+        # a marker alone fails as JAX's loader fails on it
+        with pytest.raises(Exception) as want:
+            jscene.load_scene(jload(), str(tmp_path))
+        with pytest.raises(want.type):
             tscene.load_scene(tload(), str(tmp_path))
     (tmp_path / "sparse").mkdir(exist_ok=True)   # colmap's marker comes first
     assert tscene.sniff_dataset_type(str(tmp_path)) == \

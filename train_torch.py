@@ -13,13 +13,16 @@ Stages: coarse (static canonical model) then fine (deformation on). Writes
 ``events.jsonl``, ``eval_log.jsonl``, ``eval_images/``, snapshots
 (``point_cloud/iteration_*``) and checkpoints (``chkpnt_<stage>_<iter>``)
 under ``output/<expname>/`` or ``--model_path``; ``--start_checkpoint``
-resumes from a checkpoint (a fine one skips the coarse stage). The Blender
-(D-NeRF) and DyNeRF (Neu3D) loaders are ported; a DyNeRF scene's lazy
-frames are decoded per batch by the native prefetcher, and the eval calls
-them. ``--mesh``, ``--shard_primitives``,
-``--distributed``, ``--port``, ``--gradient_tracking`` and ``--debug_mode``
-raise ``NotImplementedError``. ``--device cpu`` runs the plain PyTorch
-versions of the kernels.
+resumes from a checkpoint (a fine one skips the coarse stage). Every
+dataset type of ``train.py`` loads; lazy frames (DyNeRF, HyperNeRF, COLMAP,
+MultipleView, Panoptic) are decoded per batch by the native prefetcher (a
+JPEG frame by the ref's decoder), and the eval calls them. The eval's PSNR
+of a test view with a covisible mask (HyperNeRF) is the masked PSNR.
+``--debug_mode`` writes render|GT panels to ``debug_images/`` every 100
+iterations, and a preset's ``render_process`` GT|render|depth frames to
+``train_render/``. ``--mesh``, ``--shard_primitives``, ``--distributed``,
+``--port`` and ``--gradient_tracking`` raise ``NotImplementedError``.
+``--device cpu`` runs the plain PyTorch versions of the kernels.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import os
 
 # flags of train.py whose paths are not ported
 UNPORTED_FLAGS = ("mesh", "shard_primitives", "distributed", "port",
-                  "gradient_tracking", "debug_mode")
+                  "gradient_tracking")
 
 
 def main(argv=None):
@@ -69,6 +72,7 @@ def main(argv=None):
 
     from fourdgs_tpu_torch import resolve_device
     from fourdgs_tpu_torch.configs.core import config_to_dict, load_config
+    from fourdgs_tpu_torch.data.hypernerf import read_mask
     from fourdgs_tpu_torch.data.scene import build_scene
     from fourdgs_tpu_torch.models import gaussians as G
     from fourdgs_tpu_torch.render import CameraArrays, render as render_fn
@@ -120,7 +124,8 @@ def main(argv=None):
 
     def run_eval(iteration, stage, cur_state):
         """PSNR/L1 over strided test + train cameras (≤5 each per split;
-        training_report, reference train.py:488-538)."""
+        training_report, reference train.py:488-538); a view with a
+        covisible mask takes the masked PSNR (train.py:189-198)."""
         report = {}
         data = scene.data
         splits = {
@@ -143,7 +148,13 @@ def main(argv=None):
                     gt = gt.astype(np.float32).transpose(2, 0, 1) / 255.0
                 gt = torch.tensor(gt[:3], device=dev)
                 l1s.append(float(loss_lib.l1_loss(color, gt)))
-                psnrs.append(float(loss_lib.psnr(color[None], gt[None])[0]))
+                mask_path = getattr(lc, "mask_path", None)
+                if mask_path and os.path.exists(mask_path):
+                    mask = torch.tensor(read_mask(mask_path, w, h), dtype=torch.float32,
+                                        device=dev)
+                    psnrs.append(float(loss_lib.masked_psnr(color, gt, mask)))
+                else:
+                    psnrs.append(float(loss_lib.psnr(color[None], gt[None])[0]))
                 # first 5 eval views as images (train.py:513-516); the GT
                 # once, on the first eval of the run
                 ev.add_image(f"{stage}/{split}_view_{vi}/render",
@@ -178,7 +189,8 @@ def main(argv=None):
     extra_iters = (set(args.save_iterations) | set(args.checkpoint_iterations)
                    | set(args.test_iterations))
     common = dict(timer=timer, event_log=ev, log_fn=log_fn,
-                  extra_log_iters=extra_iters, model_path=model_path, device=dev)
+                  extra_log_iters=extra_iters, model_path=model_path, device=dev,
+                  debug_mode=args.debug_mode)
 
     def report_prefetch(stage, log, iteration):
         """The native prefetcher's frame counts of a stage on lazy frames."""
