@@ -65,10 +65,10 @@ on failure:
    each probe's bytes as ``exp_grid_cost.run()`` read it in turns with the
    probe (``vs_fill``; the library call where it computes the probe's output);
 8. one JSON line ``{"kernels": [...]}`` and, last, the result line
-   ``{"ok": true, "device": {...}}``; before them phases 9 to 12 and the
-   script's own time:
+   ``{"ok": true, "device": {...}}``; before them phases 9 to 13, the
+   seconds of phases 10 to 13 and the script's own time:
 9. training from a point cloud (``bench_quality_torch.py``, bf16 payload):
-   (a) the bouncingballs preset at ``--gt oracle --scale 0.05`` (150 coarse + 1,000
+   (a) the bouncingballs preset at ``--gt oracle --scale 0.03`` (90 coarse + 600
    fine steps at 800×800 from 2,000 random points, the launch counts zeroed
    just before the training and read after the eval): K2 launches equal
    the renders of its steps, K1 launches those plus the 10 eval views, every
@@ -108,8 +108,8 @@ on failure:
    (:func:`check_entry_points`);
 11. the DyNeRF path (:func:`check_dynerf_path`), each run with the launch
    counts zeroed just before it and read just after: (a)
-   ``bench_quality_dynerf_torch.py`` at ``--scale 0.03`` (the dynerf preset at
-   full width as users run it, sh 3, anisotropic: 90 coarse + 420 fine
+   ``bench_quality_dynerf_torch.py`` at ``--scale 0.02`` (the dynerf preset at
+   full width as users run it, sh 3, anisotropic: 60 coarse + 280 fine
    steps of batch 4 with the FineSampler over 11 ring cameras × 150
    timestamps at 676×507, GT from K1 held in memory, its launches counted
    apart): K2 launches equal the renders of its steps, K1 launches those
@@ -123,7 +123,7 @@ on failure:
    line); on the grid's padding pixels K1's colour and T equal the plain
    version's, the step's cotangent is 0 and the L1 does not change when
    they are replaced by noise (:func:`check_padding`). (b) The same bench
-   at ``--scale 0.02 --instant4d``: finite losses, a rising train PSNR, SH
+   at ``--scale 0.015 --instant4d``: finite losses, a rising train PSNR, SH
    degree 0 and three equal scales for every live Gaussian after the
    broadcast. (c) A DyNeRF scene written with the port's PNG writer
    (:func:`write_dynerf_scene`: ``poses_bounds.npy`` for 4 of the bench's
@@ -167,6 +167,39 @@ on failure:
    renders equal to the in-process render; Panoptic and COLMAP scenes of the
    same frames through ``load_scene``: the cameras' counts and times, every
    frame within the tolerance of Pillow's decode.
+13. eval and tools, on phase 10 (b)'s D-NeRF scene (800×800) with the
+   bouncingballs preset at full width, each run with the launch counts
+   zeroed just before it and read just after (:func:`check_eval_tools`):
+   (a) ``train_torch.py --port <free port> --gradient_tracking`` (20 coarse
+   + 60 fine steps) with ``render_torch.py`` and ``metrics_torch.py`` after
+   it, while a client thread connects as SIBR does
+   (:func:`sibr_client`) and asks for two frames of test camera 0, one with
+   ``keep_alive`` on and one without: both arrive as 800×800×3 bytes, not
+   constant, with the source path as the verify string;
+   ``gradient_report.json`` holds a record every 10 iterations of each
+   stage for every group, all finite, ``gradient_timeline.json`` 10 finite
+   records; K1 launches once per step, eval view, served frame and timeline
+   render, K2 once per step and timeline pass; whether the plots were
+   written (matplotlib) is printed. (b) ``export_perframe_3DGS_torch.py``:
+   one PLY per test camera, time 0's read back equal to the in-process
+   ``get_state_at_time`` within 1e-6. (c) ``merge_many_4dgs_torch.py`` of the
+   model twice over (``--rotation_bias 90,0 --motion_bias 0.5,0,0
+   --scale_bias 0.8``): one PNG per video camera (160), K1 once per frame,
+   frame 0 within one level of the in-process K1 render of the same merged
+   set; frames/s printed. (d) ``full_eval_torch.py --skip_train`` over the
+   model copied to ``output/dnerf/<scene>`` under a working directory of its
+   own: ``render_torch.py`` and ``metrics_torch.py`` run as subprocesses
+   with ``--device cuda``, and ``results.json`` exists. (e) The LPIPS trunks
+   with random weights, VGG16 and AlexNet, on the card against the CPU on an
+   800×800 render and its GT, within 1e-5, with the card's ms per pair;
+   whether pretrained weights were found and which columns are null.
+   (f) The resampler on every committed fixture of
+   ``tests/torch_fixtures/resample`` against Pillow's output (exactly), one
+   2704×2028 → 1352×1014 LANCZOS frame timed on the host, and a DyNeRF
+   scene of 2 cameras × 3 frames written at 2704×2028 through
+   ``load_scene`` and the prefetcher: every frame sent to the ref
+   (``to_ref`` = 6) and equal to ``resize`` of its decode, with the ms a
+   frame against the coarse step's 73.7 ms.
 
 Agreement bound of K1 with its plain version: atol 1e-4 on color and final
 transmittance, except pixels riding T_STOP, where a different association of
@@ -952,9 +985,9 @@ def check_training_from_pcd(dev):
     from fourdgs_tpu_torch.ops import blend
 
     print("[9] training from a point cloud: (a) bench_quality_torch --gt oracle "
-          "--scale 0.05", flush=True)
+          "--scale 0.03", flush=True)
     t0 = time.perf_counter()
-    a, model = BQ.run(scale=0.05, gt="oracle", log_interval=50, device=dev)
+    a, model = BQ.run(scale=0.03, gt="oracle", log_interval=50, device=dev)
     launches = (blend.blend_forward.launches, blend.blend_backward.launches)
     renders = (a["schedule"]["coarse"] + a["schedule"]["fine"]) * a["batch_size"]
     log = a["train_log"]
@@ -1220,9 +1253,10 @@ def run_cli_chain(data_dir, model_path, dev, overrides=CLI_SCHEDULE, preset=None
             "scene": scene}
 
 
-def check_entry_points(dev):
+def check_entry_points(dev, data_dir):
     """Phase 10 (module docstring): ``bench_torch.py`` and K1/K2 at its last
-    step, then the D-NeRF CLI chain; returns the launch counts of each and
+    step, then the D-NeRF CLI chain on a scene written to ``data_dir`` (which
+    phase 13 reuses); returns the launch counts of each and
     :func:`check_bench_blend`'s fields for the kernels line."""
     import bench_torch
     from fourdgs_tpu_torch.ops import blend
@@ -1247,12 +1281,11 @@ def check_entry_points(dev):
 
     print("    (b) a D-NeRF scene, then train_torch.py -> render_torch.py -> "
           "metrics_torch.py", flush=True)
+    t0 = time.perf_counter()
+    write_dnerf_scene(data_dir, dev)
+    scene_s = time.perf_counter() - t0
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_cli_") as tmp:
-        data_dir, model_path = os.path.join(tmp, "data"), os.path.join(tmp, "model")
-        t0 = time.perf_counter()
-        write_dnerf_scene(data_dir, dev)
-        scene_s = time.perf_counter() - t0
-        cli = run_cli_chain(data_dir, model_path, dev)
+        cli = run_cli_chain(data_dir, os.path.join(tmp, "model"), dev)
     k1_train, k2_train = cli["train_launches"]
     k1_render, k2_render = cli["render_launches"]
     print(f"    scene {WIDTH}x{HEIGHT}, 20 train + 4 test views written in {scene_s:.1f} s; "
@@ -1393,9 +1426,10 @@ def check_dynerf_bench(dev, scale, instant4d=False):
     return res, model, launches
 
 
-def render_gt(cam, dev, bg):
+def render_gt(cam, dev, bg, budget=None):
     """uint8 [H, W, 3] of ``bench_quality_torch.py``'s GT scene at
-    ``cam.time`` through K1 on ``bg``."""
+    ``cam.time`` through K1 on ``bg``, with ``budget`` instances (default
+    ``bench_quality_torch.GT_BUDGET``)."""
     import torch
 
     import bench_quality_torch as BQ
@@ -1411,8 +1445,9 @@ def render_gt(cam, dev, bg):
             torch.tensor(pts + offsets(cam.time), device=dev), extra["scales"],
             extra["rotations"], extra["opacities"], extra["shs"], c.camera_center,
             c.world_view, c.full_proj, c.tanfovx, c.tanfovy, cam.width, cam.height, 0,
-            torch.tensor(bg, dtype=torch.float32, device=dev), instance_budget=BQ.GT_BUDGET)
-    if int(out.num_rendered) > BQ.GT_BUDGET:
+            torch.tensor(bg, dtype=torch.float32, device=dev),
+            instance_budget=budget or BQ.GT_BUDGET)
+    if int(out.num_rendered) > (budget or BQ.GT_BUDGET):
         raise AssertionError(f"a GT frame overflowed its budget: {int(out.num_rendered)}")
     return (out.color.permute(1, 2, 0) * 255 + 0.5).clamp(0, 255).to(torch.uint8).cpu().numpy()
 
@@ -1426,12 +1461,14 @@ def _init_cloud():
     return BD.init_cloud(BQ.make_gt_scene()[0])
 
 
-def write_dynerf_scene(root, dev, n_frames=DYNERF_FRAMES, size=(1352, 1014)):
+def write_dynerf_scene(root, dev, n_frames=DYNERF_FRAMES, size=(1352, 1014), n_cams=4,
+                       budget=None):
     """Write a DyNeRF (Neu3D) scene under ``root`` with the port's PNG
-    writer: ``poses_bounds.npy`` for 4 cameras of the DyNeRF bench's ring,
-    ``cam00…cam03/images/0000.png…`` (``n_frames`` each, at ``size``, the
+    writer: ``poses_bounds.npy`` for ``n_cams`` cameras of the DyNeRF bench's
+    ring, ``cam00…/images/0000.png…`` (``n_frames`` each, at ``size``, the
     loader's 1352×1014 by default, every filter type in turn) that K1
-    renders from the GT scene on black at the loader's times i/300, and the
+    renders from the GT scene on black at the loader's times i/300 (with
+    ``budget`` instances, :func:`render_gt`'s default if None), and the
     bench's 8,000-point init cloud as ``points3D_downsample2.ply``. The
     poses invert the loader's LLFF convention so that it rebuilds each
     ring camera. Returns the cameras per camera index."""
@@ -1445,7 +1482,7 @@ def write_dynerf_scene(root, dev, n_frames=DYNERF_FRAMES, size=(1352, 1014)):
     focal = graphics.fov2focal(fov, W)
     fovy = graphics.focal2fov(focal, H)
     rows, cameras = [], {}
-    for ci, (ang, elev) in enumerate(BD.camera_poses()[:4]):
+    for ci, (ang, elev) in enumerate(BD.camera_poses()[:n_cams]):
         ring = BQ.ring_camera(ang, elev, W, H, 0.0)
         R = np.asarray(ring.world_view, np.float64)[:3, :3]     # world_view[:3, :3] = R
         eye = np.asarray(ring.camera_center, np.float64)
@@ -1461,7 +1498,8 @@ def write_dynerf_scene(root, dev, n_frames=DYNERF_FRAMES, size=(1352, 1014)):
             t = fi / 300
             cam = graphics.make_camera(R, -R.T @ eye, fov, fovy, W, H, time=t)
             png.write_png(os.path.join(img_dir, f"{fi:04d}.png"),
-                          render_gt(cam, dev, [0.0, 0.0, 0.0]), filter_type=(ci + fi) % 5)
+                          render_gt(cam, dev, [0.0, 0.0, 0.0], budget),
+                          filter_type=(ci + fi) % 5)
             cameras[ci].append(cam)
     np.save(os.path.join(root, "poses_bounds.npy"), np.stack(rows))
     init_pts, init_cols = _init_cloud()
@@ -1471,8 +1509,8 @@ def write_dynerf_scene(root, dev, n_frames=DYNERF_FRAMES, size=(1352, 1014)):
 
 
 def check_dynerf_path(dev):
-    """Phase 11 (module docstring): the DyNeRF bench at scale 0.03 with
-    K1/K2 and the padding on its trained model, at 0.02 with
+    """Phase 11 (module docstring): the DyNeRF bench at scale 0.02 with
+    K1/K2 and the padding on its trained model, at 0.015 with
     ``--instant4d``, then the DyNeRF CLI chain on lazy frames. Returns the
     launches and :func:`check_trained_blend`'s fields for the kernels
     line."""
@@ -1483,8 +1521,8 @@ def check_dynerf_path(dev):
     from fourdgs_tpu_torch.ops import blend
     from fourdgs_tpu_torch.utils import losses
 
-    print("[11] the DyNeRF path: (a) bench_quality_dynerf_torch --scale 0.03", flush=True)
-    a, model, a_launches = check_dynerf_bench(dev, 0.03)
+    print("[11] the DyNeRF path: (a) bench_quality_dynerf_torch --scale 0.02", flush=True)
+    a, model, a_launches = check_dynerf_bench(dev, 0.02)
     fwd_args, bwd_args = view_blend_inputs(model, 0, dev)
     cfg, state = model.cfg, model.state
     W, H = a["resolution"]
@@ -1500,8 +1538,8 @@ def check_dynerf_path(dev):
     print(f"    padding of the {W}x{H} grid: {pad}")
     del model
 
-    print("    (b) bench_quality_dynerf_torch --scale 0.02 --instant4d", flush=True)
-    b, model, _ = check_dynerf_bench(dev, 0.02, instant4d=True)
+    print("    (b) bench_quality_dynerf_torch --scale 0.015 --instant4d", flush=True)
+    b, model, _ = check_dynerf_bench(dev, 0.015, instant4d=True)
     st = model.state
     cam = TR.CameraArrays.from_camera(model.train_cams[0][0], device=dev)
     with torch.no_grad():
@@ -1901,6 +1939,33 @@ def write_colmap_scene(root):
     colmap_io.write_model(cams, images, points, os.path.join(root, "sparse", "0"))
 
 
+RESAMPLE_FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "resample",
+                                 "pillow_resize.npz")
+
+
+def check_resample_fixtures():
+    """``utils/resample.py::resize`` on every committed fixture (the inputs
+    and Pillow's outputs of ``tests/test_torch_resample.py::
+    write_committed_fixtures``) against Pillow's output: exactly, for L, RGB
+    and RGBA alike. Returns (the cases, the worst level)."""
+    from fourdgs_tpu_torch.utils.resample import resize
+
+    n, worst = 0, 0
+    with np.load(RESAMPLE_FIXTURES) as z:
+        for key in z.files:
+            if not key.startswith("out__"):
+                continue
+            _, case, flt = key.split("__")
+            want = z[key]
+            got = resize(z[f"in__{case}"], (want.shape[1], want.shape[0]), flt)
+            d = int(np.abs(got.astype(int) - want.astype(int)).max()) if got.size else 0
+            if got.shape != want.shape or d:
+                raise AssertionError(f"resize {case} {flt}: {got.shape} against Pillow's "
+                                     f"{want.shape}, {d} levels apart")
+            n, worst = n + 1, max(worst, d)
+    return n, worst
+
+
 def check_jpeg_frames(frames, want, where):
     """Each decoded frame (name → uint8 [H, W, 3], or [H, W] grey) against
     Pillow's decode of its source (grey replicated for an RGB frame), to
@@ -2008,6 +2073,384 @@ def check_jpeg_path(dev, schedule=MULTIPLEVIEW_SCHEDULE, preset=MULTIPLEVIEW_PRE
             raise AssertionError(f"{kind}: {n_train} train, {n_test} test cameras, "
                                  f"{len(loaded)} frames")
     return {"cli": (k1_train + k1_render, k2_train)}
+
+
+EVAL_TOOLS_SCHEDULE = ("opt.coarse_iterations=20", "opt.iterations=60",
+                       "opt.position_lr_max_steps=60")
+CAPTURE_SIZE = (2704, 2028)        # DyNeRF's capture size, resized to DYNERF_SIZE
+COARSE_STEP_MS = 73.7              # phase 11 (c)'s coarse step (PERF.md §5)
+
+
+def free_port() -> int:
+    """A TCP port of the loopback interface that is free now."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sibr_message(cam, keep_alive: bool, train: bool = True) -> bytes:
+    """The SIBR viewer's camera message for ``cam`` (a
+    ``utils/graphics.py`` camera): the little-endian length, then the JSON
+    whose matrices carry the viewer's handedness, so that
+    ``viewer.py::NetworkGUI.receive`` rebuilds ``cam`` (it negates the view
+    matrix's Y and Z columns and the view-projection's Y column)."""
+    wv = np.asarray(cam.world_view, np.float32).copy()
+    wv[:, 1:3] = -wv[:, 1:3]
+    fp = np.asarray(cam.full_proj, np.float32).copy()
+    fp[:, 1] = -fp[:, 1]
+    body = json.dumps({
+        "resolution_x": int(cam.width), "resolution_y": int(cam.height),
+        "fov_x": 2 * math.atan(float(cam.tanfovx)), "fov_y": 2 * math.atan(float(cam.tanfovy)),
+        "z_near": 0.01, "z_far": 100.0, "view_matrix": wv.reshape(-1).tolist(),
+        "view_projection_matrix": fp.reshape(-1).tolist(), "train": train,
+        "keep_alive": keep_alive, "scaling_modifier": 1.0, "time": float(cam.time),
+    }).encode()
+    return len(body).to_bytes(4, "little") + body
+
+
+def sibr_client(port: int, cams, result: dict, timeout: float = 300.0) -> None:
+    """A viewer as SIBR connects: to 127.0.0.1:``port`` (retried until the
+    listener is up), then one message per camera of ``cams`` (a
+    ``(camera, keep_alive)`` list), each answered by W·H·3 bytes and a
+    length-prefixed verify string. Fills ``result`` with ``frames`` (uint8
+    [H, W, 3]) and ``verify``, or ``error``; a thread's target."""
+    import socket
+
+    result.update(frames=[], verify=[])
+    deadline = time.monotonic() + timeout
+    try:
+        while True:
+            try:
+                conn = socket.create_connection(("127.0.0.1", port), timeout=timeout)
+                break
+            except OSError:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.01)
+        with conn:
+            def recv(n):
+                buf = b""
+                while len(buf) < n:
+                    chunk = conn.recv(n - len(buf))
+                    if not chunk:
+                        raise ConnectionError("the trainer closed the connection")
+                    buf += chunk
+                return buf
+
+            for cam, keep_alive in cams:
+                conn.sendall(sibr_message(cam, keep_alive))
+                img = recv(cam.width * cam.height * 3)
+                n = int.from_bytes(recv(4), "little")
+                result["frames"].append(np.frombuffer(img, np.uint8).reshape(
+                    cam.height, cam.width, 3))
+                result["verify"].append(recv(n).decode("ascii"))
+    except Exception as e:    # reported to the caller, which raises
+        result["error"] = repr(e)
+
+
+def write_capture_scene(root, dev, capture=CAPTURE_SIZE, n_cams=2, n_frames=3):
+    """A DyNeRF scene of ``n_cams`` cameras × ``n_frames`` frames written at
+    the capture size (:func:`write_dynerf_scene`), so that every frame is
+    resized when it is read."""
+    return write_dynerf_scene(root, dev, n_frames=n_frames, size=capture, n_cams=n_cams,
+                              budget=1 << 20)
+
+
+def check_eval_tools(dev, data_dir, schedule=EVAL_TOOLS_SCHEDULE, preset=None,
+                     lpips_size=WIDTH, capture=CAPTURE_SIZE, run_script=None):
+    """Phase 13 (module docstring) on phase 10 (b)'s scene at ``data_dir``.
+    ``run_script(cmd, **kw)`` runs ``full_eval_torch.py``'s command lines
+    in (d) (default ``subprocess.run``; the CPU rehearsal runs them in its
+    process, where its frame sizes are set). Returns the K1/K2 launches of
+    (a) and (c) and the numbers printed."""
+    import shutil
+    import subprocess
+    import threading
+
+    import torch
+
+    import export_perframe_3DGS_torch as EX
+    import full_eval_torch
+    import merge_many_4dgs_torch as MG
+    from fourdgs_tpu_torch.configs.core import load_config
+    from fourdgs_tpu_torch.data import ply as ply_lib
+    from fourdgs_tpu_torch.data import scene as tscene
+    from fourdgs_tpu_torch.data.fastloader import PrefetchPool
+    from fourdgs_tpu_torch.data.scene import load_scene
+    from fourdgs_tpu_torch.ops import blend
+    from fourdgs_tpu_torch.ops.rasterize import rasterize_pallas
+    from fourdgs_tpu_torch.render import CameraArrays
+    from fourdgs_tpu_torch.utils import lpips, png
+    from fourdgs_tpu_torch.utils.gradient_tracker import GROUPS
+    from fourdgs_tpu_torch.utils.resample import resize
+
+    on_card = dev.type == "cuda"
+    out = {}
+    tmp = tempfile.mkdtemp(dir=ROOT, prefix=".smoke_tools_")
+    try:
+        # (a) the viewer and the gradient tracker
+        t_part = time.perf_counter()
+        model_path = os.path.join(tmp, "model")
+        test_cam = load_scene(load_config(), data_dir).test_cameras[0].camera
+        port = free_port()
+        client = {}
+        thread = threading.Thread(target=sibr_client, args=(
+            port, [(test_cam, True), (test_cam, False)], client), daemon=True)
+        print(f"[13] eval and tools: (a) train_torch.py --port {port} --gradient_tracking",
+              flush=True)
+        thread.start()
+        cli = run_cli_chain(data_dir, model_path, dev, schedule, preset,
+                            extra_args=("--port", str(port), "--gradient_tracking"))
+        thread.join(timeout=60)
+        if thread.is_alive() or "error" in client or len(client["frames"]) != 2:
+            raise AssertionError(f"the viewer client got {len(client.get('frames', []))} "
+                                 f"frames: {client.get('error')}")
+        shape = (test_cam.height, test_cam.width, 3)
+        for f in client["frames"]:
+            if f.shape != shape or f.min() == f.max():
+                raise AssertionError(f"a served frame is {f.shape}, levels "
+                                     f"{f.min()}..{f.max()}")
+        if client["verify"] != [data_dir] * 2:
+            raise AssertionError(f"verify strings {client['verify']}, not the source path")
+        with open(os.path.join(model_path, "gradient_report.json")) as f:
+            report = json.load(f)
+        n_coarse = int(next(o.split("=")[1] for o in schedule
+                            if o.startswith("opt.coarse_iterations=")))
+        n_fine = cli["steps"] - n_coarse
+        want_iters = list(range(10, n_coarse + 1, 10)) + list(range(10, n_fine + 1, 10))
+        groups = {k.split("/")[0] for k in report["history"]}
+        if (report["iterations"] != want_iters or groups != set(GROUPS)
+                or not all(len(v) == len(want_iters) and all(map(math.isfinite, v))
+                           for v in report["history"].values())):
+            raise AssertionError(f"gradient report: iterations {report['iterations']}, "
+                                 f"groups {sorted(groups)}")
+        with open(os.path.join(model_path, "gradient_timeline.json")) as f:
+            timeline = json.load(f)
+        if len(timeline) != 10 or not all(math.isfinite(r["loss"]) and
+                                          math.isfinite(r["grad_norm_max"]) for r in timeline):
+            raise AssertionError(f"gradient timeline: {timeline}")
+        k1, k2 = cli["train_launches"]
+        want = ((cli["steps"] + cli["eval_renders"] + 2 + 10, cli["steps"] + 10)
+                if on_card else (0, 0))
+        if (k1, k2) != want:
+            raise AssertionError(f"train_torch.py --port --gradient_tracking launched "
+                                 f"K1/K2 {(k1, k2)}, expected {want}")
+        plots = {name: os.path.exists(os.path.join(model_path, name))
+                 for name in ("gradient_curves.png", "gradient_timeline.png")}
+        out["a"] = {"launches": (k1, k2), "train_s": cli["train_s"], "steps": cli["steps"],
+                    "records": len(want_iters), "plots": plots}
+        print(f"    {cli['steps']} steps in {cli['train_s']:.3f} s with 2 served "
+              f"{shape[1]}x{shape[0]} frames (verify = source path), "
+              f"{len(want_iters)} gradient records of {len(groups)} groups, a 10-point "
+              f"timeline (losses {timeline[0]['loss']:.5f}..{timeline[-1]['loss']:.5f}); "
+              f"K1/K2 launches {(k1, k2)} = {cli['steps']} steps + {cli['eval_renders']} "
+              f"eval views + 2 frames + 10 timeline renders, {cli['steps']} + 10 passes; "
+              f"plots " + ", ".join(f"{n} {'written' if w else 'skipped (no matplotlib)'}"
+                                    for n, w in plots.items()))
+
+        out["a"]["seconds_all"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        # (b) export
+        t0 = time.perf_counter()
+        paths = EX.main(["--model_path", model_path, "--device", dev.type])
+        export_s = time.perf_counter() - t0
+        cfg, state = MG.load_model(model_path, -1, None, dev)
+        times = [lc.camera.time for lc in load_scene(cfg, data_dir).test_cameras]
+        if len(paths) != len(times) or times[0] != 0.0:
+            raise AssertionError(f"{len(paths)} PLYs for {len(times)} test cameras")
+        back = ply_lib.load_gaussian_ply(paths[0])
+        xyz, scales, rot, opacity, shs = EX.get_state_at_time(state.params, state, 0.0)
+        alive = state.alive
+        n = int(alive.sum())
+        want_t0 = {"xyz": xyz, "scaling": scales, "rotation": rot, "opacity": opacity,
+                   "f_dc": shs[:, 0, :], "f_rest": shs[:, 1:, :].reshape(shs.shape[0], -1)}
+        err = max(float(np.abs(back[k] - v[alive].cpu().numpy()).max())
+                  for k, v in want_t0.items())
+        if back["xyz"].shape[0] != n or not err <= 1e-6:
+            raise AssertionError(f"time 0's PLY differs from get_state_at_time by {err}")
+        out["b"] = {"plys": len(paths), "seconds": export_s, "max_abs_err": err}
+        print(f"    (b) export_perframe_3DGS_torch.py: {len(paths)} PLYs of {n} Gaussians "
+              f"in {export_s:.3f} s; time 0's read back against get_state_at_time: "
+              f"max |diff| {err:.3g}", flush=True)
+
+        out["b"]["seconds_all"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        # (c) merge the model with itself, moved
+        merged_dir = os.path.join(tmp, "merged")
+        bias = dict(motion=[(0.5, 0.0, 0.0)], rot=[("90", "0")], scl=[0.8])
+        blend.blend_forward.launches = blend.blend_backward.launches = 0
+        res = MG.main(["--model_paths", model_path, model_path, "-s", data_dir,
+                       "--rotation_bias", "90,0", "--motion_bias", "0.5,0,0",
+                       "--scale_bias", "0.8", "--output", merged_dir, "--device", dev.type])
+        merge_launches = (blend.blend_forward.launches, blend.blend_backward.launches)
+        video = load_scene(cfg, data_dir).video_cameras
+        if res["frames"] != len(video) or len(os.listdir(merged_dir)) != len(video):
+            raise AssertionError(f"{len(os.listdir(merged_dir))} merged frames for "
+                                 f"{len(video)} video cameras")
+        if merge_launches != ((len(video), 0) if on_card else (0, 0)):
+            raise AssertionError(f"the merge launched K1/K2 {merge_launches} times "
+                                 f"for {len(video)} frames")
+        models = [(cfg, state)] * 2
+        xyz_m, sc_m, rot_m, op_m, shs_m, deg = MG.merged_gaussians(
+            models, video[0].time, bias["motion"], bias["rot"], bias["scl"])
+        ca = CameraArrays.from_camera(video[0], device=dev)
+        bg = torch.ones(3, device=dev) if cfg.model.white_background else torch.zeros(3, device=dev)
+        with torch.no_grad():
+            ref = rasterize_pallas(xyz_m, sc_m, rot_m, op_m, shs_m, ca.camera_center,
+                                   ca.world_view, ca.full_proj, ca.tanfovx, ca.tanfovy,
+                                   video[0].width, video[0].height, deg, bg,
+                                   instance_budget=MG.INSTANCE_BUDGET)
+        want8 = (np.clip(ref.color.cpu().numpy(), 0, 1).transpose(1, 2, 0) * 255
+                 ).astype(np.uint8)
+        got8 = png.read_png(os.path.join(merged_dir, "00000.png"))
+        merge_diff = int(np.abs(got8.astype(int) - want8.astype(int)).max())
+        if merge_diff > 1 or xyz_m.shape[0] != 2 * n:
+            raise AssertionError(f"merged frame 0 differs from the in-process render by "
+                                 f"{merge_diff} levels ({xyz_m.shape[0]} Gaussians)")
+        fps = res["frames"] / res["seconds"]
+        out["c"] = {"launches": merge_launches, "frames": res["frames"], "fps": fps,
+                    "max_level_diff": merge_diff}
+        print(f"    (c) merge_many_4dgs_torch.py (the model twice, the second turned "
+              f"90 degrees, moved 0.5 and scaled 0.8): {res['frames']} frames of "
+              f"{2 * n} Gaussians in {res['seconds']:.3f} s = {fps:.3f} frames/s with "
+              f"the PNG writes; K1/K2 launches {merge_launches}; frame 0 against the "
+              f"in-process K1 render: max {merge_diff} levels", flush=True)
+
+        out["c"]["seconds_all"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        # (d) full_eval over the model, where the script looks for it
+        cwd = os.path.join(tmp, "full_eval")
+        scene = os.path.basename(data_dir)
+        shutil.copytree(model_path, os.path.join(cwd, "output", "dnerf", scene),
+                        ignore=shutil.ignore_patterns("test", "train", "video"))
+        real_run, commands = subprocess.run, []
+
+        def run(cmd, **kw):
+            commands.append(list(cmd))
+            return (run_script or real_run)(cmd, **kw)
+
+        here = os.getcwd()
+        t0 = time.perf_counter()
+        try:
+            os.chdir(cwd)
+            subprocess.run = run
+            full_eval_torch.main(["--base_dir", os.path.dirname(data_dir), "--family",
+                                  "dnerf", "--scenes", scene, "--skip_train",
+                                  "--device", dev.type])
+        finally:
+            subprocess.run = real_run
+            os.chdir(here)
+        full_s = time.perf_counter() - t0
+        scripts = [os.path.basename(c[1]) for c in commands]
+        results = os.path.join(cwd, "output", "dnerf", scene, "results.json")
+        if (scripts != ["render_torch.py", "metrics_torch.py"]
+                or any(c[-2:] != ["--device", dev.type] for c in commands)
+                or not os.path.exists(results)):
+            raise AssertionError(f"full_eval_torch.py ran {commands}; results.json "
+                                 f"{'exists' if os.path.exists(results) else 'missing'}")
+        with open(results) as f:
+            full_psnr = next(iter(json.load(f).values()))["PSNR"]
+        out["d"] = {"seconds": full_s, "psnr": full_psnr}
+        print(f"    (d) full_eval_torch.py --skip_train: render_torch.py and "
+              f"metrics_torch.py {'in this process' if run_script else 'as subprocesses'} "
+              f"on {dev.type} in {full_s:.3f} s; "
+              f"results.json PSNR {full_psnr:.4f} dB", flush=True)
+
+        out["d"]["seconds_all"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        # (e) LPIPS trunks, on the card against the CPU
+        base = os.path.join(model_path, "test", f"ours_{cli['steps'] - n_coarse}")
+        r, g = (torch.tensor(png.read_png(os.path.join(base, d, "00000.png"))[
+            :lpips_size, :lpips_size], dtype=torch.float32).permute(2, 0, 1) / 255.0
+            for d in ("renders", "gt"))
+        cpu = torch.device("cpu")
+        lp = {}
+        for net in ("vgg", "alex"):
+            w = lpips.random_weights(net, seed=0)
+            fn_dev, fn_cpu = lpips.make_lpips(w, net, dev), lpips.make_lpips(w, net, cpu)
+            d_dev = float(fn_dev(r.to(dev), g.to(dev)))
+            d_cpu = float(fn_cpu(r, g))
+            if not abs(d_dev - d_cpu) <= 1e-5:
+                raise AssertionError(f"LPIPS-{net} on {dev.type} {d_dev} against the "
+                                     f"CPU's {d_cpu}")
+            if on_card:
+                from fourdgs_tpu_torch.scripts import time_ms
+                ms = time_ms(lambda: fn_dev(r.to(dev), g.to(dev)), dev, iters=3, reps=3)[0]
+            else:
+                ms = None
+            lp[net] = {"value": d_dev, "cpu": d_cpu, "diff": abs(d_dev - d_cpu), "ms": ms}
+        found = {net: lpips.load_weights(net) is not None for net in ("vgg", "alex")}
+        null = [f"LPIPS-{n}" for n, f in found.items() if not f]
+        out["e"] = {"nets": lp, "pretrained": found}
+        print(f"    (e) LPIPS, random weights, {r.shape[2]}x{r.shape[1]} pair: " + "; ".join(
+            f"{n} {v['value']:.6f} (CPU {v['cpu']:.6f}, |diff| {v['diff']:.2e}"
+            + (f", {v['ms']:.3f} ms a pair" if v["ms"] is not None else "") + ")"
+            for n, v in lp.items()) + f"; pretrained weights found: {found}; "
+            f"null columns: {null or 'none'}", flush=True)
+
+        out["e"]["seconds_all"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        # (f) the resample
+        n_fix, worst = check_resample_fixtures()
+        rng = np.random.default_rng(0)
+        y, x = np.mgrid[0:capture[1], 0:capture[0]]
+        frame = np.clip(np.stack([128 + 100 * np.sin(x / (9.0 + k)) * np.cos(y / 7.0)
+                                  for k in range(3)], -1)
+                        + rng.normal(0, 10, (capture[1], capture[0], 3)), 0, 255
+                        ).astype(np.uint8)
+        target = tscene.DYNERF_SIZE
+        resize(frame, target, "lanczos")          # the first call builds the library
+        t_rs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            resize(frame, target, "lanczos")
+            t_rs.append(1e3 * (time.perf_counter() - t0))
+        cap_dir = os.path.join(tmp, "capture")
+        t0 = time.perf_counter()
+        write_capture_scene(cap_dir, dev, capture)
+        write_s = time.perf_counter() - t0
+        data = load_scene(load_config(), cap_dir)
+        refs = [lc.image for lc in data.train_cameras + data.test_cameras]
+        pool = PrefetchPool(n_threads=8)
+        try:
+            t0 = time.perf_counter()
+            pool.submit_batch(refs)
+            frames = pool.wait_batch()
+            read_ms = 1e3 * (time.perf_counter() - t0) / len(refs)
+            counts = pool.counts()
+        finally:
+            pool.close()
+        if counts != {"submitted": len(refs), "native": 0, "to_ref": len(refs)}:
+            raise AssertionError(f"prefetcher counts {counts} for {len(refs)} frames at "
+                                 f"{capture}")
+        t0 = time.perf_counter()
+        decoded = [png.convert(png.read_png(ref.path), "RGB") for ref in refs]
+        decode_ms = 1e3 * (time.perf_counter() - t0) / len(refs)
+        for ref, got, dec in zip(refs, frames, decoded):
+            want = resize(dec, target, "lanczos")
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"{ref.path}: the loaded frame is not resize of its "
+                                     f"decode")
+        out["f"] = {"fixtures": n_fix, "worst": worst, "resize_ms": min(t_rs),
+                    "resize_ms_mean": float(np.mean(t_rs)), "read_ms": read_ms,
+                    "decode_ms": decode_ms, "frames": len(refs)}
+        print(f"    (f) resample: {n_fix} committed fixtures equal Pillow's outputs "
+              f"(worst {worst} levels); one {capture[0]}x{capture[1]} -> "
+              f"{target[0]}x{target[1]} LANCZOS frame on the host {min(t_rs):.2f} ms "
+              f"(mean of 5 {np.mean(t_rs):.2f} ms; the coarse step {COARSE_STEP_MS} ms); "
+              f"a {len(refs)}-frame DyNeRF scene at the capture size (written in "
+              f"{write_s:.1f} s): every frame sent to the ref ({counts}), equal to resize "
+              f"of its decode, {read_ms:.2f} ms a frame decoded and resized on the "
+              f"training thread (the port's PNG codec alone {decode_ms:.2f} ms a frame)",
+              flush=True)
+        out["f"]["seconds_all"] = time.perf_counter() - t_part
+        print("    phase 13 seconds: " + ", ".join(
+            f"({k}) {v['seconds_all']:.1f}" for k, v in out.items()), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 def ring_camera(i, n_views):
@@ -2320,18 +2763,37 @@ def main() -> int:
     # -- 9. training from a point cloud
     pcd, trained = check_training_from_pcd(dev)
 
-    # -- 10. the user's entry points
-    entry = check_entry_points(dev)
+    # phase 10 (b)'s D-NeRF scene, which phase 13 reuses
+    scene_tmp = tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_scene_")
+    dnerf_dir = os.path.join(scene_tmp.name, "bouncingballs")
+    try:
+        # -- 10. the user's entry points
+        phase_s = {}
+        t0 = time.perf_counter()
+        entry = check_entry_points(dev, dnerf_dir)
+        phase_s[10] = time.perf_counter() - t0
 
-    # -- 11. the DyNeRF path
-    dynerf = check_dynerf_path(dev)
+        # -- 11. the DyNeRF path
+        t0 = time.perf_counter()
+        dynerf = check_dynerf_path(dev)
+        phase_s[11] = time.perf_counter() - t0
 
-    # -- 12. the remaining loaders: HyperNeRF, then the JPEG ones
-    hypernerf = check_hypernerf_path(dev)
-    if not hypernerf["masked_psnr"] > hypernerf["blank_masked_psnr"]:
-        raise AssertionError(f"masked held-out PSNR {hypernerf['masked_psnr']} not above "
-                             f"the blank image's {hypernerf['blank_masked_psnr']}")
-    jpeg_path = check_jpeg_path(dev)
+        # -- 12. the remaining loaders: HyperNeRF, then the JPEG ones
+        t0 = time.perf_counter()
+        hypernerf = check_hypernerf_path(dev)
+        if not hypernerf["masked_psnr"] > hypernerf["blank_masked_psnr"]:
+            raise AssertionError(f"masked held-out PSNR {hypernerf['masked_psnr']} not "
+                                 f"above the blank image's {hypernerf['blank_masked_psnr']}")
+        jpeg_path = check_jpeg_path(dev)
+        phase_s[12] = time.perf_counter() - t0
+
+        # -- 13. eval and tools
+        t0 = time.perf_counter()
+        tools = check_eval_tools(dev, dnerf_dir)
+        phase_s[13] = time.perf_counter() - t0
+    finally:
+        scene_tmp.cleanup()
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     # -- 8. kernels line, result line
     kernels = [{
@@ -2359,6 +2821,8 @@ def main() -> int:
         "hypernerf": {"launches": hypernerf["cli"][0], **hypernerf["blend"]["blend_forward"],
                       "padding": hypernerf["padding"]},
         "multipleview_cli": {"launches": jpeg_path["cli"][0]},
+        "eval_tools": {"launches": tools["a"]["launches"][0],
+                       "merge_launches": tools["c"]["launches"][0]},
     }, {
         "name": "blend_backward",
         "route": "cuda",
@@ -2382,6 +2846,7 @@ def main() -> int:
         "dynerf_cli": {"launches": dynerf["cli"][1]},
         "hypernerf": {"launches": hypernerf["cli"][1], **hypernerf["blend"]["blend_backward"]},
         "multipleview_cli": {"launches": jpeg_path["cli"][1]},
+        "eval_tools": {"launches": tools["a"]["launches"][1]},
     }, *cost_kernels]
     print(f"chip_smoke.py took {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,11 @@
 """Blender / D-NeRF synthetic dataset loader.
 
 A copy of ``fourdgs_tpu/data/blender.py`` whose frames are read by the
-port's PNG codec (``utils/png.py``) instead of Pillow. Pillow's resize is
-not ported: a frame whose size differs from ``target_size`` (800×800 by
-default, as in JAX) raises ``NotImplementedError`` (D-NeRF frames are
-800×800 already).
+port's PNG codec (``utils/png.py``) and resized by its Pillow-exact
+resampler (``utils/resample.py``) instead of Pillow: a frame whose size
+differs from ``target_size`` (800×800 by default, as in JAX) is resized as
+RGBA with Pillow's default filter, BICUBIC, premultiplied as Pillow
+resamples RGBA, before the background composite.
 
 Parity target: readNerfSyntheticInfo + readCamerasFromTransforms +
 read_timeline in the reference (scene/dataset_readers.py:294-386):
@@ -31,7 +32,7 @@ from typing import NamedTuple
 import numpy as np
 
 from fourdgs_tpu_torch.data.ply import PointCloud, fetch_pointcloud
-from fourdgs_tpu_torch.utils import graphics, png
+from fourdgs_tpu_torch.utils import graphics, png, resample
 from fourdgs_tpu_torch.utils.sh import C0
 
 
@@ -92,9 +93,7 @@ def read_cameras_from_transforms(
 
         img = png.convert(png.read_png(img_path), "RGBA")
         if (img.shape[1], img.shape[0]) != tuple(target_size):
-            raise NotImplementedError(
-                f"{img_path}: {img.shape[1]}x{img.shape[0]} frame, target "
-                f"{target_size[0]}x{target_size[1]} (resizing is not ported)")
+            img = resample.resize(img, target_size, "bicubic")
         data = img.astype(np.float32) / 255.0
         rgb = data[:, :, :3] * data[:, :, 3:4] + bg * (1.0 - data[:, :, 3:4])
         rgb_u8 = (np.clip(rgb, 0, 1) * 255).astype(np.uint8)

@@ -2,8 +2,8 @@
 
 A copy of ``fourdgs_tpu/data/colmap.py`` on the port's lazy
 :class:`~fourdgs_tpu_torch.data.dynerf.ImageRef`, which reads its PNG or JPEG
-frames with the port's codecs and raises on a frame of another size, where
-JAX resizes it with Pillow.
+frames with the port's codecs and resizes a frame of another size with
+LANCZOS, as JAX's does with Pillow.
 
 Parity target: readColmapSceneInfo + readColmapCameras in the reference
 (scene/dataset_readers.py:108-233): sparse/0 binary-or-text model, cameras

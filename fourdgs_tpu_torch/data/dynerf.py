@@ -1,9 +1,10 @@
 """Neu3D / DyNeRF multi-view video loader.
 
 A copy of ``fourdgs_tpu/data/dynerf.py`` whose frames are read by the
-port's PNG codec (``utils/png.py``) or JPEG decoder (``utils/jpeg.py``)
-instead of Pillow; its :class:`ImageRef` is the lazy frame of every loader
-but Blender's.
+port's PNG codec (``utils/png.py``) or JPEG decoder (``utils/jpeg.py``) and
+resized by its Pillow-exact resampler (``utils/resample.py``) instead of
+Pillow; its :class:`ImageRef` is the lazy frame of every loader but
+Blender's.
 
 Parity target: scene/neural_3D_dataset_NDC.py + readdynerfInfo
 (dataset_readers.py:479-520) in the reference:
@@ -18,13 +19,11 @@ Parity target: scene/neural_3D_dataset_NDC.py + readdynerfInfo
 - init cloud from points3D_downsample2.ply; maxtime 300 (:482, 518)
 - spiral validation path for the video split (get_spiral, :185-207)
 
-Two steps of JAX's loader are not ported, and raise:
-
-- the extraction of ``cam*.mp4`` into ``cam*/images`` (cv2, then Pillow's
-  LANCZOS resize): a scene with videos and no extracted frames raises
-  ``NotImplementedError`` naming the step;
-- the resize: a frame whose size is not ``target_wh`` raises when it is read
-  (:class:`ImageRef`), where JAX resizes it with Pillow.
+A frame whose size is not ``target_wh`` is resized with LANCZOS when it is
+read (:class:`ImageRef`), as JAX's is. One step of JAX's loader is not
+ported: the extraction of ``cam*.mp4`` into ``cam*/images`` (cv2): a scene
+with videos and no extracted frames raises ``NotImplementedError`` naming
+the step.
 
 Images are **lazy** (path-backed refs read at batch time): a full Neu3D
 scene is ~6k frames ≈ 23 GB decoded. The training loop decodes the next
@@ -41,15 +40,15 @@ import numpy as np
 
 from fourdgs_tpu_torch.data.blender import SceneData, get_nerfpp_norm
 from fourdgs_tpu_torch.data.ply import fetch_pointcloud
-from fourdgs_tpu_torch.utils import graphics, jpeg, png
+from fourdgs_tpu_torch.utils import graphics, jpeg, png, resample
 
 
 class ImageRef:
     """Lazy uint8 [H, W, 3] frame of ``size`` = (W, H); called by the loop
     when batching. Decodes a PNG with the port's PNG codec and a JPEG with
     its JPEG decoder, chosen by the file's first bytes (alpha dropped, gray
-    replicated, as Pillow's ``convert("RGB")``), and raises on a frame of
-    another size: Pillow's resize is not ported."""
+    replicated, as Pillow's ``convert("RGB")``), and resizes a frame of
+    another size with LANCZOS, as JAX's ``Image.resize`` does."""
 
     __slots__ = ("path", "size")
 
@@ -68,9 +67,7 @@ class ImageRef:
             raise ValueError(f"{self.path}: neither a PNG nor a JPEG file")
         img = png.convert(img, "RGB")
         if (img.shape[1], img.shape[0]) != self.size:
-            raise NotImplementedError(
-                f"{self.path}: {img.shape[1]}x{img.shape[0]} frame, target "
-                f"{self.size[0]}x{self.size[1]} (resizing is not ported)")
+            img = resample.resize(img, self.size, "lanczos")
         return img
 
     @property

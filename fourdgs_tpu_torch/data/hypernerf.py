@@ -2,10 +2,11 @@
 
 A copy of ``fourdgs_tpu/data/hypernerf.py`` on the port's lazy
 :class:`~fourdgs_tpu_torch.data.dynerf.ImageRef`: a frame whose size is
-not ``int(image_size × ratio)`` raises when it is read, where JAX resizes
-it with Pillow. Covisible masks keep their paths here; the eval
+not ``int(image_size × ratio)`` is resized with LANCZOS when it is read, as
+JAX's is. Covisible masks keep their paths here; the eval
 (``train_torch.py``) and ``render_torch.py`` read them with the port's PNG
-codec and raise on a mask of another size.
+codec (:func:`read_mask`) and resize a mask of another size with BILINEAR,
+as JAX's ``train.py`` and ``render.py`` do with Pillow.
 
 Parity target: scene/hyper_loader.py + readHyperDataInfos in the reference:
 
@@ -42,7 +43,7 @@ import numpy as np
 from fourdgs_tpu_torch.data.blender import SceneData, get_nerfpp_norm
 from fourdgs_tpu_torch.data.dynerf import ImageRef
 from fourdgs_tpu_torch.data.ply import PointCloud, fetch_pointcloud
-from fourdgs_tpu_torch.utils import graphics, png
+from fourdgs_tpu_torch.utils import graphics, png, resample
 from fourdgs_tpu_torch.utils.pose_utils import smooth_camera_poses
 
 
@@ -161,11 +162,8 @@ def load_hypernerf_scene(path: str, cfg=None, ratio: float = 0.5) -> SceneData:
 
 def read_mask(path: str, width: int, height: int) -> np.ndarray:
     """A covisible mask as uint8 [H, W] (Pillow's ``convert("L")``) for a
-    ``width`` × ``height`` view. JAX resizes a mask of another size with
-    Pillow's BILINEAR; the port raises ``NotImplementedError`` on one."""
-    m = png.convert(png.read_png(path), "L")
-    if m.shape != (height, width):
-        raise NotImplementedError(
-            f"{path}: {m.shape[1]}x{m.shape[0]} mask for a {width}x{height} view "
-            f"(resizing is not ported)")
-    return m
+    ``width`` × ``height`` view; a mask of another size is resized with
+    BILINEAR in mode L, as JAX's ``train.py:193-194`` and ``render.py:42-43``
+    resize it with Pillow."""
+    return resample.resize(png.convert(png.read_png(path), "L"), (width, height),
+                           "bilinear")

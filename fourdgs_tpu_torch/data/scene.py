@@ -32,10 +32,10 @@ from fourdgs_tpu_torch.data.grid_pruning import grid_prune_pointcloud
 from fourdgs_tpu_torch.models import gaussians as G
 
 # the Blender loader's frame size (JAX's default; a frame of another size
-# raises, as Pillow's resize is not ported)
+# is resized to it with BICUBIC, as JAX's is with Pillow)
 TARGET_SIZE = (800, 800)
 # the DyNeRF loader's frame size, (W, H): JAX's default (scene.py:58-60,
-# dynerf.py); frames of another size raise when they are read
+# dynerf.py); frames of another size are resized when they are read
 DYNERF_SIZE = (1352, 1014)
 
 
@@ -58,10 +58,10 @@ def sniff_dataset_type(path: str) -> str:
 def load_scene(cfg, path: str | None = None) -> SceneData:
     """The scene at ``path`` (default ``cfg.model.source_path``). The
     Blender loader's random init cloud is unseeded, as in JAX, and its
-    frames must be :data:`TARGET_SIZE`; the DyNeRF loader's lazy frames must
-    be :data:`DYNERF_SIZE`, the HyperNeRF loader's half the cameras'
-    ``image_size`` and the others' their cameras' size: JAX resizes others
-    with Pillow, which is not ported."""
+    frames are resized to :data:`TARGET_SIZE`; the DyNeRF loader's lazy
+    frames to :data:`DYNERF_SIZE`, the HyperNeRF loader's to half the
+    cameras' ``image_size`` and the others' to their cameras' size, as JAX
+    resizes them with Pillow (``utils/resample.py``)."""
     path = path or cfg.model.source_path
     kind = sniff_dataset_type(path)
     if kind == "blender":

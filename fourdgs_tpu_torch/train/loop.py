@@ -29,9 +29,11 @@ the chunk's max at its last step, so the budget gate and the log read
 JAX's values. A ``utils/timer.py`` ``DetailedTimer`` times its phases and an
 ``utils/observability.py`` ``EventLog`` records the growths, as in JAX;
 ``debug_mode`` and ``cfg.model.render_process`` write JAX's debug panels and
-progress frames (``utils/debug_images.py``). Not ported yet, and raising:
-SSIM (``lambda_dssim``), a ``mesh``, the ``viewer`` and the
-``gradient_tracker``.
+progress frames (``utils/debug_images.py``); a ``gradient_tracker``
+(``utils/gradient_tracker.py``) records the step's gradient statistics, and a
+``viewer`` (``viewer.py``, the SIBR network viewer) is polled before each
+iteration and served renders of the current state. Not ported yet, and
+raising: SSIM (``lambda_dssim``) and a ``mesh``.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ from fourdgs_tpu_torch.ops.rasterize import contain
 from fourdgs_tpu_torch.render import CameraArrays, render
 from fourdgs_tpu_torch.train import adam
 from fourdgs_tpu_torch.utils import debug_images, forensics, losses
+from fourdgs_tpu_torch.utils.gradient_tracker import compute_grad_stats
 
 # at most this many instance-budget growths per stage (loop.py:48)
 _MAX_BUDGET_GROWTHS = 4
@@ -70,7 +73,7 @@ def sanitize_grads(grads: list[torch.Tensor]) -> list[torch.Tensor]:
 
 def make_train_step(cfg, width: int, height: int, stage: str,
                     active_sh_degree: int, spatial_lr_scale: float = 1.0,
-                    device="cuda") -> Callable:
+                    device="cuda", track_grads: bool = False) -> Callable:
     """Build ``step(params, adam_state, state, cams, gts, step) →
     (params, adam_state, state, metrics)`` for a (resolution, stage, SH
     degree) on ``device``.
@@ -89,7 +92,12 @@ def make_train_step(cfg, width: int, height: int, stage: str,
     - ``step``: the 1-based iteration number for the schedules.
 
     The metrics are 0-d tensors: ``loss``, ``l1``, ``psnr``,
-    ``num_rendered``, ``max_tile_len``, ``n_points``.
+    ``num_rendered``, ``max_tile_len``, ``n_points``. With ``track_grads``
+    (``loop.py:211-215``) they also carry ``grad_stats``, the per-group
+    statistics of the (sanitized) parameter gradients
+    (:func:`~fourdgs_tpu_torch.utils.gradient_tracker.compute_grad_stats`),
+    and ``vs_grad_norm`` [P], the norm of each Gaussian's view-space
+    gradient summed over the batch.
     """
     dev = resolve_device(device)
     if cfg.opt.lambda_dssim != 0:
@@ -160,6 +168,8 @@ def make_train_step(cfg, width: int, height: int, stage: str,
         g_leaves, g_carrier = list(grads[:-1]), grads[-1]
         if cfg.tpu.sanitize_grads:
             g_leaves = sanitize_grads(g_leaves)
+        grad_stats = (compute_grad_stats(adam.tree_like(params, g_leaves))
+                      if track_grads else None)
         lrs = adam.learning_rates(step, cfg.opt, spatial_lr_scale)
         params, adam_state = adam.update(
             params, adam.tree_like(params, g_leaves), adam_state,
@@ -178,6 +188,9 @@ def make_train_step(cfg, width: int, height: int, stage: str,
             "max_tile_len": torch.stack([o.max_tile_len for o in outs]).amax(),
             "n_points": G.count_alive(state),
         }
+        if track_grads:
+            metrics["grad_stats"] = grad_stats
+            metrics["vs_grad_norm"] = torch.linalg.vector_norm(vs_grad, dim=-1)
         return params, adam_state, state, metrics
 
     train_step.loss_fn = loss_fn     # the step's parts, for profiling
@@ -297,6 +310,7 @@ def scene_reconstruction(
     model_path: str = "",
     device="cuda",
     *,
+    source_path: str = "",
     split_normals: Callable | None = None,
     timer=None,
     event_log=None,
@@ -331,12 +345,19 @@ def scene_reconstruction(
     writes a render|GT panel of the batch's first camera every 100
     iterations, and ``cfg.model.render_process`` a GT|render|depth frame on
     ``debug_images.should_save_progress``'s schedule with the seconds since
-    the stage began, under ``model_path`` (``loop.py:679-698``). ``mesh``,
-    ``viewer`` and ``gradient_tracker`` raise ``NotImplementedError`` until
-    they are ported.
+    the stage began, under ``model_path`` (``loop.py:679-698``).
+    ``gradient_tracker`` (a ``utils/gradient_tracker.py`` ``GradientTracker``)
+    records the step's gradient statistics every ``record_interval``
+    iterations (``loop.py:750-755``). ``viewer`` (a ``viewer.py``
+    ``NetworkGUI``) is polled before each iteration and served the render of
+    its camera by the current state, with ``source_path`` as the verify
+    string (``loop.py:574-582``). Either turns the chunks off, as JAX's
+    ``scan_ok`` does (``loop.py:547-550``): the poll is a host gate before
+    every step. A ``mesh`` raises ``NotImplementedError`` until it is
+    ported.
     """
     dev = resolve_device(device)
-    _unported(mesh=mesh, viewer=viewer, gradient_tracker=gradient_tracker)
+    _unported(mesh=mesh)
     if not train_cameras:
         return state, adam_state, TrainLog()
     opt = cfg.opt
@@ -418,7 +439,9 @@ def scene_reconstruction(
         prefetcher.submit_batch([gt_list[i] for i in batches[0]])
 
     # JAX's chunks (loop.py:547-598), when the GT is cached on the device
-    scan = cfg.tpu.scan_steps > 1 and gt_cache is not None
+    # and no host work runs between steps
+    scan = (cfg.tpu.scan_steps > 1 and gt_cache is not None
+            and gradient_tracker is None and viewer is None)
 
     chunk_ends = ({last for _, last in scan_chunks(cfg, train_iter, log_interval,
                                                    extra_log_iters, debug_mode)}
@@ -437,13 +460,19 @@ def scene_reconstruction(
     bg = torch.tensor([1.0, 1.0, 1.0] if cfg.model.white_background
                       else [0.0, 0.0, 0.0], device=dev)
 
-    def aux_render(i: int) -> tuple[np.ndarray, np.ndarray]:
-        """(colour [3, H, W], depth [1, H, W]) of camera ``i`` by the
-        current state (loop.py:522-533)."""
+    def aux_render(cam: CameraArrays, w: int = width,
+                   h: int = height) -> tuple[np.ndarray, np.ndarray]:
+        """(colour [3, H, W], depth [1, H, W]) of ``cam`` by the current
+        state (loop.py:522-533)."""
         with torch.no_grad():
-            out = render(state.params, state, cam_arrays[i], cfg, width, height, stage,
-                         bg, sh_deg, device=dev)
+            out = render(state.params, state, cam, cfg, w, h, stage, bg, sh_deg,
+                         device=dev)
         return out.color.cpu().numpy(), out.depth.cpu().numpy()
+
+    def viewer_render(vcam) -> np.ndarray:
+        """The viewer's camera by the current state (loop.py:575-580)."""
+        return aux_render(CameraArrays.from_camera(vcam, device=dev),
+                          vcam.width, vcam.height)[0]
 
     def gt_np(i: int) -> np.ndarray:
         """Camera ``i``'s GT as float CHW, as JAX's ``_gt_np`` (loop.py:535-539)."""
@@ -456,6 +485,8 @@ def scene_reconstruction(
     iteration = 0
     while iteration < train_iter:
         iteration += 1
+        if viewer is not None:
+            viewer.poll(viewer_render, source_path, training_done=iteration == train_iter)
         if timer:
             timer.start_iteration(iteration)
             timer.start_timer(f"{stage}_data_loading")
@@ -483,7 +514,8 @@ def scene_reconstruction(
             timer.start_timer(f"{stage}_render")
         if sh_deg not in steps:
             steps[sh_deg] = make_train_step(cfg, width, height, stage, sh_deg,
-                                            spatial_lr_scale=spatial_lr, device=dev)
+                                            spatial_lr_scale=spatial_lr, device=dev,
+                                            track_grads=gradient_tracker is not None)
         with torch.enable_grad():
             params, adam_state, state, metrics = steps[sh_deg](
                 state.params, adam_state, state, batch_cams, gts, iteration)
@@ -503,11 +535,11 @@ def scene_reconstruction(
         if debug_mode and iteration % 100 == 0:
             i = batch_idx[0]
             debug_images.save_debug_image(
-                aux_render(i)[0], gt_np(i), stage, iteration,
+                aux_render(cam_arrays[i])[0], gt_np(i), stage, iteration,
                 float(cam_arrays[i].time), model_path)
         if cfg.model.render_process and debug_images.should_save_progress(iteration):
             i = batch_idx[0]
-            color, depth = aux_render(i)
+            color, depth = aux_render(cam_arrays[i])
             debug_images.render_training_image(
                 color, gt_np(i), depth, stage, iteration, time.time() - t_start,
                 model_path)
@@ -539,6 +571,11 @@ def scene_reconstruction(
                         event_log.add_scalar("budget/demand", demand, iteration)
                         event_log.add_scalar("budget/instance_budget", new_budget,
                                              iteration)
+        if gradient_tracker is not None:
+            grad_stats = metrics.pop("grad_stats")
+            metrics.pop("vs_grad_norm")
+            if iteration % gradient_tracker.record_interval == 0:
+                gradient_tracker.record(iteration, stage, grad_stats)
         if timer:
             timer.end_timer(f"{stage}_render")
             timer.start_timer(f"{stage}_densification")

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Evaluate saved renders with the PyTorch port: PSNR / SSIM / MS-SSIM /
-D-SSIM (LPIPS null).
+D-SSIM / LPIPS.
 
 The port's ``metrics.py``:
 
@@ -10,8 +10,13 @@ The port's ``metrics.py``:
 Reads the ``test/ours_<iter>/{renders,gt}`` PNG trees that ``render_torch.py``
 writes (and a ``masks/`` tree beside them, for a masked PSNR) and writes
 ``results.json`` and ``per_view.json`` next to them. D-SSIM = (1 − MS-SSIM)/2
-(metrics.py:79). The LPIPS columns are null, as ``metrics.py`` writes them
-when it has no network weights: LPIPS is not ported.
+(metrics.py:79). The LPIPS-vgg and LPIPS-alex columns come from
+:func:`try_lpips`, in ``metrics.py``'s order: the port's trunk
+(``fourdgs_tpu_torch/utils/lpips.py``) with converted pretrained weights,
+else the external ``lpips`` package if it imports, else they are null, as
+``metrics.py`` writes them. No weights are in the repository, so they are
+null until ``fourdgs_tpu/assets/lpips_<net>.npz`` exists (or
+``$FOURDGS_LPIPS_WEIGHTS_DIR`` holds it).
 """
 
 from __future__ import annotations
@@ -66,6 +71,41 @@ def msssim(img1, img2, levels: int = 5) -> float:
                  * torch.clamp(l_final, min=0) ** weights[-1])
 
 
+def try_lpips(device="cuda"):
+    """{net: LPIPS distance} for "vgg" and "alex", or None (``metrics.py::
+    try_lpips``): (1) the port's trunk with converted pretrained weights;
+    (2) the external ``lpips`` package, if it imports; (3) None, and the
+    columns stay null. Each distance takes [3, H, W] float images in [0, 1]
+    on ``device`` and returns a float."""
+    import torch
+
+    from fourdgs_tpu_torch import resolve_device
+    from fourdgs_tpu_torch.utils import lpips as tlpips
+
+    dev = resolve_device(device)
+    nets = {}
+    for net in ("vgg", "alex"):
+        w = tlpips.load_weights(net)
+        if w is not None:
+            nets[net] = tlpips.make_lpips(w, net, dev)
+    if nets:
+        return nets
+    try:
+        import lpips
+    except ImportError:
+        return None
+
+    def wrap(m):
+        m = m.to(dev)
+
+        def f(a, b):
+            with torch.no_grad():
+                return float(m(a[None] * 2 - 1, b[None] * 2 - 1))
+        return f
+
+    return {"vgg": wrap(lpips.LPIPS(net="vgg")), "alex": wrap(lpips.LPIPS(net="alex"))}
+
+
 def read_images(d: str, mode: str = "RGB") -> list[np.ndarray]:
     """The PNGs of ``d`` in name order, as float32 in [0, 1] (``mode`` as
     Pillow's ``convert``)."""
@@ -84,6 +124,7 @@ def evaluate(model_paths, device="cuda") -> dict:
     from fourdgs_tpu_torch.utils.losses import masked_psnr, psnr, ssim
 
     dev = resolve_device(device)
+    lpips_nets = try_lpips(dev) or {}
     everything = {}
     for model_path in model_paths:
         test_dir = os.path.join(model_path, "test")
@@ -110,9 +151,10 @@ def evaluate(model_paths, device="cuda") -> dict:
                     "SSIM": float(ssim(rt, gt)),
                     "MS-SSIM": ms,
                     "D-SSIM": (1.0 - ms) / 2.0,
-                    "LPIPS-vgg": None,
-                    "LPIPS-alex": None,
                 }
+                for net in ("vgg", "alex"):
+                    fn = lpips_nets.get(net)
+                    row[f"LPIPS-{net}"] = float(fn(rt[0], gt[0])) if fn else None
                 rows.append(row)
             if not rows:
                 continue

@@ -31,8 +31,8 @@ def render_set(model_path, name, iteration, cameras, gts, render_fn, sync,
     """Render ``cameras`` with ``render_fn(cam) → [3, H, W]`` and write the
     renders and ``gts`` (uint8 [H, W, 3], float [3, H, W], or lazy frames,
     which are called) as PNGs, and the covisible masks of ``mask_paths``
-    (render.py:33-45; a mask must be its camera's size: JAX resizes it with
-    Pillow's BILINEAR, which is not ported).
+    (render.py:33-45; a mask of another size is resized to its camera's with
+    BILINEAR, as JAX's is with Pillow).
     Returns (the uint8 frames, FPS)."""
     import numpy as np
 

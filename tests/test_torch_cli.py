@@ -1,7 +1,7 @@
 """The port's CLI chain on the CPU: ``train_torch.py`` → ``render_torch.py``
 → ``metrics_torch.py`` with ``--device cpu`` on a fabricated 64×64 D-NeRF
-scene (the loader's frame size set to 64×64: it takes JAX's 800×800
-otherwise, as Pillow's resize is not ported), with ``tests/test_cli.py``'s
+scene (the loader's frame size set to 64×64: it resizes to JAX's 800×800
+otherwise), with ``tests/test_cli.py``'s
 overrides but the ``pallas`` backend:
 the outputs of ``test_cli.py::test_outputs_exist`` exist, the renders equal
 ``fourdgs_tpu.render.render`` (the Pallas interpreter) of the same snapshot
@@ -163,9 +163,10 @@ def test_resume_from_checkpoint(trained_model):
                                   "--distributed", "--port=6009",
                                   "--gradient_tracking", "--debug_mode"])
 def test_unported_flags_raise(flag, tmp_path):
-    if flag == "--debug_mode":
-        # ported now (tests/test_torch_debug_images.py): the flag passes and
-        # the missing scene raises
+    if flag in ("--debug_mode", "--port=6009", "--gradient_tracking"):
+        # ported now (tests/test_torch_debug_images.py,
+        # tests/test_torch_viewer.py, tests/test_torch_gradient_tracker.py):
+        # the flag passes and the missing scene raises
         with pytest.raises(ValueError, match="could not recognize"):
             train_torch.main(["-s", "/nonexistent", flag, "--device", "cpu",
                               "--model_path", str(tmp_path / "model")])

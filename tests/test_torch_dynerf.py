@@ -5,8 +5,9 @@ filter type in turn): cameras, times, splits, the spiral video cameras,
 the normalization, the point cloud and every lazy frame equal JAX's
 (exactly: both loaders run the same float64 NumPy, and both decoders are
 lossless). ``load_scene`` dispatches ``"dynerf"`` with JAX's default frame
-size; a frame of another size raises when it is read, and videos without
-extracted frames raise, naming the step that is not ported."""
+size; a frame of another size is resized with LANCZOS when it is read, as
+JAX's is, and videos without extracted frames raise, naming the step that is
+not ported."""
 
 import inspect
 
@@ -109,8 +110,8 @@ def test_load_scene_dispatches_dynerf(tmp_path, monkeypatch):
     assert tscene.DYNERF_SIZE == tuple(default) == (1352, 1014)
     data = tscene.load_scene(tload(), str(tmp_path))
     assert data.train_cameras[0].image.size == (1352, 1014)
-    with pytest.raises(NotImplementedError, match="resizing is not ported"):
-        data.train_cameras[0].image()     # 32×24 frames, 1352×1014 wanted
+    ref = data.train_cameras[0].image     # a 32×24 frame, 1352×1014 wanted
+    np.testing.assert_array_equal(ref(), jdynerf.ImageRef(ref.path, ref.size)())
     monkeypatch.setattr(tscene, "DYNERF_SIZE", (W, H))
     got = tscene.load_scene(tload(), str(tmp_path))
     want = jdynerf.load_dynerf_scene(str(tmp_path), target_wh=(W, H))
@@ -123,9 +124,9 @@ def test_frame_of_another_size_raises(tmp_path):
     png.write_png(str(path), np.zeros((H, W + 1, 3), np.uint8))
     data = tdynerf.load_dynerf_scene(str(tmp_path), target_wh=(W, H), n_frames=4)
     ref = next(lc.image for lc in data.train_cameras if lc.image.path == str(path))
-    with pytest.raises(NotImplementedError, match="33x24 frame, target 32x24"):
-        ref()
-    assert data.train_cameras[0].image().shape == (H, W, 3)
+    # resized with LANCZOS, as JAX's ref resizes it with Pillow
+    np.testing.assert_array_equal(ref(), jdynerf.ImageRef(ref.path, ref.size)())
+    assert ref().shape == data.train_cameras[0].image().shape == (H, W, 3)
 
 
 def test_frame_modes_read_as_rgb(tmp_path):

@@ -13,6 +13,7 @@ from fourdgs_tpu.data import fastloader as jfast
 from fourdgs_tpu_torch.data import fastloader as tfast
 from fourdgs_tpu_torch.data.dynerf import ImageRef
 from fourdgs_tpu_torch.utils import native, png
+from fourdgs_tpu_torch.utils.resample import resize
 
 W, H = 53, 37
 
@@ -80,12 +81,15 @@ def test_prefetch_pool_decodes_natively_and_counts(frames, tmp_path):
 
 
 def test_a_rejected_frame_the_ref_cannot_read_raises(frames, tmp_path):
-    """Another size: the native decoder rejects it and the ref raises,
-    rather than a resize; so does a missing file."""
+    """Another size: the native decoder rejects it and the ref resizes it
+    (JAX's prefetcher sends it to its ref the same way); a missing file the
+    ref cannot read raises."""
     pool = tfast.PrefetchPool(n_threads=2)
-    pool.submit_batch([ImageRef(frames[0][0], (W + 1, H))])
-    with pytest.raises(NotImplementedError, match="resizing is not ported"):
-        pool.wait_batch()
+    ref = ImageRef(frames[0][0], (W + 1, H))
+    pool.submit_batch([ref])
+    (got,) = pool.wait_batch()
+    np.testing.assert_array_equal(got, resize(png.read_png(frames[0][0]), (W + 1, H),
+                                              "lanczos"))
     pool.submit_batch([ImageRef(str(tmp_path / "missing.png"), (W, H))])
     with pytest.raises(FileNotFoundError):
         pool.wait_batch()

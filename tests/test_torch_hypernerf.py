@@ -14,7 +14,8 @@ loader halves them with ``int``), plus covisible masks under
   ``maxtime``: paths and counts exact, floats to 1e-12 (both are float64
   numpy, the matrices float32 from the same arithmetic).
 - The frames against Pillow's decode and JAX's ``ImageRef``, exact (PNG); a
-  frame of another size raises where JAX resizes it; so does a mask.
+  frame of another size is resized (LANCZOS) as JAX resizes it, and so is a
+  mask (BILINEAR), bit for bit.
 - ``load_scene`` dispatches ``"nerfies"``.
 """
 
@@ -185,11 +186,13 @@ def test_frames_and_masks_of_another_size_raise(tmp_path):
     write_hypernerf(tmp_path, n=5, frame_size=(30, 20))
     got = TH.load_hypernerf_scene(str(tmp_path))
     want = JH.load_hypernerf_scene(str(tmp_path))
-    assert want.train_cameras[0].image().shape == (24, 32, 3)   # JAX resizes
-    with pytest.raises(NotImplementedError, match="resizing is not ported"):
-        got.train_cameras[0].image()
-    with pytest.raises(NotImplementedError, match="resizing is not ported"):
-        TH.read_mask(got.test_cameras[0].mask_path, 32, 24)
+    # both resize: the frame with LANCZOS, the mask with BILINEAR (train.py:193-194)
+    assert want.train_cameras[0].image().shape == (24, 32, 3)
+    np.testing.assert_array_equal(got.train_cameras[0].image(), want.train_cameras[0].image())
+    mask_path = got.test_cameras[0].mask_path
+    np.testing.assert_array_equal(
+        TH.read_mask(mask_path, 32, 24),
+        np.asarray(Image.open(mask_path).convert("L").resize((32, 24), Image.BILINEAR)))
 
 
 def test_load_scene_dispatches_nerfies(tmp_path):

@@ -7,10 +7,13 @@ library the card's host lacks, CUDA by default.
   a fresh interpreter without ``jax``, ``fourdgs_tpu``, ``PIL``, ``cv2`` or
   ``imageio`` in ``sys.modules``;
 - an AST scan finds no such import in the package or those scripts, nor in
-  the CLIs (``train_torch.py``, ``render_torch.py``, ``metrics_torch.py``),
+  the CLIs (``train_torch.py``, ``render_torch.py``, ``metrics_torch.py``,
+  ``export_perframe_3DGS_torch.py``, ``merge_many_4dgs_torch.py``,
+  ``full_eval_torch.py``),
   lazy imports inside functions included (JAX's ``debug_images.py`` and
   ``ImageRef`` import Pillow there, which only the card would find);
-- the native libraries build without a JPEG library (no ``-ljpeg``);
+- the native libraries build without a JPEG library (no ``-ljpeg``), the
+  resampler with no library at all;
 - with CUDA absent, each entry point raises unless asked for the CPU;
 - the port's constants equal the JAX package's.
 """
@@ -44,7 +47,8 @@ def _port_modules():
 # JAX and the reference package, and the image libraries the card's host
 # does not have
 FORBIDDEN = ("jax", "jaxlib", "fourdgs_tpu", "PIL", "cv2", "imageio")
-CLIS = ("train_torch.py", "render_torch.py", "metrics_torch.py")
+CLIS = ("train_torch.py", "render_torch.py", "metrics_torch.py",
+        "export_perframe_3DGS_torch.py", "merge_many_4dgs_torch.py", "full_eval_torch.py")
 
 
 def _is_forbidden(name: str) -> bool:
@@ -60,6 +64,7 @@ def test_import_graph_has_no_jax():
         "import chip_smoke, profile_render_torch, profile_train_torch\n"
         "import bench_quality_torch, bench_quality_dynerf_torch\n"
         "import train_torch, render_torch, metrics_torch\n"
+        "import export_perframe_3DGS_torch, merge_many_4dgs_torch, full_eval_torch\n"
         "bad = sorted(m for m in sys.modules "
         f"if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print('BAD', bad)\n"
@@ -68,7 +73,10 @@ def test_import_graph_has_no_jax():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert len(mods) >= 33
+    assert len(mods) >= 37
+    for m in ("fourdgs_tpu_torch.viewer", "fourdgs_tpu_torch.utils.resample",
+              "fourdgs_tpu_torch.utils.lpips", "fourdgs_tpu_torch.utils.gradient_tracker"):
+        assert m in mods
 
 
 def test_ast_scan_has_no_jax_imports():
@@ -94,10 +102,11 @@ def test_ast_scan_has_no_jax_imports():
 
 def test_native_builds_link_no_jpeg_library():
     from fourdgs_tpu_torch.data import fastloader
-    from fourdgs_tpu_torch.utils import jpeg, native
+    from fourdgs_tpu_torch.utils import jpeg, native, resample
 
-    for flags in (native.CXX_FLAGS, fastloader.LINK_FLAGS, jpeg.LINK_FLAGS):
+    for flags in (native.CXX_FLAGS, fastloader.LINK_FLAGS, jpeg.LINK_FLAGS, resample.FLAGS):
         assert not [f for f in flags if "jpeg" in f], flags
+    assert not [f for f in resample.FLAGS if f.startswith("-l")]
     src = (PKG / "native" / "jpeg.cpp").read_text()
     assert "#include <jpeglib.h>" not in src and "jpeg_read_header" not in src
 
@@ -172,6 +181,23 @@ def test_entry_points_default_to_cuda():
     for run in (exp_gather.run, exp_grid_cost.run, exp_kernel_overhead.run):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             run()
+    import export_perframe_3DGS_torch
+    import merge_many_4dgs_torch
+    import metrics_torch
+    from fourdgs_tpu_torch.utils import gradient_tracker, lpips
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lpips.make_lpips(lpips.random_weights("alex"), "alex")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        metrics_torch.try_lpips()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        gradient_tracker.gradient_timeline(cfg, state, _camera(), torch.zeros(3, 64, 64),
+                                           "/nonexistent")
+    for main in (export_perframe_3DGS_torch.main, merge_many_4dgs_torch.main):
+        argv = ["--model_paths", "/nonexistent", "-s", "/nonexistent"] if (
+            main is merge_many_4dgs_torch.main) else ["--model_path", "/nonexistent"]
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv)
     for probe in grid_cost.PROBES:
         if probe.fn is grid_cost.while_ones:   # runs where its counts lie
             continue

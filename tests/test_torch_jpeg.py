@@ -42,6 +42,7 @@ import chip_smoke as CS
 from fourdgs_tpu.data.dynerf import ImageRef as JImageRef
 from fourdgs_tpu_torch.data.dynerf import ImageRef
 from fourdgs_tpu_torch.utils import jpeg, native, png
+from fourdgs_tpu_torch.utils.resample import resize
 
 SIZES = [(1, 1), (7, 5), (37, 23), (64, 48), (129, 97)]
 FIXTURES = CS.JPEG_FIXTURES
@@ -191,7 +192,8 @@ def test_timing_script(tmp_path):
 
 def test_image_ref_picks_the_codec(tmp_path):
     """PNG and JPEG frames, RGB and grey, through the port's ref and JAX's
-    (Pillow): PNG exact, JPEG to the tolerance; the same size check."""
+    (Pillow): PNG exact, JPEG to the tolerance; a frame of another size
+    resized with LANCZOS after the decode, as JAX's ref does."""
     rgb, grey = make_image(37, 23), make_image(37, 23, channels=1, seed=2)
     paths = {}
     for name, img in (("rgb", rgb), ("grey", grey)):
@@ -208,8 +210,11 @@ def test_image_ref_picks_the_codec(tmp_path):
         else:
             d = np.abs(got.astype(int) - want.astype(int))
             assert d.max() <= CS.JPEG_MAX_LEVELS and d.mean() <= CS.JPEG_MEAN_LEVELS
-    with pytest.raises(NotImplementedError, match="resizing is not ported"):
-        ImageRef(paths["rgb.jpg"], (38, 23))()
+    got = ImageRef(paths["rgb.jpg"], (38, 23))()
+    np.testing.assert_array_equal(got, resize(jpeg.read_jpeg(paths["rgb.jpg"]), (38, 23),
+                                              "lanczos"))
+    d = np.abs(got.astype(int) - JImageRef(paths["rgb.jpg"], (38, 23))().astype(int))
+    assert d.max() <= CS.JPEG_MAX_LEVELS and d.mean() <= CS.JPEG_MEAN_LEVELS
     (tmp_path / "x.bin").write_bytes(b"GIF89a....")
     with pytest.raises(ValueError, match="neither a PNG nor a JPEG"):
         ImageRef(str(tmp_path / "x.bin"), (1, 1))()

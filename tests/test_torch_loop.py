@@ -34,6 +34,8 @@ from fourdgs_tpu_torch import interop
 from fourdgs_tpu_torch.configs.core import KPlanesConfig, load_config
 from fourdgs_tpu_torch.train import adam as tadam
 from fourdgs_tpu_torch.train import loop as tloop
+from fourdgs_tpu_torch.utils.gradient_tracker import GradientTracker
+from fourdgs_tpu_torch.viewer import NetworkGUI
 from tests import test_training as TT
 
 COARSE_ITERS, FINE_ITERS, EXTENT = 8, 4, 3.0
@@ -254,8 +256,14 @@ def test_unported_options_raise(option, tmp_path):
     cfg = _port_cfg()
     cams, state, opt = _port_start(cfg)
     kw = {"model_path": str(tmp_path)}
-    if option in ("mesh", "viewer", "gradient_tracker", "debug_mode"):
-        kw[option] = True if option == "debug_mode" else object()
+    if option == "mesh":
+        kw[option] = object()
+    elif option == "debug_mode":
+        kw[option] = True
+    elif option == "viewer":
+        kw[option] = NetworkGUI(port=0)      # no viewer connects
+    elif option == "gradient_tracker":
+        kw[option] = GradientTracker(str(tmp_path), record_interval=1)
     elif option == "render_process":
         cfg.model.render_process = True
     elif option == "lazy_gt":
@@ -264,13 +272,21 @@ def test_unported_options_raise(option, tmp_path):
         cfg.opt.lambda_dssim = 0.2
     else:
         cfg.model.use_isotropic_gaussian = True
-    if option in ("lazy_gt", "isotropic", "debug_mode", "render_process"):
-        # ported now (tests/test_torch_lazy.py, tests/test_torch_isotropic.py
-        # and tests/test_torch_debug_images.py hold them against arrays and
+    if option in ("lazy_gt", "isotropic", "debug_mode", "render_process", "viewer",
+                  "gradient_tracker"):
+        # ported now (tests/test_torch_lazy.py, tests/test_torch_isotropic.py,
+        # tests/test_torch_debug_images.py, tests/test_torch_viewer.py and
+        # tests/test_torch_gradient_tracker.py hold them against arrays and
         # JAX): they no longer raise
-        _, _, log = tloop.scene_reconstruction(cfg, state, opt, cams, "coarse", 1,
-                                               EXTENT, device="cpu", **kw)
+        try:
+            _, _, log = tloop.scene_reconstruction(cfg, state, opt, cams, "coarse", 1,
+                                                   EXTENT, device="cpu", **kw)
+        finally:
+            if option == "viewer":
+                kw["viewer"].close()
         assert np.isfinite(log.iterations[-1]["loss"])
+        if option == "gradient_tracker":
+            assert kw[option].iterations == [1] and "xyz/norm" in kw[option].history
         return
     with pytest.raises(NotImplementedError):
         tloop.scene_reconstruction(cfg, state, opt, cams, "coarse", 1, EXTENT,

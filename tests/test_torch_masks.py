@@ -24,8 +24,8 @@ port's 2.5e-7), so no bound of 1e-5 between the two float32 values holds.
 :func:`test_float32_spread` holds both float32 values against the float64
 one on 21 seeded views of 44×64 to 540×960 pixels: the port within 1e-5 dB,
 JAX within 4e-5 dB, which gives the 5e-5 dB between them.
-- a mask of another size raises in ``render_torch.render_set`` (JAX resizes
-  it with Pillow's BILINEAR).
+- a mask of another size is resized in ``render_torch.render_set`` as JAX
+  resizes it with Pillow's BILINEAR, bit for bit.
 """
 
 import json
@@ -50,6 +50,7 @@ from fourdgs_tpu_torch.ops import blend
 from fourdgs_tpu_torch.render import CameraArrays, render
 from fourdgs_tpu_torch.train import checkpoint
 from fourdgs_tpu_torch.utils import losses as tlosses
+from fourdgs_tpu_torch.utils import png
 from tests.test_torch_cli import one_torch_thread  # noqa: F401  (autouse)
 from tests.test_torch_dynerf_cli import OVERRIDES as NARROW
 
@@ -207,9 +208,12 @@ def test_float32_spread(h, w, seed):
 
 def test_a_mask_of_another_size_raises(tmp_path):
     mask = tmp_path / "m.png"
-    Image.fromarray(np.full((10, 12), 255, np.uint8)).save(mask)
+    m = np.random.default_rng(4).integers(0, 2, (10, 12), dtype=np.uint8) * 255
+    Image.fromarray(m).save(mask)
     cam = CS.jpeg_scene_camera(0, 0, size=(16, 10))[0]
-    with pytest.raises(NotImplementedError, match="resizing is not ported"):
-        render_torch.render_set(str(tmp_path), "test", 1, [cam], None,
-                                lambda c: torch.zeros(3, 10, 16), lambda: None,
-                                [str(mask)])
+    render_torch.render_set(str(tmp_path), "test", 1, [cam], None,
+                            lambda c: torch.zeros(3, 10, 16), lambda: None, [str(mask)])
+    # resized with BILINEAR, as JAX's render.py:42-43 does with Pillow
+    np.testing.assert_array_equal(
+        png.read_png(str(tmp_path / "test" / "ours_1" / "masks" / "00000.png")),
+        np.asarray(Image.fromarray(m).resize((16, 10), Image.BILINEAR)))

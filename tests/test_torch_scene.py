@@ -7,8 +7,9 @@ the JAX package's.
   cameras equal JAX's;
 - ``sniff_dataset_type`` on the marker files of every dataset kind the JAX
   tests fabricate; ``load_scene`` of a marker alone fails as JAX's does;
-- ``load_scene`` takes JAX's 800×800 frames and raises on others (Pillow's
-  resize is not ported); ``build_scene`` from a seed or a ``torch.Generator``;
+- frames of another size are resized as JAX's are (RGBA, Pillow's BICUBIC,
+  premultiplied), bit for bit; ``load_scene`` resizes to JAX's 800×800;
+  ``build_scene`` from a seed or a ``torch.Generator``;
 - ``grid_prune_pointcloud`` equals JAX's;
 - ``log_scene_stats`` writes JAX's records.
 """
@@ -69,8 +70,15 @@ def test_blender_loader_matches_jax(tmp_path, white):
                                want.nerf_normalization["translate"], rtol=1e-12)
     assert got.nerf_normalization["radius"] == pytest.approx(
         want.nerf_normalization["radius"], rel=1e-12)
-    with pytest.raises(NotImplementedError, match="resizing"):
-        tblender.load_blender_scene(str(tmp_path), target_size=(800, 800))
+    # another size: both resize the RGBA frames (the partial-alpha one too)
+    kw["target_size"] = (80, 72)
+    want = jblender.load_blender_scene(str(tmp_path), rng=np.random.default_rng(3), **kw)
+    got = tblender.load_blender_scene(str(tmp_path), rng=np.random.default_rng(3), **kw)
+    for g, w in zip(got.train_cameras + got.test_cameras,
+                    want.train_cameras + want.test_cameras):
+        assert g.image.shape == (72, 80, 3)
+        np.testing.assert_array_equal(g.image, w.image)
+        assert (g.camera.width, g.camera.height) == (w.camera.width, w.camera.height)
 
 
 MARKERS = {
@@ -117,9 +125,8 @@ def test_sniff_rejects_an_unknown_directory(tmp_path):
 def test_build_scene(tmp_path, monkeypatch):
     make_dnerf_dataset(tmp_path, n_train=4, n_test=2, size=64)
     cfg = tload()
-    # JAX's frame size unless told otherwise; 64×64 frames are not resized
-    with pytest.raises(NotImplementedError, match="resizing"):
-        tscene.load_scene(cfg, str(tmp_path))
+    # JAX's frame size unless told otherwise: 64×64 frames are resized to it
+    assert tscene.load_scene(cfg, str(tmp_path)).train_cameras[0].image.shape == (800, 800, 3)
     monkeypatch.setattr(tscene, "TARGET_SIZE", (64, 64))
     data = tscene.load_scene(cfg, str(tmp_path))
     assert data.train_cameras[0].image.shape == (64, 64, 3)

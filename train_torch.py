@@ -20,8 +20,14 @@ JPEG frame by the ref's decoder), and the eval calls them. The eval's PSNR
 of a test view with a covisible mask (HyperNeRF) is the masked PSNR.
 ``--debug_mode`` writes render|GT panels to ``debug_images/`` every 100
 iterations, and a preset's ``render_process`` GT|render|depth frames to
-``train_render/``. ``--mesh``, ``--shard_primitives``, ``--distributed``,
-``--port`` and ``--gradient_tracking`` raise ``NotImplementedError``.
+``train_render/``. ``--port <n>`` serves the SIBR network viewer on
+127.0.0.1:<n> (``fourdgs_tpu_torch/viewer.py``; 0 picks a free port), polled
+before every iteration. ``--gradient_tracking`` records the per-group
+gradient statistics every 10 iterations and writes
+``gradient_report.json``, ``gradient_curves.png`` and the per-timestamp
+``gradient_timeline.{json,png}`` of the first train camera after the run
+(the PNGs only where matplotlib is installed). ``--mesh``,
+``--shard_primitives`` and ``--distributed`` raise ``NotImplementedError``.
 ``--device cpu`` runs the plain PyTorch versions of the kernels.
 """
 
@@ -32,8 +38,7 @@ import json
 import os
 
 # flags of train.py whose paths are not ported
-UNPORTED_FLAGS = ("mesh", "shard_primitives", "distributed", "port",
-                  "gradient_tracking")
+UNPORTED_FLAGS = ("mesh", "shard_primitives", "distributed")
 
 
 def main(argv=None):
@@ -188,9 +193,22 @@ def main(argv=None):
 
     extra_iters = (set(args.save_iterations) | set(args.checkpoint_iterations)
                    | set(args.test_iterations))
+
+    viewer = None
+    if args.port is not None:
+        from fourdgs_tpu_torch.viewer import NetworkGUI
+
+        viewer = NetworkGUI(port=args.port)
+        print(f"network viewer listening on 127.0.0.1:{viewer.port}", flush=True)
+    tracker = None
+    if args.gradient_tracking:
+        from fourdgs_tpu_torch.utils.gradient_tracker import GradientTracker
+
+        tracker = GradientTracker(model_path)
     common = dict(timer=timer, event_log=ev, log_fn=log_fn,
                   extra_log_iters=extra_iters, model_path=model_path, device=dev,
-                  debug_mode=args.debug_mode)
+                  debug_mode=args.debug_mode, viewer=viewer, gradient_tracker=tracker,
+                  source_path=args.source_path)
 
     def report_prefetch(stage, log, iteration):
         """The native prefetcher's frame counts of a stage on lazy frames."""
@@ -201,15 +219,33 @@ def main(argv=None):
             for k, v in log.prefetch.items():
                 ev.add_scalar(f"{stage}/prefetch/{k}", v, iteration)
 
-    if start_stage == "coarse":
+    try:
+        if start_stage == "coarse":
+            state, adam_state, log = scene_reconstruction(
+                cfg, state, adam_state, cams, "coarse", cfg.opt.coarse_iterations,
+                scene.cameras_extent, rng_seed=args.seed, **common)
+            report_prefetch("coarse", log, cfg.opt.coarse_iterations)
         state, adam_state, log = scene_reconstruction(
-            cfg, state, adam_state, cams, "coarse", cfg.opt.coarse_iterations,
-            scene.cameras_extent, rng_seed=args.seed, **common)
-        report_prefetch("coarse", log, cfg.opt.coarse_iterations)
-    state, adam_state, log = scene_reconstruction(
-        cfg, state, adam_state, cams, "fine", cfg.opt.iterations,
-        scene.cameras_extent, rng_seed=args.seed + 1, **common)
-    report_prefetch("fine", log, cfg.opt.iterations)
+            cfg, state, adam_state, cams, "fine", cfg.opt.iterations,
+            scene.cameras_extent, rng_seed=args.seed + 1, **common)
+        report_prefetch("fine", log, cfg.opt.iterations)
+    finally:
+        if viewer is not None:
+            viewer.close()
+
+    if tracker is not None:
+        # the report, the curves and the per-timestamp timeline of the first
+        # train camera (train.py:278-290)
+        from fourdgs_tpu_torch.utils.gradient_tracker import gradient_timeline
+
+        tracker.generate_report()
+        tracker.visualize_gradient_curves()
+        cam0, gt0 = cams[0]
+        gt0 = np.asarray(gt0() if callable(gt0) else gt0)
+        if gt0.dtype == np.uint8:
+            gt0 = gt0.astype(np.float32).transpose(2, 0, 1) / 255.0
+        gradient_timeline(cfg, state, cam0, gt0, model_path, device=dev)
+        print(f"gradient report + timeline → {model_path}")
 
     wall.pause()
     checkpoint.save_snapshot(model_path, state, cfg.opt.iterations, "fine")
