@@ -65,8 +65,8 @@ on failure:
    each probe's bytes as ``exp_grid_cost.run()`` read it in turns with the
    probe (``vs_fill``; the library call where it computes the probe's output);
 8. one JSON line ``{"kernels": [...]}`` and, last, the result line
-   ``{"ok": true, "device": {...}}``; before them phases 9 to 13, the
-   seconds of phases 10 to 13 and the script's own time:
+   ``{"ok": true, "device": {...}}``; before them phases 9 to 14, the
+   seconds of phases 10 to 14 and the script's own time:
 9. training from a point cloud (``bench_quality_torch.py``, bf16 payload):
    (a) the bouncingballs preset at ``--gt oracle --scale 0.03`` (90 coarse + 600
    fine steps at 800×800 from 2,000 random points, the launch counts zeroed
@@ -200,6 +200,31 @@ on failure:
    ``load_scene`` and the prefetcher: every frame sent to the ref
    (``to_ref`` = 6) and equal to ``resize`` of its decode, with the ms a
    frame against the coarse step's 73.7 ms.
+
+14. the remaining single-device options (:func:`check_options`), each run
+   with the launch counts zeroed just before it and read just after: (a)
+   phase 4's lego view with ``tpu.ellipse_tile_cull`` off and on through
+   ``render`` (``num_rendered`` of both, K1 once a view, device and wall ms
+   a view); K1's output and K2's per-Gaussian payload gradients (after the
+   segment sum, under the step's L1 cotangent against phase 6's GT) with
+   the cull against without it, equal to 1e-6 apart from pixels whose
+   final T lies within 8 ulps of T_STOP (counted, with the pixels and
+   Gaussians equal bit for bit); K1 and K2 at the culled shapes against
+   their plain versions, with and without the cull's times and bounds
+   (``ellipse_tile_cull`` in the kernels line). (b) Phase 6's step with
+   ``opt.lambda_dssim = 0.2``, 3 warm-up and 20 timed steps: one K1 and
+   one K2 launch a step, a finite falling loss above the L1, ms a step
+   beside phase 6's; ``ssim_tiles`` of the last render on the card within
+   1e-5 of the float64 SSIM on the CPU, beside the image-space ``ssim``.
+   (c) The ``tile`` backend at the lego view (its tile budget the longest
+   list rounded up to the blend chunk) against K1's render under the
+   association contract, no K1 launched; the ``reference`` backend
+   (``fourdgs_tpu_torch/scripts/render_oracle_gt.py``'s oracle) on the
+   first two frames of the committed oracle split at 800×800 against
+   ``gt_cache/oracle_gt_800_100_10.npz`` as uint8, at most one level
+   apart, with the largest difference and the pixels that differ; each
+   one's ms a view. Phase 11 (a) also reads the instance demand of its
+   trained model's view 0 with the cull off and on (a read only).
 
 Agreement bound of K1 with its plain version: atol 1e-4 on color and final
 transmittance, except pixels riding T_STOP, where a different association of
@@ -1508,6 +1533,31 @@ def write_dynerf_scene(root, dev, n_frames=DYNERF_FRAMES, size=(1352, 1014), n_c
     return cameras
 
 
+def dynerf_cull_read(model, dev):
+    """The instance demand (``num_rendered``) of train view 0 of a trained
+    model with ``tpu.ellipse_tile_cull`` off and on: how much of it is dead
+    corner cells. A read only: the cull is output-exact, and the model's
+    config is left as it was."""
+    import copy
+
+    import torch
+
+    from fourdgs_tpu_torch import render as TR
+
+    cam0 = model.train_cams[0][0]
+    cam = TR.CameraArrays.from_camera(cam0, device=dev)
+    cfg_on = copy.deepcopy(model.cfg)
+    cfg_on.tpu.ellipse_tile_cull = True
+    out = {}
+    with torch.no_grad():
+        for name, c in (("off", model.cfg), ("on", cfg_on)):
+            st = model.state
+            out[name] = int(TR.render(st.params, st, cam, c, cam0.width, cam0.height,
+                                      "fine", model.bg, st.active_sh_degree,
+                                      device=dev).num_rendered)
+    return out
+
+
 def check_dynerf_path(dev):
     """Phase 11 (module docstring): the DyNeRF bench at scale 0.02 with
     K1/K2 and the padding on its trained model, at 0.015 with
@@ -1536,6 +1586,10 @@ def check_dynerf_path(dev):
     pad = check_padding(bwd_args[5], blend.blend_forward_plain(*fwd_args), bwd_args[6],
                         gt_tiles, H, W, dev)
     print(f"    padding of the {W}x{H} grid: {pad}")
+    cull_read = dynerf_cull_read(model, dev)
+    print(f"    the cull's read of the trained model (view 0, changes nothing): "
+          f"num_rendered {cull_read['off']} with the cull off, {cull_read['on']} on, "
+          f"against the budget {cfg.tpu.instance_budget}")
     del model
 
     print("    (b) bench_quality_dynerf_torch --scale 0.015 --instant4d", flush=True)
@@ -2453,6 +2507,313 @@ def check_eval_tools(dev, data_dir, schedule=EVAL_TOOLS_SCHEDULE, preset=None,
     return out
 
 
+ORACLE_FRAMES = 2                  # phase 14 (c)'s oracle frames, train split
+
+
+def t_stop_riders(t_a, t_b, ulps=8):
+    """Pixels whose final transmittance lies within ``ulps`` float32 ulps of
+    T_STOP in either of two renders ([..., 256] T blocks): those whose walk
+    may take or lose one instance under another association (the contract
+    of ``tests/test_pallas_raster.py:14-21``)."""
+    from fourdgs_tpu_torch.ops import constants as C
+
+    tol = ulps * float(np.spacing(np.float32(C.T_STOP)))
+    return ((t_a - C.T_STOP).abs() <= tol) | ((t_b - C.T_STOP).abs() <= tol)
+
+
+def check_cull_on_card(cfg, state, cam, gt, dev):
+    """Phase 14 (a): the lego view with ``tpu.ellipse_tile_cull`` off and
+    on. The render through ``render`` both ways (launches, ``num_rendered``,
+    device and wall ms a view); K1's output and K2's per-Gaussian payload
+    gradients (after the segment sum, under the step's L1 cotangent against
+    ``gt``) with the cull against without it: equal to 1e-6 apart from the
+    pixels that ride T_STOP (:func:`t_stop_riders`, counted, with the pixels
+    equal bit for bit); K1 and K2 at the culled shapes against their plain
+    versions, with times and bounds."""
+    import copy
+
+    import torch
+
+    from fourdgs_tpu_torch import render as TR
+    from fourdgs_tpu_torch.ops import blend
+    from fourdgs_tpu_torch.ops import rasterize as R
+    from fourdgs_tpu_torch.scripts import time_ms
+    from fourdgs_tpu_torch.utils.losses import abs_
+
+    cfg_on = copy.deepcopy(cfg)
+    cfg_on.tpu.ellipse_tile_cull = True
+    bg = torch.ones(3, device=dev)
+    res = {}
+    for name, c in (("off", cfg), ("on", cfg_on)):
+        def view(c=c):
+            return TR.render(state.params, state, cam, c, WIDTH, HEIGHT, "fine", bg,
+                             c.model.sh_degree, device=dev)
+        blend.blend_forward.launches = 0
+        out = view()
+        torch.cuda.synchronize()
+        launches = blend.blend_forward.launches
+        dev_ms, wall_ms = time_ms(view, dev, iters=5, reps=3)
+        res[name] = {"num_rendered": int(out.num_rendered), "launches": launches,
+                     "view_ms": dev_ms, "view_wall_ms": wall_ms}
+        if launches != int(dev.type == "cuda"):     # the plain path launches nothing
+            raise AssertionError(f"cull {name}: K1 launched {launches} times for a view")
+    if not res["on"]["num_rendered"] < res["off"]["num_rendered"]:
+        raise AssertionError(f"the cull did not lower the demand: {res}")
+
+    xyz, sc, rot, op, shs, _ = TR.activated_gaussians(state.params, state, cam, "fine")
+    P = xyz.shape[0]
+    mask = torch.tensor([1.0, 1.0, 1.0, 0.0, 0.0], device=dev)[:, None]
+    per = {}
+    for name in ("off", "on"):
+        bi = R.blend_inputs(xyz, sc, rot, op, shs, cam.camera_center, cam.world_view,
+                            cam.full_proj, cam.tanfovx, cam.tanfovy, WIDTH, HEIGHT,
+                            cfg.model.sh_degree, cfg.tpu.instance_budget, alive=state.alive,
+                            ellipse_tile_cull=name == "on")
+        fwd = (bi.feat, bi.bins.tile_start, bi.bins.tile_stop, bi.row_off, bg, bi.grid_x)
+        per[name] = {"bi": bi, "fwd": fwd, "out5": blend.blend_forward(*fwd)}
+    with torch.enable_grad():      # the step's L1 cotangent, from the render without the cull
+        o = per["off"]["out5"].clone().requires_grad_()
+        (g_out,) = torch.autograd.grad(
+            abs_((o - gt[0]) * mask).sum() / (3 * WIDTH * HEIGHT), o)
+    for name, p in per.items():
+        p["bwd"] = (*p["fwd"][:5], p["out5"], g_out, p["fwd"][5])
+        p["d_table"] = R.payload_grad(blend.blend_backward(*p["bwd"]), p["bi"].bins, P)
+    off5, on5 = per["off"]["out5"], per["on"]["out5"]
+    err = (on5 - off5)[:, [0, 1, 2, 4]].abs().amax(dim=1)              # [T, 256]
+    riders = t_stop_riders(off5[:, 4], on5[:, 4])
+    g_off, g_on = per["off"]["d_table"], per["on"]["d_table"]
+    g_err = (g_on - g_off).abs()
+    g_scale = float(g_off.abs().max())
+    res["image"] = {"pixels": err.numel(), "bit_equal": int((err == 0).sum()),
+                    "ride_t_stop": int(riders.sum()),
+                    "over_1e-6": int((err > 1e-6).sum()),
+                    "over_1e-6_not_riding": int(((err > 1e-6) & ~riders).sum()),
+                    "max_abs_err": float(err.max())}
+    res["payload_grad"] = {"gaussians": P,
+                           "bit_equal": int((g_err == 0).all(dim=1).sum()),
+                           "over_1e-6": int((g_err > 1e-6).any(dim=1).sum()),
+                           "max_abs_err": float(g_err.max()), "max_abs_grad": g_scale,
+                           "max_err_over_scale": float(g_err.max()) / max(g_scale, 1e-30)}
+    if res["image"]["over_1e-6_not_riding"] or not bool(torch.isfinite(on5).all()):
+        raise AssertionError(f"the cull changed pixels that do not ride T_STOP: {res['image']}")
+    if not res["payload_grad"]["max_err_over_scale"] <= 1e-2:
+        raise AssertionError(f"the cull changed the payload gradients: {res['payload_grad']}")
+
+    # K1 and K2 at the culled shapes: against their plain versions, times, bounds
+    on = per["on"]
+    n_tiles = on["bi"].bins.tile_start.numel()
+    k_pad = on["bi"].feat.shape[1]
+    res["k1"] = compare_blend(on5, blend.blend_forward_plain(*on["fwd"]))
+    res["k2"] = compare_blend_backward(blend.blend_backward(*on["bwd"]),
+                                       blend.blend_backward_plain(*on["bwd"]),
+                                       int((on["fwd"][2].long() - on["fwd"][1].long())
+                                           .clamp(min=0).sum()))
+    check_cull_exact(blend.blend_forward, *on["fwd"])
+    check_cull_exact(blend.blend_backward, *on["bwd"])
+    for name, p in per.items():
+        work = blend_work(*p["fwd"][:4], p["fwd"][5])
+        p["timing"] = {
+            "k1_ms": time_ms(lambda: blend.blend_forward(*p["fwd"]), dev)[0],
+            "k2_ms": time_ms(lambda: blend.blend_backward(*p["bwd"]), dev)[0],
+            "k1_bound": blend_bound(work, n_tiles),
+            "k2_bound": blend_backward_bound(work, n_tiles, k_pad),
+            "work": work}
+    res["k1_plain_ms"] = time_ms(lambda: blend.blend_forward_plain(*on["fwd"]), dev,
+                                 iters=1, reps=3)[0]
+    res["k2_plain_ms"] = time_ms(lambda: blend.blend_backward_plain(*on["bwd"]), dev,
+                                 iters=1, reps=3)[0]
+    res["timing"] = {k: {kk: v for kk, v in p["timing"].items() if kk != "work"}
+                     for k, p in per.items()}
+    res["work"] = {k: p["timing"]["work"] for k, p in per.items()}
+    return res
+
+
+def check_dssim_step(gt, step_ms, dev):
+    """Phase 14 (b): the lego train step of phase 6 with
+    ``opt.lambda_dssim = 0.2`` (``ssim_tiles`` on the packed render), 3
+    warm-up and 20 timed steps: one K1 and one K2 launch a step, a finite
+    falling loss above the L1; ``ssim_tiles`` on the card against the
+    image-space ``ssim`` on the card and against the float64 SSIM on the
+    CPU, on the last step's render."""
+    import torch
+
+    from fourdgs_tpu_torch import render as TR
+    from fourdgs_tpu_torch.configs.core import load_config
+    from fourdgs_tpu_torch.ops import blend
+    from fourdgs_tpu_torch.ops.rasterize import untile
+    from fourdgs_tpu_torch.train import adam
+    from fourdgs_tpu_torch.train.loop import make_train_step
+    from fourdgs_tpu_torch.utils import losses
+
+    cfg = load_config(LEGO)
+    cfg.tpu.capacity = CAPACITY
+    cfg.opt.lambda_dssim = 0.2
+    state = bench_scene(cfg, seed=0, device=dev)
+    cam = TR.CameraArrays.from_camera(ring_camera(0, N_TIMED), device=dev)
+    cams = TR.CameraArrays(*(x[None] for x in cam))
+    step_fn = make_train_step(cfg, WIDTH, HEIGHT, "fine", cfg.model.sh_degree, device=dev)
+    params, opt = state.params, adam.init(state.params)
+    metrics = []
+    blend.blend_forward.launches = blend.blend_backward.launches = 0
+    with torch.enable_grad():
+        for it in range(1, N_WARM + N_TIMED + 1):
+            if it == N_WARM + 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            params, opt, state, m = step_fn(params, opt, state, cams, gt, it)
+            metrics.append(m)
+        torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    n = N_WARM + N_TIMED
+    launches = (blend.blend_forward.launches, blend.blend_backward.launches)
+    loss = [float(m["loss"]) for m in metrics]
+    l1 = [float(m["l1"]) for m in metrics]
+    res = {"steps": n, "launches": launches, "ms_per_step": elapsed * 1e3 / N_TIMED,
+           "ms_per_step_without": step_ms, "loss": (loss[0], loss[-1]), "l1": (l1[0], l1[-1]),
+           "dssim_term_last": loss[-1] - l1[-1]}
+    if launches != (n, n) and dev.type == "cuda":
+        raise AssertionError(f"expected one K1 and one K2 launch a step: {launches}")
+    if not all(math.isfinite(x) for x in loss) or not loss[-1] < loss[0]:
+        raise AssertionError(f"loss not finite or not falling: {loss}")
+    if not all(a > b for a, b in zip(loss, l1)):
+        raise AssertionError("the loss is not above the L1: the D-SSIM term is not live")
+
+    out = TR.render(params, state, cam, cfg, WIDTH, HEIGHT, "fine", torch.ones(3, device=dev),
+                    cfg.model.sh_degree, device=dev, tile_space=True).color
+    gx, gy = -(-WIDTH // 16), -(-HEIGHT // 16)
+    s_tiles = float(losses.ssim_tiles(out[None, :, 0:3], gt[:, :, 0:3], gx, gy))
+    img, gt_img = (untile(x[:, 0:3], gx, gy, WIDTH, HEIGHT) for x in (out, gt[0]))
+    s_image = float(losses.ssim(img, gt_img))
+    s_f64 = float(losses.ssim(img.double().cpu(), gt_img.double().cpu()))
+    res["ssim"] = {"tiles": s_tiles, "image": s_image, "cpu_float64": s_f64,
+                   "tiles_minus_image": s_tiles - s_image, "tiles_minus_f64": s_tiles - s_f64,
+                   "image_minus_f64": s_image - s_f64}
+    if not abs(s_tiles - s_f64) <= 1e-5:
+        raise AssertionError(f"ssim_tiles on the card is off the float64 SSIM: {res['ssim']}")
+    return res
+
+
+def check_backends(cfg, state, cam, dev):
+    """Phase 14 (c): the ``tile`` backend at the lego view against K1's
+    render under the association contract, and the ``reference`` backend
+    (``scripts/render_oracle_gt.py``'s oracle) on the first
+    :data:`ORACLE_FRAMES` frames of the committed oracle split, as uint8
+    against ``gt_cache/oracle_gt_800_100_10.npz``; each one's ms a view."""
+    import copy
+
+    import torch
+
+    from fourdgs_tpu_torch import render as TR
+    from fourdgs_tpu_torch.ops import blend
+    from fourdgs_tpu_torch.scripts import render_oracle_gt as ROG
+    from fourdgs_tpu_torch.scripts import time_ms
+
+    bg = torch.ones(3, device=dev)
+    k1 = TR.render(state.params, state, cam, cfg, WIDTH, HEIGHT, "fine", bg,
+                   cfg.model.sh_degree, device=dev)
+    longest = int(k1.max_tile_len)
+    cfg_t = copy.deepcopy(cfg)
+    # the longest list rounded up to the blend chunk, so no list is cut
+    cfg_t.tpu.tile_budget = -(-longest // cfg.tpu.blend_chunk) * cfg.tpu.blend_chunk
+
+    def tile_view():
+        return TR.render(state.params, state, cam, cfg_t, WIDTH, HEIGHT, "fine", bg,
+                         cfg.model.sh_degree, device=dev, backend="tile")
+
+    blend.blend_forward.launches = 0
+    tiled = tile_view()
+    torch.cuda.synchronize()
+    res = {"tile": {"launches_k1": blend.blend_forward.launches,
+                    "tile_budget": cfg_t.tpu.tile_budget, "max_tile_len": int(tiled.max_tile_len),
+                    "num_rendered": int(tiled.num_rendered),
+                    "k1_num_rendered": int(k1.num_rendered)}}
+    err = torch.cat([(tiled.color - k1.color).abs(), (tiled.alpha - k1.alpha).abs()]).amax(dim=0)
+    n = err.numel()
+    res["tile"].update({"pixels": n, "over_1e-4": int((err > 1e-4).sum()),
+                        "over_1e-2": int((err > 1e-2).sum()), "max_abs_err": float(err.max()),
+                        "depth_max_abs_err": float((tiled.depth - k1.depth).abs().max())})
+    if (res["tile"]["launches_k1"] or res["tile"]["over_1e-2"]
+            or res["tile"]["over_1e-4"] > 1e-4 * n
+            or res["tile"]["max_tile_len"] > cfg_t.tpu.tile_budget):
+        raise AssertionError(f"the tile backend disagrees with K1's render: {res['tile']}")
+    res["tile"]["ms"], res["tile"]["wall_ms"] = time_ms(tile_view, dev, iters=1, reps=3)
+    res["k1_view_ms"] = time_ms(lambda: TR.render(
+        state.params, state, cam, cfg, WIDTH, HEIGHT, "fine", bg, cfg.model.sh_degree,
+        device=dev), dev, iters=5, reps=3)[0]
+    del tiled
+
+    render = ROG.oracle_renderer(WIDTH, dev)
+    with np.load(os.path.join(ROOT, "gt_cache", "oracle_gt_800_100_10.npz")) as f:
+        n_split = f["train_meta"].shape[0]
+        want, meta = f["train_imgs"][:ORACLE_FRAMES], f["train_meta"][:ORACLE_FRAMES]
+    import bench_quality_torch as BQ
+
+    r = np.random.default_rng(ROG.SPLIT_SEEDS["train"])
+    frames = []
+    for i in range(ORACLE_FRAMES):
+        t = i / max(n_split - 1, 1)
+        ang, elev = r.uniform(0, 2 * np.pi), r.uniform(*ROG.ELEVATION)
+        if not np.array_equal([ang, elev, t], meta[i]):
+            raise AssertionError(f"oracle frame {i}: cameras differ from the committed {meta[i]}")
+        cam_i = BQ.ring_camera(ang, elev, WIDTH, WIDTH, t)
+        frames.append(render(t, cam_i))
+    diff = np.abs(np.stack(frames).astype(int) - want.astype(int))
+    res["reference"] = {"frames": ORACLE_FRAMES, "max_level_diff": int(diff.max()),
+                        "pixels_differing": int((diff.max(axis=-1) > 0).sum()),
+                        "pixels": int(diff[..., 0].size),
+                        "ms": time_ms(lambda: render(t, cam_i), dev, iters=1, reps=3)[0]}
+    if res["reference"]["max_level_diff"] > 1:
+        raise AssertionError(f"the port's oracle disagrees with the committed frames: "
+                             f"{res['reference']}")
+    return res
+
+
+def check_options(cfg, state, cam, gt, step_ms, dev):
+    """Phase 14 (module docstring): (a) :func:`check_cull_on_card`, (b)
+    :func:`check_dssim_step`, (c) :func:`check_backends`; returns their
+    results and the seconds of each."""
+    print("[14] the remaining single-device options: (a) the ellipse cull at the "
+          "lego view", flush=True)
+    secs = {}
+    t0 = time.perf_counter()
+    a = check_cull_on_card(cfg, state, cam, gt, dev)
+    secs["a"] = time.perf_counter() - t0
+    print(f"    render with the cull off / on: num_rendered {a['off']['num_rendered']} / "
+          f"{a['on']['num_rendered']}, K1 launches {a['off']['launches']} / "
+          f"{a['on']['launches']} a view; device ms a view {a['off']['view_ms']:.4f} / "
+          f"{a['on']['view_ms']:.4f}, wall {a['off']['view_wall_ms']:.4f} / "
+          f"{a['on']['view_wall_ms']:.4f}")
+    print(f"    K1's image on against off: {json.dumps(a['image'])}")
+    print(f"    per-Gaussian payload gradients on against off: {json.dumps(a['payload_grad'])}")
+    for name in ("off", "on"):
+        tm = a["timing"][name]
+        print(f"    cull {name}: K1 {tm['k1_ms']:.4f} ms (bound {tm['k1_bound']['bound_ms']:.4f}, "
+              f"{tm['k1_bound']['bound_by']}; kept pairs "
+              f"{tm['k1_bound']['bound_kept_pairs_ms']:.4f}), K2 {tm['k2_ms']:.4f} ms (bound "
+              f"{tm['k2_bound']['bound_ms']:.4f}, {tm['k2_bound']['bound_by']}; kept pairs "
+              f"{tm['k2_bound']['bound_kept_pairs_ms']:.4f}); {work_line(a['work'][name])}")
+    print(f"    K1 / K2 at the culled shapes against their plain versions: {a['k1']}; "
+          f"{a['k2']}; plain {a['k1_plain_ms']:.4f} / {a['k2_plain_ms']:.4f} ms; the "
+          f"strip cull equals the walk bit for bit")
+    print("    (b) the lego train step with lambda_dssim = 0.2", flush=True)
+    t0 = time.perf_counter()
+    b = check_dssim_step(gt, step_ms, dev)
+    secs["b"] = time.perf_counter() - t0
+    print(f"    {b['steps']} steps: {b['ms_per_step']:.3f} ms/step (phase 6 without D-SSIM "
+          f"{b['ms_per_step_without']:.3f}); K1/K2 launches {b['launches']}; loss "
+          f"{b['loss'][0]:.6f} -> {b['loss'][1]:.6f}, L1 {b['l1'][0]:.6f} -> {b['l1'][1]:.6f}")
+    print(f"    SSIM of the last step's render: {json.dumps(b['ssim'])}")
+    print("    (c) the tile and reference backends", flush=True)
+    t0 = time.perf_counter()
+    c = check_backends(cfg, state, cam, dev)
+    secs["c"] = time.perf_counter() - t0
+    print(f"    tile backend at the lego view against K1's render: {json.dumps(c['tile'])}; "
+          f"K1's view {c['k1_view_ms']:.4f} ms")
+    print(f"    reference backend on the committed oracle frames: {json.dumps(c['reference'])}")
+    print("    phase 14 seconds: " + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()))
+    return {"a": a, "b": b, "c": c, "seconds": secs}
+
+
 def ring_camera(i, n_views):
     """bench.py's camera ring: 800×800, fov π/3, at time i/(n_views−1)."""
     from fourdgs_tpu_torch.utils import graphics
@@ -2683,6 +3044,7 @@ def main() -> int:
             metrics.append(m)
         torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
+    step_ms = elapsed * 1e3 / N_TIMED
     n_steps = N_WARM + N_TIMED
     train_launches = (blend.blend_forward.launches, blend.blend_backward.launches)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -2793,6 +3155,12 @@ def main() -> int:
         phase_s[13] = time.perf_counter() - t0
     finally:
         scene_tmp.cleanup()
+
+    # -- 14. the remaining single-device options, at phase 4's view and
+    #    phase 6's GT
+    t0 = time.perf_counter()
+    options = check_options(cfg, state, cams[k_view], gt, step_ms, dev)
+    phase_s[14] = time.perf_counter() - t0
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     # -- 8. kernels line, result line
@@ -2823,6 +3191,16 @@ def main() -> int:
         "multipleview_cli": {"launches": jpeg_path["cli"][0]},
         "eval_tools": {"launches": tools["a"]["launches"][0],
                        "merge_launches": tools["c"]["launches"][0]},
+        "ellipse_tile_cull": {
+            "launches": options["a"]["on"]["launches"],
+            "num_rendered": options["a"]["on"]["num_rendered"],
+            "num_rendered_cull_off": options["a"]["off"]["num_rendered"],
+            "ms": options["a"]["timing"]["on"]["k1_ms"],
+            "ms_cull_off": options["a"]["timing"]["off"]["k1_ms"],
+            "plain_ms": options["a"]["k1_plain_ms"],
+            "max_abs_err": options["a"]["k1"]["max_abs_err"],
+            **options["a"]["timing"]["on"]["k1_bound"]},
+        "dssim_step": {"launches": options["b"]["launches"][0]},
     }, {
         "name": "blend_backward",
         "route": "cuda",
@@ -2847,6 +3225,13 @@ def main() -> int:
         "hypernerf": {"launches": hypernerf["cli"][1], **hypernerf["blend"]["blend_backward"]},
         "multipleview_cli": {"launches": jpeg_path["cli"][1]},
         "eval_tools": {"launches": tools["a"]["launches"][1]},
+        "ellipse_tile_cull": {
+            "ms": options["a"]["timing"]["on"]["k2_ms"],
+            "ms_cull_off": options["a"]["timing"]["off"]["k2_ms"],
+            "plain_ms": options["a"]["k2_plain_ms"],
+            "max_abs_err": options["a"]["k2"]["max_abs_err"],
+            **options["a"]["timing"]["on"]["k2_bound"]},
+        "dssim_step": {"launches": options["b"]["launches"][1]},
     }, *cost_kernels]
     print(f"chip_smoke.py took {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -18,7 +18,8 @@ arguments (``percent_dense · extent``, ``0.1 · extent``) are taken in
 float32, as the JAX loop's traced float32 scalars give them.
 
 The density-based ``grow`` (the ``--add_point`` path, ``densify.py:228``)
-is not ported yet.
+is ported with its draws explicit; neither loop calls it (``add_point``
+does nothing on either side).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 
 from fourdgs_tpu_torch.models import gaussians as G
 from fourdgs_tpu_torch.models.gaussians import PRIMITIVE_KEYS, GaussianState
+from fourdgs_tpu_torch.ops.knn import mean_sq_dist_3nn
 from fourdgs_tpu_torch.utils import quaternion as quat
 
 
@@ -197,6 +199,43 @@ def prune(state: GaussianState, min_opacity: float, scene_extent: float,
         mask = mask | big_vs | big_ws
     mask = mask & state.alive
     return state._replace(alive=state.alive & ~mask), mask.sum()
+
+
+def grow(state: GaussianState, moments: tuple, density_threshold: float = 5.0,
+         displacement_scale: float = 5.0, *, generator: torch.Generator | None = None,
+         normals: torch.Tensor | None = None):
+    """Density-based point growth (``densify.py:228-276``, the reference's
+    ``upsample_point_cloud``): each live Gaussian whose nearest-neighbour
+    distance (√ of the 3-NN mean squared distance, dead slots pushed 1e6
+    away) exceeds ``density_threshold`` spawns a copy displaced by
+    ``normals · displacement_scale``, kept if inside the deformation AABB,
+    written into a free slot with zeroed moments.
+
+    The [cap, 3] standard ``normals`` come from ``generator`` unless given
+    (the tests pass JAX's draws). Returns (state, moments, n_new as an int)
+    with the accumulators reset."""
+    cap = state.alive.shape[0]
+    xyz = state.params["xyz"]
+    if normals is None:
+        if generator is None:
+            raise ValueError("grow needs a generator or the normals")
+        normals = torch.randn((cap, 3), generator=generator, dtype=torch.float32,
+                              device=xyz.device)
+    far = torch.where(state.alive[:, None], xyz, 1e6)
+    nn_d = torch.sqrt(torch.clamp(mean_sq_dist_3nn(far), min=0.0))
+    new_xyz = xyz + normals * displacement_scale
+    in_aabb = torch.all((new_xyz < state.aabb[0]) & (new_xyz > state.aabb[1]), dim=-1)
+    sel = (nn_d > density_threshold) & state.alive & in_aabb
+    rows, dest = _destinations(sel, torch.cumsum(sel, 0) - 1, _free_list(state.alive))
+    params, moments = _scatter_copy(state.params, moments, rows, dest,
+                                    extra={"xyz": new_xyz})
+    state = state._replace(
+        params=params,
+        alive=state.alive.index_fill(0, dest, True),
+        deformation_table=state.deformation_table.index_put(
+            (dest,), state.deformation_table[rows]),
+    )
+    return _postfix_reset(state), moments, int(dest.shape[0])
 
 
 def reset_opacity(state: GaussianState, moments: tuple):

@@ -3,9 +3,11 @@ tile rect, color. PyTorch.
 
 Counterpart of ``fourdgs_tpu/ops/preprocess.py:41-304`` (the reference's
 ``preprocessCUDA``, forward.cu:156-256): vectorized over [P] Gaussians in
-plain tensor code, as the JAX side leaves it to XLA. The slot-cull outputs
-``lam_min``/``cull_c`` are not computed: the port's binning has no ellipse
-cull yet.
+plain tensor code, as the JAX side leaves it to XLA. With ``opacities`` it
+also gives the tight α ≥ 1/255 tile rects and the ellipse cull's
+``lam_min``/``cull_c`` (``:262-291``), which ``ops/binning.py`` reads when
+``tpu.ellipse_tile_cull`` is on; without them (the ``tile`` and
+``reference`` backends) the rects are the reference's 3σ squares.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ class PreprocessOut(NamedTuple):
     tile_min: torch.Tensor       # [P,2] int32 inclusive tile rect min (x, y)
     tile_max: torch.Tensor       # [P,2] int32 exclusive tile rect max (x, y)
     tiles_touched: torch.Tensor  # [P] int32 number of tiles overlapped
+    lam_min: torch.Tensor | None = None  # [P] conic min eigenvalue (slot cull)
+    cull_c: torch.Tensor | None = None   # [P] ln(255·op), detached
 
 
 def project_points(means3d, world_view, full_proj):
@@ -98,15 +102,23 @@ def preprocess(
     width: int,
     height: int,
     sh_degree: int,
-    opacities: torch.Tensor,
+    opacities: torch.Tensor | None = None,
     alive: torch.Tensor | None = None,
     scale_modifier: float = 1.0,
+    cov3d_precomp: torch.Tensor | None = None,
+    colors_precomp: torch.Tensor | None = None,
+    cull_bounds: bool = False,
 ) -> PreprocessOut:
     """Vectorized forward preprocess over all P Gaussians.
 
     ``opacities`` (activated, [P]) gives the exact-safe tight tile rects of
     the JAX side: the rect of the α ≥ 1/255 ellipse, +0.5 px, intersected
-    with the reference's 3σ square rect. ``radii`` keep the 3σ semantics.
+    with the reference's 3σ square rect; with ``cull_bounds`` also the
+    cull's ``lam_min`` and ``cull_c`` (XLA drops them when unread; here they
+    are computed only when asked for, to keep their launches off the main
+    path). ``radii`` keep the 3σ semantics. ``cov3d_precomp`` ([P, 6]
+    upper triangles or [P, 3, 3]) replaces the covariance of ``scales`` and
+    ``rotations``, ``colors_precomp`` [P, 3] the SH colour.
     """
     focal_y = height / (2.0 * tanfovy)
     focal_x = width / (2.0 * tanfovx)
@@ -115,7 +127,13 @@ def preprocess(
     depths = p_view[..., 2]
     in_front = depths > C.NEAR_PLANE_Z
 
-    cov6 = quat.covariance_vec6(scales, rotations, scale_modifier)
+    if cov3d_precomp is None:
+        cov6 = quat.covariance_vec6(scales, rotations, scale_modifier)
+    elif cov3d_precomp.shape[-1] == 6:
+        cov6 = cov3d_precomp
+    else:   # symmetric [P, 3, 3] → (xx, xy, xz, yy, yz, zz)
+        iu = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+        cov6 = torch.stack([cov3d_precomp[..., i, j] for i, j in iu], dim=-1)
     cov2d = compute_cov2d(
         p_view, cov6, world_view, tanfovx, tanfovy, focal_x, focal_y
     )
@@ -162,29 +180,46 @@ def preprocess(
     alive = valid & (tiles_sq > 0)
     radii = torch.where(alive, radius_f, 0.0).to(torch.int32)
 
-    # tight rect: per-axis extents of the α ≥ 1/255 ellipse, +0.5 px
-    op = opacities.reshape(-1)
-    c2 = 2.0 * torch.log(torch.clamp(op, min=1e-12) * (1.0 / C.ALPHA_FLOOR))
-    c2 = torch.clamp(c2, min=0.0)
-    ext_x = torch.sqrt(c2 * torch.clamp(a, min=0.0)) + 0.5
-    ext_y = torch.sqrt(c2 * torch.clamp(c, min=0.0)) + 0.5
-    tmin_x = torch.maximum(tmin_x, _tile_index((mx - ext_x) / C.TILE_X, grid_x))
-    tmin_y = torch.maximum(tmin_y, _tile_index((my - ext_y) / C.TILE_Y, grid_y))
-    tmax_x = torch.minimum(
-        tmax_x, torch.clamp(torch.floor((mx + ext_x) / C.TILE_X) + 1, 0, grid_x
-                            ).to(torch.int32))
-    tmax_y = torch.minimum(
-        tmax_y, torch.clamp(torch.floor((my + ext_y) / C.TILE_Y) + 1, 0, grid_y
-                            ).to(torch.int32))
-    vis = alive & (op > C.ALPHA_FLOOR)
-    tiles = torch.where(
-        vis & (tmax_x > tmin_x) & (tmax_y > tmin_y),
-        (tmax_x - tmin_x) * (tmax_y - tmin_y), 0).to(torch.int32)
+    lam_min = cull_c = None
+    if opacities is None:
+        tiles = torch.where(alive, tiles_sq, 0).to(torch.int32)
+    else:
+        # tight rect: per-axis extents of the α ≥ 1/255 ellipse, +0.5 px
+        op = opacities.reshape(-1)
+        c2 = 2.0 * torch.log(torch.clamp(op, min=1e-12) * (1.0 / C.ALPHA_FLOOR))
+        c2 = torch.clamp(c2, min=0.0)
+        ext_x = torch.sqrt(c2 * torch.clamp(a, min=0.0)) + 0.5
+        ext_y = torch.sqrt(c2 * torch.clamp(c, min=0.0)) + 0.5
+        tmin_x = torch.maximum(tmin_x, _tile_index((mx - ext_x) / C.TILE_X, grid_x))
+        tmin_y = torch.maximum(tmin_y, _tile_index((my - ext_y) / C.TILE_Y, grid_y))
+        tmax_x = torch.minimum(
+            tmax_x, torch.clamp(torch.floor((mx + ext_x) / C.TILE_X) + 1, 0, grid_x
+                                ).to(torch.int32))
+        tmax_y = torch.minimum(
+            tmax_y, torch.clamp(torch.floor((my + ext_y) / C.TILE_Y) + 1, 0, grid_y
+                                ).to(torch.int32))
+        vis = alive & (op > C.ALPHA_FLOOR)
+        tiles = torch.where(
+            vis & (tmax_x > tmin_x) & (tmax_y > tmin_y),
+            (tmax_x - tmin_x) * (tmax_y - tmin_y), 0).to(torch.int32)
+    if opacities is not None and cull_bounds:
+        # the cull's bound (:271-291): ½·dᵀ·conic·d ≥ ½·λmin·‖d‖², so a tile
+        # farther than √(2c/λmin) from the mean holds no pixel with α ≥ 1/255
+        with torch.no_grad():
+            ca, cb, cc = conic[..., 0], conic[..., 1], conic[..., 2]
+            half_tr = 0.5 * (ca + cc)
+            lam_min = torch.clamp(half_tr - torch.sqrt(torch.clamp(
+                (0.5 * (ca - cc)) ** 2 + cb * cb, min=0.0)), min=0.0)
+            cull_c = torch.log(torch.clamp(op.detach(), min=1e-12)
+                               * (1.0 / C.ALPHA_FLOOR))
 
-    dirs = means3d - camera_center[None, :]
-    dirs = dirs / torch.clamp(
-        torch.linalg.vector_norm(dirs, dim=-1, keepdim=True), min=1e-12)
-    rgb = sh_lib.sh_to_rgb(sh_degree, shs, dirs)
+    if colors_precomp is not None:
+        rgb = colors_precomp
+    else:
+        dirs = means3d - camera_center[None, :]
+        dirs = dirs / torch.clamp(
+            torch.linalg.vector_norm(dirs, dim=-1, keepdim=True), min=1e-12)
+        rgb = sh_lib.sh_to_rgb(sh_degree, shs, dirs)
 
     return PreprocessOut(
         means2d=means2d,
@@ -195,4 +230,6 @@ def preprocess(
         tile_min=torch.stack([tmin_x, tmin_y], dim=-1),
         tile_max=torch.stack([tmax_x, tmax_y], dim=-1),
         tiles_touched=tiles,
+        lam_min=lam_min,
+        cull_c=cull_c,
     )

@@ -3,7 +3,9 @@
 Counterpart of ``rasterize_pallas`` (``fourdgs_tpu/ops/rasterize.py:151-219``),
 ``build_table`` (:222-248), ``rasterize_from_table`` (:251-397) and the
 payload gather with its scatter-free backward (``_gathered_payload``,
-:84-148), with JAX's optional bf16 payload (``payload_bf16``). The
+:84-148), with JAX's optional bf16 payload (``payload_bf16``) and its
+optional ellipse-vs-tile cull before slot allocation (``ellipse_tile_cull``,
+:203-208, ``ops/binning.py::_rect_cull_mask``). The
 gather ``table[gauss_id].T`` is plain ``index_select``; its gradient is a
 deterministic segment sum over the binning's slot order (no ``index_add_``,
 no atomics). The blend is the CUDA kernels behind
@@ -138,6 +140,7 @@ def blend_inputs(
     camera_center, world_view, full_proj, tanfovx, tanfovy,
     width: int, height: int, sh_degree: int, instance_budget: int,
     alive=None, means2d_offset=None, payload_bf16: bool = False,
+    ellipse_tile_cull: bool = False,
 ) -> BlendInputs:
     """Preprocess, bin and gather one camera's blend inputs (activated
     Gaussian parameters in, as ``rasterize_pallas`` takes them);
@@ -147,12 +150,17 @@ def blend_inputs(
     and kept in float32, so the kernels read the values JAX's kernels see
     after their upcast (``pallas_blend.py:318-325``); the autograd of the
     rounding rounds ``d_table`` to bfloat16 as JAX's cast does
-    (``rasterize.py:142``), and the gather's backward rounds ``d_feat``."""
+    (``rasterize.py:142``), and the gather's backward rounds ``d_feat``.
+
+    ``ellipse_tile_cull``: the binning drops the rect cells no pixel of
+    which reaches α = 1/255 before it allocates slots, from the (detached)
+    means, ``lam_min`` and ``cull_c``; output-exact, ``num_rendered`` then
+    counts the demand after the cull."""
     opac = opacities.reshape(-1)
     pre = preprocess(
         means3d, scales, rotations, shs, camera_center, world_view,
         full_proj, tanfovx, tanfovy, width, height, sh_degree,
-        opacities=opac, alive=alive,
+        opacities=opac, alive=alive, cull_bounds=ellipse_tile_cull,
     )
     means2d = pre.means2d if means2d_offset is None else pre.means2d + means2d_offset
     table = build_table(pre, opac, means2d)
@@ -162,9 +170,13 @@ def blend_inputs(
     grid_y = (height + C.TILE_Y - 1) // C.TILE_Y
     # K: the budget rounded up to a CHUNK multiple (rasterize.py:286)
     K = -(-instance_budget // C.CHUNK) * C.CHUNK
+    cull_kw = {}
+    if ellipse_tile_cull:
+        cull_kw = dict(means2d=means2d.detach(), lam_min=pre.lam_min,
+                       cull_c=pre.cull_c)
     bins = bin_gaussians_fast(
         pre.tile_min, pre.tile_max, pre.tiles_touched, pre.depths.detach(),
-        grid_x, grid_y, K,
+        grid_x, grid_y, K, **cull_kw,
     )
     feat = _GatheredPayload.apply(table, bins, payload_bf16)         # [16, K]
     row_off = torch.tensor([0, 1], dtype=torch.int32, device=feat.device)
@@ -187,6 +199,7 @@ def rasterize_pallas(
     width: int, height: int, sh_degree: int, bg: torch.Tensor,
     instance_budget: int, alive=None, means2d_offset=None,
     tile_space: bool = False, payload_bf16: bool = False,
+    ellipse_tile_cull: bool = False,
 ) -> RasterOut:
     """Render one camera; keeps the JAX name so the counterpart is easy to
     find (the blend here is the CUDA kernels, or their plain versions on
@@ -198,7 +211,7 @@ def rasterize_pallas(
         means3d, scales, rotations, opacities, shs, camera_center,
         world_view, full_proj, tanfovx, tanfovy, width, height, sh_degree,
         instance_budget, alive=alive, means2d_offset=means2d_offset,
-        payload_bf16=payload_bf16,
+        payload_bf16=payload_bf16, ellipse_tile_cull=ellipse_tile_cull,
     )
     bins = bi.bins
     out5 = blend(

@@ -7,9 +7,14 @@ Counterpart of ``fourdgs_tpu/render.py:32-153``:
   camera's time;
 - the activations (exp / normalize / sigmoid) come **after** deformation.
 
-The rasterizer is the ``pallas`` backend's pipeline with its blend as the
-CUDA kernel; the config's other rasterizer options are not ported yet and
-raise.
+The backend is ``cfg.tpu.backend`` unless the caller names one
+(``render.py:121-198``): ``pallas``, the production pipeline with its blend
+as the CUDA kernels K1 and K2 (``ops/rasterize.py``, with the optional
+``tpu.ellipse_tile_cull``); ``tile``, the padded per-tile lists in plain
+PyTorch (``ops/tiled.py``); ``reference``, the whole-image oracle
+(``ops/reference.py``). The last two are what the config or the caller
+chose, never a fallback: on a CUDA device ``pallas`` launches its kernels or
+raises.
 """
 
 from __future__ import annotations
@@ -22,6 +27,9 @@ import torch
 from fourdgs_tpu_torch import resolve_device
 from fourdgs_tpu_torch.models import gaussians as G
 from fourdgs_tpu_torch.ops import rasterize as R
+from fourdgs_tpu_torch.ops.reference import rasterize_reference
+from fourdgs_tpu_torch.ops.tiled import rasterize_tiled
+from fourdgs_tpu_torch.utils.losses import tile_image
 
 
 class CameraArrays(NamedTuple):
@@ -61,12 +69,15 @@ class RenderOut(NamedTuple):
     dxyz_abs: torch.Tensor      # [P, 3] |Δxyz|
 
 
-def _check_config(cfg) -> None:
-    if cfg.tpu.backend != "pallas":
-        raise NotImplementedError(
-            f"backend {cfg.tpu.backend!r} is not ported (only 'pallas')")
-    if cfg.tpu.ellipse_tile_cull:
-        raise NotImplementedError("ellipse_tile_cull is not ported")
+BACKENDS = ("pallas", "tile", "reference")
+
+
+def _pack_tiles(color, depth, alpha):
+    """Image-space (color, depth, alpha) → the ``pallas`` backend's packed
+    channel-major tile-space contract (``render.py:201-209``): color =
+    [T, 5, 256] (r, g, b, depth, t_fin), depth and alpha [T, 1, 256]."""
+    tc, td, ta = map(tile_image, (color, depth, alpha))
+    return torch.cat([tc, td, 1.0 - ta], dim=1), td, ta
 
 
 def activated_gaussians(params: dict[str, Any], state: G.GaussianState,
@@ -109,6 +120,7 @@ def render(
     device="cuda",
     means2d_offset: torch.Tensor | None = None,
     tile_space: bool = False,
+    backend: str | None = None,
 ) -> RenderOut:
     """Render one camera on ``device`` (the parameters, state, camera and
     background must lie there).
@@ -118,35 +130,58 @@ def render(
     is added to the screen-space means before the payload table (the train
     step's zero carrier, whose gradient is the view-space gradient);
     ``tile_space=True`` returns the packed tile layout of
-    :func:`~fourdgs_tpu_torch.ops.rasterize.rasterize_pallas`.
+    :func:`~fourdgs_tpu_torch.ops.rasterize.rasterize_pallas`, which the
+    ``tile`` and ``reference`` backends tile their images into.
+    ``backend`` overrides ``cfg.tpu.backend``; an unknown one raises
+    ``ValueError``.
     """
     dev = resolve_device(device)
     for name, x in (("params['xyz']", params["xyz"]), ("state.alive", state.alive),
                     ("cam.world_view", cam.world_view), ("bg", bg)):
         if x.device.type != dev.type:
             raise ValueError(f"{name} lies on {x.device}, not on {dev}")
-    _check_config(cfg)
+    backend = backend or cfg.tpu.backend
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}")
     xyz, scales, rots, opac, shs, dxyz_abs = activated_gaussians(
         params, state, cam, stage, cfg.model.use_isotropic_gaussian)
-    out = R.rasterize_pallas(
-        xyz, scales, rots, opac, shs,
-        camera_center=cam.camera_center,
-        world_view=cam.world_view,
-        full_proj=cam.full_proj,
-        tanfovx=cam.tanfovx,
-        tanfovy=cam.tanfovy,
-        width=width,
-        height=height,
-        sh_degree=active_sh_degree,
-        bg=bg,
-        instance_budget=cfg.tpu.instance_budget,
-        alive=state.alive,
+    common = dict(
+        camera_center=cam.camera_center, world_view=cam.world_view,
+        full_proj=cam.full_proj, tanfovx=cam.tanfovx, tanfovy=cam.tanfovy,
+        width=width, height=height, sh_degree=active_sh_degree, bg=bg,
         means2d_offset=means2d_offset,
-        tile_space=tile_space,
-        payload_bf16=cfg.tpu.payload_bf16,
     )
+    if backend == "pallas":
+        out = R.rasterize_pallas(
+            xyz, scales, rots, opac, shs, **common,
+            instance_budget=cfg.tpu.instance_budget,
+            alive=state.alive,
+            tile_space=tile_space,
+            payload_bf16=cfg.tpu.payload_bf16,
+            ellipse_tile_cull=cfg.tpu.ellipse_tile_cull,
+        )
+        return RenderOut(
+            color=out.color, depth=out.depth, alpha=out.alpha, radii=out.radii,
+            num_rendered=out.num_rendered, max_tile_len=out.max_tile_len,
+            dxyz_abs=dxyz_abs,
+        )
+    if backend == "tile":
+        out = rasterize_tiled(
+            xyz, scales, rots, opac, shs, **common,
+            instance_budget=cfg.tpu.instance_budget,
+            tile_budget=cfg.tpu.tile_budget, chunk=cfg.tpu.blend_chunk,
+            alive=state.alive,
+        )
+        num_rendered, max_tile_len = out.num_rendered, out.max_tile_len
+    else:
+        out = rasterize_reference(xyz, scales, rots, opac, shs, **common,
+                                  alive_mask=state.alive)
+        num_rendered = max_tile_len = torch.zeros((), dtype=torch.int32, device=dev)
+    color, depth, alpha = out.color, out.depth, out.alpha
+    if tile_space:
+        color, depth, alpha = _pack_tiles(color, depth, alpha)
     return RenderOut(
-        color=out.color, depth=out.depth, alpha=out.alpha, radii=out.radii,
-        num_rendered=out.num_rendered, max_tile_len=out.max_tile_len,
+        color=color, depth=depth, alpha=alpha, radii=out.radii,
+        num_rendered=num_rendered, max_tile_len=max_tile_len,
         dxyz_abs=dxyz_abs,
     )

@@ -1,6 +1,21 @@
-"""The port's cost experiments, counterparts of the JAX package's
-``scripts/exp_gather.py``, ``scripts/exp_grid_cost.py`` and
-``scripts/exp_kernel_overhead.py``:
+"""The port's scripts: host tools and the cost experiments.
+
+The host tools are the counterparts of the JAX package's preprocessing and
+analysis scripts of the same names under ``scripts/``, with their
+arguments: ``blender2colmap``, ``colmap_converter``, ``hypernerf2colmap``,
+``llff2colmap``, ``llff_poses_from_colmap``, ``prepare_multipleview``,
+``downsample_point``, ``database``, ``read_all_metrics``,
+``analyze_gradients``, ``plot_events``, ``visualize_timing`` and
+``render_oracle_gt`` (the oracle GT frames of ``bench_quality_torch.py``,
+rendered on ``--device`` by the port's ``reference`` rasterizer):
+
+    python -m fourdgs_tpu_torch.scripts.<name> ...
+
+The plotting scripts need matplotlib, which they import where they plot
+(:func:`pyplot`); without it they exit with an error that says so.
+
+The cost experiments are the counterparts of ``scripts/exp_gather.py``,
+``scripts/exp_grid_cost.py`` and ``scripts/exp_kernel_overhead.py``:
 
     python -m fourdgs_tpu_torch.scripts.exp_gather
     python -m fourdgs_tpu_torch.scripts.exp_grid_cost
@@ -97,6 +112,20 @@ def time_ms(fn, dev: torch.device, iters: int | None = None,
         b.synchronize()
         dev_ms.append(a.elapsed_time(b) / iters)
     return statistics.median(dev_ms), statistics.median(wall_ms)
+
+
+def pyplot(script: str):
+    """matplotlib's pyplot on the Agg backend; exits with an error naming
+    ``script`` where matplotlib is not installed (no plot is written)."""
+    try:
+        import matplotlib
+    except ImportError as e:
+        raise SystemExit(f"{script}: matplotlib is not installed ({e}); "
+                         "no plot was written") from e
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
 
 
 def header(dev: torch.device) -> dict:

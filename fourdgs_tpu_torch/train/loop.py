@@ -8,10 +8,11 @@ Counterpart of ``fourdgs_tpu/train/loop.py``: ``make_train_step``
 One step renders each camera of the batch in tile space with a zero
 ``means2d_offset`` carrier (its gradient is the view-space gradient), takes
 the masked L1 loss against the GT tiled 5-wide, adds the fine stage's grid
-regularizers, and then, from one ``torch.autograd.grad`` call over every
-parameter leaf and the carrier: ``sanitize_grads``, Adam with the per-group
-learning rates, the densification statistics and the deformation
-accumulator. The backward runs K2 (the backward tile blend) and the
+regularizers and, with ``opt.lambda_dssim != 0``, λ·(1 − SSIM) (on the
+tiles, or on the images where the tile grid is padded), and then, from one
+``torch.autograd.grad`` call over every parameter leaf and the carrier:
+``sanitize_grads``, Adam with the per-group learning rates, the
+densification statistics and the deformation accumulator. The backward runs K2 (the backward tile blend) and the
 deterministic per-Gaussian segment sum of ``ops/rasterize.py``.
 
 ``scene_reconstruction`` runs one stage on the reference schedule: the
@@ -33,7 +34,7 @@ progress frames (``utils/debug_images.py``); a ``gradient_tracker``
 (``utils/gradient_tracker.py``) records the step's gradient statistics, and a
 ``viewer`` (``viewer.py``, the SIBR network viewer) is polled before each
 iteration and served renders of the current state. Not ported yet, and
-raising: SSIM (``lambda_dssim``) and a ``mesh``.
+raising: a ``mesh``.
 """
 
 from __future__ import annotations
@@ -100,13 +101,16 @@ def make_train_step(cfg, width: int, height: int, stage: str,
     gradient summed over the batch.
     """
     dev = resolve_device(device)
-    if cfg.opt.lambda_dssim != 0:
-        raise NotImplementedError("lambda_dssim != 0 (SSIM) is not ported yet")
     bg = torch.tensor([1.0, 1.0, 1.0] if cfg.model.white_background
                       else [0.0, 0.0, 0.0], device=dev)
     padded = (height % 16 != 0) or (width % 16 != 0)
+    # the loss runs on the tiles, except for D-SSIM on a padded grid, whose
+    # windows the padding pixels would reach (loop.py:69-76): that case
+    # keeps the images
+    tile_mode = cfg.opt.lambda_dssim == 0 or not padded
     n_px = 3 * height * width
-    n_tiles = (-(-height // 16)) * (-(-width // 16))
+    grid_x, grid_y = -(-width // 16), -(-height // 16)
+    n_tiles = grid_x * grid_y
     # the loss reads the colour channels of the packed (r, g, b, depth,
     # t_fin) render, and no tile-grid padding pixel
     mask = torch.tensor([1.0, 1.0, 1.0, 0.0, 0.0], device=dev)[:, None]
@@ -114,41 +118,62 @@ def make_train_step(cfg, width: int, height: int, stage: str,
         mask = mask * losses.tile_pixel_mask(height, width, device=dev)
     regularize = stage == "fine" and cfg.hidden.time_smoothness_weight != 0
 
+    def gt_images(gts: torch.Tensor) -> torch.Tensor:
+        """A GT batch as images → float [B, 3, H, W] (the image-space
+        loss)."""
+        if gts.dtype == torch.uint8:
+            gts = gts.to(torch.float32).permute(0, 3, 1, 2) / 255.0
+        return gts[:, :3]
+
     def gt_tiles(gts: torch.Tensor) -> torch.Tensor:
         """Any accepted GT form → float [B, T, 5, 256]."""
         if gts.dim() == 4 and gts.shape[1] == n_tiles and gts.shape[3] == 256:
             if gts.dtype == torch.uint8:
                 return F.pad(gts.to(torch.float32) / 255.0, (0, 0, 0, 2))
             return gts
-        if gts.dtype == torch.uint8:
-            gts = gts.to(torch.float32).permute(0, 3, 1, 2) / 255.0
-        return torch.stack([losses.tile_image(g[:3], pad_cols=2) for g in gts])
+        return torch.stack([losses.tile_image(g, pad_cols=2) for g in gt_images(gts)])
 
     def loss_fn(leaves, carrier, state, cams, gts_cmp):
-        """(loss, l1, psnr, per-camera render outputs) of the batch."""
+        """(loss, l1, psnr, per-camera render outputs) of the batch;
+        ``gts_cmp`` is :func:`gt_tiles`'s block, or :func:`gt_images`'s
+        images on a padded grid with D-SSIM."""
         B = gts_cmp.shape[0]
         outs = [
             render(leaves, state, CameraArrays(*(x[i] for x in cams)), cfg,
                    width, height, stage, bg, active_sh_degree, device=dev,
-                   means2d_offset=carrier[i], tile_space=True)
+                   means2d_offset=carrier[i], tile_space=tile_mode)
             for i in range(B)
         ]
-        colors = torch.stack([o.color for o in outs])         # [B, T, 5, 256]
-        diff = (colors - gts_cmp) * mask
-        # the same values as the image-space means: the denominators count
-        # the true colour pixels only
-        l1 = torch.sum(losses.abs_(diff)) / (B * n_px)
-        with torch.no_grad():
-            mse = torch.sum(diff * diff, dim=(1, 2, 3)) / n_px
-            psnr = torch.mean(
-                20.0 * torch.log10(1.0 / torch.sqrt(torch.clamp(mse, min=1e-20))))
+        colors = torch.stack([o.color for o in outs])  # [B, T, 5, 256] / [B, 3, H, W]
+        if tile_mode:
+            diff = (colors - gts_cmp) * mask
+            # the same values as the image-space means: the denominators
+            # count the true colour pixels only
+            l1 = torch.sum(losses.abs_(diff)) / (B * n_px)
+            with torch.no_grad():
+                mse = torch.sum(diff * diff, dim=(1, 2, 3)) / n_px
+                psnr = torch.mean(20.0 * torch.log10(
+                    1.0 / torch.sqrt(torch.clamp(mse, min=1e-20))))
+        else:
+            l1 = losses.l1_loss(colors, gts_cmp)
+            with torch.no_grad():
+                psnr = torch.mean(losses.psnr(colors, gts_cmp))
         loss = l1
         if regularize:
             loss = loss + hp.hexplane_regularization(
                 leaves["deform"].grids, len(cfg.hidden.multires),
                 cfg.hidden.plane_tv_weight, cfg.hidden.time_smoothness_weight,
                 cfg.hidden.l1_time_planes)
+        if cfg.opt.lambda_dssim != 0:
+            if tile_mode:
+                ssim = losses.ssim_tiles(colors[:, :, 0:3], gts_cmp[:, :, 0:3],
+                                         grid_x, grid_y)
+            else:
+                ssim = losses.ssim(colors, gts_cmp)
+            loss = loss + cfg.opt.lambda_dssim * (1.0 - ssim)
         return loss, l1, psnr, outs
+
+    gt_prepare = gt_tiles if tile_mode else gt_images
 
     def train_step(params, adam_state: adam.AdamState, state: G.GaussianState,
                    cams: CameraArrays, gts: torch.Tensor, step: int):
@@ -158,7 +183,7 @@ def make_train_step(cfg, width: int, height: int, stage: str,
         leaves = dict(prim, deform=params["deform"])
         carrier = torch.zeros((B, P, 2), dtype=torch.float32, device=dev,
                               requires_grad=True)
-        loss, l1, psnr, outs = loss_fn(leaves, carrier, state, cams, gt_tiles(gts))
+        loss, l1, psnr, outs = loss_fn(leaves, carrier, state, cams, gt_prepare(gts))
 
         # every parameter leaf and the carrier in one call; leaves the loss
         # does not reach (the unused heads, timenet) get zeros
@@ -194,7 +219,7 @@ def make_train_step(cfg, width: int, height: int, stage: str,
         return params, adam_state, state, metrics
 
     train_step.loss_fn = loss_fn     # the step's parts, for profiling
-    train_step.gt_tiles = gt_tiles
+    train_step.gt_tiles = gt_prepare
     return train_step
 
 
@@ -415,11 +440,13 @@ def scene_reconstruction(
 
     # GT on the device when every frame is an array and they fit: uint8
     # pre-tiled to [N, T, 3, 256], the tile-space loss's layout
-    # (loop.py:486-502); else per batch
+    # (loop.py:486-502), unless D-SSIM on a padded grid keeps the loss on
+    # the images; else per batch
     cams_dev = gt_cache = None
     if not lazy and sum(g.nbytes for g in gt_list) <= _GT_CACHE_CAP:
         cams_dev = CameraArrays(*(torch.stack(xs) for xs in zip(*cam_arrays)))
-        if gt_list[0].dtype == np.uint8:
+        tile_ok = opt.lambda_dssim == 0 or (height % 16 == 0 and width % 16 == 0)
+        if tile_ok and gt_list[0].dtype == np.uint8:
             gt_cache = torch.from_numpy(
                 np.stack([losses.tile_image_np(g) for g in gt_list])).to(dev)
         else:

@@ -5,12 +5,14 @@ Counterpart of ``fourdgs_tpu/utils/losses.py:17-160``: ``l1_loss``, ``psnr``
 channel-major [T, C, 256] tile blocks, the rasterizer's packed layout),
 ``tile_pixel_mask``, ``masked_psnr`` and the windowed ``ssim`` of the
 evaluation, with ``abs_`` and ``clip``, which take JAX's derivatives at 0 and
-at a tie. ``ssim_tiles`` (SSIM in the train step's tile layout,
-``lambda_dssim != 0``) is not ported yet.
+at a tie, and ``ssim_tiles`` (``:162-238``), SSIM on the train step's
+channel-major tile blocks, which the D-SSIM term (``lambda_dssim != 0``)
+reads.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -152,6 +154,104 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor,
     sigma1_sq = conv(img1 * img1) - mu1_sq
     sigma2_sq = conv(img2 * img2) - mu2_sq
     sigma12 = conv(img1 * img2) - mu12
+    C1, C2 = 0.01**2, 0.03**2
+    ssim_map = ((2 * mu12 + C1) * (2 * sigma12 + C2)) / (
+        (mu1_sq + mu2_sq + C1) * (sigma1_sq + sigma2_sq + C2))
+    return torch.mean(ssim_map)
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """float32 matmuls on the card without TF32 for the block, as JAX's
+    ``Precision.HIGHEST``; the setting is restored after."""
+    m = torch.backends.cuda.matmul
+    old = m.allow_tf32
+    m.allow_tf32 = False
+    try:
+        yield
+    finally:
+        m.allow_tf32 = old
+
+
+class _Band(torch.autograd.Function):
+    """``x @ w`` over the last axis of ``x`` with TF32 off in the forward and
+    in the backward: a backward runs after the forward's block has closed,
+    so it turns TF32 off again itself (the gradient of ``w``, a constant, is
+    not taken)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(w)
+        with _no_tf32():
+            return x @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        with _no_tf32():
+            return g @ w.T, None
+
+
+def ssim_window_band(window_size: int = 11, n: int = 16) -> np.ndarray:
+    """The band matrix [n + 2·half, n] of the separable Gaussian window:
+    ``out[j] = Σ_k ext[j + k]·g[k]`` over the halo-extended axis ``ext``."""
+    half = window_size // 2
+    g1 = np.array([math.exp(-((x - half) ** 2) / (2 * 1.5**2))
+                   for x in range(window_size)])
+    g1 = (g1 / g1.sum()).astype(np.float32)
+    band = np.zeros((n + 2 * half, n), np.float32)
+    for j in range(n):
+        band[j:j + window_size, j] = g1
+    return band
+
+
+def ssim_tiles(a: torch.Tensor, b: torch.Tensor, grid_x: int, grid_y: int,
+               window_size: int = 11) -> torch.Tensor:
+    """SSIM equal to :func:`ssim`, computed on channel-major tile blocks
+    [B?, T, C, 256] (T = grid_y·grid_x row-major 16×16 tiles), the layout
+    the rasterizer's packed render comes in.
+
+    The 11×11 window is separable, and a tile needs a 5-pixel halo from its
+    4 edge neighbours: tile rolls t ± 1 and t ± grid_x, with edge masks that
+    reproduce the zero 'same' padding. One conv pass runs over the five
+    stacked quantities (a, b, a², b², ab): two halo rolls and two band
+    products, each a float32 matmul with TF32 off (:class:`_Band`, forward
+    and backward), as JAX takes them at ``Precision.HIGHEST``. H and W must
+    be multiples of 16 (the train step takes the image-space :func:`ssim`
+    on a padded grid)."""
+    if a.dim() == 3:
+        a, b = a[None], b[None]
+    B, T, C, npix = a.shape
+    if T != grid_x * grid_y or npix != 256:
+        raise ValueError(f"{tuple(a.shape)} is not a [B, {grid_x}·{grid_y}, C, 256] block")
+    half = window_size // 2
+    dev = a.device
+    band = torch.from_numpy(ssim_window_band(window_size)).to(dev)
+    t = torch.arange(T, device=dev)
+    tcol, trow = t % grid_x, t // grid_x
+
+    def edge(keep):
+        return keep.to(a.dtype)[None, :, None, None, None]
+
+    def conv_xy(x):                              # [B, T, C', 16, 16]
+        ext = torch.cat([torch.roll(x, 1, dims=1)[..., 16 - half:] * edge(tcol != 0), x,
+                         torch.roll(x, -1, dims=1)[..., :half] * edge(tcol != grid_x - 1)],
+                        dim=-1)                  # [B, T, C', 16, 16 + 2h]
+        x = _Band.apply(ext, band)               # along the rows' pixels
+        ext = torch.cat([torch.roll(x, grid_x, dims=1)[..., 16 - half:, :] * edge(trow != 0),
+                         x,
+                         torch.roll(x, -grid_x, dims=1)[..., :half, :]
+                         * edge(trow != grid_y - 1)], dim=-2)   # [B, T, C', 16 + 2h, 16]
+        return _Band.apply(ext.transpose(-1, -2), band).transpose(-1, -2)
+
+    va = a.reshape(B, T, C, 16, 16)
+    vb = b.reshape(B, T, C, 16, 16)
+    cs = conv_xy(torch.cat([va, vb, va * va, vb * vb, va * vb], dim=2))
+    mu1, mu2 = cs[:, :, 0:C], cs[:, :, C:2 * C]
+    mu1_sq, mu2_sq, mu12 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+    sigma1_sq = cs[:, :, 2 * C:3 * C] - mu1_sq
+    sigma2_sq = cs[:, :, 3 * C:4 * C] - mu2_sq
+    sigma12 = cs[:, :, 4 * C:5 * C] - mu12
     C1, C2 = 0.01**2, 0.03**2
     ssim_map = ((2 * mu12 + C1) * (2 * sigma12 + C2)) / (
         (mu1_sq + mu2_sq + C1) * (sigma1_sq + sigma2_sq + C2))

@@ -15,8 +15,8 @@ frame, then every live Gaussian of every model rasterized in one pass:
         [--output merged_render] [--device cuda|cpu]
 
 Frames go to ``<output>/<index:05d>.png``. JAX renders the merged set with
-its ``tile`` backend (``ops/tiled.py::rasterize_tiled``), which the port does
-not have; the port renders it with ``ops/rasterize.py::rasterize_pallas``
+its ``tile`` backend (``ops/tiled.py::rasterize_tiled``, plain tensor code
+in the port too); the port renders it with ``ops/rasterize.py::rasterize_pallas``
 (the CUDA tile blend, K1, once a frame on the card) at JAX's instance budget
 of 2^20. The two rasterizers compute the same function in float32 (the
 association contract of ``tests/test_pallas_raster.py:14-21``: a pixel

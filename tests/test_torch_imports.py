@@ -47,6 +47,10 @@ def _port_modules():
 # JAX and the reference package, and the image libraries the card's host
 # does not have
 FORBIDDEN = ("jax", "jaxlib", "fourdgs_tpu", "PIL", "cv2", "imageio")
+PREP_SCRIPTS = ("blender2colmap", "colmap_converter", "hypernerf2colmap", "llff2colmap",
+                "llff_poses_from_colmap", "prepare_multipleview", "downsample_point",
+                "database", "read_all_metrics", "analyze_gradients", "plot_events",
+                "visualize_timing", "render_oracle_gt")
 CLIS = ("train_torch.py", "render_torch.py", "metrics_torch.py",
         "export_perframe_3DGS_torch.py", "merge_many_4dgs_torch.py", "full_eval_torch.py")
 
@@ -75,8 +79,13 @@ def test_import_graph_has_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
     assert len(mods) >= 37
     for m in ("fourdgs_tpu_torch.viewer", "fourdgs_tpu_torch.utils.resample",
-              "fourdgs_tpu_torch.utils.lpips", "fourdgs_tpu_torch.utils.gradient_tracker"):
+              "fourdgs_tpu_torch.utils.lpips", "fourdgs_tpu_torch.utils.gradient_tracker",
+              "fourdgs_tpu_torch.ops.reference", "fourdgs_tpu_torch.ops.tiled",
+              "fourdgs_tpu_torch.models.grid"):
         assert m in mods
+    # the host tools of scripts/ (the AST scan below reads them too)
+    for name in PREP_SCRIPTS:
+        assert f"fourdgs_tpu_torch.scripts.{name}" in mods, name
 
 
 def test_ast_scan_has_no_jax_imports():

@@ -273,11 +273,11 @@ def test_unported_options_raise(option, tmp_path):
     else:
         cfg.model.use_isotropic_gaussian = True
     if option in ("lazy_gt", "isotropic", "debug_mode", "render_process", "viewer",
-                  "gradient_tracker"):
+                  "gradient_tracker", "lambda_dssim"):
         # ported now (tests/test_torch_lazy.py, tests/test_torch_isotropic.py,
-        # tests/test_torch_debug_images.py, tests/test_torch_viewer.py and
-        # tests/test_torch_gradient_tracker.py hold them against arrays and
-        # JAX): they no longer raise
+        # tests/test_torch_debug_images.py, tests/test_torch_viewer.py,
+        # tests/test_torch_gradient_tracker.py and tests/test_torch_dssim.py
+        # hold them against arrays and JAX): they no longer raise
         try:
             _, _, log = tloop.scene_reconstruction(cfg, state, opt, cams, "coarse", 1,
                                                    EXTENT, device="cpu", **kw)
