@@ -65,8 +65,8 @@ on failure:
    each probe's bytes as ``exp_grid_cost.run()`` read it in turns with the
    probe (``vs_fill``; the library call where it computes the probe's output);
 8. one JSON line ``{"kernels": [...]}`` and, last, the result line
-   ``{"ok": true, "device": {...}}``; before them phases 9 to 14, the
-   seconds of phases 10 to 14 and the script's own time:
+   ``{"ok": true, "device": {...}}``; before them phases 9 to 15, the
+   seconds of phases 10 to 15 and the script's own time:
 9. training from a point cloud (``bench_quality_torch.py``, bf16 payload):
    (a) the bouncingballs preset at ``--gt oracle --scale 0.03`` (90 coarse + 600
    fine steps at 800×800 from 2,000 random points, the launch counts zeroed
@@ -108,8 +108,8 @@ on failure:
    (:func:`check_entry_points`);
 11. the DyNeRF path (:func:`check_dynerf_path`), each run with the launch
    counts zeroed just before it and read just after: (a)
-   ``bench_quality_dynerf_torch.py`` at ``--scale 0.02`` (the dynerf preset at
-   full width as users run it, sh 3, anisotropic: 60 coarse + 280 fine
+   ``bench_quality_dynerf_torch.py`` at ``--scale 0.015`` (the dynerf preset at
+   full width as users run it, sh 3, anisotropic: 45 coarse + 210 fine
    steps of batch 4 with the FineSampler over 11 ring cameras × 150
    timestamps at 676×507, GT from K1 held in memory, its launches counted
    apart): K2 launches equal the renders of its steps, K1 launches those
@@ -123,7 +123,7 @@ on failure:
    line); on the grid's padding pixels K1's colour and T equal the plain
    version's, the step's cotangent is 0 and the L1 does not change when
    they are replaced by noise (:func:`check_padding`). (b) The same bench
-   at ``--scale 0.015 --instant4d``: finite losses, a rising train PSNR, SH
+   at ``--scale 0.01 --instant4d``: finite losses, a rising train PSNR, SH
    degree 0 and three equal scales for every live Gaussian after the
    broadcast. (c) A DyNeRF scene written with the port's PNG writer
    (:func:`write_dynerf_scene`: ``poses_bounds.npy`` for 4 of the bench's
@@ -225,6 +225,38 @@ on failure:
    apart, with the largest difference and the pixels that differ; each
    one's ms a view. Phase 11 (a) also reads the instance demand of its
    trained model's view 0 with the cull off and on (a read only).
+15. the sharded trainer (:func:`check_sharded_trainer`; the ranks are
+   processes started by ``fourdgs_tpu_torch/parallel/launch.py``, each joined
+   with a time limit, a failed or late rank stopping them all; the kernels
+   built above, which the ranks load): (a) phase 6's lego scene and preset
+   at 800×800 on a 2×2 grid (cameras over ``data``, interleaved tile rows
+   over ``model``: K1 and K2 at tile-row offset m and stride 2 inside the
+   step), global batch 2 (ring cameras 0 and 1, GT rendered by K1 from the
+   second seeded scene), four ranks sharing ``cuda:0`` over gloo, the
+   default config (``shard_preprocess``): 3 warm-up and 10 timed steps;
+   step 1's parameters, Adam moments, ``xyz_gradient_accum``, ``denom``
+   and ``max_radii2d`` against the single-process ``make_train_step`` on
+   the same batch (:data:`SHARD_TOL`), every rank's whole state bit-equal
+   after the last step (a hash all-gathered), K1 and K2 once per camera of
+   the rank per step, the loss finite and falling; each rank's ms a step
+   and peak memory, the gradient all-reduce's bytes and ms, and K1/K2 at
+   rank 0's slab against their plain versions with times and bounds
+   (``sharded_step`` in the kernels line). These times are of four ranks
+   time-sliced on one card, not a scaling number. (b) One step each with
+   ``shard_preprocess`` off, with ``shard_primitives``, and with both,
+   against (a)'s step 1. (c) ``--mesh data=2,model=1`` without
+   ``--distributed`` raises on a one-GPU host; then ``train_torch.main``
+   with ``--mesh data=2,model=1 --distributed --device cuda:0`` in two
+   ranks that opened their own gloo group, on phase 10 (b)'s scene with
+   the bouncingballs preset and 20 + 60 steps that cross densify gates
+   and a capacity growth (2,048 → 4,096): equal states, one checkpoint (rank
+   0's), ``render_torch.py`` and ``metrics_torch.py`` of it, its PSNR and
+   points beside the same schedule without ``--mesh`` (``sharded_cli`` in
+   the kernels line). (d) A world of one rank through (a)'s step over
+   nccl, step 1 against the single-process step; one rank per GPU over
+   nccl where the host has two or more (else a line says it did not run).
+   (e) ``fourdgs_tpu_torch.scripts.measure_scaling``: T_slab(1/N) at N = 1,
+   2, 4, 5 and 10.
 
 Agreement bound of K1 with its plain version: atol 1e-4 on color and final
 transmittance, except pixels riding T_STOP, where a different association of
@@ -1559,8 +1591,8 @@ def dynerf_cull_read(model, dev):
 
 
 def check_dynerf_path(dev):
-    """Phase 11 (module docstring): the DyNeRF bench at scale 0.02 with
-    K1/K2 and the padding on its trained model, at 0.015 with
+    """Phase 11 (module docstring): the DyNeRF bench at scale 0.015 with
+    K1/K2 and the padding on its trained model, at 0.01 with
     ``--instant4d``, then the DyNeRF CLI chain on lazy frames. Returns the
     launches and :func:`check_trained_blend`'s fields for the kernels
     line."""
@@ -1571,8 +1603,8 @@ def check_dynerf_path(dev):
     from fourdgs_tpu_torch.ops import blend
     from fourdgs_tpu_torch.utils import losses
 
-    print("[11] the DyNeRF path: (a) bench_quality_dynerf_torch --scale 0.02", flush=True)
-    a, model, a_launches = check_dynerf_bench(dev, 0.02)
+    print("[11] the DyNeRF path: (a) bench_quality_dynerf_torch --scale 0.015", flush=True)
+    a, model, a_launches = check_dynerf_bench(dev, 0.015)
     fwd_args, bwd_args = view_blend_inputs(model, 0, dev)
     cfg, state = model.cfg, model.state
     W, H = a["resolution"]
@@ -1592,8 +1624,8 @@ def check_dynerf_path(dev):
           f"against the budget {cfg.tpu.instance_budget}")
     del model
 
-    print("    (b) bench_quality_dynerf_torch --scale 0.015 --instant4d", flush=True)
-    b, model, _ = check_dynerf_bench(dev, 0.015, instant4d=True)
+    print("    (b) bench_quality_dynerf_torch --scale 0.01 --instant4d", flush=True)
+    b, model, _ = check_dynerf_bench(dev, 0.01, instant4d=True)
     st = model.state
     cam = TR.CameraArrays.from_camera(model.train_cams[0][0], device=dev)
     with torch.no_grad():
@@ -2814,6 +2846,517 @@ def check_options(cfg, state, cam, gt, step_ms, dev):
     return {"a": a, "b": b, "c": c, "seconds": secs}
 
 
+# -- phase 15: the sharded trainer ----------------------------------------------
+
+SHARD_GRID = (2, 2)                # (data, model) of phase 15 (a)
+SHARD_BATCH = 2                    # the global batch: ring cameras 0 and 1
+SHARD_WARM, SHARD_TIMED = 3, 10    # (a)'s warm-up and timed steps
+# (shard_preprocess, shard_primitives): (a) runs the default, (b) the others
+SHARD_MODES = {"pre": (True, False), "replicated": (False, False),
+               "prim": (False, True), "pre_prim": (True, True)}
+# (rtol, atol) of a step-1 leaf against the single-process step:
+# tests/test_parallel.py:146-176's for the parameters, the first moments
+# and the view-space accumulator; the second moments (0.001·g², whose
+# relative error is twice the gradient's) at twice the first's rtol;
+# denom and max_radii2d exactly
+SHARD_TOL = {"p": (2e-4, 2e-6), "mu": (2e-4, 5e-5), "nu": (4e-4, 1e-9),
+             "xyz_gradient_accum": (2e-4, 1e-7), "denom": (0.0, 0.0),
+             "max_radii2d": (0.0, 0.0)}
+# a parameter's gradient is at float32 noise below this share of its
+# leaf's largest first moment (:func:`compare_records`): the rounding of
+# sums of some hundred float32 terms (each ~6e-8 relative)
+GRAD_NOISE = 1e-5
+SHARD_CLI_SCHEDULE = ("opt.coarse_iterations=20", "opt.iterations=60",
+                      "opt.position_lr_max_steps=60", "opt.densify_from_iter=10",
+                      "opt.densification_interval=20", "tpu.capacity_init=2048")
+
+
+def _rank_device(backend: str):
+    """A rank's device: ``cuda:0`` for ranks sharing the card over gloo,
+    ``cuda:<rank>`` under nccl (a GPU per rank)."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", dist.get_rank() % torch.cuda.device_count()
+                       if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def sharded_inputs(cfg, dev):
+    """Phase 15's global batch: ring cameras 0 and 1 (stacked
+    ``CameraArrays``) and their GT images [2, 3, 800, 800], K1's render of
+    the second seeded scene, as phase 6's GT."""
+    import torch
+
+    from fourdgs_tpu_torch import render as TR
+
+    gt_state = bench_scene(cfg, seed=1, device=dev)
+    bg = torch.ones(3, device=dev)
+    cams, gts = [], []
+    for i in range(SHARD_BATCH):
+        cam = TR.CameraArrays.from_camera(ring_camera(i, N_TIMED), device=dev)
+        with torch.no_grad():
+            gts.append(TR.render(gt_state.params, gt_state, cam, cfg, WIDTH, HEIGHT,
+                                 "fine", bg, cfg.model.sh_degree, device=dev).color)
+        cams.append(cam)
+    return TR.CameraArrays(*(torch.stack(xs) for xs in zip(*cams))), torch.stack(gts)
+
+
+def shard_record(state, opt, metrics) -> dict:
+    """The leaves phase 15 compares, as numpy: parameters, moments and the
+    densification statistics after a step."""
+    from fourdgs_tpu_torch.train import adam
+
+    rec = {}
+    for tag, tree in (("p", state.params), ("mu", opt.mu), ("nu", opt.nu)):
+        rec.update({f"{tag}.{n}": x.detach().cpu().numpy()
+                    for n, x in adam.named_leaves(tree)})
+    for f in ("xyz_gradient_accum", "denom", "max_radii2d"):
+        rec[f] = getattr(state, f).cpu().numpy()
+    rec["loss"] = np.float32(float(metrics["loss"]))
+    return rec
+
+
+def compare_records(got: dict, want: dict, where: str) -> list:
+    """Each leaf of ``got`` against ``want`` at :data:`SHARD_TOL`; prints the
+    largest difference of each group and the elements over tolerance, and
+    returns the groups with any. A parameter may differ beyond tolerance
+    only where its gradient is zero to float32 noise (both first moments
+    within :data:`GRAD_NOISE` of the leaf's largest): a gradient that
+    cancels to 0 in one association leaves a residual in another, and
+    Adam's first step turns any nonzero gradient into a step of ±lr. Those
+    are counted apart, at most 1e-4 of a leaf, and each is printed with
+    both parameters and both first moments."""
+    groups: dict = {}
+    noise_steps = 0
+    for k, w in want.items():
+        if k == "loss":
+            continue
+        group = k.split(".")[0]
+        rtol, atol = SHARD_TOL[group]
+        g = got[k]
+        diff = np.abs(g.astype(np.float64) - w.astype(np.float64))
+        over = diff > atol + rtol * np.abs(w)
+        if group == "p" and over.any():
+            mu_w, mu_g = want["mu" + k[1:]], got["mu" + k[1:]]
+            floor = GRAD_NOISE * np.abs(mu_w).max()
+            noise = over & (np.abs(mu_w) <= floor) & (np.abs(mu_g) <= floor)
+            if noise.sum() <= 1e-4 * over.size:
+                noise_steps += int(noise.sum())
+                over &= ~noise
+                for i in map(tuple, np.argwhere(noise)[:8]):
+                    print(f"    {where}: {k}{list(i)} at gradient noise: parameter "
+                          f"{g[i]:.9g} against {w[i]:.9g}, first moment {mu_g[i]:.3g} "
+                          f"against {mu_w[i]:.3g} (the leaf's largest |moment| "
+                          f"{np.abs(mu_w).max():.3g})")
+        n, mx, ov = groups.get(group, (0, 0.0, 0))
+        groups[group] = (n + w.size, max(mx, float(diff.max()) if diff.size else 0.0),
+                         ov + int(over.sum()))
+    print(f"    {where}: " + "; ".join(
+        f"{g} max |diff| {mx:.3g}, {ov} of {n} over (rtol {SHARD_TOL[g][0]:g}, "
+        f"atol {SHARD_TOL[g][1]:g})" for g, (n, mx, ov) in groups.items())
+        + f"; parameters over tolerance with a gradient at float32 noise: {noise_steps}")
+    return [g for g, (_, _, ov) in groups.items() if ov]
+
+
+def _state_hash(state, opt) -> str:
+    import hashlib
+
+    from fourdgs_tpu_torch.parallel import trainer
+
+    h = hashlib.sha256()
+    for t in trainer.tensor_leaves([state, opt.mu, opt.nu]):
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def slab_blend_check(cfg, state, cams, gts, mesh, dev) -> dict:
+    """:func:`check_step_blend` at this rank's slab of its first camera:
+    the blend inputs the sharded step builds (tile-row offset m, stride M)
+    and the cotangent of its L1 share on the slab's rows."""
+    import torch
+
+    from fourdgs_tpu_torch import render as TR
+    from fourdgs_tpu_torch.ops import blend
+    from fourdgs_tpu_torch.ops import rasterize as R
+    from fourdgs_tpu_torch.utils.losses import abs_
+
+    n_model = mesh.shape["model"]
+    rows = (HEIGHT // 16) // n_model
+    cam = TR.CameraArrays(*(x[0] for x in cams))
+    bg = torch.ones(3, device=dev)
+    with torch.no_grad():
+        xyz, sc, rot, op, shs, _ = TR.activated_gaussians(state.params, state, cam, "fine")
+        bi = R.blend_inputs(xyz, sc, rot, op, shs, cam.camera_center, cam.world_view,
+                            cam.full_proj, cam.tanfovx, cam.tanfovy, WIDTH, HEIGHT,
+                            cfg.model.sh_degree, cfg.tpu.instance_budget,
+                            alive=state.alive, payload_bf16=cfg.tpu.payload_bf16,
+                            tile_row_offset=mesh.m, tile_rows=rows, tile_row_stride=n_model)
+    fwd_args = (bi.feat, bi.bins.tile_start, bi.bins.tile_stop, bi.row_off, bg, bi.grid_x)
+    out5 = blend.blend_forward(*fwd_args)
+    with torch.enable_grad():
+        o = out5.clone().requires_grad_()
+        img = R.untile(o[:, 0:3], bi.grid_x, rows, WIDTH, rows * 16)
+        share = abs_(img - gts[0, :3]).sum() / (SHARD_BATCH * 3 * WIDTH * HEIGHT)
+        (g_out,) = torch.autograd.grad(share, o)
+    return check_step_blend(
+        fwd_args, (*fwd_args[:5], out5, g_out, fwd_args[5]), dev,
+        f"rank {mesh.rank}'s slab (tile rows {mesh.m} + {n_model}j, {rows} of them) of "
+        f"the last sharded step")
+
+
+def sharded_rank(workdir: str, n_data: int, n_model: int, modes: list, n_warm: int,
+                 n_timed: int, check_blend: bool) -> dict:
+    """One rank of phase 15 (a), (b) and (d): for each mode of ``modes``
+    the lego preset's state of phase 6 on an ``n_data × n_model`` grid,
+    :func:`sharded_inputs` placed by ``place_batch``; the first mode takes
+    ``n_warm + n_timed`` steps, the others one. Rank 0 saves each mode's
+    step-1 leaves (:func:`shard_record`) to ``workdir``. Returns the losses,
+    per-step ms, K1/K2 launches over the counted steps, peak memory, whether
+    the grid's state hashes agree, and for the first mode the gradient
+    all-reduce's bytes and ms, the collectives of a step and, on rank 0 with
+    ``check_blend``, K1/K2 at its slab (:func:`slab_blend_check`)."""
+    import torch
+    import torch.distributed as dist
+
+    from fourdgs_tpu_torch.configs.core import load_config
+    from fourdgs_tpu_torch.ops import blend
+    from fourdgs_tpu_torch.parallel import collectives, trainer
+    from fourdgs_tpu_torch.parallel.mesh import make_mesh
+    from fourdgs_tpu_torch.train import adam
+
+    backend = dist.get_backend()
+    dev = _rank_device(backend)
+    mesh = make_mesh(n_data, n_model)
+    cfg0 = load_config(LEGO)
+    cfg0.tpu.capacity = CAPACITY
+    cams_all, gts_all = sharded_inputs(cfg0, dev)
+    out = {"rank": mesh.rank, "d": mesh.d, "m": mesh.m, "device": str(dev),
+           "backend": backend, "modes": {}}
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def hashes_agree(h: str) -> bool:
+        t = torch.tensor(np.frombuffer(bytes.fromhex(h), dtype=np.int64).copy(), device=dev)
+        g = collectives.all_gather(t[None], mesh.world)
+        return bool((g == g[0]).all())
+
+    for i, name in enumerate(modes):
+        pre, prim = SHARD_MODES[name]
+        cfg = load_config(LEGO)
+        cfg.tpu.capacity = CAPACITY
+        cfg.tpu.shard_preprocess, cfg.tpu.shard_primitives = pre, prim
+        state = bench_scene(cfg, device=dev)
+        opt = adam.init(state.params)
+        state, opt = trainer.replicate(mesh, state), trainer.replicate(mesh, opt)
+        if prim:
+            state = state._replace(params=trainer.shard_primitives(mesh, state.params))
+            opt = trainer.shard_adam(mesh, opt)
+        cams, gts = trainer.place_batch(mesh, cams_all, gts_all)
+        step = trainer.make_sharded_train_step(cfg, mesh, WIDTH, HEIGHT, "fine",
+                                               cfg.model.sh_degree, device=dev)
+        n_steps, counted_from = (n_warm + n_timed, n_warm + 1) if i == 0 else (1, 1)
+        losses, ms = [], []
+        sync()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with torch.enable_grad():
+            for it in range(1, n_steps + 1):
+                if it == counted_from:
+                    blend.blend_forward.launches = blend.blend_backward.launches = 0
+                    collectives.reset_counts()
+                t0 = time.perf_counter()
+                params, opt, state, m = step(state.params, opt, state, cams, gts, it)
+                state = state._replace(params=params)
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(m["loss"]))
+                if it == 1:
+                    whole, wopt = state, opt
+                    if prim:
+                        whole = state._replace(
+                            params=trainer.unshard_primitives(mesh, state.params))
+                        wopt = trainer.unshard_adam(mesh, opt)
+                    if mesh.rank == 0:
+                        np.savez(os.path.join(workdir, f"{name}_step1.npz"),
+                                 **shard_record(whole, wopt, m))
+        rec = {"losses": losses, "ms": ms[counted_from - 1:],
+               "launches": (blend.blend_forward.launches, blend.blend_backward.launches),
+               "counted_steps": n_steps - counted_from + 1,
+               "collectives": dict(collectives.counts),
+               "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+               "num_rendered": int(m["num_rendered"]), "b_local": int(gts.shape[0])}
+        if prim:
+            state = state._replace(params=trainer.unshard_primitives(mesh, state.params))
+            opt = trainer.unshard_adam(mesh, opt)
+        rec["hash"] = _state_hash(state, opt)
+        rec["hashes_agree"] = hashes_agree(rec["hash"])
+        if i == 0:
+            # the step's gradient all-reduce alone, at its bytes, over the grid
+            buf = torch.zeros(step.grad_allreduce_bytes // 4, device=dev)
+            collectives.psum(buf, mesh.world)
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                collectives.psum(buf, mesh.world)
+            sync()
+            rec["allreduce_ms"] = (time.perf_counter() - t0) * 1e2
+            rec["allreduce_bytes"] = step.grad_allreduce_bytes
+            if check_blend and mesh.rank == 0:
+                with torch.no_grad():
+                    rec["blend"] = slab_blend_check(cfg, state, cams, gts, mesh, dev)
+        out["modes"][name] = rec
+        del state, opt, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_cli_rank(data_dir: str, model_path: str, overrides: tuple) -> dict:
+    """One rank of phase 15 (c): ``train_torch.main`` with ``--mesh
+    data=2,model=1 --distributed --device cuda:0`` in the world this process
+    opened (gloo, CUDA tensors), which ``--distributed`` keeps."""
+    import torch
+
+    import bench_quality_torch as BQ
+    import train_torch
+    from fourdgs_tpu_torch.data import scene as tscene
+    from fourdgs_tpu_torch.ops import blend
+
+    tscene.TARGET_SIZE = (WIDTH, HEIGHT)
+    iters = next(int(o.split("=")[1]) for o in overrides if o.startswith("opt.iterations="))
+    blend.blend_forward.launches = blend.blend_backward.launches = 0
+    t0 = time.perf_counter()
+    state, opt = train_torch.main([
+        "-s", data_dir, "--configs", BQ.PRESET, "--model_path", model_path, "--quiet",
+        "--test_iterations", str(iters), "--save_iterations", str(iters),
+        "--mesh", "data=2,model=1", "--distributed", "--device", "cuda:0",
+        "--override", *overrides])
+    torch.cuda.synchronize()
+    return {"launches": (blend.blend_forward.launches, blend.blend_backward.launches),
+            "points": int(state.alive.sum()), "capacity": int(state.alive.shape[0]),
+            "hash": _state_hash(state, opt), "train_s": time.perf_counter() - t0}
+
+
+def _print_rank_log(path: str, prefix: str = "    ") -> None:
+    """The lines a rank printed that carry results (its log, without
+    warnings)."""
+    with open(path, errors="replace") as f:
+        for line in f:
+            if line.startswith(prefix) and "Warning" not in line and "return func" not in line:
+                print(line.rstrip())
+
+
+def hold_grid(ranks: list, name: str, rec: dict, ref: dict, where: str) -> list:
+    """The failures of mode ``name`` in :func:`sharded_rank`'s results
+    ``ranks``: rank 0's step-1 leaves ``rec`` against ``ref``
+    (:func:`compare_records`) and its loss within 1e-5; on every rank K1 and
+    K2 launched once a local camera a counted step, the loss finite and,
+    over more than one step, falling; every rank's state hash equal."""
+    runs = [r["modes"][name] for r in ranks]
+    failures = [f"{where} {g}" for g in compare_records(rec, ref, where)]
+    if abs(float(rec["loss"]) - float(ref["loss"])) > 1e-5:
+        failures.append(f"{where} loss {float(rec['loss'])} against {float(ref['loss'])}")
+    for r, x in zip(ranks, runs):
+        if x["launches"] != (x["b_local"] * x["counted_steps"],) * 2:
+            failures.append(f"{where} rank {r['rank']} launches {x['launches']}")
+        losses = x["losses"]
+        if not all(math.isfinite(v) for v in losses) or (
+                len(losses) > 1 and not losses[-1] < losses[0]):
+            failures.append(f"{where} rank {r['rank']} loss not finite or not falling: "
+                            f"{losses}")
+    if not all(x["hashes_agree"] for x in runs) or len({x["hash"] for x in runs}) != 1:
+        failures.append(f"{where} the ranks' states differ")
+    return failures
+
+
+def run_grid(grid: tuple, backend: str, modes: list, n_warm: int, n_timed: int,
+             check_blend: bool) -> tuple:
+    """:func:`sharded_rank` on a ``grid`` (data, model) of ranks over
+    ``backend``: (each rank's result, each mode's step-1 leaves of rank 0,
+    seconds with the start of the ranks)."""
+    from fourdgs_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_sharded_") as tmp:
+        ranks = run_ranks("chip_smoke:sharded_rank", grid[0] * grid[1],
+                          dict(workdir=tmp, n_data=grid[0], n_model=grid[1], modes=modes,
+                               n_warm=n_warm, n_timed=n_timed, check_blend=check_blend),
+                          tmp, backend=backend, timeout=900, threads=2)
+        _print_rank_log(os.path.join(tmp, "rank_0.log"))
+        recs = {}
+        for name in modes:
+            with np.load(os.path.join(tmp, f"{name}_step1.npz")) as r:
+                recs[name] = {k: r[k] for k in r.files}
+    return ranks, recs, time.perf_counter() - t0
+
+
+def check_sharded_trainer(dev, dnerf_dir: str) -> dict:
+    """Phase 15 (module docstring): the sharded trainer on the card
+    ``dev``."""
+    import torch
+
+    import metrics_torch
+    import render_torch
+    import train_torch
+    from fourdgs_tpu_torch.configs.core import load_config
+    from fourdgs_tpu_torch.parallel.launch import run_ranks
+    from fourdgs_tpu_torch.scripts import measure_scaling
+    from fourdgs_tpu_torch.train import adam
+    from fourdgs_tpu_torch.train.loop import make_train_step
+
+    secs = {}
+    failures = []
+    t_phase = time.perf_counter()
+    cfg = load_config(LEGO)
+    cfg.tpu.capacity = CAPACITY
+    print(f"[15] the sharded trainer (lego preset, {N_POINTS:,} Gaussians in "
+          f"{CAPACITY:,} rows, {WIDTH}x{HEIGHT}, global batch {SHARD_BATCH})", flush=True)
+    # the single-process step 1 the grid is held against
+    state = bench_scene(cfg, device=dev)
+    opt = adam.init(state.params)
+    cams, gts = sharded_inputs(cfg, dev)
+    step = make_train_step(cfg, WIDTH, HEIGHT, "fine", cfg.model.sh_degree, device=dev)
+    with torch.enable_grad():
+        params, opt, state, m = step(state.params, opt, state, cams, gts, 1)
+    ref = shard_record(state._replace(params=params), opt, m)
+    del state, opt, step, params
+    torch.cuda.empty_cache()
+
+    def print_ranks(ranks, name):
+        for r in ranks:
+            x = r["modes"][name]
+            print(f"    rank {r['rank']} (d, m) = ({r['d']}, {r['m']}) on {r['device']}: "
+                  f"ms/step median {float(np.median(x['ms'])):.3f} (min {min(x['ms']):.3f}), "
+                  f"peak memory {x['peak_gib']:.3f} GiB, K1/K2 launches {x['launches']} over "
+                  f"{x['counted_steps']} steps of {x['b_local']} camera(s), loss "
+                  f"{x['losses'][0]:.6f} -> {x['losses'][-1]:.6f}")
+
+    # -- (a) and (b): four ranks on cuda:0 over gloo
+    D, M = SHARD_GRID
+    ranks, recs, secs["a+b"] = run_grid(SHARD_GRID, "gloo", list(SHARD_MODES), SHARD_WARM,
+                                        SHARD_TIMED, check_blend=True)
+    print(f"    (a) {D}x{M} grid, {D * M} ranks sharing cuda:0 over gloo, the default "
+          f"config (shard_preprocess): {SHARD_WARM} warm-up + {SHARD_TIMED} timed "
+          f"steps, {secs['a+b']:.1f} s with the start of the ranks")
+    print("    these times are of four ranks time-sliced on one card: no scaling number")
+    print_ranks(ranks, "pre")
+    a = [r["modes"]["pre"] for r in ranks]
+    a0 = a[0]
+    print(f"    gradient all-reduce over the grid: {a0['allreduce_bytes']:,} bytes, "
+          f"{a0['allreduce_ms']:.3f} ms (rank 0; {max(x['allreduce_ms'] for x in a):.3f} ms "
+          f"the slowest rank); collectives of rank 0 over the timed steps: "
+          f"{json.dumps(a0['collectives'])}")
+    failures += hold_grid(ranks, "pre", recs["pre"], ref,
+                          "(a) step 1 against the single-process step")
+    print(f"    every rank's whole state after the last step equal bit for bit: "
+          f"{all(ra['hashes_agree'] for ra in a)} (sha256 {a0['hash'][:16]}...)")
+    # (b) the other modes, one step each, against (a)'s step 1
+    for name in list(SHARD_MODES)[1:]:
+        rb = [r["modes"][name] for r in ranks]
+        print(f"    (b) {name} (shard_preprocess, shard_primitives = "
+              f"{SHARD_MODES[name]}): loss {rb[0]['losses'][0]:.6f}, K1/K2 launches "
+              f"{[x['launches'] for x in rb]}, ms {rb[0]['ms'][0]:.3f}, states equal "
+              f"{all(x['hashes_agree'] for x in rb)}")
+        failures += hold_grid(ranks, name, recs[name], recs["pre"],
+                              f"(b) {name} against (a)'s step 1")
+
+    # -- (c) the CLI, two ranks on cuda:0 over gloo
+    t0 = time.perf_counter()
+    if torch.cuda.device_count() < 2:
+        try:
+            train_torch.main(["-s", dnerf_dir, "--mesh", "data=2,model=1", "--device", "cuda"])
+        except ValueError as e:
+            print(f"    (c) --mesh data=2,model=1 without --distributed on one GPU raises: {e}")
+        else:
+            failures.append("(c) --mesh data=2 on one GPU did not raise")
+    iters = next(int(o.split("=")[1]) for o in SHARD_CLI_SCHEDULE
+                 if o.startswith("opt.iterations="))
+    steps = iters + next(int(o.split("=")[1]) for o in SHARD_CLI_SCHEDULE
+                         if o.startswith("opt.coarse_iterations="))
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_sharded_cli_") as tmp:
+        model_path = os.path.join(tmp, "mesh")
+        cli = run_ranks("chip_smoke:sharded_cli_rank", 2,
+                        dict(data_dir=dnerf_dir, model_path=model_path,
+                             overrides=SHARD_CLI_SCHEDULE),
+                        os.path.join(tmp, "ranks"), backend="gloo", timeout=900, threads=4)
+        ckpts = [d for d in os.listdir(model_path) if d.startswith("chkpnt_")]
+        evals = sum("_render_" in f for f in os.listdir(os.path.join(model_path, "eval_images")))
+        render_torch.main(["--model_path", model_path, "--skip_train", "--skip_video",
+                           "--device", "cuda"])
+        mesh_psnr = metrics_torch.main(["--model_path", model_path, "--device", "cuda"])[
+            model_path][f"ours_{iters}"]["PSNR"]
+        plain = run_cli_chain(dnerf_dir, os.path.join(tmp, "single"), dev,
+                              overrides=SHARD_CLI_SCHEDULE)
+    print(f"    (c) train_torch.py --mesh data=2,model=1 --distributed on two ranks sharing "
+          f"cuda:0 over gloo ({steps} steps of the bouncingballs preset at {WIDTH}x{HEIGHT}): "
+          f"{cli[0]['train_s']:.1f} s, {cli[0]['points']} points in capacity "
+          f"{cli[0]['capacity']}, checkpoints {sorted(ckpts)}, K1/K2 launches by rank "
+          f"{[c['launches'] for c in cli]} ({evals} eval views on rank 0), states equal "
+          f"{cli[0]['hash'] == cli[1]['hash']}; render_torch.py of rank 0's checkpoint: "
+          f"PSNR {mesh_psnr:.4f} dB")
+    print(f"    the same command without --mesh: {plain['train_s']:.1f} s, "
+          f"{plain['points']} points, PSNR {plain['psnr']:.4f} dB (blank image "
+          f"{plain['blank_psnr']:.4f})")
+    if cli[0]["hash"] != cli[1]["hash"]:
+        failures.append("(c) the ranks' states differ")
+    if cli[0]["capacity"] <= 2048:
+        failures.append(f"(c) no capacity growth: {cli[0]['capacity']}")
+    if ckpts != [f"chkpnt_fine_{iters}"]:
+        failures.append(f"(c) checkpoints {ckpts}")
+    if (cli[1]["launches"] != (steps, steps)
+            or cli[0]["launches"] != (steps + evals, steps)):
+        failures.append(f"(c) launches {[c['launches'] for c in cli]}")
+    if not (math.isfinite(mesh_psnr) and mesh_psnr > plain["blank_psnr"]):
+        failures.append(f"(c) PSNR {mesh_psnr}")
+    secs["c"] = time.perf_counter() - t0
+
+    # -- (d) NCCL: a world of one rank; (a) with one rank per GPU where there
+    # are two or more
+    (one,), r1, secs["d"] = run_grid((1, 1), "nccl", ["pre"], 1, 2, check_blend=False)
+    d1 = one["modes"]["pre"]
+    print(f"    (d) a world of one rank over nccl: ms/step {d1['ms']}, K1/K2 launches "
+          f"{d1['launches']} over {d1['counted_steps']} steps of {d1['b_local']} cameras")
+    failures += hold_grid([one], "pre", r1["pre"], ref,
+                          "(d) one rank: step 1 against the single-process step")
+    n_gpu = torch.cuda.device_count()
+    if n_gpu >= 2:
+        grid = (2, 2) if n_gpu >= 4 else (2, 1)
+        many, rm, t_many = run_grid(grid, "nccl", ["pre"], SHARD_WARM, SHARD_TIMED,
+                                    check_blend=False)
+        secs["d"] += t_many
+        print(f"    (d) {grid[0]}x{grid[1]} grid, one rank per GPU over nccl:")
+        print_ranks(many, "pre")
+        failures += hold_grid(many, "pre", rm["pre"], ref,
+                              f"(d) {grid[0]}x{grid[1]} over nccl: step 1 against the "
+                              "single-process step")
+    else:
+        print(f"    (d) one rank per GPU over nccl: not run, this host has {n_gpu} GPU "
+              "(nccl needs a GPU per rank)")
+
+    # -- (e) T_slab(1/N) on the card
+    t0 = time.perf_counter()
+    scaling = measure_scaling.run(dev, size=WIDTH, shards=(1, 2, 4, 5, 10), iters=4, reps=3,
+                                  n_points=N_POINTS, capacity=CAPACITY)
+    print(f"    (e) measure_scaling: full step {scaling['full_step_ms']:.3f} ms, rest "
+          f"{scaling['rest_ms']:.3f} ms; " + "; ".join(
+              f"N={s['n_model']}: A {s['pre_fwd_bwd_ms']:.3f}, B {s['blend_fwd_bwd_ms']:.3f} "
+              f"ms, demand {s['demand']}" for s in scaling["slabs"]))
+    for s in scaling["slabs"]:
+        if "pre_busy_ms" in s:
+            print(f"    (e) N={s['n_model']} by torch.profiler: A busy {s['pre_busy_ms']:.3f} "
+                  f"of {s['pre_wall_ms']:.3f} ms wall ({s['pre_launches']:.0f} device "
+                  f"events, idle {s['pre_idle']:.3f}); B busy {s['blend_busy_ms']:.3f} of "
+                  f"{s['blend_wall_ms']:.3f} ms ({s['blend_launches']:.0f}, idle "
+                  f"{s['blend_idle']:.3f})")
+    secs["e"] = time.perf_counter() - t0
+    print("    phase 15 seconds: " + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items())
+          + f", all {time.perf_counter() - t_phase:.1f}")
+    if failures:
+        raise AssertionError(f"phase 15: {failures}")
+    return {"a": a0, "cli": cli[0], "scaling": scaling}
+
+
 def ring_camera(i, n_views):
     """bench.py's camera ring: 800×800, fov π/3, at time i/(n_views−1)."""
     from fourdgs_tpu_torch.utils import graphics
@@ -3153,14 +3696,20 @@ def main() -> int:
         t0 = time.perf_counter()
         tools = check_eval_tools(dev, dnerf_dir)
         phase_s[13] = time.perf_counter() - t0
+
+        # -- 14. the remaining single-device options, at phase 4's view and
+        #    phase 6's GT
+        t0 = time.perf_counter()
+        options = check_options(cfg, state, cams[k_view], gt, step_ms, dev)
+        phase_s[14] = time.perf_counter() - t0
+
+        # -- 15. the sharded trainer: phase 6's scene on a grid of ranks,
+        #    the CLI on phase 10 (b)'s scene
+        t0 = time.perf_counter()
+        sharded = check_sharded_trainer(dev, dnerf_dir)
+        phase_s[15] = time.perf_counter() - t0
     finally:
         scene_tmp.cleanup()
-
-    # -- 14. the remaining single-device options, at phase 4's view and
-    #    phase 6's GT
-    t0 = time.perf_counter()
-    options = check_options(cfg, state, cams[k_view], gt, step_ms, dev)
-    phase_s[14] = time.perf_counter() - t0
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     # -- 8. kernels line, result line
@@ -3201,6 +3750,9 @@ def main() -> int:
             "max_abs_err": options["a"]["k1"]["max_abs_err"],
             **options["a"]["timing"]["on"]["k1_bound"]},
         "dssim_step": {"launches": options["b"]["launches"][0]},
+        "sharded_step": {"launches": sharded["a"]["launches"][0],
+                         **sharded["a"]["blend"]["blend_forward"]},
+        "sharded_cli": {"launches": sharded["cli"]["launches"][0]},
     }, {
         "name": "blend_backward",
         "route": "cuda",
@@ -3232,6 +3784,9 @@ def main() -> int:
             "max_abs_err": options["a"]["k2"]["max_abs_err"],
             **options["a"]["timing"]["on"]["k2_bound"]},
         "dssim_step": {"launches": options["b"]["launches"][1]},
+        "sharded_step": {"launches": sharded["a"]["launches"][1],
+                         **sharded["a"]["blend"]["blend_backward"]},
+        "sharded_cli": {"launches": sharded["cli"]["launches"][1]},
     }, *cost_kernels]
     print(f"chip_smoke.py took {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -3,7 +3,8 @@ coarse→fine schedule.
 
 Counterpart of ``fourdgs_tpu/train/loop.py``: ``make_train_step``
 (:51-220), ``make_maintenance`` (:274-307) and ``scene_reconstruction``
-(:317-888) on one device.
+(:317-888), on one device or, with a ``mesh``, on a grid of ranks through
+the sharded step of ``parallel/trainer.py``.
 
 One step renders each camera of the batch in tile space with a zero
 ``means2d_offset`` carrier (its gradient is the view-space gradient), takes
@@ -33,8 +34,7 @@ JAX's values. A ``utils/timer.py`` ``DetailedTimer`` times its phases and an
 progress frames (``utils/debug_images.py``); a ``gradient_tracker``
 (``utils/gradient_tracker.py``) records the step's gradient statistics, and a
 ``viewer`` (``viewer.py``, the SIBR network viewer) is polled before each
-iteration and served renders of the current state. Not ported yet, and
-raising: a ``mesh``.
+iteration and served renders of the current state.
 """
 
 from __future__ import annotations
@@ -311,14 +311,6 @@ def scan_chunks(cfg, train_iter: int, log_interval: int = 50,
     return chunks
 
 
-def _unported(**options) -> None:
-    """Raise for the first option of ``scene_reconstruction`` the port does
-    not have yet."""
-    for name, value in options.items():
-        if value:
-            raise NotImplementedError(f"scene_reconstruction: {name} is not ported yet")
-
-
 def scene_reconstruction(
     cfg,
     state: G.GaussianState,
@@ -378,13 +370,68 @@ def scene_reconstruction(
     its camera by the current state, with ``source_path`` as the verify
     string (``loop.py:574-582``). Either turns the chunks off, as JAX's
     ``scan_ok`` does (``loop.py:547-550``): the poll is a host gate before
-    every step. A ``mesh`` raises ``NotImplementedError`` until it is
-    ported.
+    every step.
+
+    ``mesh`` (a ``parallel/mesh.py`` ``Mesh``; every rank of it runs this
+    call with the same arguments) runs the stage through the sharded step
+    (``loop.py:360-395``): the state and the Adam state broadcast from the
+    grid's first rank, the batch rounded up to a multiple of ``data``, each
+    rank loading only its own cameras' frames (no GT cache, no chunks) and
+    taking its slab of their rows. Under ``cfg.tpu.shard_primitives`` the
+    per-Gaussian leaves and moments are sharded between the maintenance
+    gates, the maintenance, ``log_fn`` and the returned state see them
+    whole. The maintenance runs on every rank from the same state and the
+    same seeded split normals, so the ranks' states stay equal bit for bit.
+    The grid's first rank alone writes files (debug panels, progress frames,
+    the NaN snapshot); the caller gives it alone a ``viewer`` and an
+    ``event_log``. A ``gradient_tracker`` under a mesh raises ``ValueError``,
+    as in JAX, and so does a viewer whose renders would need the sharded
+    primitives gathered (``shard_primitives`` with ``model`` > 1).
     """
     dev = resolve_device(device)
-    _unported(mesh=mesh)
     if not train_cameras:
         return state, adam_state, TrainLog()
+    ptrainer = None
+    shard_prim = False
+    is_main = True
+    if mesh is not None:
+        from fourdgs_tpu_torch.parallel import multihost
+        from fourdgs_tpu_torch.parallel import trainer as ptrainer
+
+        if gradient_tracker is not None:
+            raise ValueError("gradient tracking is not supported under a mesh; run "
+                             "the tracker on a single-device stage")
+        shard_prim = bool(cfg.tpu.shard_primitives)
+        if viewer is not None and shard_prim and mesh.shape["model"] > 1:
+            raise ValueError("the viewer under a mesh needs the primitives "
+                             "replicated (shard_primitives is on)")
+        is_main = mesh.rank == 0
+        state = ptrainer.replicate(mesh, state)
+        adam_state = ptrainer.replicate(mesh, adam_state)
+        if shard_prim:
+            state = state._replace(params=ptrainer.shard_primitives(mesh, state.params))
+            adam_state = ptrainer.shard_adam(mesh, adam_state)
+
+    def resharded(sharded: bool) -> None:
+        """Move the parameters and moments between this rank's shard and the
+        whole set (``loop.py:379-394``): the maintenance and checkpoints run
+        on the whole set."""
+        nonlocal state, adam_state
+        if not shard_prim:
+            return
+        if sharded:
+            state = state._replace(params=ptrainer.shard_primitives(mesh, state.params))
+            adam_state = ptrainer.shard_adam(mesh, adam_state)
+        else:
+            state = state._replace(params=ptrainer.unshard_primitives(mesh, state.params))
+            adam_state = ptrainer.unshard_adam(mesh, adam_state)
+
+    def whole_params() -> dict:
+        """The parameters with the whole primitive set (collective under
+        ``shard_primitives``: every rank calls it)."""
+        if shard_prim:
+            return ptrainer.unshard_primitives(mesh, state.params)
+        return state.params
     opt = cfg.opt
     max_sh = cfg.model.sh_degree if max_sh_degree is None else max_sh_degree
     img0 = train_cameras[0][1]
@@ -420,6 +467,16 @@ def scene_reconstruction(
                   f"inferred ({len(cams)} cameras, {n_poses} distinct "
                   f"centers); falling back to random-stack sampling")
     B = opt.batch_size
+    if mesh is not None and B % mesh.shape["data"] != 0:
+        # the batch splits over 'data': rounded up rather than padded with
+        # repeated cameras (loop.py:423-428)
+        B = -(-B // mesh.shape["data"]) * mesh.shape["data"]
+        print(f"[mesh] batch_size {opt.batch_size} -> {B} "
+              f"(multiple of data axis {mesh.shape['data']})")
+    # the cameras of a batch whose frames this process loads: under a mesh
+    # its rank's (loop.py:630-671, multihost.local_batch_slice)
+    local = (slice(0, B) if mesh is None
+             else multihost.local_batch_slice(B, mesh))
     stack: list[int] = []
     fine_order: list[int] = []
 
@@ -441,9 +498,10 @@ def scene_reconstruction(
     # GT on the device when every frame is an array and they fit: uint8
     # pre-tiled to [N, T, 3, 256], the tile-space loss's layout
     # (loop.py:486-502), unless D-SSIM on a padded grid keeps the loss on
-    # the images; else per batch
+    # the images; else per batch, as always under a mesh
     cams_dev = gt_cache = None
-    if not lazy and sum(g.nbytes for g in gt_list) <= _GT_CACHE_CAP:
+    if (mesh is None and not lazy
+            and sum(g.nbytes for g in gt_list) <= _GT_CACHE_CAP):
         cams_dev = CameraArrays(*(torch.stack(xs) for xs in zip(*cam_arrays)))
         tile_ok = opt.lambda_dssim == 0 or (height % 16 == 0 and width % 16 == 0)
         if tile_ok and gt_list[0].dtype == np.uint8:
@@ -463,7 +521,7 @@ def scene_reconstruction(
     prefetcher = None
     if lazy and all(hasattr(g, "path") and hasattr(g, "size") for g in gt_list):
         prefetcher = PrefetchPool(n_threads=8)
-        prefetcher.submit_batch([gt_list[i] for i in batches[0]])
+        prefetcher.submit_batch([gt_list[i] for i in batches[0][local]])
 
     # JAX's chunks (loop.py:547-598), when the GT is cached on the device
     # and no host work runs between steps
@@ -487,13 +545,13 @@ def scene_reconstruction(
     bg = torch.tensor([1.0, 1.0, 1.0] if cfg.model.white_background
                       else [0.0, 0.0, 0.0], device=dev)
 
-    def aux_render(cam: CameraArrays, w: int = width,
-                   h: int = height) -> tuple[np.ndarray, np.ndarray]:
+    def aux_render(cam: CameraArrays, w: int = width, h: int = height,
+                   params=None) -> tuple[np.ndarray, np.ndarray]:
         """(colour [3, H, W], depth [1, H, W]) of ``cam`` by the current
-        state (loop.py:522-533)."""
+        state (loop.py:522-533), or by ``params``."""
         with torch.no_grad():
-            out = render(state.params, state, cam, cfg, w, h, stage, bg, sh_deg,
-                         device=dev)
+            out = render(state.params if params is None else params, state, cam, cfg,
+                         w, h, stage, bg, sh_deg, device=dev)
         return out.color.cpu().numpy(), out.depth.cpu().numpy()
 
     def viewer_render(vcam) -> np.ndarray:
@@ -521,6 +579,7 @@ def scene_reconstruction(
             state = G.one_up_sh_degree(state, max_sh)
             sh_deg = state.active_sh_degree
         batch_idx = batches[iteration - 1]
+        load_idx = batch_idx[local]
         if gt_cache is not None:
             idx = batches_dev[iteration - 1]
             gts = gt_cache[idx]
@@ -529,20 +588,30 @@ def scene_reconstruction(
             if prefetcher is not None:
                 gts_np = prefetcher.wait_batch()
                 if iteration < train_iter:
-                    prefetcher.submit_batch([gt_list[i] for i in batches[iteration]])
+                    prefetcher.submit_batch([gt_list[i] for i in batches[iteration][local]])
             else:
                 gts_np = np.stack([np.asarray(g() if callable(g) else g)
-                                   for g in (gt_list[i] for i in batch_idx)])
+                                   for g in (gt_list[i] for i in load_idx)])
             gts = torch.from_numpy(gts_np).to(dev)
             batch_cams = CameraArrays(*(torch.stack(xs) for xs in
-                                        zip(*(cam_arrays[i] for i in batch_idx))))
+                                        zip(*(cam_arrays[i] for i in load_idx))))
+            if mesh is not None:
+                if gts.dtype == torch.uint8:
+                    # the sharded step takes float CHW (loop.py:650-655)
+                    gts = gts.to(torch.float32).permute(0, 3, 1, 2) / 255.0
+                batch_cams, gts = multihost.host_local_batch(mesh, batch_cams, gts)
         if timer:
             timer.end_timer(f"{stage}_data_loading")
             timer.start_timer(f"{stage}_render")
         if sh_deg not in steps:
-            steps[sh_deg] = make_train_step(cfg, width, height, stage, sh_deg,
-                                            spatial_lr_scale=spatial_lr, device=dev,
-                                            track_grads=gradient_tracker is not None)
+            if mesh is not None:
+                steps[sh_deg] = ptrainer.make_sharded_train_step(
+                    cfg, mesh, width, height, stage, sh_deg,
+                    spatial_lr_scale=spatial_lr, device=dev)
+            else:
+                steps[sh_deg] = make_train_step(cfg, width, height, stage, sh_deg,
+                                                spatial_lr_scale=spatial_lr, device=dev,
+                                                track_grads=gradient_tracker is not None)
         with torch.enable_grad():
             params, adam_state, state, metrics = steps[sh_deg](
                 state.params, adam_state, state, batch_cams, gts, iteration)
@@ -558,18 +627,23 @@ def scene_reconstruction(
                 peaks = []
 
         # debug panels every 100 iterations and progress frames on the dense
-        # early schedule, of the batch's first camera (loop.py:679-698)
+        # early schedule, of the batch's first camera (loop.py:679-698); under
+        # a mesh every rank gathers the parameters, the first renders
         if debug_mode and iteration % 100 == 0:
             i = batch_idx[0]
-            debug_images.save_debug_image(
-                aux_render(cam_arrays[i])[0], gt_np(i), stage, iteration,
-                float(cam_arrays[i].time), model_path)
+            whole = whole_params()
+            if is_main:
+                debug_images.save_debug_image(
+                    aux_render(cam_arrays[i], params=whole)[0], gt_np(i), stage,
+                    iteration, float(cam_arrays[i].time), model_path)
         if cfg.model.render_process and debug_images.should_save_progress(iteration):
             i = batch_idx[0]
-            color, depth = aux_render(cam_arrays[i])
-            debug_images.render_training_image(
-                color, gt_np(i), depth, stage, iteration, time.time() - t_start,
-                model_path)
+            whole = whole_params()
+            if is_main:
+                color, depth = aux_render(cam_arrays[i], params=whole)
+                debug_images.render_training_image(
+                    color, gt_np(i), depth, stage, iteration, time.time() - t_start,
+                    model_path)
 
         # instance-budget growth on the densify cadence (loop.py:708-749);
         # the render reads cfg.tpu.instance_budget on every call
@@ -629,11 +703,17 @@ def scene_reconstruction(
             densify_due = densify_due and n_points < 360_000
             prune_due = prune_due and n_points > 200_000
             t_gate = time.perf_counter()
+            surgery = densify_due or prune_due or reset_due
+            if surgery:
+                resharded(False)
             cur_cap = state.alive.shape[0]
             # capacity growth at 60% before densifying (loop.py:799-815)
             if densify_due and n_points > 0.6 * cur_cap and cur_cap < cfg.tpu.capacity:
                 new_cap = min(cur_cap * 2, cfg.tpu.capacity)
                 state, adam_state = G.grow_capacity(state, adam_state, new_cap)
+                if mesh is not None:
+                    state = ptrainer.replicate(mesh, state)
+                    adam_state = ptrainer.replicate(mesh, adam_state)
                 print(f"[capacity] {n_points} alive > 60% of {cur_cap}; "
                       f"growing to {new_cap}")
                 event("capacity", n_points=n_points, capacity=new_cap)
@@ -653,7 +733,8 @@ def scene_reconstruction(
             if reset_due:
                 state, adam_state = reset_fn(state, adam_state)
                 event("reset")
-            if densify_due or prune_due or reset_due:
+            if surgery:
+                resharded(True)
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 log.maintenance_s += time.perf_counter() - t_gate
@@ -674,11 +755,18 @@ def scene_reconstruction(
                     l1_loss=m["l1"], stage=stage, total_points=int(m["n_points"]),
                     ema_loss=log.ema_loss, ema_psnr=log.ema_psnr)
             if log_fn:
-                log_fn(iteration, stage, m, state, adam_state)
+                if shard_prim:
+                    resharded(False)
+                    log_fn(iteration, stage, m, state, adam_state)
+                    resharded(True)
+                else:
+                    log_fn(iteration, stage, m, state, adam_state)
             if np.isnan(m["loss"]):
-                # NaN watchdog (loop.py:856-879): a replayable snapshot first
-                snap = forensics.dump_snapshot(
-                    model_path, f"nan_{stage}_{iteration}", state.params,
+                # NaN watchdog (loop.py:856-879): a replayable snapshot first,
+                # by the grid's first rank
+                whole = whole_params()
+                snap = None if not is_main else forensics.dump_snapshot(
+                    model_path, f"nan_{stage}_{iteration}", whole,
                     state=state, cams=batch_cams, metrics=m,
                     extra={"iteration": iteration,
                            "instance_budget": cfg.tpu.instance_budget,
@@ -694,4 +782,6 @@ def scene_reconstruction(
     if prefetcher is not None:
         log.prefetch = prefetcher.counts()
         prefetcher.close()
+    # the whole set back (checkpoints and a following stage start from it)
+    resharded(False)
     return state, adam_state, log

@@ -163,16 +163,21 @@ def test_resume_from_checkpoint(trained_model):
                                   "--distributed", "--port=6009",
                                   "--gradient_tracking", "--debug_mode"])
 def test_unported_flags_raise(flag, tmp_path):
-    if flag in ("--debug_mode", "--port=6009", "--gradient_tracking"):
-        # ported now (tests/test_torch_debug_images.py,
-        # tests/test_torch_viewer.py, tests/test_torch_gradient_tracker.py):
-        # the flag passes and the missing scene raises
-        with pytest.raises(ValueError, match="could not recognize"):
-            train_torch.main(["-s", "/nonexistent", flag, "--device", "cpu",
-                              "--model_path", str(tmp_path / "model")])
-        return
-    with pytest.raises(NotImplementedError, match="is not ported"):
-        train_torch.main(["-s", "/nonexistent", flag, "--device", "cpu"])
+    # every flag is ported now (tests/test_torch_debug_images.py,
+    # tests/test_torch_viewer.py, tests/test_torch_gradient_tracker.py,
+    # tests/test_torch_multihost.py): the flag passes and the missing scene
+    # raises. A one-rank mesh runs in this process; --distributed is given a
+    # world of this one process, and the group is closed again.
+    import torch.distributed as dist
+
+    extra = [flag]
+    if flag == "--distributed":
+        extra += ["--coordinator_address", f"file://{tmp_path}/store",
+                  "--num_processes", "1", "--process_id", "0"]
+    with pytest.raises(ValueError, match="could not recognize"):
+        train_torch.main(["-s", "/nonexistent", *extra, "--device", "cpu",
+                          "--model_path", str(tmp_path / "model")])
+    assert not dist.is_initialized()
 
 
 def test_chip_smoke_cli_phase_on_cpu(tmp_path):

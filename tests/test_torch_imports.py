@@ -86,6 +86,11 @@ def test_import_graph_has_no_jax():
     # the host tools of scripts/ (the AST scan below reads them too)
     for name in PREP_SCRIPTS:
         assert f"fourdgs_tpu_torch.scripts.{name}" in mods, name
+    # the sharded trainer and its scripts
+    for name in ("mesh", "collectives", "trainer", "multihost", "launch"):
+        assert f"fourdgs_tpu_torch.parallel.{name}" in mods, name
+    for name in ("multihost_smoke", "measure_scaling", "measure_multihost"):
+        assert f"fourdgs_tpu_torch.scripts.{name}" in mods, name
 
 
 def test_ast_scan_has_no_jax_imports():
@@ -207,6 +212,16 @@ def test_entry_points_default_to_cuda():
             main is merge_many_4dgs_torch.main) else ["--model_path", "/nonexistent"]
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(argv)
+    from fourdgs_tpu_torch.parallel.mesh import Mesh
+    from fourdgs_tpu_torch.parallel.trainer import make_sharded_train_step
+    from fourdgs_tpu_torch.scripts import measure_multihost, measure_scaling
+
+    one = Mesh({"data": 1, "model": 1}, 0, 0, None, None, None, (0,))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_sharded_train_step(cfg, one, 64, 64, "fine", 1)
+    for run in (measure_scaling.run, measure_multihost.run):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run()
     for probe in grid_cost.PROBES:
         if probe.fn is grid_cost.while_ones:   # runs where its counts lie
             continue

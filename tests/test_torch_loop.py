@@ -257,8 +257,11 @@ def test_unported_options_raise(option, tmp_path):
     cams, state, opt = _port_start(cfg)
     kw = {"model_path": str(tmp_path)}
     if option == "mesh":
-        kw[option] = object()
-    elif option == "debug_mode":
+        # ported now (tests/test_torch_parallel.py, tests/test_torch_multihost.py):
+        # a 1×1 mesh on a one-rank CPU gloo world trains as the run without one
+        _one_rank_mesh_matches_single_device(cfg, cams)
+        return
+    if option == "debug_mode":
         kw[option] = True
     elif option == "viewer":
         kw[option] = NetworkGUI(port=0)      # no viewer connects
@@ -291,6 +294,61 @@ def test_unported_options_raise(option, tmp_path):
     with pytest.raises(NotImplementedError):
         tloop.scene_reconstruction(cfg, state, opt, cams, "coarse", 1, EXTENT,
                                    device="cpu", **kw)
+
+
+def _one_rank_mesh_matches_single_device(cfg, cams):
+    """The coarse stage on a 1×1 mesh of a one-rank CPU gloo world against
+    the same stage without a mesh. Through iteration 3 (the first densify,
+    capacity growth and budget growth included): equal alive sets and point
+    counts, the parameters and first moments within
+    ``tests/test_parallel.py:146-176``'s tolerances (rtol 2e-4; atol 2e-6
+    and 5e-5). The whole schedule (densify, prune, capacity growth, opacity
+    reset): the same gates, counts and alive sets; the values part from
+    iteration 4 on, because the slab's rect clip bins the Gaussians the
+    densify left dead (JAX's ``rasterize.py:314-319``, copied; ROADMAP
+    Queue 3; ``tests/test_torch_parallel.py::test_slab_clip_renders_dead_gaussians_as_jax``),
+    so the sharded step renders them and the single-device step does not.
+    Its mark: after the opacity reset zeroes every opacity moment, the dead
+    rows' opacity moments stay 0 without the mesh and move under it."""
+    from fourdgs_tpu_torch.parallel import multihost
+    from fourdgs_tpu_torch.parallel.mesh import make_mesh
+
+    def run(mesh, iters):
+        c = _port_cfg()
+        _, state, opt = _port_start(c)
+        return tloop.scene_reconstruction(c, state, opt, cams, "coarse", iters, EXTENT,
+                                          device="cpu", mesh=mesh, log_interval=1)
+
+    single = [run(None, n) for n in (3, COARSE_ITERS)]
+    assert multihost.initialize(backend="gloo")
+    try:
+        mesh = make_mesh(1, 1)
+        meshed = [run(mesh, n) for n in (3, COARSE_ITERS)]
+    finally:
+        multihost.shutdown()
+    for (s1, a1, log1), (sm, am, logm) in zip(single, meshed):
+        np.testing.assert_array_equal(sm.alive.numpy(), s1.alive.numpy())
+        assert ([r["n_points"] for r in logm.iterations]
+                == [r["n_points"] for r in log1.iterations])
+        # the gates at the same iterations (a slab's demand also counts the
+        # rects of dead and culled Gaussians, as JAX's rect clip does, so the
+        # budget events carry other demands)
+        assert ([(e["iter"], e["kind"]) for e in logm.events]
+                == [(e["iter"], e["kind"]) for e in log1.events])
+    assert {"densify", "capacity", "budget"} <= {e["kind"] for e in single[0][2].events}
+    assert {"densify", "capacity", "reset"} <= {e["kind"] for e in single[1][2].events}
+    (s1, a1, _), (sm, am, _) = single[0], meshed[0]
+    for k in tloop.G.PRIMITIVE_KEYS:
+        np.testing.assert_allclose(sm.params[k].detach().numpy(),
+                                   s1.params[k].detach().numpy(), rtol=2e-4, atol=2e-6,
+                                   err_msg=k)
+        np.testing.assert_allclose(am.mu[k].numpy(), a1.mu[k].numpy(), rtol=2e-4,
+                                   atol=5e-5, err_msg=k)
+    (s1, a1, _), (sm, am, _) = single[1], meshed[1]
+    dead = ~s1.alive.numpy()
+    assert dead.any()
+    assert not a1.mu["opacity"].numpy()[dead].any()
+    assert am.mu["opacity"].numpy()[dead].any()
 
 
 class _LazyFrame:

@@ -26,9 +26,22 @@ before every iteration. ``--gradient_tracking`` records the per-group
 gradient statistics every 10 iterations and writes
 ``gradient_report.json``, ``gradient_curves.png`` and the per-timestamp
 ``gradient_timeline.{json,png}`` of the first train camera after the run
-(the PNGs only where matplotlib is installed). ``--mesh``,
-``--shard_primitives`` and ``--distributed`` raise ``NotImplementedError``.
-``--device cpu`` runs the plain PyTorch versions of the kernels.
+(the PNGs only where matplotlib is installed). ``--device cpu`` runs the
+plain PyTorch versions of the kernels.
+
+``--mesh data=D,model=M`` trains through the sharded step
+(``fourdgs_tpu_torch/parallel/trainer.py``: cameras over ``data``,
+interleaved tile rows over ``model``) on D·M ranks, one process each. On
+one host the command starts them itself, one per local GPU (it raises when
+the host has fewer; nccl needs one GPU per rank), or over CPU gloo with
+``--device cpu``; a world of one rank runs in this process.
+``--distributed`` makes this process one rank of a larger world, from
+``--coordinator_address`` (``host:port``), ``--num_processes`` and
+``--process_id``, or from torchrun's environment; its device is
+``--device`` where that names an index, else ``cuda:LOCAL_RANK``; a process
+group the caller already opened is kept. ``--shard_primitives`` shards the
+per-Gaussian parameters and their moments over ``model``. The grid's first
+rank alone writes the outputs and serves the viewer.
 """
 
 from __future__ import annotations
@@ -36,9 +49,31 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 
-# flags of train.py whose paths are not ported
-UNPORTED_FLAGS = ("mesh", "shard_primitives", "distributed")
+
+def spawn_local_world(argv: list[str], mesh: str, device: str, n: int) -> None:
+    """Start ``n`` ranks of this command on this host, rank r on
+    ``cuda:r`` (or the CPU), and wait for them; a failed rank stops the
+    others and raises."""
+    import tempfile
+
+    import torch
+
+    from fourdgs_tpu_torch.parallel.launch import spawn
+
+    if torch.device(device).type != "cpu":
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < n:
+            raise ValueError(f"--mesh {mesh} needs {n} GPUs, one per rank; this host "
+                             f"has {have} (several ranks on one GPU need gloo: "
+                             "open the process group and pass --distributed)")
+    with tempfile.TemporaryDirectory(prefix="train_torch_ranks_") as tmp:
+        cmds = [[sys.executable, os.path.abspath(__file__), *argv, "--distributed",
+                 "--coordinator_address", f"file://{tmp}/store",
+                 "--num_processes", str(n), "--process_id", str(r)] for r in range(n)]
+        envs = [{"LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": str(n)} for r in range(n)]
+        spawn(cmds, None, tmp, envs=envs, inherit_first=True)
 
 
 def main(argv=None):
@@ -68,12 +103,40 @@ def main(argv=None):
                         help="dotted config overrides, e.g. opt.iterations=100")
     parser.add_argument("--device", default="cuda", help="cuda, or cpu for the plain path")
     args = parser.parse_args(argv)
-    for flag in UNPORTED_FLAGS:
-        if getattr(args, flag) not in (None, False):
-            raise NotImplementedError(f"--{flag} is not ported")
 
+    import torch.distributed as dist
+
+    from fourdgs_tpu_torch import resolve_device
+    from fourdgs_tpu_torch.parallel import multihost
+    from fourdgs_tpu_torch.parallel.mesh import parse_mesh_arg
+
+    sizes = parse_mesh_arg(args.mesh) if args.mesh else None
+    if (sizes and not args.distributed and not dist.is_initialized()
+            and sizes["data"] * sizes["model"] > 1):
+        spawn_local_world(list(sys.argv[1:] if argv is None else argv), args.mesh,
+                          args.device, sizes["data"] * sizes["model"])
+        return None
+    device = args.device
+    if args.distributed and device == "cuda":
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+    device = resolve_device(device)
+    opened = False
+    if args.distributed or sizes:
+        # before any other collective use (train.py:85-92); a world of one
+        # process when --mesh alone asks for one rank
+        opened = multihost.initialize(args.coordinator_address, args.num_processes,
+                                      args.process_id, device=device)
+    try:
+        return _train(args, sizes, device)
+    finally:
+        if opened:
+            multihost.shutdown()
+
+
+def _train(args, sizes, device):
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from fourdgs_tpu_torch import resolve_device
     from fourdgs_tpu_torch.configs.core import config_to_dict, load_config
@@ -87,7 +150,8 @@ def main(argv=None):
     from fourdgs_tpu_torch.utils.observability import EventLog, log_scene_stats
     from fourdgs_tpu_torch.utils.timer import DetailedTimer, Timer
 
-    dev = resolve_device(args.device)
+    dev = resolve_device(device)
+    main_rank = not dist.is_initialized() or dist.get_rank() == 0
     overrides = {}   # group.knob=value; JSON-looking values parsed (train.py)
     for item in args.override:
         k, _, v = item.partition("=")
@@ -96,12 +160,29 @@ def main(argv=None):
     cfg.model.source_path = args.source_path
     model_path = args.model_path or os.path.join("output", args.expname)
     cfg.model.model_path = model_path
-    os.makedirs(model_path, exist_ok=True)
-    # the config replay dump render_torch.py reads (JSON, not eval())
-    with open(os.path.join(model_path, "cfg_args.json"), "w") as f:
-        json.dump(config_to_dict(cfg), f, indent=1, default=str)
+    if main_rank:
+        os.makedirs(model_path, exist_ok=True)
+        # the config replay dump render_torch.py reads (JSON, not eval())
+        with open(os.path.join(model_path, "cfg_args.json"), "w") as f:
+            json.dump(config_to_dict(cfg), f, indent=1, default=str)
 
-    timer = DetailedTimer(model_path)
+    mesh = None
+    if args.shard_primitives:
+        cfg.tpu.shard_primitives = True
+    if sizes:
+        from fourdgs_tpu_torch.parallel.multihost import make_hybrid_mesh
+
+        mesh = make_hybrid_mesh(sizes["data"], sizes["model"])
+        if mesh is None:
+            print(f"rank {dist.get_rank()} lies outside the mesh; it does not train")
+            return None
+        print(f"mesh: data={sizes['data']} x model={sizes['model']} over "
+              f"{dist.get_world_size()} rank(s); this rank (d, m) = ({mesh.d}, {mesh.m}) "
+              f"on {dev} over {dist.get_backend()}")
+        if args.gradient_tracking:
+            raise ValueError("--gradient_tracking under --mesh is not supported")
+
+    timer = DetailedTimer(model_path) if main_rank else None
     wall = Timer()
     wall.start()
 
@@ -123,7 +204,7 @@ def main(argv=None):
         print(f"resumed from {args.start_checkpoint} ({start_stage} @ {start_iter})")
 
     cams = [(lc.camera, lc.image) for lc in scene.data.train_cameras]
-    ev = EventLog(model_path)
+    ev = EventLog(model_path) if main_rank else None
     bg = torch.tensor([1.0, 1.0, 1.0] if cfg.model.white_background
                       else [0.0, 0.0, 0.0], device=dev)
 
@@ -179,6 +260,8 @@ def main(argv=None):
             f.write(json.dumps({"iteration": iteration, "stage": stage, **report}) + "\n")
 
     def log_fn(iteration, stage, m, cur_state, cur_adam):
+        if not main_rank:
+            return
         if not args.quiet:
             print(f"[{stage} {iteration:6d}] loss={m['loss']:.5f} "
                   f"psnr={m['psnr']:.2f} points={int(m['n_points'])}")
@@ -195,7 +278,7 @@ def main(argv=None):
                    | set(args.test_iterations))
 
     viewer = None
-    if args.port is not None:
+    if args.port is not None and main_rank:
         from fourdgs_tpu_torch.viewer import NetworkGUI
 
         viewer = NetworkGUI(port=args.port)
@@ -208,11 +291,11 @@ def main(argv=None):
     common = dict(timer=timer, event_log=ev, log_fn=log_fn,
                   extra_log_iters=extra_iters, model_path=model_path, device=dev,
                   debug_mode=args.debug_mode, viewer=viewer, gradient_tracker=tracker,
-                  source_path=args.source_path)
+                  source_path=args.source_path, mesh=mesh)
 
     def report_prefetch(stage, log, iteration):
         """The native prefetcher's frame counts of a stage on lazy frames."""
-        if log.prefetch is not None:
+        if log.prefetch is not None and main_rank:
             print(f"[prefetch] {stage}: {log.prefetch['submitted']} frames submitted, "
                   f"{log.prefetch['native']} decoded natively, "
                   f"{log.prefetch['to_ref']} sent to the ref's decoder")
@@ -248,6 +331,8 @@ def main(argv=None):
         print(f"gradient report + timeline → {model_path}")
 
     wall.pause()
+    if not main_rank:
+        return state, adam_state
     checkpoint.save_snapshot(model_path, state, cfg.opt.iterations, "fine")
     checkpoint.save_checkpoint(model_path, state, adam_state, cfg.opt.iterations, "fine")
     timer.save_timing_report()
