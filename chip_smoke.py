@@ -68,8 +68,9 @@ on failure:
    ``{"ok": true, "device": {...}}``; before them phases 9 to 15, the
    seconds of phases 10 to 15 and the script's own time:
 9. training from a point cloud (``bench_quality_torch.py``, bf16 payload):
-   (a) the bouncingballs preset at ``--gt oracle --scale 0.03`` (90 coarse + 600
-   fine steps at 800×800 from 2,000 random points, the launch counts zeroed
+   (a) the bouncingballs preset at ``--gt oracle --scale 0.02`` (0.03 until
+   PR 16; 60 coarse + 400 fine steps at 800×800 from 2,000 random points,
+   the launch counts zeroed
    just before the training and read after the eval): K2 launches equal
    the renders of its steps, K1 launches those plus the 10 eval views, every
    logged loss finite, the last logged train PSNR above the first; the
@@ -98,8 +99,8 @@ on failure:
    ``bench_quality_torch.py``'s ground-truth scene, every row
    Paeth-filtered, 20 train and 4 test views, no ``fused.ply``), whose
    ``load_scene`` time is printed, then ``train_torch.py`` on it with the
-   bouncingballs preset at full width and a cut schedule (100 coarse + 300
-   fine steps), ``render_torch.py`` (test split) and ``metrics_torch.py``:
+   bouncingballs preset at full width and a cut schedule (50 coarse + 150
+   fine steps; 100 + 300 until PR 16), ``render_torch.py`` (test split) and ``metrics_torch.py``:
    every output ``tests/test_cli.py::test_outputs_exist`` lists exists, the
    fine checkpoint reloads to the same leaves, the rendered PNGs equal the
    in-process render of the same snapshot within one level of 255,
@@ -108,8 +109,9 @@ on failure:
    (:func:`check_entry_points`);
 11. the DyNeRF path (:func:`check_dynerf_path`), each run with the launch
    counts zeroed just before it and read just after: (a)
-   ``bench_quality_dynerf_torch.py`` at ``--scale 0.015`` (the dynerf preset at
-   full width as users run it, sh 3, anisotropic: 45 coarse + 210 fine
+   ``bench_quality_dynerf_torch.py`` at ``--scale 0.01`` (0.015 until PR
+   16; the dynerf preset at
+   full width as users run it, sh 3, anisotropic: 50 coarse + 140 fine
    steps of batch 4 with the FineSampler over 11 ring cameras × 150
    timestamps at 676×507, GT from K1 held in memory, its launches counted
    apart): K2 launches equal the renders of its steps, K1 launches those
@@ -123,14 +125,15 @@ on failure:
    line); on the grid's padding pixels K1's colour and T equal the plain
    version's, the step's cotangent is 0 and the L1 does not change when
    they are replaced by noise (:func:`check_padding`). (b) The same bench
-   at ``--scale 0.01 --instant4d``: finite losses, a rising train PSNR, SH
+   at ``--scale 0.0075 --instant4d`` (0.01 until PR 16): finite losses, a rising train PSNR, SH
    degree 0 and three equal scales for every live Gaussian after the
    broadcast. (c) A DyNeRF scene written with the port's PNG writer
    (:func:`write_dynerf_scene`: ``poses_bounds.npy`` for 4 of the bench's
    ring cameras, 6 frames each at the loader's 1352×1014 rendered by K1,
    every filter type in turn, ``points3D_downsample2.ply``), then
    ``train_torch.py`` on it with the dynerf preset at full width, a cut
-   schedule (20 coarse + 60 fine steps) and the FineSampler,
+   schedule (10 coarse + 30 fine steps; 20 + 60 until PR 16) and the
+   FineSampler,
    ``render_torch.py`` (test split: camera 0) and ``metrics_torch.py``: the
    outputs of phase 10 (b), the PSNR above the blank image's, every train
    frame decoded by the native prefetcher (none sent to the ref), K2 once
@@ -146,7 +149,8 @@ on failure:
    ``train_torch.py --debug_mode`` with the
    hypernerf preset at full width (K-planes [64, 64, 64, 150] × 16, multires
    (1, 2, 4), width 128, depth 1, batch 2, ``render_process`` on) and a cut
-   schedule (100 coarse + 300 fine steps), ``render_torch.py`` and
+   schedule (50 coarse + 150 fine steps; 100 + 300 until PR 16),
+   ``render_torch.py`` and
    ``metrics_torch.py``: the ``render_process`` frames at exactly
    ``should_save_progress``'s iterations of each stage and the debug panels
    every 100, ``render_torch.py``'s ``masks/`` equal to the sources,
@@ -170,8 +174,8 @@ on failure:
 13. eval and tools, on phase 10 (b)'s D-NeRF scene (800×800) with the
    bouncingballs preset at full width, each run with the launch counts
    zeroed just before it and read just after (:func:`check_eval_tools`):
-   (a) ``train_torch.py --port <free port> --gradient_tracking`` (20 coarse
-   + 60 fine steps) with ``render_torch.py`` and ``metrics_torch.py`` after
+   (a) ``train_torch.py --port <free port> --gradient_tracking`` (10 coarse
+   + 30 fine steps; 20 + 60 until PR 16) with ``render_torch.py`` and ``metrics_torch.py`` after
    it, while a client thread connects as SIBR does
    (:func:`sibr_client`) and asks for two frames of test camera 0, one with
    ``keep_alive`` on and one without: both arrive as 800×800×3 bytes, not
@@ -248,8 +252,9 @@ on failure:
    ``--distributed`` raises on a one-GPU host; then ``train_torch.main``
    with ``--mesh data=2,model=1 --distributed --device cuda:0`` in two
    ranks that opened their own gloo group, on phase 10 (b)'s scene with
-   the bouncingballs preset and 20 + 60 steps that cross densify gates
-   and a capacity growth (2,048 → 4,096): equal states, one checkpoint (rank
+   the bouncingballs preset and 10 + 30 steps (20 + 60 until PR 16) that
+   cross densify gates and a capacity growth (2,048 → 4,096): equal
+   states, one checkpoint (rank
    0's), ``render_torch.py`` and ``metrics_torch.py`` of it, its PSNR and
    points beside the same schedule without ``--mesh`` (``sharded_cli`` in
    the kernels line). (d) A world of one rank through (a)'s step over
@@ -257,6 +262,27 @@ on failure:
    nccl where the host has two or more (else a line says it did not run).
    (e) ``fourdgs_tpu_torch.scripts.measure_scaling``: T_slab(1/N) at N = 1,
    2, 4, 5 and 10.
+16. the repairs and the last entry points: (a) ``python -m
+   fourdgs_tpu_torch.scripts.gradient_from_checkpoint`` on phase 10 (b)'s
+   fine checkpoint of the bouncingballs preset at full width and its
+   800×800 scene, 10 timestamps: K1 and K2 once per timestamp, finite
+   records; then K1 and K2 against their plain versions at the timeline's
+   shapes (``gradient_timeline`` in the kernels line). (b) The committed
+   progressive JPEGs and PNG variants of ``tests/torch_fixtures/variants``
+   decoded on the card's host bit for bit against Pillow's committed
+   decodes, a file of unrefined scans raising ``NotImplementedError``, the
+   ms of the 1352×1014 picture read progressive and baseline in turns, and
+   a MultipleView scene of the twelve progressive frames through
+   ``load_scene``. (c) ``train_torch.py --mesh data=1,model=2
+   --shard_primitives --port`` in two ranks sharing ``cuda:0`` over gloo
+   (launched as (15 c)'s), a SIBR client asking for train camera 0 before
+   each of the first 3 coarse steps: rank 0 gathers the sharded primitives
+   for each frame, and the first frame equals this process's render of the
+   state ``build_scene`` makes from the same seed, bit for bit. (d) Phase
+   ``train_torch.py`` twice in this process on phase 10 (b)'s scene with
+   one ``--seed`` and PERF.md §7's 20 + 60-step schedule (phase 15 (c)'s
+   until PR 16): both held-out PSNRs and whether the trained states are
+   bit-equal.
 
 Agreement bound of K1 with its plain version: atol 1e-4 on color and final
 transmittance, except pixels riding T_STOP, where a different association of
@@ -1042,9 +1068,9 @@ def check_training_from_pcd(dev):
     from fourdgs_tpu_torch.ops import blend
 
     print("[9] training from a point cloud: (a) bench_quality_torch --gt oracle "
-          "--scale 0.03", flush=True)
+          "--scale 0.02", flush=True)
     t0 = time.perf_counter()
-    a, model = BQ.run(scale=0.03, gt="oracle", log_interval=50, device=dev)
+    a, model = BQ.run(scale=0.02, gt="oracle", log_interval=50, device=dev)
     launches = (blend.blend_forward.launches, blend.blend_backward.launches)
     renders = (a["schedule"]["coarse"] + a["schedule"]["fine"]) * a["batch_size"]
     log = a["train_log"]
@@ -1099,8 +1125,10 @@ def check_training_from_pcd(dev):
     return a, trained
 
 
-CLI_SCHEDULE = ("opt.coarse_iterations=100", "opt.iterations=300",
-                "opt.position_lr_max_steps=300")
+# phases 10 (b) and 12 (a): 100 + 300 steps until PR 16, cut to 50 + 150 to
+# pay for phase 16
+CLI_SCHEDULE = ("opt.coarse_iterations=50", "opt.iterations=150",
+                "opt.position_lr_max_steps=150")
 # the pose convention of data/blender.py: R = F·m[:3, :3]ᵀ, T = −m[:3, 3]
 # with m = inv(transform_matrix)
 _BLENDER_FLIP = np.diag([1.0, -1.0, -1.0])
@@ -1310,10 +1338,11 @@ def run_cli_chain(data_dir, model_path, dev, overrides=CLI_SCHEDULE, preset=None
             "scene": scene}
 
 
-def check_entry_points(dev, data_dir):
+def check_entry_points(dev, data_dir, model_path):
     """Phase 10 (module docstring): ``bench_torch.py`` and K1/K2 at its last
     step, then the D-NeRF CLI chain on a scene written to ``data_dir`` (which
-    phase 13 reuses); returns the launch counts of each and
+    phases 13, 15 and 16 reuse), its model at ``model_path`` (whose fine
+    checkpoint phase 16 (a) reads); returns the launch counts of each and
     :func:`check_bench_blend`'s fields for the kernels line."""
     import bench_torch
     from fourdgs_tpu_torch.ops import blend
@@ -1341,8 +1370,7 @@ def check_entry_points(dev, data_dir):
     t0 = time.perf_counter()
     write_dnerf_scene(data_dir, dev)
     scene_s = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_cli_") as tmp:
-        cli = run_cli_chain(data_dir, os.path.join(tmp, "model"), dev)
+    cli = run_cli_chain(data_dir, model_path, dev)
     k1_train, k2_train = cli["train_launches"]
     k1_render, k2_render = cli["render_launches"]
     print(f"    scene {WIDTH}x{HEIGHT}, 20 train + 4 test views written in {scene_s:.1f} s; "
@@ -1370,8 +1398,9 @@ def check_entry_points(dev, data_dir):
 
 
 DYNERF_FRAMES = 6          # frames per camera of phase 11 (c)'s scene
-DYNERF_CLI_SCHEDULE = ("opt.coarse_iterations=20", "opt.iterations=60",
-                       "opt.position_lr_max_steps=60", 'opt.custom_sampler="fine"')
+# phase 11 (c): 20 + 60 steps until PR 16, cut to 10 + 30 to pay for phase 16
+DYNERF_CLI_SCHEDULE = ("opt.coarse_iterations=10", "opt.iterations=30",
+                       "opt.position_lr_max_steps=30", 'opt.custom_sampler="fine"')
 
 
 class _Tee:
@@ -1591,8 +1620,8 @@ def dynerf_cull_read(model, dev):
 
 
 def check_dynerf_path(dev):
-    """Phase 11 (module docstring): the DyNeRF bench at scale 0.015 with
-    K1/K2 and the padding on its trained model, at 0.01 with
+    """Phase 11 (module docstring): the DyNeRF bench at scale 0.01 with
+    K1/K2 and the padding on its trained model, at 0.0075 with
     ``--instant4d``, then the DyNeRF CLI chain on lazy frames. Returns the
     launches and :func:`check_trained_blend`'s fields for the kernels
     line."""
@@ -1603,8 +1632,8 @@ def check_dynerf_path(dev):
     from fourdgs_tpu_torch.ops import blend
     from fourdgs_tpu_torch.utils import losses
 
-    print("[11] the DyNeRF path: (a) bench_quality_dynerf_torch --scale 0.015", flush=True)
-    a, model, a_launches = check_dynerf_bench(dev, 0.015)
+    print("[11] the DyNeRF path: (a) bench_quality_dynerf_torch --scale 0.01", flush=True)
+    a, model, a_launches = check_dynerf_bench(dev, 0.01)
     fwd_args, bwd_args = view_blend_inputs(model, 0, dev)
     cfg, state = model.cfg, model.state
     W, H = a["resolution"]
@@ -1624,8 +1653,8 @@ def check_dynerf_path(dev):
           f"against the budget {cfg.tpu.instance_budget}")
     del model
 
-    print("    (b) bench_quality_dynerf_torch --scale 0.01 --instant4d", flush=True)
-    b, model, _ = check_dynerf_bench(dev, 0.01, instant4d=True)
+    print("    (b) bench_quality_dynerf_torch --scale 0.0075 --instant4d", flush=True)
+    b, model, _ = check_dynerf_bench(dev, 0.0075, instant4d=True)
     st = model.state
     cam = TR.CameraArrays.from_camera(model.train_cams[0][0], device=dev)
     with torch.no_grad():
@@ -1691,6 +1720,10 @@ HYPERNERF_FOCAL = 1400.0           # at the full size
 JPEG_FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "jpeg")
 JPEG_SCENE_CAMS, JPEG_SCENE_FRAMES = 3, 4    # phase 12 (b)'s scenes: 12 committed frames
 JPEG_SCENE_SIZE = (160, 120)
+# the progressive JPEGs and the PNG variants of phase 16 (b), and Pillow's
+# decodes of them (tests/test_torch_progressive.py::write_committed_fixtures)
+VARIANT_FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "variants")
+CAPTURE_FRAME = "capture_1352x1014"     # one picture, progressive and baseline
 MULTIPLEVIEW_SCHEDULE = ("opt.coarse_iterations=12", "opt.iterations=36",
                          "opt.position_lr_max_steps=36")
 # the JPEG tolerance against Pillow (tests/test_torch_jpeg.py): two conforming
@@ -1929,9 +1962,15 @@ def jpeg_frame(c, f):
     return os.path.join(JPEG_FIXTURES, f"frame_c{c}_f{f}.jpg")
 
 
-def write_multipleview_scene(root):
-    """A MultipleView scene of the committed frames: ``cam01…cam03/
-    frame_00001.jpg…``, ``sparse_/0`` (one PINHOLE camera, an image per
+def progressive_frame(c, f):
+    """The committed progressive JPEG of the picture :func:`jpeg_frame`
+    holds (the same quantized coefficients, so the same decode)."""
+    return os.path.join(VARIANT_FIXTURES, f"prog_frame_c{c}_f{f}.jpg")
+
+
+def write_multipleview_scene(root, frame=jpeg_frame):
+    """A MultipleView scene of the committed frames (``frame(c, f)``'s file):
+    ``cam01…cam03/frame_00001.jpg…``, ``sparse_/0`` (one PINHOLE camera, an image per
     rig camera named ``image<NN>.jpg``, no points) by the port's COLMAP
     writers, ``poses_bounds_multipleview.npy`` in the LLFF convention and
     the init cloud as ``points3D_multipleview.ply``."""
@@ -1946,7 +1985,7 @@ def write_multipleview_scene(root):
         folder = os.path.join(root, f"cam{c + 1:02d}")
         os.makedirs(folder)
         for f in range(JPEG_SCENE_FRAMES):
-            shutil.copy(jpeg_frame(c, f), os.path.join(folder, f"frame_{f + 1:05d}.jpg"))
+            shutil.copy(frame(c, f), os.path.join(folder, f"frame_{f + 1:05d}.jpg"))
         cam, focal, R, eye = jpeg_scene_camera(c, 0)
         wv = np.asarray(cam.world_view, np.float64)
         images[c + 1] = colmap_io.ColmapImage(
@@ -2161,8 +2200,9 @@ def check_jpeg_path(dev, schedule=MULTIPLEVIEW_SCHEDULE, preset=MULTIPLEVIEW_PRE
     return {"cli": (k1_train + k1_render, k2_train)}
 
 
-EVAL_TOOLS_SCHEDULE = ("opt.coarse_iterations=20", "opt.iterations=60",
-                       "opt.position_lr_max_steps=60")
+# phase 13 (a): 20 + 60 steps until PR 16, cut to 10 + 30 to pay for phase 16
+EVAL_TOOLS_SCHEDULE = ("opt.coarse_iterations=10", "opt.iterations=30",
+                       "opt.position_lr_max_steps=30")
 CAPTURE_SIZE = (2704, 2028)        # DyNeRF's capture size, resized to DYNERF_SIZE
 COARSE_STEP_MS = 73.7              # phase 11 (c)'s coarse step (PERF.md §5)
 
@@ -2866,9 +2906,13 @@ SHARD_TOL = {"p": (2e-4, 2e-6), "mu": (2e-4, 5e-5), "nu": (4e-4, 1e-9),
 # leaf's largest first moment (:func:`compare_records`): the rounding of
 # sums of some hundred float32 terms (each ~6e-8 relative)
 GRAD_NOISE = 1e-5
-SHARD_CLI_SCHEDULE = ("opt.coarse_iterations=20", "opt.iterations=60",
-                      "opt.position_lr_max_steps=60", "opt.densify_from_iter=10",
-                      "opt.densification_interval=20", "tpu.capacity_init=2048")
+# phase 15 (c)'s schedule: 20 + 60 steps with densify from 10 every 20 until
+# PR 16, cut to 10 + 30 with densify from 5 every 10 (still crossing a
+# capacity growth) to pay for phase 16, whose (d) keeps the 20 + 60 of
+# PERF.md §7's spread
+SHARD_CLI_SCHEDULE = ("opt.coarse_iterations=10", "opt.iterations=30",
+                      "opt.position_lr_max_steps=30", "opt.densify_from_iter=5",
+                      "opt.densification_interval=10", "tpu.capacity_init=2048")
 
 
 def _rank_device(backend: str):
@@ -3357,6 +3401,331 @@ def check_sharded_trainer(dev, dnerf_dir: str) -> dict:
     return {"a": a0, "cli": cli[0], "scaling": scaling}
 
 
+# -- phase 16: the repaired divergences and the last entry points -------------
+
+PNG_MODES = (None, "L", "RGB", "RGBA")
+
+
+def variant_decodes() -> dict:
+    """Pillow's decodes of the committed variant fixtures: ``<stem>`` (a
+    JPEG's, or a PNG's ``np.asarray``), ``<stem>.<mode>`` (a PNG's
+    ``convert(mode)``), and ``capture_1352x1014.sha256``, the SHA-256 of
+    the decode of the 1352×1014 picture (whose array alone would outweigh
+    the committed files)."""
+    with np.load(os.path.join(VARIANT_FIXTURES, "pillow_decode.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def decode_sha256(img: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+
+def check_decoders(reps: int = 10) -> dict:
+    """Phase 16 (b) (module docstring): every committed variant fixture
+    decoded on the host bit for bit against Pillow's committed decode (the
+    progressive scene frames against the baseline frames' decodes, the
+    1352×1014 picture by its decode's SHA-256), the progressive file whose
+    scans leave coefficients unrefined raising ``NotImplementedError``, the
+    ms a 1352×1014 frame progressive and baseline read in turns, and a
+    MultipleView scene of the progressive frames through ``load_scene``.
+    Returns the counts and the times."""
+    from fourdgs_tpu_torch.configs.core import load_config
+    from fourdgs_tpu_torch.data.scene import load_scene
+    from fourdgs_tpu_torch.utils import png
+    from fourdgs_tpu_torch.utils.jpeg import read_jpeg
+
+    print("    (b) the decoders on the committed progressive JPEGs and PNG variants",
+          flush=True)
+    want = variant_decodes()
+    with np.load(os.path.join(JPEG_FIXTURES, "pillow_decode.npz")) as z:
+        baseline = {k: z[k] for k in z.files}
+
+    def same(name, got, ref):
+        if got.shape != ref.shape or got.dtype != ref.dtype or not np.array_equal(got, ref):
+            raise AssertionError(f"{name}: the port's decode is not Pillow's bit for bit")
+
+    n_jpeg = n_png = 0
+    for fname in sorted(os.listdir(VARIANT_FIXTURES)):
+        stem, ext = os.path.splitext(fname)
+        path = os.path.join(VARIANT_FIXTURES, fname)
+        if ext == ".png":
+            for mode in PNG_MODES:
+                same(f"{stem} {mode}", png.read_png(path, mode),
+                     want[stem if mode is None else f"{stem}.{mode}"])
+            n_png += 1
+        elif stem == "prog_unrefined":
+            try:
+                read_jpeg(path)
+            except NotImplementedError as e:
+                if "smooth" not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"{fname} decoded; libjpeg would smooth it")
+        elif ext == ".jpg":
+            got = read_jpeg(path)
+            if stem.startswith(CAPTURE_FRAME):
+                if decode_sha256(got) != str(want[CAPTURE_FRAME + ".sha256"]):
+                    raise AssertionError(f"{fname}: the decode's SHA-256 is not Pillow's")
+            else:
+                same(stem, got, baseline[stem[len("prog_"):]] if stem.startswith("prog_frame")
+                     else want[stem])
+            n_jpeg += 1
+    paths = {kind: os.path.join(VARIANT_FIXTURES, f"{CAPTURE_FRAME}_{kind}.jpg")
+             for kind in ("progressive", "baseline")}
+    times = {kind: [] for kind in paths}
+    for _ in range(reps):
+        for kind in ("progressive", "baseline", "baseline", "progressive"):
+            t0 = time.perf_counter()
+            read_jpeg(paths[kind])
+            times[kind].append(1e3 * (time.perf_counter() - t0))
+    ms = {kind: float(np.median(v)) for kind, v in times.items()}
+    sizes = {kind: os.path.getsize(p) for kind, p in paths.items()}
+    print(f"    the decoders on the committed variants: {n_jpeg} JPEG files (progressive "
+          f"4:4:4, 4:2:2, 4:2:0, grey, restart intervals, Huffman tables per scan, the "
+          f"1352x1014 picture both ways) and {n_png} PNG files (palette, 1/2/16-bit grey, "
+          f"16-bit RGB, gray + alpha and RGBA, tRNS, Adam7), each read bit for bit as "
+          f"Pillow reads it; unrefined scans raise NotImplementedError")
+    print(f"    read_jpeg of the 1352x1014 picture, median of {2 * reps} reads in turns "
+          f"(host): progressive {ms['progressive']:.4f} ms ({sizes['progressive']} B), "
+          f"baseline {ms['baseline']:.4f} ms ({sizes['baseline']} B), ratio "
+          f"{ms['progressive'] / ms['baseline']:.3f}")
+
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_progressive_") as tmp:
+        write_multipleview_scene(tmp, frame=progressive_frame)
+        t0 = time.perf_counter()
+        data = load_scene(load_config(), tmp)
+        load_s = time.perf_counter() - t0
+        lcs = data.train_cameras + data.test_cameras
+        seen = set()
+        for lc in lcs:
+            cam_dir = os.path.basename(os.path.dirname(lc.image.path))       # camNN
+            f = int(os.path.basename(lc.image.path)[len("frame_"):-4]) - 1
+            seen.add(name := f"frame_c{int(cam_dir[3:]) - 1}_f{f}")
+            same(lc.image.path, lc.image(), baseline[name])
+    if data.dataset_type != "MultipleView" or len(seen) != JPEG_SCENE_CAMS * JPEG_SCENE_FRAMES:
+        raise AssertionError(f"MultipleView of progressive frames: {data.dataset_type}, "
+                             f"{len(seen)} frames")
+    print(f"    MultipleView of the 12 progressive frames: load_scene {load_s:.4f} s, "
+          f"{len(data.train_cameras)} train + {len(data.test_cameras)} test cameras over "
+          f"{len(seen)} frames, every frame equal to the baseline frame's Pillow decode")
+    return {"jpeg_files": n_jpeg, "png_files": n_png, "ms": ms, "bytes": sizes,
+            "multipleview_frames": len(seen), "load_s": load_s}
+
+
+TIMELINE_TIMES = 10                # phase 16 (a)'s timestamps
+VIEWER_MESH_SCHEDULE = ("opt.coarse_iterations=3", "opt.iterations=3",
+                        "opt.position_lr_max_steps=3", "tpu.capacity_init=2048")
+VIEWER_FRAMES = 3                  # phase 16 (c)'s frames, one before each coarse step
+SPREAD_SCHEDULE = ("opt.coarse_iterations=20", "opt.iterations=60",
+                   "opt.position_lr_max_steps=60", "opt.densify_from_iter=10",
+                   "opt.densification_interval=20", "tpu.capacity_init=2048")
+
+
+def check_gradient_timeline(dev, data_dir, model_path, n_times=TIMELINE_TIMES):
+    """Phase 16 (a) (module docstring): ``python -m
+    fourdgs_tpu_torch.scripts.gradient_from_checkpoint`` on phase 10 (b)'s
+    fine checkpoint and scene, K1 and K2 once per timestamp, finite records;
+    then K1 and K2 against their plain versions at the timeline's shapes
+    (the checkpoint's state at train camera 0 and the last timestamp, the
+    timeline's L1 cotangent). Returns the launches, the wall and
+    :func:`check_step_blend`'s fields."""
+    import torch
+
+    from fourdgs_tpu_torch import render as TR
+    from fourdgs_tpu_torch.configs.core import config_from_dict
+    from fourdgs_tpu_torch.data.scene import load_scene
+    from fourdgs_tpu_torch.ops import blend
+    from fourdgs_tpu_torch.scripts import gradient_from_checkpoint
+    from fourdgs_tpu_torch.train import checkpoint
+    from fourdgs_tpu_torch.utils import losses
+
+    ckpt = checkpoint.find_stage_checkpoint(model_path, "fine")
+    print(f"[16] the repairs and the last entry points: (a) gradient_from_checkpoint on "
+          f"{os.path.basename(ckpt)}", flush=True)
+    blend.blend_forward.launches = blend.blend_backward.launches = 0
+    t0 = time.perf_counter()
+    json_path, png_path = gradient_from_checkpoint.main([
+        "--checkpoint", ckpt, "-s", data_dir, "--n_times", str(n_times),
+        "--device", dev.type])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (blend.blend_forward.launches, blend.blend_backward.launches)
+    with open(json_path) as f:
+        records = json.load(f)
+    print(f"    {n_times} timestamps in {wall:.3f} s (the scene's load included); K1/K2 "
+          f"launches {launches}; loss {records[0]['loss']:.6f} (t = 0) .. "
+          f"{records[-1]['loss']:.6f} (t = 1), |grad xyz| max "
+          f"{max(r['grad_norm_max'] for r in records):.4g}, {records[0]['n_points']} "
+          f"points; panel grid {'written' if png_path else 'skipped (no matplotlib)'}")
+    on_card = int(dev.type == "cuda")
+    if launches != (on_card * n_times, on_card * n_times):
+        raise AssertionError(f"the timeline launched K1/K2 {launches} times over "
+                             f"{n_times} timestamps")
+    if len(records) != n_times or not all(
+            math.isfinite(r[k]) for r in records
+            for k in ("loss", "grad_norm_mean", "grad_norm_max")):
+        raise AssertionError(f"the timeline's records: {records}")
+
+    with open(os.path.join(model_path, "cfg_args.json")) as f:
+        cfg = config_from_dict(json.load(f))
+    cfg.opt.batch_size = 1          # the timeline's L1 is the mean over one image
+    state, _, _ = checkpoint.load_checkpoint(ckpt, cfg, device=dev)
+    lc = load_scene(cfg, data_dir).train_cameras[0]
+    gt = torch.tensor(np.asarray(lc.image), device=dev).to(torch.float32).permute(
+        2, 0, 1) / 255.0
+    cam = TR.CameraArrays.from_camera(lc.camera, device=dev)
+    cam = cam._replace(time=torch.full_like(cam.time, 1.0))
+    bg = torch.tensor([1.0, 1.0, 1.0] if cfg.model.white_background else [0.0, 0.0, 0.0],
+                      device=dev)
+    res = check_step_blend(
+        *step_blend_inputs(cfg, state, cam, lc.camera.width, lc.camera.height,
+                           losses.tile_image(gt[:3], pad_cols=2), bg,
+                           state.active_sh_degree, dev), dev,
+        f"the timeline's last timestamp (capacity {state.alive.shape[0]}, "
+        f"{int(state.alive.sum())} alive, SH degree {state.active_sh_degree})")
+    return {"launches": launches, "wall_s": wall, "blend": res}
+
+
+def viewer_cli_rank(data_dir: str, model_path: str, port: int) -> dict:
+    """One rank of phase 16 (c): ``train_torch.main`` with ``--mesh
+    data=1,model=2 --shard_primitives --port`` (the first rank serving the
+    viewer) and ``--distributed --device cuda:0`` in the world this process
+    opened (gloo)."""
+    import torch
+
+    import bench_quality_torch as BQ
+    import train_torch
+    from fourdgs_tpu_torch.data import scene as tscene
+    from fourdgs_tpu_torch.ops import blend
+
+    tscene.TARGET_SIZE = (WIDTH, HEIGHT)
+    blend.blend_forward.launches = blend.blend_backward.launches = 0
+    t0 = time.perf_counter()
+    state, opt = train_torch.main([
+        "-s", data_dir, "--configs", BQ.PRESET, "--model_path", model_path, "--quiet",
+        "--test_iterations", "-1", "--save_iterations", "-1", "--port", str(port),
+        "--mesh", "data=1,model=2", "--shard_primitives", "--distributed",
+        "--device", "cuda:0", "--override", *VIEWER_MESH_SCHEDULE])
+    torch.cuda.synchronize()
+    return {"launches": (blend.blend_forward.launches, blend.blend_backward.launches),
+            "hash": _state_hash(state, opt), "train_s": time.perf_counter() - t0}
+
+
+def check_viewer_under_mesh(dev, data_dir):
+    """Phase 16 (c) (module docstring): two ranks sharing the card over gloo
+    train with ``--mesh data=1,model=2 --shard_primitives --port``; a SIBR
+    client asks for train camera 0 before each of the first coarse steps.
+    The first frame (the initial state, gathered from the two ranks' halves)
+    must equal this process's render of the state ``build_scene`` makes
+    from the same seed, bit for bit; the later ones must be frames of the
+    trained state. Returns the frames' count and the wall."""
+    import threading
+
+    import torch
+
+    from fourdgs_tpu_torch.configs.core import config_from_dict, load_config
+    from fourdgs_tpu_torch.data.scene import build_scene, load_scene
+    from fourdgs_tpu_torch.parallel.launch import run_ranks
+    from fourdgs_tpu_torch.render import CameraArrays, render
+
+    print("    (c) the viewer under --mesh data=1,model=2 --shard_primitives, two ranks "
+          "sharing the card over gloo", flush=True)
+    cam = load_scene(load_config(), data_dir).train_cameras[0].camera
+    port = free_port()
+    result: dict = {}
+    client = threading.Thread(target=sibr_client, daemon=True, args=(
+        port, [(cam, False)] * VIEWER_FRAMES, result, 600.0))
+    client.start()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_viewer_mesh_") as tmp:
+        ranks = run_ranks("chip_smoke:viewer_cli_rank", 2,
+                          dict(data_dir=data_dir, model_path=os.path.join(tmp, "model"),
+                               port=port),
+                          os.path.join(tmp, "ranks"), backend="gloo", timeout=600, threads=4)
+        with open(os.path.join(tmp, "model", "cfg_args.json")) as f:   # what it trained
+            cfg = config_from_dict(json.load(f))
+    wall = time.perf_counter() - t0
+    client.join(timeout=60)
+    if "error" in result or len(result.get("frames", [])) != VIEWER_FRAMES:
+        raise AssertionError(f"the SIBR client: {result.get('error')}, "
+                             f"{len(result.get('frames', []))} frames")
+    # the state the first frame shows: train_torch's build_scene with its
+    # default seed (6666), rendered here in one process
+    state = build_scene(cfg, 6666, device=dev).state
+    vcam = cam._replace(camera_center=np.linalg.inv(
+        np.asarray(cam.world_view, np.float64)).T[:3, 3].astype(np.float32))
+    bg = torch.tensor([1.0, 1.0, 1.0] if cfg.model.white_background else [0.0, 0.0, 0.0],
+                      device=dev)
+    with torch.no_grad():
+        color = render(state.params, state, CameraArrays.from_camera(vcam, device=dev),
+                       cfg, cam.width, cam.height, "coarse", bg, state.active_sh_degree,
+                       device=dev).color
+    want = (np.clip(color.cpu().numpy(), 0, 1).transpose(1, 2, 0) * 255).astype(np.uint8)
+    frames = result["frames"]
+    diff = int(np.abs(frames[0].astype(int) - want.astype(int)).max())
+    moved = int(np.abs(frames[-1].astype(int) - frames[0].astype(int)).max())
+    print(f"    {len(frames)} frames of {cam.width}x{cam.height} served by rank 0, the "
+          f"primitives gathered from both ranks for each; the first against this "
+          f"process's render of the seeded initial state: max {diff} levels; the last "
+          f"{moved} levels from the first; ranks' states equal "
+          f"{ranks[0]['hash'] == ranks[1]['hash']}; K1/K2 launches by rank "
+          f"{[r['launches'] for r in ranks]}; {wall:.1f} s")
+    if diff or not moved or ranks[0]["hash"] != ranks[1]["hash"]:
+        raise AssertionError(f"(c) the served frame differs by {diff} levels, the last "
+                             f"moved {moved}, or the ranks' states differ")
+    if result["verify"] != [data_dir] * VIEWER_FRAMES:
+        raise AssertionError(f"(c) verify strings {result['verify']}")
+    steps = sum(int(o.split("=")[1]) for o in VIEWER_MESH_SCHEDULE[:2])
+    on_card = int(dev.type == "cuda")
+    if [r["launches"] for r in ranks] != [(on_card * (steps + VIEWER_FRAMES), on_card * steps),
+                                          (on_card * steps, on_card * steps)]:
+        raise AssertionError(f"(c) K1/K2 launches by rank {[r['launches'] for r in ranks]}: "
+                             f"a step each, and rank 0 a render per frame")
+    return {"frames": len(frames), "wall_s": wall,
+            "launches": [r["launches"] for r in ranks]}
+
+
+def check_seed_spread(dev, data_dir):
+    """Phase 16 (d) (module docstring): ``train_torch.py`` twice on phase
+    10 (b)'s scene with PERF.md §7's 20 + 60-step schedule and one
+    ``--seed`` (its default): both held-out PSNRs (its last eval) and
+    whether the two trained states are equal bit for bit. Returns them."""
+    import bench_quality_torch as BQ
+    import train_torch
+
+    print("    (d) the same CLI schedule twice with one seed", flush=True)
+    iters = next(int(o.split("=")[1]) for o in SPREAD_SCHEDULE
+                 if o.startswith("opt.iterations="))
+    runs = []
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_spread_") as tmp:
+        for i in range(2):
+            model_path = os.path.join(tmp, f"run{i}")
+            t0 = time.perf_counter()
+            state, opt = train_torch.main([
+                "-s", data_dir, "--configs", BQ.PRESET, "--model_path", model_path,
+                "--quiet", "--test_iterations", str(iters), "--save_iterations", "-1",
+                "--device", dev.type, "--override", *SPREAD_SCHEDULE])
+            train_s = time.perf_counter() - t0
+            with open(os.path.join(model_path, "eval_log.jsonl")) as f:
+                last = [json.loads(line) for line in f][-1]
+            runs.append({"psnr": last["test"]["psnr"], "points": int(state.alive.sum()),
+                         "hash": _state_hash(state, opt), "train_s": train_s})
+            del state, opt
+    bit_equal = runs[0]["hash"] == runs[1]["hash"]
+    print(f"    {' + '.join(o.split('=')[1] for o in SPREAD_SCHEDULE[:2])} steps twice, "
+          f"--seed 6666: held-out PSNR {runs[0]['psnr']:.4f} and {runs[1]['psnr']:.4f} dB "
+          f"({runs[0]['points']} and {runs[1]['points']} points); trained states and Adam "
+          f"moments bit-equal {bit_equal}; train wall {runs[0]['train_s']:.1f} and "
+          f"{runs[1]['train_s']:.1f} s")
+    if not all(math.isfinite(r["psnr"]) for r in runs):
+        raise AssertionError(f"(d) PSNR {[r['psnr'] for r in runs]}")
+    return {"psnr": [r["psnr"] for r in runs], "points": [r["points"] for r in runs],
+            "bit_equal": bit_equal}
+
+
 def ring_camera(i, n_views):
     """bench.py's camera ring: 800×800, fov π/3, at time i/(n_views−1)."""
     from fourdgs_tpu_torch.utils import graphics
@@ -3675,7 +4044,7 @@ def main() -> int:
         # -- 10. the user's entry points
         phase_s = {}
         t0 = time.perf_counter()
-        entry = check_entry_points(dev, dnerf_dir)
+        entry = check_entry_points(dev, dnerf_dir, os.path.join(scene_tmp.name, "cli_model"))
         phase_s[10] = time.perf_counter() - t0
 
         # -- 11. the DyNeRF path
@@ -3708,6 +4077,17 @@ def main() -> int:
         t0 = time.perf_counter()
         sharded = check_sharded_trainer(dev, dnerf_dir)
         phase_s[15] = time.perf_counter() - t0
+
+        # -- 16. the repairs and the last entry points: the timeline of phase
+        #    10 (b)'s checkpoint, the decoders, the viewer under sharded
+        #    primitives, the seed's spread
+        t0 = time.perf_counter()
+        timeline = check_gradient_timeline(dev, dnerf_dir,
+                                           os.path.join(scene_tmp.name, "cli_model"))
+        check_decoders()
+        viewer_mesh = check_viewer_under_mesh(dev, dnerf_dir)
+        check_seed_spread(dev, dnerf_dir)
+        phase_s[16] = time.perf_counter() - t0
     finally:
         scene_tmp.cleanup()
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
@@ -3753,6 +4133,9 @@ def main() -> int:
         "sharded_step": {"launches": sharded["a"]["launches"][0],
                          **sharded["a"]["blend"]["blend_forward"]},
         "sharded_cli": {"launches": sharded["cli"]["launches"][0]},
+        "gradient_timeline": {"launches": timeline["launches"][0],
+                              **timeline["blend"]["blend_forward"]},
+        "viewer_mesh": {"launches": viewer_mesh["launches"][0][0]},
     }, {
         "name": "blend_backward",
         "route": "cuda",
@@ -3787,6 +4170,9 @@ def main() -> int:
         "sharded_step": {"launches": sharded["a"]["launches"][1],
                          **sharded["a"]["blend"]["blend_backward"]},
         "sharded_cli": {"launches": sharded["cli"]["launches"][1]},
+        "gradient_timeline": {"launches": timeline["launches"][1],
+                              **timeline["blend"]["blend_backward"]},
+        "viewer_mesh": {"launches": viewer_mesh["launches"][0][1]},
     }, *cost_kernels]
     print(f"chip_smoke.py took {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))

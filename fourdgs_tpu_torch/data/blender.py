@@ -91,7 +91,7 @@ def read_cameras_from_transforms(
         time = mapper[frame["time"]]
         R, T = _pose_from_transform(frame["transform_matrix"])
 
-        img = png.convert(png.read_png(img_path), "RGBA")
+        img = png.read_png(img_path, "RGBA")
         if (img.shape[1], img.shape[0]) != tuple(target_size):
             img = resample.resize(img, target_size, "bicubic")
         data = img.astype(np.float32) / 255.0

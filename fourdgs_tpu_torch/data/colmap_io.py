@@ -136,13 +136,19 @@ def read_images_binary(path: str) -> dict[int, ColmapImage]:
 
 
 def read_images_text(path: str) -> dict[int, ColmapImage]:
+    """COLMAP's ``images.txt``: after the comments, a header line and a
+    POINTS2D line for each image, the second empty for an image with no
+    observations (as COLMAP writes it). JAX's reader drops blank lines, so
+    such an image shifts the next header into its place and the read fails;
+    the port reads the lines in pairs."""
     out = {}
     with open(path) as f:
-        lines = [
-            line.strip() for line in f
-            if line.strip() and not line.startswith("#")
-        ]
+        lines = [line.strip() for line in f if not line.startswith("#")]
+    while lines and not lines[-1]:      # the file's trailing newline
+        lines.pop()
     for i in range(0, len(lines), 2):
+        if not lines[i]:
+            raise ValueError(f"{path}: an empty image header at data line {i + 1}")
         tok = lines[i].split()
         iid = int(tok[0])
         qvec = np.array(list(map(float, tok[1:5])))
@@ -153,7 +159,7 @@ def read_images_text(path: str) -> dict[int, ColmapImage]:
         xys = np.array(
             [list(map(float, pts[j:j + 2])) for j in range(0, len(pts), 3)]
         ).reshape(-1, 2)
-        ids = np.array([int(pts[j + 2]) for j in range(0, len(pts), 3)])
+        ids = np.array([int(pts[j + 2]) for j in range(0, len(pts), 3)], np.int64)
         out[iid] = ColmapImage(iid, qvec, tvec, cam_id, name, xys, ids)
     return out
 

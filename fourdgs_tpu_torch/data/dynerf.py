@@ -60,12 +60,11 @@ class ImageRef:
         with open(self.path, "rb") as f:
             magic = f.read(len(png.SIGNATURE))
         if magic == png.SIGNATURE:
-            img = png.read_png(self.path)
+            img = png.read_png(self.path, "RGB")
         elif magic.startswith(jpeg.SOI):
-            img = jpeg.read_jpeg(self.path)
+            img = png.convert(jpeg.read_jpeg(self.path), "RGB")
         else:
             raise ValueError(f"{self.path}: neither a PNG nor a JPEG file")
-        img = png.convert(img, "RGB")
         if (img.shape[1], img.shape[0]) != self.size:
             img = resample.resize(img, self.size, "lanczos")
         return img

@@ -165,5 +165,5 @@ def read_mask(path: str, width: int, height: int) -> np.ndarray:
     ``width`` × ``height`` view; a mask of another size is resized with
     BILINEAR in mode L, as JAX's ``train.py:193-194`` and ``render.py:42-43``
     resize it with Pillow."""
-    return resample.resize(png.convert(png.read_png(path), "L"), (width, height),
+    return resample.resize(png.read_png(path, "L"), (width, height),
                            "bilinear")

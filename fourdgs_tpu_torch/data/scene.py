@@ -23,6 +23,7 @@ from __future__ import annotations
 import os
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from fourdgs_tpu_torch.data import (blender, colmap, dynerf, hypernerf, multipleview,
@@ -55,10 +56,13 @@ def sniff_dataset_type(path: str) -> str:
     raise ValueError(f"could not recognize dataset type at {path!r}")
 
 
-def load_scene(cfg, path: str | None = None) -> SceneData:
+def load_scene(cfg, path: str | None = None,
+               rng: np.random.Generator | None = None) -> SceneData:
     """The scene at ``path`` (default ``cfg.model.source_path``). The
-    Blender loader's random init cloud is unseeded, as in JAX, and its
-    frames are resized to :data:`TARGET_SIZE`; the DyNeRF loader's lazy
+    Blender loader draws the random init cloud of a scene without a
+    ``fused.ply`` from ``rng`` (unseeded if None, as JAX always draws it;
+    :func:`build_scene` passes one seeded by its ``seed``), and resizes its
+    frames to :data:`TARGET_SIZE`; the DyNeRF loader's lazy
     frames to :data:`DYNERF_SIZE`, the HyperNeRF loader's to half the
     cameras' ``image_size`` and the others' to their cameras' size, as JAX
     resizes them with Pillow (``utils/resample.py``)."""
@@ -71,6 +75,7 @@ def load_scene(cfg, path: str | None = None) -> SceneData:
             eval_split=cfg.model.eval,
             extension=cfg.model.extension,
             target_size=TARGET_SIZE,
+            rng=rng,
         )
     if kind == "dynerf":
         return dynerf.load_dynerf_scene(path, cfg, target_wh=DYNERF_SIZE)
@@ -90,12 +95,14 @@ def build_scene(cfg, seed: int | torch.Generator = 0, path: str | None = None,
                 scene_data: SceneData | None = None, device="cuda") -> Scene:
     """Load (or accept) scene data and initialize the Gaussian state on
     ``device``, the deformation from ``seed`` (or a seed drawn from the
-    generator). The Instant4D grid pruning runs before ``create_from_pcd``
-    when enabled (scene/__init__.py:103-119); the AABB comes from the
-    (possibly pruned) cloud."""
+    generator) and a Blender scene's random init cloud from
+    ``np.random.default_rng(seed)``, so that one seed gives one cloud (JAX
+    draws that cloud unseeded). The Instant4D grid pruning runs before
+    ``create_from_pcd`` when enabled (scene/__init__.py:103-119); the AABB
+    comes from the (possibly pruned) cloud."""
     if isinstance(seed, torch.Generator):
         seed = int(torch.randint(0, 2**31 - 1, (), generator=seed))
-    data = scene_data or load_scene(cfg, path)
+    data = scene_data or load_scene(cfg, path, rng=np.random.default_rng(seed))
     extent = float(data.nerf_normalization["radius"])
     pcd = data.point_cloud
     if cfg.model.use_grid_pruning:

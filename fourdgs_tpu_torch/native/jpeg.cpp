@@ -1,4 +1,4 @@
-// Baseline JPEG decoder for the port's loaders: host C++, no libjpeg.
+// JPEG decoder for the port's loaders: host C++, no libjpeg.
 //
 // The JAX package decodes JPEG frames with Pillow (libjpeg-turbo); the
 // port depends on no Pillow, imageio, torchvision or libjpeg, so it keeps this
@@ -6,11 +6,23 @@
 // ctypes). It follows libjpeg's default decompression path step for step,
 // so that its output equals Pillow's:
 //
-// - Huffman-coded sequential DCT (SOF0 baseline, SOF1 extended), 8-bit
-//   samples, 1 or 3 components, sampling factors 1 or 2 in each direction
-//   (4:4:4, 4:2:2, 4:2:0, 4:4:0), interleaved or one scan per component,
-//   8- or 16-bit quantization tables, restart intervals (DRI / RSTn), any
-//   width and height;
+// - Huffman-coded sequential DCT (SOF0 baseline, SOF1 extended) and
+//   progressive DCT (SOF2), 8-bit samples, 1 or 3 components, sampling
+//   factors 1 or 2 in each direction (4:4:4, 4:2:2, 4:2:0, 4:4:0),
+//   interleaved or one scan per component, 8- or 16-bit quantization
+//   tables, tables redefined between scans, restart intervals (DRI / RSTn),
+//   any width and height. A component's quantization table is latched at
+//   its first scan (jdinput.c);
+// - progressive scans as jdphuff.c decodes them into a whole-image
+//   coefficient buffer: DC first and refine scans (interleaved or not), AC
+//   first and refine scans of one component over its own blocks, with
+//   spectral selection, successive approximation and end-of-band runs
+//   (EOBRUN, reset at each RSTn). libjpeg smooths the blocks of a
+//   progressive file whose scans leave a low-frequency coefficient
+//   (natural positions 1-9) unrefined (jdcoefct.c, smoothing_ok,
+//   decompress_smooth_data); that smoothing is not ported, so such a file
+//   fails with kind 2 and its cause named, instead of differing from
+//   Pillow's output;
 // - the "islow" integer IDCT (jidctint.c) with libjpeg's post-IDCT range
 //   limit table (jdmaster.c);
 // - "fancy" chroma upsampling (jdsample.c): the triangle filter for 2h2v
@@ -21,9 +33,9 @@
 //   an Adobe file with transform 0 (or component ids 'R', 'G', 'B') RGB.
 //
 // Outside that scope it fails with kind 2 (utils/jpeg.py raises
-// NotImplementedError naming the feature): progressive, lossless,
-// hierarchical and arithmetic-coded files, 12-bit samples, 2 or 4
-// components, sampling factors above 2. A truncated or corrupt file fails
+// NotImplementedError naming the feature): lossless, hierarchical and
+// arithmetic-coded files, 12-bit samples, 2 or 4 components, sampling
+// factors above 2, progressive files that libjpeg would smooth. A truncated or corrupt file fails
 // with kind 1 (ValueError): no missing data is filled in; so does an image
 // of more pixels than Pillow opens, and a Huffman table whose codes do not
 // fit their lengths.
@@ -113,6 +125,9 @@ struct Component {
   int dw = 0, dh = 0;   // downsampled width / height in samples
   int pred = 0;         // DC predictor
   bool scanned = false;
+  bool latched = false;  // q copied from its table at the first scan
+  uint16_t q[64];        // natural order
+  int coef_bits[64];     // progressive: each coefficient's last Al, -1 before its first scan
   std::vector<int16_t> coef;   // bh * bw blocks of 64, natural order
   std::vector<uint8_t> plane;  // (bh * 8) rows of (bw * 8) samples
 };
@@ -125,7 +140,9 @@ struct Decoder {
   Huffman dc[4], ac[4];
   int width = 0, height = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   int restart_interval = 0;
-  bool frame = false, jfif = false, adobe = false;
+  bool frame = false, progressive = false, jfif = false, adobe = false;
+  int ss = 0, se = 63, ah = 0, al = 0;  // the current scan's band and bit positions
+  int eobrun = 0;                       // progressive AC: blocks left in an end-of-band run
   int adobe_transform = -1;
   std::vector<Component> comps;
 
@@ -251,8 +268,9 @@ struct Decoder {
     if (len != 0) corrupt("bad DHT segment length");
   }
 
-  void read_sof() {
+  void read_sof(bool is_progressive) {
     if (frame) corrupt("more than one frame header");
+    progressive = is_progressive;
     int len = u16();
     int precision = byte();
     if (precision != 8)
@@ -288,6 +306,7 @@ struct Decoder {
     mcux = (width + 8 * hmax - 1) / (8 * hmax);
     mcuy = (height + 8 * vmax - 1) / (8 * vmax);
     for (auto& c : comps) {
+      std::fill(c.coef_bits, c.coef_bits + 64, -1);
       c.bw = mcux * c.h;
       c.bh = mcuy * c.v;
       c.dw = (width * c.h + hmax - 1) / hmax;
@@ -355,6 +374,104 @@ struct Decoder {
     }
   }
 
+  // -- progressive scans (jdphuff.c) ----------------------------------------
+  void decode_dc_first(Component& c, int16_t* blk) {
+    int s = decode(dc[c.td]);
+    if (s > 16) corrupt("corrupt data: bad DC magnitude");
+    int diff = s ? extend(bits(s), s) : 0;
+    c.pred += diff;
+    blk[0] = int16_t(c.pred * (1 << al));
+  }
+
+  void decode_dc_refine(Component&, int16_t* blk) {
+    if (bits(1)) blk[0] = int16_t(blk[0] | (1 << al));
+  }
+
+  void decode_ac_first(Component& c, int16_t* blk) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    const Huffman& ha = ac[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      int rs = decode(ha);
+      int r = rs >> 4, sz = rs & 15;
+      if (sz) {
+        k += r;
+        if (k > se) corrupt("corrupt data: AC run past the band's end");
+        blk[kNatural[k]] = int16_t(extend(bits(sz), sz) * (1 << al));
+      } else if (r == 15) {
+        k += 15;  // ZRL
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += bits(r);
+        --eobrun;  // this block ends the band
+        break;
+      }
+    }
+  }
+
+  // a nonzero coefficient's correction bit: its magnitude gains p1
+  void refine(int16_t& coef, int p1) {
+    if (bits(1) && (coef & p1) == 0) coef = int16_t(coef >= 0 ? coef + p1 : coef - p1);
+  }
+
+  void decode_ac_refine(Component& c, int16_t* blk) {
+    const int p1 = 1 << al;
+    int k = ss;
+    if (eobrun == 0) {
+      const Huffman& ha = ac[c.ta];
+      for (; k <= se; ++k) {
+        int rs = decode(ha);
+        int r = rs >> 4, sz = rs & 15;
+        int value = 0;
+        if (sz) {  // a newly nonzero coefficient, +-p1 (libjpeg takes any size as 1)
+          value = bits(1) ? p1 : -p1;
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += bits(r);
+          break;
+        }
+        // skip r zero coefficients, refining the nonzero ones on the way
+        for (; k <= se; ++k) {
+          int16_t& coef = blk[kNatural[k]];
+          if (coef != 0) {
+            refine(coef, p1);
+          } else if (--r < 0) {
+            break;
+          }
+        }
+        if (value) {
+          if (k > se) corrupt("corrupt data: AC run past the band's end");
+          blk[kNatural[k]] = int16_t(value);
+        }
+      }
+    }
+    if (eobrun > 0) {  // the rest of the band refines its nonzero coefficients
+      for (; k <= se; ++k) {
+        int16_t& coef = blk[kNatural[k]];
+        if (coef != 0) refine(coef, p1);
+      }
+      --eobrun;
+    }
+  }
+
+  // the scan header's band for a progressive frame, checked as libjpeg
+  // checks it (jdphuff.c, start_pass_phuff_decoder), and each coefficient's
+  // bit position recorded
+  void start_progressive_scan(const std::vector<Component*>& sc) {
+    bool dc_band = ss == 0;
+    bool bad = dc_band ? se != 0 : (ss > se || se > 63 || sc.size() != 1);
+    if (ah != 0 && al != ah - 1) bad = true;
+    if (al > 13) bad = true;
+    if (bad) corrupt("bad progression parameters in a scan header");
+    for (auto* c : sc) {
+      for (int k = ss; k <= se; ++k) c->coef_bits[k] = al;
+      if (dc_band ? ah == 0 && !dc[c->td].present : !ac[c->ta].present)
+        corrupt("a scan uses an undefined Huffman table");
+    }
+  }
+
   void read_sos() {
     if (!frame) corrupt("a scan before the frame header");
     int len = u16();
@@ -370,19 +487,45 @@ struct Decoder {
       found->td = t >> 4;
       found->ta = t & 15;
       if (found->td > 3 || found->ta > 3) corrupt("bad SOS table ids");
-      if (!dc[found->td].present || !ac[found->ta].present)
+      if (!progressive && (!dc[found->td].present || !ac[found->ta].present))
         corrupt("a scan uses an undefined Huffman table");
       if (!qset[found->tq]) corrupt("a component uses an undefined quantization table");
       sc.push_back(found);
     }
-    int ss = byte(), se = byte(), ahal = byte();
-    if (ss != 0 || se != 63 || ahal != 0) corrupt("bad spectral selection for a sequential scan");
+    ss = byte();
+    se = byte();
+    int ahal = byte();
+    ah = ahal >> 4;
+    al = ahal & 15;
+    if (progressive) {
+      start_progressive_scan(sc);
+    } else if (ss != 0 || se != 63 || ahal != 0) {
+      corrupt("bad spectral selection for a sequential scan");
+    }
     for (auto* c : sc) {
       c->pred = 0;
       c->scanned = true;
+      if (!c->latched) std::memcpy(c->q, qt[c->tq], sizeof(c->q));
+      c->latched = true;
     }
     reset_bits();
+    eobrun = 0;
+#define JD_SCAN(fn) scan_blocks(sc, [this](Component& c, int16_t* blk) { fn(c, blk); })
+    if (!progressive) JD_SCAN(decode_block);
+    else if (ss == 0 && ah == 0) JD_SCAN(decode_dc_first);
+    else if (ss == 0) JD_SCAN(decode_dc_refine);
+    else if (ah == 0) JD_SCAN(decode_ac_first);
+    else JD_SCAN(decode_ac_refine);
+#undef JD_SCAN
+    reset_bits();
+  }
 
+  // the scan's MCUs in order, each block decoded by `block_fn` (a lambda,
+  // so each block decoder gets a loop of its own), with the restart markers
+  // between intervals
+  template <typename BlockFn>
+  void scan_blocks(const std::vector<Component*>& sc, BlockFn block_fn) {
+    const int ns = int(sc.size());
     int units_x, units_y;
     if (ns == 1) {  // non-interleaved: one block per MCU over the real blocks
       units_x = (sc[0]->dw + 7) / 8;
@@ -400,23 +543,23 @@ struct Decoder {
         if (code != 0xD0 + next_rst) corrupt("corrupt data: a restart marker is missing");
         next_rst = (next_rst + 1) & 7;
         for (auto* c : sc) c->pred = 0;
+        eobrun = 0;
       }
       int my = m / units_x, mx = m % units_x;
       if (ns == 1) {
         Component& c = *sc[0];
-        decode_block(c, &c.coef[(size_t(my) * c.bw + mx) * 64]);
+        block_fn(c, &c.coef[(size_t(my) * c.bw + mx) * 64]);
       } else {
         for (auto* cp : sc) {
           Component& c = *cp;
           for (int v = 0; v < c.v; ++v)
             for (int h = 0; h < c.h; ++h) {
               size_t by = size_t(my) * c.v + v, bx = size_t(mx) * c.h + h;
-              decode_block(c, &c.coef[(by * c.bw + bx) * 64]);
+              block_fn(c, &c.coef[(by * c.bw + bx) * 64]);
             }
         }
       }
     }
-    reset_bits();
   }
 
   void parse(bool headers_only) {
@@ -431,11 +574,11 @@ struct Decoder {
       switch (m) {
         case 0xC0:
         case 0xC1:
-          read_sof();
+        case 0xC2:
+          read_sof(m == 0xC2);
           if (headers_only) return;
           allocate();
           break;
-        case 0xC2: unsupported("progressive JPEG (SOF2)");
         case 0xC3: unsupported("lossless JPEG (SOF3)");
         case 0xC5:
         case 0xC6:
@@ -461,6 +604,10 @@ struct Decoder {
           if (!frame) corrupt("no frame header before EOI");
           for (auto& c : comps)
             if (!c.scanned) corrupt("truncated file (a component has no scan)");
+          if (progressive && would_smooth())
+            unsupported("a progressive JPEG whose scans leave a low-frequency AC "
+                        "coefficient unrefined (libjpeg smooths such blocks; its "
+                        "block smoothing is not ported)");
           return;
         }
         case 0xD8: corrupt("a second SOI marker");
@@ -476,6 +623,21 @@ struct Decoder {
           }
       }
     }
+  }
+
+  // jdcoefct.c's smoothing_ok (libjpeg-turbo 3, SAVED_COEFS 10): whether
+  // libjpeg's output pass would smooth the blocks
+  bool would_smooth() const {
+    static const int kSaved[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};  // Q00, Q01, Q10, ...
+    bool useful = false;
+    for (const auto& c : comps) {
+      for (int pos : kSaved)
+        if (c.q[pos] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; ++k)
+        if (c.coef_bits[k] != 0) useful = true;
+    }
+    return useful;
   }
 
   // -- reconstruction -------------------------------------------------------
@@ -653,7 +815,7 @@ struct Decoder {
     for (auto& c : comps) {
       const int stride = c.bw * 8;
       c.plane.assign(size_t(stride) * c.bh * 8, 0);
-      const uint16_t* q = qt[c.tq];
+      const uint16_t* q = c.q;
       for (int by = 0; by < c.bh; ++by)
         for (int bx = 0; bx < c.bw; ++bx)
           idct_islow(&c.coef[(size_t(by) * c.bw + bx) * 64], q,

@@ -150,13 +150,17 @@ def payload_table(pre: PreprocessOut, opac: torch.Tensor, means2d: torch.Tensor,
     return table.to(torch.bfloat16) if payload_bf16 else table
 
 
-def slab_rects(tile_min: torch.Tensor, tile_max: torch.Tensor,
+def slab_rects(tile_min: torch.Tensor, tile_max: torch.Tensor, tiles_touched: torch.Tensor,
                tile_row_offset: int, tile_rows: int, tile_row_stride: int):
     """The rects clipped to a slab's rows ``offset + j·stride``, j in
     [0, ``tile_rows``), in local ``j`` coordinates, and their new
     ``tiles_touched`` (``rasterize.py:291-321``): j covers the global rows
     in [tmin_y, tmax_y) from ⌈(tmin_y − offset)/stride⌉ to
-    ⌈(tmax_y − offset)/stride⌉, clipped to the slab."""
+    ⌈(tmax_y − offset)/stride⌉, clipped to the slab. A row whose incoming
+    ``tiles_touched`` is 0 (dead, transparent or off screen: ``preprocess``'s
+    gate) stays at 0, as the whole-image path leaves it; JAX's clip
+    recounts it from the rect and bins it (a fault the port does not
+    copy)."""
     off, s = int(tile_row_offset), int(tile_row_stride)
 
     def local(y):
@@ -167,8 +171,8 @@ def slab_rects(tile_min: torch.Tensor, tile_max: torch.Tensor,
     tile_min = torch.stack([tile_min[:, 0], tmin_y], dim=-1)
     tile_max = torch.stack([tile_max[:, 0], tmax_y], dim=-1)
     tiles_touched = torch.where(
-        tmax_y > tmin_y, (tile_max[:, 0] - tile_min[:, 0]) * (tmax_y - tmin_y),
-        0).to(torch.int32)
+        (tmax_y > tmin_y) & (tiles_touched > 0),
+        (tile_max[:, 0] - tile_min[:, 0]) * (tmax_y - tmin_y), 0).to(torch.int32)
     return tile_min, tile_max, tiles_touched
 
 
@@ -192,7 +196,7 @@ def table_inputs(
     K = -(-instance_budget // C.CHUNK) * C.CHUNK
     if tile_rows is not None:
         tile_min, tile_max, tiles_touched = slab_rects(
-            tile_min, tile_max, tile_row_offset, tile_rows, tile_row_stride)
+            tile_min, tile_max, tiles_touched, tile_row_offset, tile_rows, tile_row_stride)
         grid_y = tile_rows
     cull_kw = {}
     if means2d is not None and lam_min is not None:

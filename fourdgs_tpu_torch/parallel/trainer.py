@@ -22,9 +22,11 @@ rows weighted B_local/(B·M)), takes the gradient of that share, and the
 gradients are summed over the grid: the per-Gaussian leaves over ``data``
 alone under ``shard_primitives`` (the reduce-scatter already summed
 ``model``), every other leaf over both axes. Adam then runs on every rank
-from the same gradients, so the state stays identical on every rank. Like
-JAX's, this step does not sanitize the gradients (the single-device step
-does, ``train/loop.py::sanitize_grads``).
+from the same gradients, so the state stays identical on every rank. With
+``cfg.tpu.sanitize_grads`` (the default) the summed gradients pass through
+``train/loop.py::sanitize_grads`` first, as in the single-device step; JAX's
+sharded step skips that (a difference inside the reference the port does
+not copy), so there a non-finite gradient reaches Adam.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from fourdgs_tpu_torch.parallel.collectives import all_gather, broadcast_, pmax,
 from fourdgs_tpu_torch.parallel.mesh import Mesh
 from fourdgs_tpu_torch.render import CameraArrays, activated_gaussians
 from fourdgs_tpu_torch.train import adam
+from fourdgs_tpu_torch.train.loop import sanitize_grads
 from fourdgs_tpu_torch.utils import losses
 
 # Per-Gaussian parameter leaves ([P, ...], shardable on 'model'); "deform"
@@ -170,6 +173,14 @@ def unshard_primitives(mesh: Mesh, params_or_moments: dict) -> dict:
         out.update({k: v.contiguous() for k, v in
                     _gather_prims(mesh, params_or_moments).items()})
     return out
+
+
+def flag_from_first_rank(mesh: Mesh, flag: bool, device) -> bool:
+    """The grid's first rank's ``flag`` on every rank of the grid (a
+    broadcast over it; every rank calls it, the others' ``flag`` unread)."""
+    t = torch.tensor([int(flag)], dtype=torch.int32, device=device)
+    broadcast_([t], mesh.world, src=mesh.world_ranks[0])
+    return bool(t.item())
 
 
 def shard_adam(mesh: Mesh, adam_state: adam.AdamState) -> adam.AdamState:
@@ -343,6 +354,8 @@ def make_sharded_train_step(cfg, mesh: Mesh, width: int, height: int, stage: str
                        + [dxyz, psnr_d.reshape(1)], mesh.data)
         *prim_g, dxyz, psnr = by_data
         g_leaves = prim_g + by_world if shard_prim else by_world
+        if cfg.tpu.sanitize_grads:
+            g_leaves = sanitize_grads(g_leaves)
         radii = pmax(radii_l.amax(dim=0), mesh.data)
         nrend, tlen = pmax(torch.stack([nrend.to(torch.int64), tlen.to(torch.int64)]),
                            mesh.world)

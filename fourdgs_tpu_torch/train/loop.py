@@ -385,8 +385,13 @@ def scene_reconstruction(
     The grid's first rank alone writes files (debug panels, progress frames,
     the NaN snapshot); the caller gives it alone a ``viewer`` and an
     ``event_log``. A ``gradient_tracker`` under a mesh raises ``ValueError``,
-    as in JAX, and so does a viewer whose renders would need the sharded
-    primitives gathered (``shard_primitives`` with ``model`` > 1).
+    as in JAX. Under ``shard_primitives`` with ``model`` > 1 the viewer's
+    frames need the whole primitive set, which JAX's one controller sees:
+    every rank learns at the stage's start whether the first rank serves a
+    viewer, and if it does, the first rank broadcasts a flag before each
+    frame it serves (its ``model`` group then gathers the primitives, and it
+    renders them) and a last one when the poll ends, so that every rank
+    joins each gather in the same iteration.
     """
     dev = resolve_device(device)
     if not train_cameras:
@@ -402,9 +407,6 @@ def scene_reconstruction(
             raise ValueError("gradient tracking is not supported under a mesh; run "
                              "the tracker on a single-device stage")
         shard_prim = bool(cfg.tpu.shard_primitives)
-        if viewer is not None and shard_prim and mesh.shape["model"] > 1:
-            raise ValueError("the viewer under a mesh needs the primitives "
-                             "replicated (shard_primitives is on)")
         is_main = mesh.rank == 0
         state = ptrainer.replicate(mesh, state)
         adam_state = ptrainer.replicate(mesh, adam_state)
@@ -432,6 +434,10 @@ def scene_reconstruction(
         if shard_prim:
             return ptrainer.unshard_primitives(mesh, state.params)
         return state.params
+
+    # whether the viewer's frames gather the sharded primitives (see above)
+    viewer_gathers = (shard_prim and mesh.shape["model"] > 1
+                      and ptrainer.flag_from_first_rank(mesh, viewer is not None, dev))
     opt = cfg.opt
     max_sh = cfg.model.sh_degree if max_sh_degree is None else max_sh_degree
     img0 = train_cameras[0][1]
@@ -555,9 +561,28 @@ def scene_reconstruction(
         return out.color.cpu().numpy(), out.depth.cpu().numpy()
 
     def viewer_render(vcam) -> np.ndarray:
-        """The viewer's camera by the current state (loop.py:575-580)."""
+        """The viewer's camera by the current state (loop.py:575-580), the
+        sharded primitives gathered first where they are."""
+        params = None
+        if viewer_gathers:
+            ptrainer.flag_from_first_rank(mesh, True, dev)
+            params = whole_params()
         return aux_render(CameraArrays.from_camera(vcam, device=dev),
-                          vcam.width, vcam.height)[0]
+                          vcam.width, vcam.height, params)[0]
+
+    def viewer_poll() -> None:
+        """The viewer's poll on the first rank; under ``viewer_gathers`` the
+        other ranks join each of its gathers until the poll's last flag."""
+        if viewer is not None:
+            viewer.poll(viewer_render, source_path, training_done=iteration == train_iter)
+        if not viewer_gathers:
+            return
+        if viewer is not None:
+            ptrainer.flag_from_first_rank(mesh, False, dev)
+            return
+        while ptrainer.flag_from_first_rank(mesh, False, dev):
+            if mesh.d == 0:      # the first rank's model group
+                whole_params()
 
     def gt_np(i: int) -> np.ndarray:
         """Camera ``i``'s GT as float CHW, as JAX's ``_gt_np`` (loop.py:535-539)."""
@@ -570,8 +595,7 @@ def scene_reconstruction(
     iteration = 0
     while iteration < train_iter:
         iteration += 1
-        if viewer is not None:
-            viewer.poll(viewer_render, source_path, training_done=iteration == train_iter)
+        viewer_poll()
         if timer:
             timer.start_iteration(iteration)
             timer.start_timer(f"{stage}_data_loading")

@@ -1,4 +1,4 @@
-"""Baseline-JPEG reader over the port's native decoder (``native/jpeg.cpp``).
+"""JPEG reader over the port's native decoder (``native/jpeg.cpp``).
 
 The JAX package reads JPEG frames with Pillow (``data/dynerf.py::ImageRef``
 for the MultipleView, Panoptic and COLMAP loaders); the port depends on no
@@ -8,15 +8,18 @@ decoder is host C++ that links no JPEG library, built at first use with
 native build helper (``utils/native.py::build``, keyed by a hash of source
 and flags) and loaded with ``ctypes``.
 
-Scope: Huffman-coded sequential files (SOF0, SOF1) of 8-bit samples, 1 or 3
-components, sampling factors up to 2×2, 8- or 16-bit quantization tables,
-restart intervals, any size. It follows libjpeg's default path (the islow
-IDCT, fancy upsampling, the fixed-point YCbCr→RGB tables), so its frames
-equal Pillow's. Progressive, lossless, hierarchical and arithmetic-coded
-files, 12-bit samples and CMYK/YCCK raise ``NotImplementedError`` naming the
-feature; a truncated or corrupt file raises ``ValueError``, and so does a
-frame header of more pixels than Pillow opens (178,956,970), before anything
-of the image's size is allocated.
+Scope: Huffman-coded sequential (SOF0, SOF1) and progressive (SOF2) files of
+8-bit samples, 1 or 3 components, sampling factors up to 2×2, 8- or 16-bit
+quantization tables, restart intervals, any size. It follows libjpeg's
+default path (the islow IDCT, fancy upsampling, the fixed-point YCbCr→RGB
+tables), so its frames equal Pillow's bit for bit. Lossless, hierarchical
+and arithmetic-coded files, 12-bit samples, CMYK/YCCK, sampling factors
+above 2, and a progressive file whose scans leave a low-frequency
+coefficient unrefined (libjpeg smooths its blocks, which the decoder does
+not) raise ``NotImplementedError`` naming the feature; a truncated or
+corrupt file raises ``ValueError``, and so does a frame header of more
+pixels than Pillow opens (178,956,970), before anything of the image's size
+is allocated.
 """
 
 from __future__ import annotations

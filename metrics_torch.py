@@ -111,7 +111,7 @@ def read_images(d: str, mode: str = "RGB") -> list[np.ndarray]:
     Pillow's ``convert``)."""
     from fourdgs_tpu_torch.utils import png
 
-    return [png.convert(png.read_png(os.path.join(d, name)), mode).astype(np.float32)
+    return [png.read_png(os.path.join(d, name), mode).astype(np.float32)
             / 255.0 for name in sorted(os.listdir(d)) if name.endswith(".png")]
 
 

@@ -86,8 +86,8 @@ def assert_same_model(got, want):
 @pytest.mark.parametrize("writer,reader", [(JIO, TIO), (TIO, JIO), (TIO, TIO)],
                          ids=["jax_to_port", "port_to_jax", "port_round_trip"])
 def test_model_io(tmp_path, ext, writer, reader):
-    # the text readers drop an image's empty POINTS2D line (ROADMAP Queue 3;
-    # test_text_reader_drops_an_empty_observation_line): text models here
+    # JAX's text reader drops an image's empty POINTS2D line
+    # (test_text_reader_drops_an_empty_observation_line): text models here
     # give every image an observation
     model = random_model(np.random.default_rng(0), writer, empty_image=ext == ".bin")
     writer.write_model(*model, str(tmp_path), ext=ext)
@@ -105,12 +105,29 @@ def test_model_io(tmp_path, ext, writer, reader):
 def test_text_reader_drops_an_empty_observation_line(tmp_path):
     """JAX's ``read_images_text`` skips blank lines, so the empty POINTS2D
     line of an image without observations shifts the next image's header
-    into it; the port's copy fails the same way."""
-    model = random_model(np.random.default_rng(0))
-    JIO.write_model(*model, str(tmp_path), ext=".txt")
-    for io in (JIO, TIO):
+    into it and the read fails. The port reads header and observation lines
+    in pairs (a fault of the reference it no longer copies): the image reads
+    with zero observations, the others as written, also when the image
+    without observations comes last. Where no line is empty, both readers
+    agree."""
+    for empty_id in (2, 5):
+        model = random_model(np.random.default_rng(0))
+        cams, imgs, pts = model
+        imgs = {iid: im._replace(xys=im.xys[:0], point3d_ids=im.point3d_ids[:0])
+                if iid == empty_id else im._replace(xys=im.xys[:4], point3d_ids=im.point3d_ids[:4])
+                for iid, im in imgs.items()}
+        out = tmp_path / str(empty_id)
+        JIO.write_model(cams, imgs, pts, str(out), ext=".txt")
+        path = str(out / "images.txt")
         with pytest.raises(ValueError, match="could not convert string to float"):
-            io.read_images_text(str(tmp_path / "images.txt"))
+            JIO.read_images_text(path)
+        got = TIO.read_images_text(path)
+        assert got[empty_id].xys.shape == (0, 2) and got[empty_id].point3d_ids.shape == (0,)
+        assert_same_model((got,), (imgs,))
+    full = random_model(np.random.default_rng(1), empty_image=False)
+    JIO.write_model(*full, str(tmp_path / "full"), ext=".txt")
+    path = str(tmp_path / "full" / "images.txt")
+    assert_same_model((TIO.read_images_text(path),), (JIO.read_images_text(path),))
 
 
 def test_quaternions():

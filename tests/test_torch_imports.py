@@ -9,11 +9,13 @@ library the card's host lacks, CUDA by default.
 - an AST scan finds no such import in the package or those scripts, nor in
   the CLIs (``train_torch.py``, ``render_torch.py``, ``metrics_torch.py``,
   ``export_perframe_3DGS_torch.py``, ``merge_many_4dgs_torch.py``,
-  ``full_eval_torch.py``),
+  ``full_eval_torch.py``, ``verify_improvements_torch.py``,
+  ``convert_torch.py``),
   lazy imports inside functions included (JAX's ``debug_images.py`` and
   ``ImageRef`` import Pillow there, which only the card would find);
 - the native libraries build without a JPEG library (no ``-ljpeg``), the
   resampler with no library at all;
+- the shell drivers call only the port's entry points and scripts;
 - with CUDA absent, each entry point raises unless asked for the CPU;
 - the port's constants equal the JAX package's.
 """
@@ -52,7 +54,12 @@ PREP_SCRIPTS = ("blender2colmap", "colmap_converter", "hypernerf2colmap", "llff2
                 "database", "read_all_metrics", "analyze_gradients", "plot_events",
                 "visualize_timing", "render_oracle_gt")
 CLIS = ("train_torch.py", "render_torch.py", "metrics_torch.py",
-        "export_perframe_3DGS_torch.py", "merge_many_4dgs_torch.py", "full_eval_torch.py")
+        "export_perframe_3DGS_torch.py", "merge_many_4dgs_torch.py", "full_eval_torch.py",
+        "verify_improvements_torch.py", "convert_torch.py")
+# the capture and ablation drivers (shell)
+DRIVERS = ("colmap_torch.sh", "multipleviewprogress_torch.sh",
+           "fourdgs_tpu_torch/scripts/run_instant4d.sh",
+           "fourdgs_tpu_torch/scripts/debug_test.sh")
 
 
 def _is_forbidden(name: str) -> bool:
@@ -69,6 +76,7 @@ def test_import_graph_has_no_jax():
         "import bench_quality_torch, bench_quality_dynerf_torch\n"
         "import train_torch, render_torch, metrics_torch\n"
         "import export_perframe_3DGS_torch, merge_many_4dgs_torch, full_eval_torch\n"
+        "import verify_improvements_torch, convert_torch\n"
         "bad = sorted(m for m in sys.modules "
         f"if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print('BAD', bad)\n"
@@ -89,8 +97,29 @@ def test_import_graph_has_no_jax():
     # the sharded trainer and its scripts
     for name in ("mesh", "collectives", "trainer", "multihost", "launch"):
         assert f"fourdgs_tpu_torch.parallel.{name}" in mods, name
-    for name in ("multihost_smoke", "measure_scaling", "measure_multihost"):
+    for name in ("multihost_smoke", "measure_scaling", "measure_multihost",
+                 "gradient_from_checkpoint"):
         assert f"fourdgs_tpu_torch.scripts.{name}" in mods, name
+
+
+def test_drivers_call_only_the_port():
+    """The shell drivers run the port's entry points and scripts: no JAX
+    CLI (``train.py``, ``render.py``, ``metrics.py``) and no ``python
+    scripts/<name>.py``; each ``python -m`` names a port module that
+    exists."""
+    import re
+
+    for rel in DRIVERS:
+        text = "\n".join(line for line in (ROOT / rel).read_text().splitlines()
+                         if not line.lstrip().startswith("#"))
+        calls = re.findall(r"^\s*python3? (\S+)", text, re.M)
+        assert calls, rel
+        for target in calls:
+            assert target in ("-", "-m") or target.endswith("_torch.py"), (rel, target)
+        assert "python scripts/" not in text, rel
+        for module in re.findall(r"python3? -m (\S+)", text):
+            module = module.replace('"${datatype}"', "blender")
+            assert (ROOT / (module.replace(".", "/") + ".py")).is_file(), (rel, module)
 
 
 def test_ast_scan_has_no_jax_imports():
@@ -222,6 +251,14 @@ def test_entry_points_default_to_cuda():
     for run in (measure_scaling.run, measure_multihost.run):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             run()
+    import verify_improvements_torch
+    from fourdgs_tpu_torch.scripts import gradient_from_checkpoint
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        gradient_from_checkpoint.main(["--checkpoint", "/nonexistent/chkpnt_fine_1",
+                                       "-s", "/nonexistent"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        verify_improvements_torch.main([])
     for probe in grid_cost.PROBES:
         if probe.fn is grid_cost.while_ones:   # runs where its counts lie
             continue

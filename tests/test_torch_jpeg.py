@@ -1,4 +1,4 @@
-"""The port's baseline-JPEG decoder (``utils/jpeg.py`` over
+"""The port's JPEG decoder (``utils/jpeg.py`` over
 ``native/jpeg.cpp``, built here with ``g++``) against Pillow.
 
 Tolerance, against ``np.asarray(PIL.Image.open(path))``: at most 2 levels
@@ -15,7 +15,9 @@ match exactly.
   129×97; grey; restart intervals (``restart_marker_blocks``,
   ``restart_marker_rows``); Huffman tables optimised; 16-bit quantization
   tables (SOF1); an Adobe RGB file.
-- Progressive and CMYK files raise ``NotImplementedError``; truncated ones
+- Lossless, hierarchical, arithmetic-coded and CMYK files raise
+  ``NotImplementedError`` (progressive ones decode, held to Pillow in
+  ``tests/test_torch_progressive.py``); truncated ones
   ``ValueError``, and so do a Huffman table whose codes do not fit their
   lengths and a frame header of more pixels than Pillow opens, as Pillow
   raises on them.
@@ -108,11 +110,16 @@ def test_grey(tmp_path, size):
     check_against_pillow(path)
 
 
-def test_out_of_scope_raises(tmp_path):
+@pytest.mark.parametrize("marker,feature", [(0xC3, "lossless"), (0xC5, "hierarchical"),
+                                            (0xC9, "arithmetic")])
+def test_out_of_scope_raises(tmp_path, marker, feature):
+    """Lossless, hierarchical, arithmetic-coded (a baseline file's SOF0
+    renamed) and CMYK files raise ``NotImplementedError`` naming the
+    feature; progressive files decode (``tests/test_torch_progressive.py``)."""
+    path = _patched(tmp_path, 0xC0, lambda seg: b"\xff" + bytes([marker]) + seg[2:])
+    with pytest.raises(NotImplementedError, match=feature):
+        jpeg.read_jpeg(str(path))
     img = Image.fromarray(make_image(40, 30))
-    img.save(tmp_path / "p.jpg", progressive=True)
-    with pytest.raises(NotImplementedError, match="progressive"):
-        jpeg.read_jpeg(str(tmp_path / "p.jpg"))
     img.convert("CMYK").save(tmp_path / "c.jpg")
     with pytest.raises(NotImplementedError, match="CMYK"):
         jpeg.read_jpeg(str(tmp_path / "c.jpg"))

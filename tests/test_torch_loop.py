@@ -298,18 +298,17 @@ def test_unported_options_raise(option, tmp_path):
 
 def _one_rank_mesh_matches_single_device(cfg, cams):
     """The coarse stage on a 1×1 mesh of a one-rank CPU gloo world against
-    the same stage without a mesh. Through iteration 3 (the first densify,
-    capacity growth and budget growth included): equal alive sets and point
-    counts, the parameters and first moments within
-    ``tests/test_parallel.py:146-176``'s tolerances (rtol 2e-4; atol 2e-6
-    and 5e-5). The whole schedule (densify, prune, capacity growth, opacity
-    reset): the same gates, counts and alive sets; the values part from
-    iteration 4 on, because the slab's rect clip bins the Gaussians the
-    densify left dead (JAX's ``rasterize.py:314-319``, copied; ROADMAP
-    Queue 3; ``tests/test_torch_parallel.py::test_slab_clip_renders_dead_gaussians_as_jax``),
-    so the sharded step renders them and the single-device step does not.
-    Its mark: after the opacity reset zeroes every opacity moment, the dead
-    rows' opacity moments stay 0 without the mesh and move under it."""
+    the same stage without a mesh, through iteration 3 (the first densify,
+    capacity growth and budget growth included) and through the whole
+    schedule (densify, prune, capacity growth, opacity reset): the same
+    gates, demands, counts and alive sets, the parameters and first moments
+    within ``tests/test_parallel.py:146-176``'s tolerances (rtol 2e-4; atol
+    2e-6 and 5e-5). The slab's rect clip leaves the Gaussians a densify left
+    dead unbinned, as the single-device path does (JAX's
+    ``rasterize.py:314-319`` bins them, a fault the port does not copy;
+    ``tests/test_torch_parallel.py::test_slab_clip_renders_dead_gaussians_as_jax``):
+    after the opacity reset zeroes every opacity moment, the dead rows'
+    opacity moments stay 0 with the mesh as without it."""
     from fourdgs_tpu_torch.parallel import multihost
     from fourdgs_tpu_torch.parallel.mesh import make_mesh
 
@@ -328,27 +327,22 @@ def _one_rank_mesh_matches_single_device(cfg, cams):
         multihost.shutdown()
     for (s1, a1, log1), (sm, am, logm) in zip(single, meshed):
         np.testing.assert_array_equal(sm.alive.numpy(), s1.alive.numpy())
-        assert ([r["n_points"] for r in logm.iterations]
-                == [r["n_points"] for r in log1.iterations])
-        # the gates at the same iterations (a slab's demand also counts the
-        # rects of dead and culled Gaussians, as JAX's rect clip does, so the
-        # budget events carry other demands)
-        assert ([(e["iter"], e["kind"]) for e in logm.events]
-                == [(e["iter"], e["kind"]) for e in log1.events])
+        for k in ("n_points", "num_rendered"):
+            assert [r[k] for r in logm.iterations] == [r[k] for r in log1.iterations], k
+        assert logm.events == log1.events
+        for k in tloop.G.PRIMITIVE_KEYS:
+            np.testing.assert_allclose(sm.params[k].detach().numpy(),
+                                       s1.params[k].detach().numpy(), rtol=2e-4, atol=2e-6,
+                                       err_msg=k)
+            np.testing.assert_allclose(am.mu[k].numpy(), a1.mu[k].numpy(), rtol=2e-4,
+                                       atol=5e-5, err_msg=k)
     assert {"densify", "capacity", "budget"} <= {e["kind"] for e in single[0][2].events}
     assert {"densify", "capacity", "reset"} <= {e["kind"] for e in single[1][2].events}
-    (s1, a1, _), (sm, am, _) = single[0], meshed[0]
-    for k in tloop.G.PRIMITIVE_KEYS:
-        np.testing.assert_allclose(sm.params[k].detach().numpy(),
-                                   s1.params[k].detach().numpy(), rtol=2e-4, atol=2e-6,
-                                   err_msg=k)
-        np.testing.assert_allclose(am.mu[k].numpy(), a1.mu[k].numpy(), rtol=2e-4,
-                                   atol=5e-5, err_msg=k)
     (s1, a1, _), (sm, am, _) = single[1], meshed[1]
     dead = ~s1.alive.numpy()
     assert dead.any()
     assert not a1.mu["opacity"].numpy()[dead].any()
-    assert am.mu["opacity"].numpy()[dead].any()
+    assert not am.mu["opacity"].numpy()[dead].any()
 
 
 class _LazyFrame:

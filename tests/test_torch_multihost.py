@@ -257,11 +257,15 @@ def test_measure_multihost_gloo(tmp_path):
 
 def test_sharded_step_does_not_sanitize_as_jax():
     """JAX's sharded step calls no ``sanitize_grads`` (its single-device
-    step does, ``fourdgs_tpu/train/loop.py:183``); the port copies the
-    difference (ROADMAP Queue 3). A NaN in one grid-plane element makes the
-    regularizer's gradient NaN on its neighbours: the single-device step
-    zeroes those gradients and leaves only the poisoned element non-finite,
-    the sharded step (a 1×1 mesh of a one-rank world) spreads NaN to them."""
+    step does, ``fourdgs_tpu/train/loop.py:183``); the port's sharded step
+    does, after the gradient sum (a difference of the reference it no longer
+    copies). A NaN in one grid-plane element makes the regularizer's
+    gradient NaN on its neighbours: the single-device step and the sharded
+    step (a 1×1 mesh of a one-rank world) both zero those gradients and
+    leave only the poisoned element non-finite, and their parameters agree
+    (within ``tests/test_parallel.py``'s rtol 2e-4, atol 2e-6) elsewhere;
+    with ``tpu.sanitize_grads`` off, the sharded step spreads NaN, as
+    JAX's does."""
     from fourdgs_tpu_torch.parallel import trainer
     from fourdgs_tpu_torch.parallel.mesh import make_mesh
     from fourdgs_tpu_torch.render import CameraArrays
@@ -289,13 +293,22 @@ def test_sharded_step_does_not_sanitize_as_jax():
     assert multihost.initialize(backend="gloo")
     try:
         mesh = make_mesh(1, 1)
-        st = poisoned()
-        c, g = trainer.place_batch(mesh, batch, gts)
-        with torch.enable_grad():
-            pn, *_ = trainer.make_sharded_train_step(cfg, mesh, 32, 32, "fine", 1,
-                                                     device="cpu")(
-                st.params, tadam.init(st.params), st, c, g, 1)
+        sharded = {}
+        for sanitize in (True, False):
+            cfg.tpu.sanitize_grads = sanitize
+            st = poisoned()
+            c, g = trainer.place_batch(mesh, batch, gts)
+            with torch.enable_grad():
+                sharded[sanitize], *_ = trainer.make_sharded_train_step(
+                    cfg, mesh, 32, 32, "fine", 1, device="cpu")(
+                    st.params, tadam.init(st.params), st, c, g, 1)
     finally:
         multihost.shutdown()
-    assert non_finite(p1) == 1
-    assert non_finite(pn) > 1
+    pn = sharded[True]
+    assert non_finite(p1) == non_finite(pn) == 1
+    assert non_finite(sharded[False]) > 1
+    for (name, a), (_, b) in zip(tadam.named_leaves(p1), tadam.named_leaves(pn)):
+        a, b = a.detach().numpy(), b.detach().numpy()
+        finite = np.isfinite(a)
+        np.testing.assert_array_equal(finite, np.isfinite(b), err_msg=name)
+        np.testing.assert_allclose(b[finite], a[finite], rtol=2e-4, atol=2e-6, err_msg=name)

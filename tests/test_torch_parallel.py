@@ -210,13 +210,15 @@ def test_rasterize_from_table_matches_jax():
 
 
 def test_slab_clip_renders_dead_gaussians_as_jax():
-    """The slab's rect clip recomputes ``tiles_touched`` from the clipped
+    """JAX's slab rect clip recomputes ``tiles_touched`` from the clipped
     rects (``rasterize.py:314-319``) without the alive gate ``preprocess``
     applied, so a dead Gaussian whose rect meets the slab is binned and
-    blended with its payload. A fault of the reference that the port
-    copies (ROADMAP Queue 3): with a third of the Gaussians dead, JAX's and
-    the port's slab of every row (offset 0, stride 1) both equal the render
-    with all of them alive, and the whole-image render leaves them out."""
+    blended with its payload. The port gates the clipped count by the
+    incoming one (a fault of the reference it no longer copies): with a
+    third of the Gaussians dead, the port's slab of every row (offset 0,
+    stride 1) equals its whole-image render, which leaves them out, while
+    JAX's slab equals the render with all of them alive. With every
+    Gaussian alive, which the fault does not touch, the two slabs agree."""
     g, cam, _ = _slab_scene()
     keys = ("means3d", "scales", "rotations", "opacities", "shs")
     alive = np.arange(len(g["means3d"])) % 3 != 0
@@ -226,7 +228,8 @@ def test_slab_clip_renders_dead_gaussians_as_jax():
     jslab = jax.jit(lambda args, al: jrast.rasterize_pallas(
         *args, jc.camera_center, jc.world_view, jc.full_proj, jc.tanfovx, jc.tanfovy,
         SLAB_W, SLAB_H, SLAB_SH, jnp.zeros(3), 4096, alive=al, interpret=True,
-        **slab).color)(tuple(jnp.asarray(g[k]) for k in keys), jnp.asarray(alive))
+        **slab).color)
+    jargs = tuple(jnp.asarray(g[k]) for k in keys)
     tc = TR.CameraArrays.from_camera(cam, device="cpu")
     common = ([torch.tensor(g[k]) for k in keys], tc.camera_center, tc.world_view,
               tc.full_proj, tc.tanfovx, tc.tanfovy, SLAB_W, SLAB_H, SLAB_SH,
@@ -237,9 +240,12 @@ def test_slab_clip_renders_dead_gaussians_as_jax():
 
     every = render()
     t_slab = render(alive=torch.tensor(alive), **slab)
-    np.testing.assert_allclose(t_slab, np.asarray(jslab), atol=1e-4)
-    np.testing.assert_allclose(t_slab, every, atol=1e-6)
-    assert np.abs(render(alive=torch.tensor(alive)) - every).max() > 0.05
+    np.testing.assert_allclose(t_slab, render(alive=torch.tensor(alive)), atol=1e-6)
+    assert np.abs(t_slab - every).max() > 0.05
+    np.testing.assert_allclose(np.asarray(jslab(jargs, jnp.asarray(alive))), every, atol=1e-4)
+    np.testing.assert_allclose(render(alive=torch.ones(len(alive), dtype=torch.bool), **slab),
+                               np.asarray(jslab(jargs, jnp.ones(len(alive), bool))),
+                               atol=1e-4)
 
 
 # -- layouts -------------------------------------------------------------------
@@ -348,8 +354,17 @@ def _jax_cfg(name, extra):
 
 @functools.cache
 def _step_inputs():
+    """The state of ``build_state`` with its dead rows (the capacity's
+    padding, at the origin) moved out of every view, and the batch. JAX's
+    slab clip bins a dead row whose rect meets the slab and counts it in the
+    demand; the port's does not (test_slab_clip_renders_dead_gaussians_as_jax).
+    Out of view a dead row has no rect, so the two steps' demands
+    agree; the dead rows add nothing else to either step."""
     cfg = sp_cfg()
     state = build_state(cfg)
+    xyz = jnp.where(state.alive[:, None], state.params["xyz"],
+                    jnp.array([30.0, 30.0, 0.0], jnp.float32))
+    state = state._replace(params={**state.params, "xyz": xyz})
     cams, gts = make_batch(2, STEP_W, STEP_H)
     return state, cams, gts
 

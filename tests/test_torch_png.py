@@ -1,6 +1,7 @@
 """``fourdgs_tpu_torch/utils/png.py`` against Pillow: round trips bit for
 bit, Pillow reads what it writes, it reads what Pillow writes (whose rows
-use each filter type) as Pillow does, and its conversions equal Pillow's."""
+use each filter type) as Pillow does, and its conversions equal Pillow's.
+The other PNG variants: ``tests/test_torch_png_variants.py``."""
 
 import io
 import struct
@@ -76,13 +77,18 @@ def test_reads_pillow_files_as_pillow_does(tmp_path):
 
 
 def test_rejects_what_it_does_not_read(tmp_path):
+    """Palette and 16-bit files, which the reader once refused, now read as
+    Pillow reads them (every variant: ``tests/test_torch_png_variants.py``);
+    what is no PNG still raises, and the writer takes uint8 only."""
     path = str(tmp_path / "p.png")
     Image.fromarray(_image(3)).convert("P").save(path)
-    with pytest.raises(NotImplementedError, match="colour type 3"):
-        png.read_png(path)
+    with Image.open(path) as im:
+        np.testing.assert_array_equal(png.read_png(path), np.asarray(im))
+        np.testing.assert_array_equal(png.read_png(path, "RGB"), np.asarray(im.convert("RGB")))
     Image.fromarray(_image(1).astype(np.uint16) * 200).save(path)
-    with pytest.raises(NotImplementedError):
-        png.read_png(path)
+    with Image.open(path) as im:
+        np.testing.assert_array_equal(png.read_png(path), np.asarray(im))
+        np.testing.assert_array_equal(png.read_png(path, "L"), np.asarray(im.convert("L")))
     with open(path, "wb") as f:
         f.write(b"not a png")
     with pytest.raises(ValueError, match="not a PNG"):

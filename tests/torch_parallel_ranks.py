@@ -157,3 +157,63 @@ def cli_rank(argv: list, target_size: tuple) -> dict:
     state, opt = train_torch.main(argv)
     return {"hash": state_hash(state, opt),
             "n_points": int(state.alive.sum()), "capacity": int(state.alive.shape[0])}
+
+
+def viewer_with_mesh(overrides: dict, state_np, cams_np: list, iters: int,
+                     n_data: int = 1, n_model: int = 2, **kw) -> dict:
+    """``scene_reconstruction`` of a coarse stage on a ``n_data × n_model``
+    grid under ``shard_primitives``, the first rank serving a viewer to
+    which a SIBR client (``chip_smoke.sibr_client``, a thread of that rank)
+    sends the first camera before iterations 1 to ``iters`` − 1. The first
+    rank returns the frames it served and, for each of iterations 1 to
+    ``iters`` − 2, the uint8 render of that camera by the whole state
+    ``log_fn`` is given after the step (what the next frame shows), made in
+    this process without the mesh."""
+    import threading
+
+    import chip_smoke as CS
+    from fourdgs_tpu_torch.render import render
+    from fourdgs_tpu_torch.train.loop import scene_reconstruction
+    from fourdgs_tpu_torch.viewer import NetworkGUI
+
+    mesh = pmesh.make_mesh(n_data, n_model)
+    cfg = port_cfg({**overrides, "tpu.shard_primitives": True})
+    state = interop.state_from_jax(state_np, cfg, device="cpu")
+    cam = cams_np[0][0]
+    # the centre as the viewer's receive() rebuilds it from the view matrix
+    vcam = CameraArrays.from_camera(cam._replace(camera_center=np.linalg.inv(
+        np.asarray(cam.world_view, np.float64)).T[:3, 3].astype(np.float32)), device="cpu")
+    bg = torch.zeros(3)
+    renders = []
+
+    def one_process_render(st) -> np.ndarray:
+        with torch.no_grad():
+            color = render(st.params, st, vcam, cfg, cam.width, cam.height, "coarse", bg,
+                           st.active_sh_degree, device="cpu").color
+        return (np.clip(color.numpy(), 0, 1).transpose(1, 2, 0) * 255).astype(np.uint8)
+
+    def log_fn(iteration, stage, m, st, opt):
+        if mesh.rank == 0:
+            renders.append(one_process_render(st))
+
+    gui = client = None
+    result: dict = {}
+    if mesh.rank == 0:
+        gui = NetworkGUI(port=0)
+        renders.append(one_process_render(state))            # before iteration 1
+        client = threading.Thread(target=CS.sibr_client, daemon=True, args=(
+            gui.port, [(cam, False)] * (iters - 1), result, 120.0))
+        client.start()
+    try:
+        state, opt, log = scene_reconstruction(
+            cfg, state, adam.init(state.params), cams_np, "coarse", iters, device="cpu",
+            mesh=mesh, viewer=gui, log_fn=log_fn, **{**kw, "log_interval": 1})
+    finally:
+        if gui is not None:
+            client.join(timeout=120.0)
+            gui.close()
+    out = {"rank": mesh.rank, "hash": state_hash(state, opt)}
+    if mesh.rank == 0:
+        out.update(frames=result.get("frames"), error=result.get("error"),
+                   renders=renders[:iters - 1], verify=result.get("verify"))
+    return out
