@@ -65,11 +65,12 @@ on failure:
    each probe's bytes as ``exp_grid_cost.run()`` read it in turns with the
    probe (``vs_fill``; the library call where it computes the probe's output);
 8. one JSON line ``{"kernels": [...]}`` and, last, the result line
-   ``{"ok": true, "device": {...}}``; before them phases 9 to 15, the
-   seconds of phases 10 to 15 and the script's own time:
+   ``{"ok": true, "device": {...}}``; before them phases 9 to 17, the
+   seconds of phases 10 to 17 and the script's own time:
 9. training from a point cloud (``bench_quality_torch.py``, bf16 payload):
-   (a) the bouncingballs preset at ``--gt oracle --scale 0.02`` (0.03 until
-   PR 16; 60 coarse + 400 fine steps at 800×800 from 2,000 random points,
+   (a) the bouncingballs preset at ``--gt oracle --scale 0.01`` (cut from
+   0.03 as phases were added; 30 coarse + 200 fine steps at 800×800 from
+   2,000 random points,
    the launch counts zeroed
    just before the training and read after the eval): K2 launches equal
    the renders of its steps, K1 launches those plus the 10 eval views, every
@@ -109,9 +110,9 @@ on failure:
    (:func:`check_entry_points`);
 11. the DyNeRF path (:func:`check_dynerf_path`), each run with the launch
    counts zeroed just before it and read just after: (a)
-   ``bench_quality_dynerf_torch.py`` at ``--scale 0.01`` (0.015 until PR
-   16; the dynerf preset at
-   full width as users run it, sh 3, anisotropic: 50 coarse + 140 fine
+   ``bench_quality_dynerf_torch.py`` at ``--scale 0.0075`` (cut from 0.015
+   as phases were added; the dynerf preset at
+   full width as users run it, sh 3, anisotropic: 50 coarse + 105 fine
    steps of batch 4 with the FineSampler over 11 ring cameras × 150
    timestamps at 676×507, GT from K1 held in memory, its launches counted
    apart): K2 launches equal the renders of its steps, K1 launches those
@@ -132,7 +133,7 @@ on failure:
    ring cameras, 6 frames each at the loader's 1352×1014 rendered by K1,
    every filter type in turn, ``points3D_downsample2.ply``), then
    ``train_torch.py`` on it with the dynerf preset at full width, a cut
-   schedule (10 coarse + 30 fine steps; 20 + 60 until PR 16) and the
+   schedule (6 coarse + 18 fine steps, cut from 20 + 60 as phases were added) and the
    FineSampler,
    ``render_torch.py`` (test split: camera 0) and ``metrics_torch.py``: the
    outputs of phase 10 (b), the PSNR above the blank image's, every train
@@ -149,7 +150,8 @@ on failure:
    ``train_torch.py --debug_mode`` with the
    hypernerf preset at full width (K-planes [64, 64, 64, 150] × 16, multires
    (1, 2, 4), width 128, depth 1, batch 2, ``render_process`` on) and a cut
-   schedule (50 coarse + 150 fine steps; 100 + 300 until PR 16),
+   schedule (30 coarse + 100 fine steps, cut from 100 + 300 as phases were
+   added),
    ``render_torch.py`` and
    ``metrics_torch.py``: the ``render_process`` frames at exactly
    ``should_save_progress``'s iterations of each stage and the debug panels
@@ -261,7 +263,7 @@ on failure:
    nccl, step 1 against the single-process step; one rank per GPU over
    nccl where the host has two or more (else a line says it did not run).
    (e) ``fourdgs_tpu_torch.scripts.measure_scaling``: T_slab(1/N) at N = 1,
-   2, 4, 5 and 10.
+   2, 4 and 10, 2 reps of 2 calls each.
 16. the repairs and the last entry points: (a) ``python -m
    fourdgs_tpu_torch.scripts.gradient_from_checkpoint`` on phase 10 (b)'s
    fine checkpoint of the bouncingballs preset at full width and its
@@ -270,7 +272,8 @@ on failure:
    shapes (``gradient_timeline`` in the kernels line). (b) The committed
    progressive JPEGs and PNG variants of ``tests/torch_fixtures/variants``
    decoded on the card's host bit for bit against Pillow's committed
-   decodes, a file of unrefined scans raising ``NotImplementedError``, the
+   decodes (a file of unrefined scans smoothed as libjpeg smooths it,
+   against its decode in ``tests/torch_fixtures/rare``), the
    ms of the 1352×1014 picture read progressive and baseline in turns, and
    a MultipleView scene of the twelve progressive frames through
    ``load_scene``. (c) ``train_torch.py --mesh data=1,model=2
@@ -283,6 +286,26 @@ on failure:
    one ``--seed`` and PERF.md §7's 20 + 60-step schedule (phase 15 (c)'s
    until PR 16): both held-out PSNRs and whether the trained states are
    bit-equal.
+17. the rarer JPEG codings: (a) every committed file of
+   ``tests/torch_fixtures/rare`` (the twelve frames arithmetic-coded,
+   sequential and progressive, and lossless; smoothed, 4:1:1 and CMYK
+   frames; small files of sampling factors 3 and 4, YCCK and CMYK,
+   arithmetic coding with restarts and DAC conditioning, smoothing, and
+   lossless predictors 1 to 7) decoded on the card's host bit for bit
+   against Pillow's committed decode, a 4-component file's RGB through
+   ``png.convert`` against Pillow's; then the 1352×1014 picture of phase 16
+   (b) in each coding (:func:`capture_codings`, written on the host by
+   ``tests/jpeg_writer.py``), each read in turns with the baseline file
+   (coding, baseline, baseline, coding; 10 reads each), the arithmetic-coded
+   and lossless decodes equal to the baseline's and the smoothed one to
+   Pillow's (SHA-256). (b) A MultipleView scene whose twelve slots hold the
+   six codings in turns (:func:`rare_frame`), every frame ``load_scene``
+   gives equal to Pillow's RGB, through ``train_torch.py`` →
+   ``render_torch.py`` → ``metrics_torch.py`` at ``MULTIPLEVIEW_SCHEDULE``
+   (12 + 36 steps) with the launch counts zeroed just before each script
+   (every frame sent to the ref's decoder), then K1 and K2 at train view 0
+   of the trained model against their plain versions
+   (``multipleview_rare`` in the kernels line).
 
 Agreement bound of K1 with its plain version: atol 1e-4 on color and final
 transmittance, except pixels riding T_STOP, where a different association of
@@ -1068,9 +1091,9 @@ def check_training_from_pcd(dev):
     from fourdgs_tpu_torch.ops import blend
 
     print("[9] training from a point cloud: (a) bench_quality_torch --gt oracle "
-          "--scale 0.02", flush=True)
+          "--scale 0.01", flush=True)
     t0 = time.perf_counter()
-    a, model = BQ.run(scale=0.02, gt="oracle", log_interval=50, device=dev)
+    a, model = BQ.run(scale=0.01, gt="oracle", log_interval=50, device=dev)
     launches = (blend.blend_forward.launches, blend.blend_backward.launches)
     renders = (a["schedule"]["coarse"] + a["schedule"]["fine"]) * a["batch_size"]
     log = a["train_log"]
@@ -1129,6 +1152,10 @@ def check_training_from_pcd(dev):
 # pay for phase 16
 CLI_SCHEDULE = ("opt.coarse_iterations=50", "opt.iterations=150",
                 "opt.position_lr_max_steps=150")
+# phase 12 (a): cut from CLI_SCHEDULE to pay for phase 17; the fine stage
+# keeps the debug panel at its iteration 100
+HYPERNERF_SCHEDULE = ("opt.coarse_iterations=30", "opt.iterations=100",
+                      "opt.position_lr_max_steps=100")
 # the pose convention of data/blender.py: R = F·m[:3, :3]ᵀ, T = −m[:3, 3]
 # with m = inv(transform_matrix)
 _BLENDER_FLIP = np.diag([1.0, -1.0, -1.0])
@@ -1398,9 +1425,10 @@ def check_entry_points(dev, data_dir, model_path):
 
 
 DYNERF_FRAMES = 6          # frames per camera of phase 11 (c)'s scene
-# phase 11 (c): 20 + 60 steps until PR 16, cut to 10 + 30 to pay for phase 16
-DYNERF_CLI_SCHEDULE = ("opt.coarse_iterations=10", "opt.iterations=30",
-                       "opt.position_lr_max_steps=30", 'opt.custom_sampler="fine"')
+# phase 11 (c): 20 + 60 steps, cut to 10 + 30 to pay for phase 16 and to
+# 6 + 18 to pay for phase 17
+DYNERF_CLI_SCHEDULE = ("opt.coarse_iterations=6", "opt.iterations=18",
+                       "opt.position_lr_max_steps=18", 'opt.custom_sampler="fine"')
 
 
 class _Tee:
@@ -1620,7 +1648,7 @@ def dynerf_cull_read(model, dev):
 
 
 def check_dynerf_path(dev):
-    """Phase 11 (module docstring): the DyNeRF bench at scale 0.01 with
+    """Phase 11 (module docstring): the DyNeRF bench at scale 0.0075 with
     K1/K2 and the padding on its trained model, at 0.0075 with
     ``--instant4d``, then the DyNeRF CLI chain on lazy frames. Returns the
     launches and :func:`check_trained_blend`'s fields for the kernels
@@ -1632,8 +1660,8 @@ def check_dynerf_path(dev):
     from fourdgs_tpu_torch.ops import blend
     from fourdgs_tpu_torch.utils import losses
 
-    print("[11] the DyNeRF path: (a) bench_quality_dynerf_torch --scale 0.01", flush=True)
-    a, model, a_launches = check_dynerf_bench(dev, 0.01)
+    print("[11] the DyNeRF path: (a) bench_quality_dynerf_torch --scale 0.0075", flush=True)
+    a, model, a_launches = check_dynerf_bench(dev, 0.0075)
     fwd_args, bwd_args = view_blend_inputs(model, 0, dev)
     cfg, state = model.cfg, model.state
     W, H = a["resolution"]
@@ -1811,7 +1839,7 @@ def progress_saves(iterations):
 
 
 def check_hypernerf_path(dev, n_frames=HYPERNERF_FRAMES, image_size=HYPERNERF_IMAGE_SIZE,
-                         schedule=CLI_SCHEDULE, preset=HYPERNERF_PRESET, root=None):
+                         schedule=HYPERNERF_SCHEDULE, preset=HYPERNERF_PRESET, root=None):
     """Phase 12 (a) (module docstring): the HyperNeRF scene, the CLI chain
     with ``--debug_mode``, the outputs of ``render_process``, the masks and
     the masked PSNRs, then K1/K2 at a train step of the trained model on its
@@ -3380,7 +3408,7 @@ def check_sharded_trainer(dev, dnerf_dir: str) -> dict:
 
     # -- (e) T_slab(1/N) on the card
     t0 = time.perf_counter()
-    scaling = measure_scaling.run(dev, size=WIDTH, shards=(1, 2, 4, 5, 10), iters=4, reps=3,
+    scaling = measure_scaling.run(dev, size=WIDTH, shards=(1, 2, 4, 10), iters=2, reps=2,
                                   n_points=N_POINTS, capacity=CAPACITY)
     print(f"    (e) measure_scaling: full step {scaling['full_step_ms']:.3f} ms, rest "
           f"{scaling['rest_ms']:.3f} ms; " + "; ".join(
@@ -3427,8 +3455,9 @@ def check_decoders(reps: int = 10) -> dict:
     decoded on the host bit for bit against Pillow's committed decode (the
     progressive scene frames against the baseline frames' decodes, the
     1352×1014 picture by its decode's SHA-256), the progressive file whose
-    scans leave coefficients unrefined raising ``NotImplementedError``, the
-    ms a 1352×1014 frame progressive and baseline read in turns, and a
+    scans leave coefficients unrefined against its decode in
+    ``tests/torch_fixtures/rare`` (libjpeg smooths its blocks), the ms a
+    1352×1014 frame progressive and baseline read in turns, and a
     MultipleView scene of the progressive frames through ``load_scene``.
     Returns the counts and the times."""
     from fourdgs_tpu_torch.configs.core import load_config
@@ -3442,10 +3471,7 @@ def check_decoders(reps: int = 10) -> dict:
     with np.load(os.path.join(JPEG_FIXTURES, "pillow_decode.npz")) as z:
         baseline = {k: z[k] for k in z.files}
 
-    def same(name, got, ref):
-        if got.shape != ref.shape or got.dtype != ref.dtype or not np.array_equal(got, ref):
-            raise AssertionError(f"{name}: the port's decode is not Pillow's bit for bit")
-
+    same = assert_same_decode
     n_jpeg = n_png = 0
     for fname in sorted(os.listdir(VARIANT_FIXTURES)):
         stem, ext = os.path.splitext(fname)
@@ -3455,14 +3481,9 @@ def check_decoders(reps: int = 10) -> dict:
                 same(f"{stem} {mode}", png.read_png(path, mode),
                      want[stem if mode is None else f"{stem}.{mode}"])
             n_png += 1
-        elif stem == "prog_unrefined":
-            try:
-                read_jpeg(path)
-            except NotImplementedError as e:
-                if "smooth" not in str(e):
-                    raise
-            else:
-                raise AssertionError(f"{fname} decoded; libjpeg would smooth it")
+        elif stem == "prog_unrefined":     # smoothed as libjpeg smooths it
+            same(stem, read_jpeg(path), rare_decodes()[stem])
+            n_jpeg += 1
         elif ext == ".jpg":
             got = read_jpeg(path)
             if stem.startswith(CAPTURE_FRAME):
@@ -3486,7 +3507,7 @@ def check_decoders(reps: int = 10) -> dict:
           f"4:4:4, 4:2:2, 4:2:0, grey, restart intervals, Huffman tables per scan, the "
           f"1352x1014 picture both ways) and {n_png} PNG files (palette, 1/2/16-bit grey, "
           f"16-bit RGB, gray + alpha and RGBA, tRNS, Adam7), each read bit for bit as "
-          f"Pillow reads it; unrefined scans raise NotImplementedError")
+          f"Pillow reads it, the file of unrefined scans smoothed as libjpeg smooths it")
     print(f"    read_jpeg of the 1352x1014 picture, median of {2 * reps} reads in turns "
           f"(host): progressive {ms['progressive']:.4f} ms ({sizes['progressive']} B), "
           f"baseline {ms['baseline']:.4f} ms ({sizes['baseline']} B), ratio "
@@ -3512,6 +3533,282 @@ def check_decoders(reps: int = 10) -> dict:
           f"{len(seen)} frames, every frame equal to the baseline frame's Pillow decode")
     return {"jpeg_files": n_jpeg, "png_files": n_png, "ms": ms, "bytes": sizes,
             "multipleview_frames": len(seen), "load_s": load_s}
+
+
+# -- phase 17: the rarer JPEG codings -------------------------------------------
+
+RARE_FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "rare")
+# the codings of every one of the twelve committed frames in RARE_FIXTURES:
+# the same picture, so the decodes of tests/torch_fixtures/jpeg
+RARE_FRAME_KINDS = ("arith", "arithprog", "lossless")
+# phase 17 (b)'s MultipleView scene: slot (c, f) holds the coding
+# RARE_SCENE_KINDS[(4c + f) % 6]; the last three of a picture of their own
+RARE_SCENE_KINDS = RARE_FRAME_KINDS + ("smooth", "s411", "cmyk")
+RARE_CUT = 3                       # the scans of phase 17 (a)'s smoothed 1352x1014 file
+
+
+def rare_kind(c, f):
+    return RARE_SCENE_KINDS[(c * JPEG_SCENE_FRAMES + f) % len(RARE_SCENE_KINDS)]
+
+
+def rare_frame(c, f):
+    """Slot (c, f) of phase 17 (b)'s MultipleView scene: the committed file
+    of coding :func:`rare_kind` (c, f)."""
+    return os.path.join(RARE_FIXTURES, f"{rare_kind(c, f)}_frame_c{c}_f{f}.jpg")
+
+
+def rare_decodes() -> dict:
+    """Pillow's decodes of ``tests/torch_fixtures/rare`` by file stem (a CMYK
+    or YCCK file's ``convert("RGB")`` as ``<stem>.RGB``; a 160×120 scene
+    picture's as the SHA-256 ``<stem>[.RGB].sha256``), of the variants'
+    ``prog_unrefined``, and the SHA-256 of the decode of the 1352×1014
+    picture's progressive file cut after ``RARE_CUT`` scans. The re-encoded
+    frames (:data:`RARE_FRAME_KINDS`) decode as the committed frames'
+    ``tests/torch_fixtures/jpeg/pillow_decode.npz``."""
+    with np.load(os.path.join(RARE_FIXTURES, "pillow_decode.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def rare_want(stem, rare, baseline, mode=None):
+    """The committed decode of rare fixture ``stem`` (``mode`` "RGB": of
+    ``Image.open(path).convert("RGB")``): an array, or its SHA-256."""
+    kind, _, slot = stem.partition("_frame_")
+    if kind in RARE_FRAME_KINDS and slot:
+        return baseline["frame_" + slot]
+    key = stem
+    if mode == "RGB" and (stem + ".RGB" in rare or stem + ".RGB.sha256" in rare):
+        key += ".RGB"
+    if key + ".sha256" in rare:
+        return str(rare[key + ".sha256"])
+    want = rare[key]
+    if mode == "RGB" and want.ndim == 2:
+        return np.repeat(want[:, :, None], 3, axis=2)
+    return want
+
+
+def same_decode(got, want) -> bool:
+    """Whether a decode equals a committed one (an array, or a SHA-256)."""
+    if isinstance(want, str):
+        return decode_sha256(got) == want
+    return got.shape == want.shape and got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def assert_same_decode(name, got, want):
+    if not same_decode(got, want):
+        raise AssertionError(f"{name}: the port's decode is not Pillow's bit for bit")
+
+
+def scans_cut(data: bytes, n_scans: int) -> bytes:
+    """The first ``n_scans`` scans of a JPEG file, then EOI: a progressive
+    file cut short by its writer."""
+    sos = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+    return data[:sos[n_scans]] + b"\xff\xd9"
+
+
+def jpeg_writer():
+    """``tests/jpeg_writer.py``, the fixtures' numpy JPEG writer, loaded by
+    its path (another ``tests`` package may come first on ``sys.path``)."""
+    import importlib.util
+
+    if "jpeg_writer" not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            "jpeg_writer", os.path.join(ROOT, "tests", "jpeg_writer.py"))
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["jpeg_writer"] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules["jpeg_writer"]
+
+
+def capture_codings(out_dir) -> dict:
+    """The 1352×1014 picture of phase 16 (b) in each coding phase 17 (a)
+    times, written into ``out_dir`` on this host: its progressive file cut
+    after ``RARE_CUT`` scans (smoothed), and by ``tests/jpeg_writer.py``
+    4:1:1, CMYK (Adobe transform 0) and YCCK (2h2v luma and K) files of
+    its decode at libjpeg's quality 90, and its baseline file's
+    coefficients arithmetic-coded, sequential and progressive, and its
+    decode as lossless RGB. Returns the path of each by coding."""
+    from fourdgs_tpu_torch.utils.jpeg import read_jpeg
+
+    W = jpeg_writer()
+    base = os.path.join(VARIANT_FIXTURES, f"{CAPTURE_FRAME}_baseline.jpg")
+    with open(base, "rb") as f:
+        base_data = f.read()
+    with open(os.path.join(VARIANT_FIXTURES, f"{CAPTURE_FRAME}_progressive.jpg"), "rb") as f:
+        prog_data = f.read()
+    picture = read_jpeg(base)
+    h, w = picture.shape[:2]
+    planes = [p for p in W.rgb_to_ycc(picture).transpose(2, 0, 1)]
+    qt = W.quality_tables(90)
+    cmy = 255 - picture.astype(np.int64)
+    k = cmy.min(axis=2)
+    cmyk = [(cmy[:, :, i] - k).astype(np.uint8) for i in range(3)] + [k.astype(np.uint8)]
+    frame = W.read_baseline(base_data)
+    files = {
+        "smooth": scans_cut(prog_data, RARE_CUT),
+        "s411": W.write_dct(W.dct_frame(planes, [(4, 1), (1, 1), (1, 1)], qt)),
+        "cmyk": W.write_dct(W.dct_frame(cmyk, [(1, 1)] * 4, qt, tqs=[0, 0, 0, 0],
+                                        app=W.adobe(0))),
+        "ycck": W.write_dct(W.dct_frame(planes + [255 - cmyk[3]], [(2, 2), (1, 1), (1, 1),
+                                                                  (2, 2)], qt,
+                                        tqs=[0, 1, 1, 0], app=W.adobe(2))),
+        "arith": W.write_dct(frame, arithmetic=True),
+        "arithprog": W.write_dct(frame, arithmetic=True, scans=W.simple_progression(3)),
+        "lossless": W.write_lossless(w, h, [W.Component(ord(ch), 1, 1, samples=picture[:, :, i])
+                                            for i, ch in enumerate("RGB")], app=W.adobe(0)),
+    }
+    paths = {}
+    for kind, data in files.items():
+        paths[kind] = os.path.join(out_dir, f"{CAPTURE_FRAME}_{kind}.jpg")
+        with open(paths[kind], "wb") as f:
+            f.write(data)
+    return paths
+
+
+def check_rare_decoders(reps: int = 5) -> dict:
+    """Phase 17 (a) (module docstring): every committed file of
+    ``tests/torch_fixtures/rare`` decoded on the host bit for bit against
+    Pillow's committed decode (and its conversion to RGB through
+    ``png.convert``), the variants' unrefined progressive file smoothed as
+    libjpeg smooths it, then the 1352×1014 picture in each rarer coding
+    (:func:`capture_codings`) read in turns with its baseline file: the
+    arithmetic-coded and lossless files' decodes equal the baseline's
+    (SHA-256), the smoothed one's Pillow's. Returns the counts, times and
+    sizes."""
+    from fourdgs_tpu_torch.utils import png
+    from fourdgs_tpu_torch.utils.jpeg import read_jpeg
+
+    print("    (a) the JPEG decoder on the committed files of the rarer codings", flush=True)
+    rare = rare_decodes()
+    with np.load(os.path.join(JPEG_FIXTURES, "pillow_decode.npz")) as z:
+        baseline = {k: z[k] for k in z.files}
+
+    same = assert_same_decode
+    counts = {}
+    for fname in sorted(os.listdir(RARE_FIXTURES)):
+        stem, ext = os.path.splitext(fname)
+        if ext != ".jpg":
+            continue
+        got = read_jpeg(os.path.join(RARE_FIXTURES, fname))
+        same(stem, got, rare_want(stem, rare, baseline))
+        if got.ndim == 3 and got.shape[2] == 4:
+            same(stem + " RGB", png.convert(got, "RGB", "CMYK"),
+                 rare_want(stem, rare, baseline, "RGB"))
+        kind = stem.split("_")[0]
+        counts[kind] = counts.get(kind, 0) + 1
+    same("prog_unrefined", read_jpeg(os.path.join(VARIANT_FIXTURES, "prog_unrefined.jpg")),
+         rare["prog_unrefined"])
+    n_files = sum(counts.values()) + 1
+    print(f"    {n_files} committed files, each read bit for bit as Pillow reads it: "
+          f"{json.dumps(counts)} and the variants' prog_unrefined")
+
+    sha = str(variant_decodes()[CAPTURE_FRAME + ".sha256"])
+    base = os.path.join(VARIANT_FIXTURES, f"{CAPTURE_FRAME}_baseline.jpg")
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_rare_capture_") as tmp:
+        t0 = time.perf_counter()
+        paths = capture_codings(tmp)
+        write_s = time.perf_counter() - t0
+        times = {kind: [] for kind in paths}
+        base_times = []
+        for kind, path in paths.items():
+            for _ in range(reps):
+                for k in (kind, "baseline", "baseline", kind):
+                    t0 = time.perf_counter()
+                    img = read_jpeg(base if k == "baseline" else path)
+                    (base_times if k == "baseline" else times[kind]).append(
+                        1e3 * (time.perf_counter() - t0))
+            if img.shape[:2] != (1014, 1352):
+                raise AssertionError(f"{kind}: shape {img.shape}")
+            img = read_jpeg(path)
+            if kind in RARE_FRAME_KINDS and decode_sha256(img) != sha:
+                raise AssertionError(f"{kind}: the 1352x1014 decode is not the baseline's")
+            if kind == "smooth" and decode_sha256(img) != str(rare["capture_smooth.sha256"]):
+                raise AssertionError("smooth: the 1352x1014 decode is not Pillow's")
+        sizes = {kind: os.path.getsize(p) for kind, p in paths.items()}
+    ms = {kind: float(np.median(v)) for kind, v in times.items()}
+    ms["baseline"] = float(np.median(base_times))
+    print(f"    the 1352x1014 picture in each coding, written on this host in {write_s:.1f} s "
+          f"(arithmetic and lossless files decode as the baseline file, SHA-256; the "
+          f"smoothed one as Pillow)")
+    print("    read_jpeg, median of " + f"{2 * reps} reads in turns with the baseline file "
+          f"(host), ms (bytes; / baseline): " + ", ".join(
+              f"{kind} {ms[kind]:.4f} ({sizes[kind]}; {ms[kind] / ms['baseline']:.3f})"
+              for kind in paths) + f"; baseline {ms['baseline']:.4f}")
+    return {"files": n_files, "counts": counts, "ms": ms, "bytes": sizes, "write_s": write_s}
+
+
+def check_rare_chain(dev, schedule=MULTIPLEVIEW_SCHEDULE, preset=MULTIPLEVIEW_PRESET) -> dict:
+    """Phase 17 (b) (module docstring): a MultipleView scene of the rarer
+    codings (:func:`rare_frame`), every frame ``load_scene`` gives equal to
+    Pillow's committed decode converted to RGB, through
+    ``train_torch.py`` → ``render_torch.py`` → ``metrics_torch.py``
+    (:func:`run_cli_chain`), with K1 and K2's launches counted, then K1 and
+    K2 at a train step of its model (train view 0) against their plain
+    versions (:func:`check_step_blend`). Returns the launches and that
+    check's fields."""
+    import torch
+
+    from fourdgs_tpu_torch.configs.core import load_config
+    from fourdgs_tpu_torch.data.scene import load_scene
+    from fourdgs_tpu_torch.render import CameraArrays
+    from fourdgs_tpu_torch.utils import losses
+
+    print("    (b) the MultipleView chain on frames of the rarer codings", flush=True)
+    rare = rare_decodes()
+    with np.load(os.path.join(JPEG_FIXTURES, "pillow_decode.npz")) as z:
+        baseline = {k: z[k] for k in z.files}
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_rare_scene_") as tmp:
+        data_dir, model_path = os.path.join(tmp, "data"), os.path.join(tmp, "model")
+        write_multipleview_scene(data_dir, frame=rare_frame)
+        data = load_scene(load_config(), data_dir)
+        kinds = {}
+        for lc in data.train_cameras + data.test_cameras:
+            c = int(os.path.basename(os.path.dirname(lc.image.path))[3:]) - 1
+            f = int(os.path.basename(lc.image.path)[len("frame_"):-4]) - 1
+            stem = os.path.basename(rare_frame(c, f))[:-4]
+            if not same_decode(lc.image(), rare_want(stem, rare, baseline, "RGB")):
+                raise AssertionError(f"{stem}: the loader's frame is not Pillow's RGB")
+            kinds[stem] = rare_kind(c, f)
+        cli = run_cli_chain(data_dir, model_path, dev, schedule, preset)
+        with open(os.path.join(model_path, "training_logs.json")) as f:
+            logged = [r["loss"] for r in json.load(f)]
+        cfg, state = cli["cfg"], cli["state"]
+        lc0 = cli["scene"].train_cameras[0]
+        cam0 = lc0.camera
+        bg = torch.ones(3, device=dev) if cfg.model.white_background else torch.zeros(3, device=dev)
+        gt0 = torch.tensor(lc0.image(), device=dev).to(torch.float32).permute(2, 0, 1) / 255.0
+        fwd_args, bwd_args = step_blend_inputs(
+            cfg, state, CameraArrays.from_camera(cam0, device=dev), cam0.width, cam0.height,
+            losses.tile_image(gt0, pad_cols=2), bg, state.active_sh_degree, dev)
+        trained = check_step_blend(
+            fwd_args, bwd_args, dev,
+            f"train view 0 of the MultipleView model of the rarer codings ({cam0.width}x"
+            f"{cam0.height}, capacity {state.alive.shape[0]}, {int(state.alive.sum())} alive, "
+            f"SH degree {state.active_sh_degree})")
+    pf = cli["prefetch"]
+    renders = cli["steps"] * cli["batch_size"]
+    on_card = int(dev.type == "cuda")
+    (k1_train, k2_train), (k1_render, _) = cli["train_launches"], cli["render_launches"]
+    by_kind = {k: sum(v == k for v in kinds.values()) for k in RARE_SCENE_KINDS}
+    print(f"    MultipleView ({JPEG_SCENE_CAMS} cams x {JPEG_SCENE_FRAMES} frames, codings "
+          f"{json.dumps(by_kind)}): every loaded frame equal to Pillow's RGB; train wall "
+          f"{cli['train_s']:.3f} s ({cli['steps']} steps, {cli['points']} points, losses "
+          f"{logged[0]:.5f} -> {logged[-1]:.5f}), render FPS {cli['fps']:.3f}, held-out PSNR "
+          f"{cli['psnr']:.4f} dB (blank {cli['blank_psnr']:.4f}); renders vs in-process render: "
+          f"max {cli['render_max_level_diff']} levels; prefetcher {json.dumps(pf)}; K1/K2 "
+          f"launches train {cli['train_launches']}, render {cli['render_launches']}")
+    if len(kinds) != JPEG_SCENE_CAMS * JPEG_SCENE_FRAMES or min(by_kind.values()) == 0:
+        raise AssertionError(f"the scene's frames: {by_kind}")
+    if not all(math.isfinite(x) for x in logged):
+        raise AssertionError(f"a logged loss is not finite: {logged}")
+    if pf["submitted"] != renders or pf["to_ref"] != renders or pf["native"]:
+        raise AssertionError(f"the prefetcher's counts {pf}: every JPEG frame goes to the "
+                             f"ref ({renders})")
+    if ((k2_train, k1_train) != (on_card * renders, on_card * (renders + cli["eval_renders"]))
+            or k1_render != on_card * (cli["test_views"] + 1)):
+        raise AssertionError(f"CLI launches: train {cli['train_launches']}, render "
+                             f"{cli['render_launches']}")
+    return {"cli": (k1_train + k1_render, k2_train), "blend": trained,
+            "psnr": cli["psnr"], "blank_psnr": cli["blank_psnr"]}
 
 
 TIMELINE_TIMES = 10                # phase 16 (a)'s timestamps
@@ -4088,6 +4385,13 @@ def main() -> int:
         viewer_mesh = check_viewer_under_mesh(dev, dnerf_dir)
         check_seed_spread(dev, dnerf_dir)
         phase_s[16] = time.perf_counter() - t0
+
+        # -- 17. the rarer JPEG codings: the committed files and the
+        #    1352x1014 picture in each, then the MultipleView chain on them
+        t0 = time.perf_counter()
+        check_rare_decoders()
+        rare_chain = check_rare_chain(dev)
+        phase_s[17] = time.perf_counter() - t0
     finally:
         scene_tmp.cleanup()
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
@@ -4136,6 +4440,8 @@ def main() -> int:
         "gradient_timeline": {"launches": timeline["launches"][0],
                               **timeline["blend"]["blend_forward"]},
         "viewer_mesh": {"launches": viewer_mesh["launches"][0][0]},
+        "multipleview_rare": {"launches": rare_chain["cli"][0],
+                              **rare_chain["blend"]["blend_forward"]},
     }, {
         "name": "blend_backward",
         "route": "cuda",
@@ -4173,6 +4479,8 @@ def main() -> int:
         "gradient_timeline": {"launches": timeline["launches"][1],
                               **timeline["blend"]["blend_backward"]},
         "viewer_mesh": {"launches": viewer_mesh["launches"][0][1]},
+        "multipleview_rare": {"launches": rare_chain["cli"][1],
+                              **rare_chain["blend"]["blend_backward"]},
     }, *cost_kernels]
     print(f"chip_smoke.py took {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -47,8 +47,8 @@ class ImageRef:
     """Lazy uint8 [H, W, 3] frame of ``size`` = (W, H); called by the loop
     when batching. Decodes a PNG with the port's PNG codec and a JPEG with
     its JPEG decoder, chosen by the file's first bytes (alpha dropped, gray
-    replicated, as Pillow's ``convert("RGB")``), and resizes a frame of
-    another size with LANCZOS, as JAX's ``Image.resize`` does."""
+    replicated, CMYK converted, as Pillow's ``convert("RGB")``), and resizes
+    a frame of another size with LANCZOS, as JAX's ``Image.resize`` does."""
 
     __slots__ = ("path", "size")
 
@@ -62,7 +62,9 @@ class ImageRef:
         if magic == png.SIGNATURE:
             img = png.read_png(self.path, "RGB")
         elif magic.startswith(jpeg.SOI):
-            img = png.convert(jpeg.read_jpeg(self.path), "RGB")
+            img = jpeg.read_jpeg(self.path)
+            cmyk = img.ndim == 3 and img.shape[2] == 4
+            img = png.convert(img, "RGB", "CMYK" if cmyk else None)
         else:
             raise ValueError(f"{self.path}: neither a PNG nor a JPEG file")
         if (img.shape[1], img.shape[0]) != self.size:

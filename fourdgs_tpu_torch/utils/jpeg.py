@@ -8,18 +8,27 @@ decoder is host C++ that links no JPEG library, built at first use with
 native build helper (``utils/native.py::build``, keyed by a hash of source
 and flags) and loaded with ``ctypes``.
 
-Scope: Huffman-coded sequential (SOF0, SOF1) and progressive (SOF2) files of
-8-bit samples, 1 or 3 components, sampling factors up to 2×2, 8- or 16-bit
-quantization tables, restart intervals, any size. It follows libjpeg's
-default path (the islow IDCT, fancy upsampling, the fixed-point YCbCr→RGB
-tables), so its frames equal Pillow's bit for bit. Lossless, hierarchical
-and arithmetic-coded files, 12-bit samples, CMYK/YCCK, sampling factors
-above 2, and a progressive file whose scans leave a low-frequency
-coefficient unrefined (libjpeg smooths its blocks, which the decoder does
-not) raise ``NotImplementedError`` naming the feature; a truncated or
-corrupt file raises ``ValueError``, and so does a frame header of more
-pixels than Pillow opens (178,956,970), before anything of the image's size
-is allocated.
+Scope: every JPEG Pillow 12 (libjpeg-turbo 3.1) reads: sequential
+(SOF0, SOF1, SOF9) and progressive (SOF2, SOF10) DCT files, Huffman- or
+arithmetic-coded, and lossless files (SOF3), of 8-bit samples, 1, 3 or 4
+components (grey, YCbCr or RGB, CMYK or YCCK), sampling factors 1 to 4 in
+each direction at whole ratios, 8- or 16-bit quantization tables, restart
+intervals, any size. It follows libjpeg's default path (the islow IDCT,
+block smoothing of a progressive file whose scans leave a low-frequency
+coefficient unrefined, fancy upsampling at a ratio of 2 and replication
+otherwise, the fixed-point YCbCr→RGB and YCCK→CMYK tables, lossless
+prediction and point transform, the colour space its markers and ids
+imply), so its frames equal Pillow's bit for bit; a 4-component file comes
+back as Pillow opens it (inverted CMYK), and ``png.convert(img, "RGB",
+"CMYK")`` converts it as Pillow does. What libjpeg or Pillow refuses raises
+``NotImplementedError`` naming the feature: hierarchical files (SOF5–SOF7,
+SOF13–SOF15), arithmetic-coded lossless files (SOF11), 12-bit and 16-bit
+samples, a height set by a DNL marker, 2-component files, fractional
+sampling ratios, a lossless restart interval of part of an MCU row and the
+colour conversion of a lossless file. A truncated or corrupt file raises
+``ValueError`` (no missing data is filled in), and so does a frame header
+of more pixels than Pillow opens (178,956,970), before anything of the
+image's size is allocated.
 """
 
 from __future__ import annotations
@@ -66,8 +75,9 @@ def _check(rc: int, err, path: str) -> None:
 
 
 def read_jpeg(path: str) -> np.ndarray:
-    """Read a JPEG as uint8: [H, W, 3] RGB, or [H, W] for a grey file, as
-    ``np.asarray(PIL.Image.open(path))`` gives it."""
+    """Read a JPEG as uint8: [H, W, 3] RGB, [H, W] for a grey file, or
+    [H, W, 4] for a CMYK / YCCK file (inverted CMYK, as Pillow's "CMYK;I"
+    raw mode opens it), as ``np.asarray(PIL.Image.open(path))`` gives it."""
     with open(path, "rb") as f:
         data = f.read()
     lib = get_lib()
@@ -75,7 +85,7 @@ def read_jpeg(path: str) -> np.ndarray:
     w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     _check(lib.jd_info(data, len(data), ctypes.byref(w), ctypes.byref(h), ctypes.byref(c),
                        err, len(err)), err, path)
-    out = np.empty((h.value, w.value, 3) if c.value == 3 else (h.value, w.value), np.uint8)
+    out = np.empty((h.value, w.value) if c.value == 1 else (h.value, w.value, c.value), np.uint8)
     _check(lib.jd_decode(data, len(data), out.ctypes.data_as(ctypes.c_void_p), err, len(err)),
            err, path)
     return out

@@ -262,12 +262,24 @@ def read_png(path: str, mode: str | None = None) -> np.ndarray:
     return out
 
 
-def convert(img: np.ndarray, mode: str) -> np.ndarray:
+def convert(img: np.ndarray, mode: str, source: str | None = None) -> np.ndarray:
     """``PIL.Image.convert(mode)`` of an 8-bit gray, gray + alpha, RGB or
     RGBA image (a :func:`read_png` array of such a file) for ``mode``
     "L" [H, W], "RGB" or "RGBA" [H, W, C]: gray is replicated, alpha is
     dropped or set to 255, and colour goes to gray by Pillow's ITU-R 601-2
-    luma in fixed point."""
+    luma in fixed point. With ``source`` "CMYK" a 4-channel image is
+    Pillow's CMYK (``utils/jpeg.py::read_jpeg`` of a CMYK or YCCK file),
+    and "RGB" is Pillow's ``cmyk2rgb``: each of R, G, B is
+    ``(255 - K) - (C * (255 - K)) / 255`` in its fixed point."""
+    if source == "CMYK":
+        if mode != "RGB" or img.ndim != 3 or img.shape[2] != 4:
+            raise ValueError(f"convert a CMYK image of shape {img.shape} to {mode!r} (RGB)")
+        x = img.astype(np.int32)
+        nk = 255 - x[:, :, 3:]
+        t = x[:, :, :3] * nk + 128                  # MULDIV255(C, 255 - K)
+        return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+    if source is not None:
+        raise ValueError(f"convert from {source!r} (CMYK, or the channels' default)")
     if img.ndim == 2:
         img = img[:, :, None]
     ch = img.shape[2]

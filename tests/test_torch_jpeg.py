@@ -15,9 +15,10 @@ match exactly.
   129×97; grey; restart intervals (``restart_marker_blocks``,
   ``restart_marker_rows``); Huffman tables optimised; 16-bit quantization
   tables (SOF1); an Adobe RGB file.
-- Lossless, hierarchical, arithmetic-coded and CMYK files raise
-  ``NotImplementedError`` (progressive ones decode, held to Pillow in
-  ``tests/test_torch_progressive.py``); truncated ones
+- Hierarchical files raise ``NotImplementedError``; lossless,
+  arithmetic-coded and CMYK files decode (their cases held to Pillow in
+  ``tests/test_torch_jpeg_rare.py``, progressive ones in
+  ``tests/test_torch_progressive.py``); truncated ones raise
   ``ValueError``, and so do a Huffman table whose codes do not fit their
   lengths and a frame header of more pixels than Pillow opens, as Pillow
   raises on them.
@@ -113,16 +114,38 @@ def test_grey(tmp_path, size):
 @pytest.mark.parametrize("marker,feature", [(0xC3, "lossless"), (0xC5, "hierarchical"),
                                             (0xC9, "arithmetic")])
 def test_out_of_scope_raises(tmp_path, marker, feature):
-    """Lossless, hierarchical, arithmetic-coded (a baseline file's SOF0
-    renamed) and CMYK files raise ``NotImplementedError`` naming the
-    feature; progressive files decode (``tests/test_torch_progressive.py``)."""
-    path = _patched(tmp_path, 0xC0, lambda seg: b"\xff" + bytes([marker]) + seg[2:])
-    with pytest.raises(NotImplementedError, match=feature):
-        jpeg.read_jpeg(str(path))
-    img = Image.fromarray(make_image(40, 30))
+    """Hierarchical files (a baseline file's SOF0 renamed) raise
+    ``NotImplementedError`` naming the feature, as Pillow refuses them;
+    lossless and arithmetic-coded files (``tests/jpeg_writer.py``'s, of the
+    same picture) and CMYK files decode as Pillow decodes them (their other
+    cases in ``tests/test_torch_jpeg_rare.py``), and so do progressive
+    files (``tests/test_torch_progressive.py``)."""
+    from tests import jpeg_writer as W
+
+    img = make_image(40, 30)
+    path = tmp_path / "f.jpg"
+    if feature == "hierarchical":
+        path = _patched(tmp_path, 0xC0, lambda seg: b"\xff" + bytes([marker]) + seg[2:])
+        with pytest.raises(NotImplementedError, match=feature):
+            jpeg.read_jpeg(str(path))
+        with pytest.raises(OSError):
+            Image.open(path).load()
+    else:
+        if feature == "lossless":
+            path.write_bytes(W.write_lossless(40, 30, [
+                W.Component(ord(ch), 1, 1, samples=img[:, :, i]) for i, ch in enumerate("RGB")]))
+            np.testing.assert_array_equal(jpeg.read_jpeg(str(path)), img)
+        else:
+            frame = W.dct_frame(list(W.rgb_to_ycc(img).transpose(2, 0, 1)),
+                                [(2, 2), (1, 1), (1, 1)], W.quality_tables(90))
+            path.write_bytes(W.write_dct(frame, arithmetic=True))
+        assert path.read_bytes().count(b"\xff" + bytes([marker])) == 1
+        np.testing.assert_array_equal(jpeg.read_jpeg(str(path)), np.asarray(Image.open(path)))
+    img = Image.fromarray(img)
     img.convert("CMYK").save(tmp_path / "c.jpg")
-    with pytest.raises(NotImplementedError, match="CMYK"):
-        jpeg.read_jpeg(str(tmp_path / "c.jpg"))
+    cmyk = jpeg.read_jpeg(str(tmp_path / "c.jpg"))
+    assert cmyk.shape == (30, 40, 4)
+    np.testing.assert_array_equal(cmyk, np.asarray(Image.open(tmp_path / "c.jpg")))
 
 
 @pytest.mark.parametrize("keep", [0.5, 0.98, 60, 3])

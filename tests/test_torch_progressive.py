@@ -10,9 +10,8 @@ fixtures of ``tests/torch_fixtures/variants``.
   baseline file of the same picture decodes (a progressive file holds the
   same quantized coefficients).
 - A file whose scans leave low-frequency coefficients unrefined (the first
-  scans of a Pillow file and EOI) raises ``NotImplementedError`` naming
-  libjpeg's block smoothing, which Pillow applies to it; a truncated scan
-  raises ``ValueError``.
+  scans of a Pillow file and EOI) is smoothed as libjpeg smooths it, bit
+  for bit; a truncated scan raises ``ValueError``.
 - The committed fixtures against Pillow's committed decodes, the generator
   that wrote them, and ``chip_smoke.py`` phase 16 (b)'s check of them
   (``check_decoders``) on the CPU.
@@ -72,17 +71,15 @@ def test_progressive_grey_and_16_bit_tables(tmp_path, size):
     check_exact(path)
 
 
-def scans_cut(data: bytes, n_scans: int) -> bytes:
-    """The first ``n_scans`` scans of a JPEG file, then EOI."""
-    sos = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
-    return data[:sos[n_scans]] + b"\xff\xd9"
+scans_cut = CS.scans_cut
 
 
 def test_unrefined_scans_raise_and_truncated_ones_fail(tmp_path):
     """Cut after each of a Pillow file's first scans, the refinement scans
     are missing, and libjpeg smooths the blocks (Pillow decodes such a
-    file): the port raises ``NotImplementedError`` instead of differing.
-    A scan cut inside its data raises ``ValueError``."""
+    file): the port smooths them as libjpeg does, bit for bit (more cases in
+    ``tests/test_torch_jpeg_rare.py``). A scan cut inside its data raises
+    ``ValueError``."""
     full = tmp_path / "f.jpg"
     Image.fromarray(make_image(64, 48)).save(full, progressive=True, quality=90)
     data = full.read_bytes()
@@ -92,8 +89,7 @@ def test_unrefined_scans_raise_and_truncated_ones_fail(tmp_path):
     for n in range(1, n_scans):
         cut.write_bytes(scans_cut(data, n))
         assert np.asarray(Image.open(cut)).shape == (48, 64, 3)
-        with pytest.raises(NotImplementedError, match="block smoothing"):
-            jpeg.read_jpeg(str(cut))
+        check_exact(cut)
     cut.write_bytes(data[:len(data) * 3 // 4])
     with pytest.raises(ValueError, match="truncated"):
         jpeg.read_jpeg(str(cut))
@@ -219,11 +215,11 @@ def test_the_generator_wrote_the_committed_fixtures(tmp_path):
 
 
 def test_chip_smoke_decoder_phase_on_cpu():
-    """Phase 16 (b) on this host: every committed variant bit for bit,
-    the unrefined file raising, the timing and the MultipleView scene of
+    """Phase 16 (b) on the CPU: every committed variant bit for bit
+    (the unrefined file smoothed), the timing and the MultipleView scene of
     progressive frames through ``load_scene``."""
     res = CS.check_decoders(reps=1)
-    assert res["jpeg_files"] == 12 + 6 + 2 and res["png_files"] == len(PNG_FIXTURES)
+    assert res["jpeg_files"] == 12 + 6 + 1 + 2 and res["png_files"] == len(PNG_FIXTURES)
     assert res["multipleview_frames"] == 12
     assert all(ms > 0 for ms in res["ms"].values())
     assert res["bytes"]["progressive"] < 200_000
