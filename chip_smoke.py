@@ -133,7 +133,7 @@ on failure:
    ring cameras, 6 frames each at the loader's 1352×1014 rendered by K1,
    every filter type in turn, ``points3D_downsample2.ply``), then
    ``train_torch.py`` on it with the dynerf preset at full width, a cut
-   schedule (6 coarse + 18 fine steps, cut from 20 + 60 as phases were added) and the
+   schedule (4 coarse + 12 fine steps, cut from 20 + 60 as phases were added) and the
    FineSampler,
    ``render_torch.py`` (test split: camera 0) and ``metrics_torch.py``: the
    outputs of phase 10 (b), the PSNR above the blank image's, every train
@@ -283,9 +283,9 @@ on failure:
    for each frame, and the first frame equals this process's render of the
    state ``build_scene`` makes from the same seed, bit for bit. (d) Phase
    ``train_torch.py`` twice in this process on phase 10 (b)'s scene with
-   one ``--seed`` and PERF.md §7's 20 + 60-step schedule (phase 15 (c)'s
-   until PR 16): both held-out PSNRs and whether the trained states are
-   bit-equal.
+   one ``--seed`` and ``SPREAD_SCHEDULE`` (10 + 30 steps, cut from 20 +
+   60 to pay for phase 18): both held-out PSNRs and whether the trained
+   states are bit-equal.
 17. the rarer JPEG codings: (a) every committed file of
    ``tests/torch_fixtures/rare`` (the twelve frames arithmetic-coded,
    sequential and progressive, and lossless; smoothed, 4:1:1 and CMYK
@@ -306,6 +306,26 @@ on failure:
    (every frame sent to the ref's decoder), then K1 and K2 at train view 0
    of the trained model against their plain versions
    (``multipleview_rare`` in the kernels line).
+18. the DyNeRF video extraction: (a) every committed stream of
+   ``tests/torch_fixtures/h264`` (CABAC I and P slices of every macroblock
+   type, partition and intra mode, the 8x8 transform, scaling lists,
+   weights, MMCO and long-term references, slices and deblocking controls,
+   POC types 0-2, a reorder buffer, cropping, the VUI colours, MP4 and
+   Annex-B) decoded on the card's host, frame by frame with the same
+   count, equal to cv2's committed BGR decode. (b) The host's ms per
+   2704×2028 frame of a stream ``tests/h264_writer.py`` writes there
+   (:func:`row_video`: an I picture then P pictures of one-row slices, not
+   a camera file): the decode alone (I and P apart), the LANCZOS resize to
+   1352×1014 and the PNG write. (c) A DyNeRF scene of two ``cam*.mp4`` at
+   2704×2028 and no frames on disk (:func:`write_video_scene`) through
+   ``load_scene``, which extracts each camera's frames (each equal to its
+   video's decode resized), then ``train_torch.py`` → ``render_torch.py``
+   → ``metrics_torch.py`` with the dynerf preset at full width and
+   ``VIDEO_SCHEDULE`` (2 coarse + 4 fine steps), K1 once per render of a
+   step, eval view and rendered view and K2 once per render of a step,
+   every frame decoded by the native prefetcher, then K1 and K2 at train
+   view 0 of the trained model against their plain versions
+   (``dynerf_video`` in the kernels line).
 
 Agreement bound of K1 with its plain version: atol 1e-4 on color and final
 transmittance, except pixels riding T_STOP, where a different association of
@@ -1425,10 +1445,10 @@ def check_entry_points(dev, data_dir, model_path):
 
 
 DYNERF_FRAMES = 6          # frames per camera of phase 11 (c)'s scene
-# phase 11 (c): 20 + 60 steps, cut to 10 + 30 to pay for phase 16 and to
-# 6 + 18 to pay for phase 17
-DYNERF_CLI_SCHEDULE = ("opt.coarse_iterations=6", "opt.iterations=18",
-                       "opt.position_lr_max_steps=18", 'opt.custom_sampler="fine"')
+# phase 11 (c): 20 + 60 steps, cut to 10 + 30 to pay for phase 16, to
+# 6 + 18 to pay for phase 17 and to 4 + 12 to pay for phase 18
+DYNERF_CLI_SCHEDULE = ("opt.coarse_iterations=4", "opt.iterations=12",
+                       "opt.position_lr_max_steps=12", 'opt.custom_sampler="fine"')
 
 
 class _Tee:
@@ -2936,8 +2956,7 @@ SHARD_TOL = {"p": (2e-4, 2e-6), "mu": (2e-4, 5e-5), "nu": (4e-4, 1e-9),
 GRAD_NOISE = 1e-5
 # phase 15 (c)'s schedule: 20 + 60 steps with densify from 10 every 20 until
 # PR 16, cut to 10 + 30 with densify from 5 every 10 (still crossing a
-# capacity growth) to pay for phase 16, whose (d) keeps the 20 + 60 of
-# PERF.md §7's spread
+# capacity growth) to pay for phase 16
 SHARD_CLI_SCHEDULE = ("opt.coarse_iterations=10", "opt.iterations=30",
                       "opt.position_lr_max_steps=30", "opt.densify_from_iter=5",
                       "opt.densification_interval=10", "tpu.capacity_init=2048")
@@ -3811,13 +3830,223 @@ def check_rare_chain(dev, schedule=MULTIPLEVIEW_SCHEDULE, preset=MULTIPLEVIEW_PR
             "psnr": cli["psnr"], "blank_psnr": cli["blank_psnr"]}
 
 
+# -- phase 18: the DyNeRF video extraction ------------------------------------
+
+# the committed H.264 streams and cv2's decode of each
+# (tests/test_torch_h264.py::write_committed_fixtures)
+H264_FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "h264")
+VIDEO_SIZE = (2704, 2028)          # a Neu3D camera's cam*.mp4
+VIDEO_HOST_FRAMES = 4              # phase 18 (b)'s stream: I, P, P, P
+VIDEO_SCENE_CAMS, VIDEO_SCENE_FRAMES = 2, 2   # phase 18 (c)'s scene
+VIDEO_SCHEDULE = ("opt.coarse_iterations=2", "opt.iterations=4",
+                  "opt.position_lr_max_steps=4", 'opt.custom_sampler="fine"')
+
+
+def h264_writer():
+    """``tests/h264_writer.py``, the fixtures' H.264 writer, loaded by its
+    path (another ``tests`` package may come first on ``sys.path``)."""
+    import importlib.util
+
+    if "h264_writer" not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            "h264_writer", os.path.join(ROOT, "tests", "h264_writer.py"))
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["h264_writer"] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules["h264_writer"]
+
+
+def row_video(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES, seed=0) -> bytes:
+    """An MP4 of ``frames`` pictures at ``size`` written by
+    ``tests/h264_writer.py`` on this host: an IDR picture then P pictures,
+    each of one-row slices whose CABAC data the writer codes once and
+    repeats (a slice's data starts byte-aligned and depends on no other
+    slice). Not a camera file: random syntax, every macroblock type and
+    partition, residuals at QP 12-44."""
+    W = h264_writer()
+    cfg = W.Config(width=size[0], height=size[1], frames=frames, seed=seed, row_repeat=True,
+                   p_pcm=0.02, num_ref_default=2, max_refs=3)
+    sps, pps, aus = W.write(cfg)
+    return W.mp4(sps, pps, aus, size[0], size[1])
+
+
+def check_h264_fixtures() -> dict:
+    """Phase 18 (a) (module docstring): every committed stream of
+    ``tests/torch_fixtures/h264`` decoded on this host, frame by frame with
+    the same count, equal to cv2's committed BGR decode. Returns the counts."""
+    from fourdgs_tpu_torch.utils import video
+
+    print("[18] the DyNeRF video extraction: (a) the H.264 decoder on the committed "
+          "streams", flush=True)
+    with np.load(os.path.join(H264_FIXTURES, "cv2_decode.npz")) as z:
+        want = {k: z[k] for k in z.files}
+    files = frames = 0
+    t0 = time.perf_counter()
+    for fname in sorted(os.listdir(H264_FIXTURES)):
+        stem, ext = os.path.splitext(fname)
+        if ext not in (".mp4", ".h264"):
+            continue
+        got = list(video.read_frames(os.path.join(H264_FIXTURES, fname), bgr=True))
+        if len(got) != len(want[stem]) or not all(
+                np.array_equal(g, w) for g, w in zip(got, want[stem])):
+            raise AssertionError(f"{fname}: the port's decode is not cv2's bit for bit")
+        files += 1
+        frames += len(got)
+    if files != len(want):
+        raise AssertionError(f"{files} streams for {len(want)} committed decodes")
+    print(f"    {files} streams, {frames} frames: each equal to cv2's committed decode "
+          f"({time.perf_counter() - t0:.3f} s)")
+    return {"files": files, "frames": frames}
+
+
+def check_video_host_times(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES,
+                           target=(1352, 1014)) -> dict:
+    """Phase 18 (b) (module docstring): on this host, ms per frame of the
+    :func:`row_video` stream at ``size``: the decode alone (to RGB, I and P
+    pictures apart), the LANCZOS resize to ``target`` and the PNG write,
+    each timed over every frame. Returns the ms and the stream's size."""
+    from fourdgs_tpu_torch.utils import png, resample, video
+
+    print(f"    (b) the card's host: decode, resize and PNG write of a {size[0]}x{size[1]} "
+          f"stream", flush=True)
+    t0 = time.perf_counter()
+    data = row_video(size, frames)
+    write_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_video_") as tmp:
+        path = os.path.join(tmp, "rows.mp4")
+        with open(path, "wb") as f:
+            f.write(data)
+        decode_ms, imgs = [], []
+        it = video.read_frames(path)
+        while True:
+            t0 = time.perf_counter()
+            img = next(it, None)
+            if img is None:
+                break
+            decode_ms.append(1e3 * (time.perf_counter() - t0))
+            imgs.append(img)
+        resize_ms, write_ms = [], []
+        for i, img in enumerate(imgs):
+            t0 = time.perf_counter()
+            small = resample.resize(img, target, "lanczos")
+            resize_ms.append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            png.write_png(os.path.join(tmp, "%04d.png" % i), small)
+            write_ms.append(1e3 * (time.perf_counter() - t0))
+    if len(imgs) != frames or imgs[0].shape != (size[1], size[0], 3):
+        raise AssertionError(f"{len(imgs)} frames of {imgs[0].shape if imgs else None}")
+    out = {"decode_ms": float(np.mean(decode_ms)), "decode_i_ms": decode_ms[0],
+           "decode_p_ms": float(np.mean(decode_ms[1:])), "resize_ms": float(np.mean(resize_ms)),
+           "png_ms": float(np.mean(write_ms)), "mbytes": len(data) / 1e6, "write_s": write_s}
+    print(f"    {frames} frames ({out['mbytes']:.3f} MB, written in {write_s:.2f} s): decode "
+          f"{out['decode_ms']:.2f} ms a frame (I {out['decode_i_ms']:.2f}, P "
+          f"{out['decode_p_ms']:.2f}), LANCZOS to {target[0]}x{target[1]} "
+          f"{out['resize_ms']:.2f} ms, PNG write {out['png_ms']:.2f} ms")
+    return out
+
+
+def write_video_scene(root, dev, video_size=VIDEO_SIZE, target=(1352, 1014)) -> list:
+    """A DyNeRF scene of videos only: :func:`write_dynerf_scene`'s
+    ``poses_bounds.npy`` and point cloud for ``target`` frames, and
+    ``VIDEO_SCENE_CAMS`` videos ``cam00.mp4…`` of ``VIDEO_SCENE_FRAMES``
+    pictures at ``video_size`` (:func:`row_video`, a seed a camera) and no
+    ``cam*/images``. Returns the videos' paths."""
+    write_dynerf_scene(root, dev, n_frames=0, size=target, n_cams=VIDEO_SCENE_CAMS)
+    paths = []
+    for ci in range(VIDEO_SCENE_CAMS):
+        cam_dir = os.path.join(root, f"cam{ci:02d}")
+        os.rmdir(os.path.join(cam_dir, "images"))
+        os.rmdir(cam_dir)
+        paths.append(cam_dir + ".mp4")
+        with open(paths[-1], "wb") as f:
+            f.write(row_video(video_size, VIDEO_SCENE_FRAMES, seed=ci))
+    return paths
+
+
+def check_video_chain(dev, video_size=VIDEO_SIZE, schedule=VIDEO_SCHEDULE) -> dict:
+    """Phase 18 (c) (module docstring): a scene of ``cam*.mp4`` only
+    (:func:`write_video_scene`) loaded through ``load_dynerf_scene``, which
+    extracts every camera's frames (each equal to the decode of its video
+    resized with LANCZOS), then ``train_torch.py`` → ``render_torch.py`` →
+    ``metrics_torch.py`` with the dynerf preset at full width
+    (:func:`run_cli_chain`), K1 and K2's launches counted, then K1 and K2
+    at a train step of its model (train view 0) against their plain
+    versions (:func:`check_step_blend`). Returns the launches, the
+    extraction's wall and that check's fields."""
+    import torch
+
+    import bench_quality_dynerf_torch as BD
+    from fourdgs_tpu_torch.configs.core import load_config
+    from fourdgs_tpu_torch.data import scene as tscene
+    from fourdgs_tpu_torch.render import CameraArrays
+    from fourdgs_tpu_torch.utils import losses, png, resample, video
+
+    target = tscene.DYNERF_SIZE
+    print(f"    (c) a DyNeRF scene of {VIDEO_SCENE_CAMS} cam*.mp4 at {video_size[0]}x"
+          f"{video_size[1]}: load_scene extracts, then the CLI chain", flush=True)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_video_scene_") as tmp:
+        data_dir, model_path = os.path.join(tmp, "data"), os.path.join(tmp, "model")
+        videos = write_video_scene(data_dir, dev, video_size, target)
+        t0 = time.perf_counter()
+        data = tscene.load_scene(load_config(), data_dir)
+        extract_s = time.perf_counter() - t0
+        for path in videos:
+            img_dir = os.path.join(os.path.splitext(path)[0], "images")
+            names = sorted(os.listdir(img_dir))
+            frames = list(video.read_frames(path))
+            if names != ["%04d.png" % i for i in range(len(frames))] or not frames:
+                raise AssertionError(f"{img_dir}: {names}")
+            for name, frame in zip(names, frames):
+                if not np.array_equal(png.read_png(os.path.join(img_dir, name)),
+                                      resample.resize(frame, target, "lanczos")):
+                    raise AssertionError(f"{name}: not the resized decode of {path}")
+        n_views = len(data.train_cameras) + len(data.test_cameras)
+        cli = run_cli_chain(data_dir, model_path, dev, schedule, BD.PRESET)
+        cfg, state = cli["cfg"], cli["state"]
+        lc0 = cli["scene"].train_cameras[0]
+        cam0 = lc0.camera
+        bg = torch.ones(3, device=dev) if cfg.model.white_background else torch.zeros(3, device=dev)
+        gt0 = torch.tensor(lc0.image(), device=dev).to(torch.float32).permute(2, 0, 1) / 255.0
+        fwd_args, bwd_args = step_blend_inputs(
+            cfg, state, CameraArrays.from_camera(cam0, device=dev), cam0.width, cam0.height,
+            losses.tile_image(gt0, pad_cols=2), bg, state.active_sh_degree, dev)
+        trained = check_step_blend(
+            fwd_args, bwd_args, dev,
+            f"train view 0 of the model of the extracted scene ({cam0.width}x{cam0.height}, "
+            f"capacity {state.alive.shape[0]}, {int(state.alive.sum())} alive, SH degree "
+            f"{state.active_sh_degree})")
+    renders = cli["steps"] * cli["batch_size"]
+    on_card = int(dev.type == "cuda")
+    (k1_train, k2_train), (k1_render, _) = cli["train_launches"], cli["render_launches"]
+    pf = cli["prefetch"]
+    print(f"    extraction in load_scene {extract_s:.3f} s ({n_views} frames at {target[0]}x"
+          f"{target[1]}, each the resized decode of its video); train wall "
+          f"{cli['train_s']:.3f} s ({cli['steps']} steps, batch {cli['batch_size']}, "
+          f"{cli['points']} points), held-out PSNR {cli['psnr']:.4f} dB; prefetcher "
+          f"{json.dumps(pf)}; K1/K2 launches train {cli['train_launches']}, render "
+          f"{cli['render_launches']}")
+    if n_views != VIDEO_SCENE_CAMS * VIDEO_SCENE_FRAMES:
+        raise AssertionError(f"{n_views} views for {VIDEO_SCENE_CAMS} cameras x "
+                             f"{VIDEO_SCENE_FRAMES} frames")
+    if pf["submitted"] != renders or pf["native"] != renders or pf["to_ref"]:
+        raise AssertionError(f"the prefetcher decoded {pf}, expected {renders} natively")
+    if ((k2_train, k1_train) != (on_card * renders, on_card * (renders + cli["eval_renders"]))
+            or k1_render != on_card * (cli["test_views"] + 1)):
+        raise AssertionError(f"CLI launches: train {cli['train_launches']}, render "
+                             f"{cli['render_launches']}")
+    return {"cli": (k1_train + k1_render, k2_train), "blend": trained,
+            "extract_s": extract_s, "psnr": cli["psnr"]}
+
+
 TIMELINE_TIMES = 10                # phase 16 (a)'s timestamps
 VIEWER_MESH_SCHEDULE = ("opt.coarse_iterations=3", "opt.iterations=3",
                         "opt.position_lr_max_steps=3", "tpu.capacity_init=2048")
 VIEWER_FRAMES = 3                  # phase 16 (c)'s frames, one before each coarse step
-SPREAD_SCHEDULE = ("opt.coarse_iterations=20", "opt.iterations=60",
-                   "opt.position_lr_max_steps=60", "opt.densify_from_iter=10",
-                   "opt.densification_interval=20", "tpu.capacity_init=2048")
+# phase 16 (d): 20 + 60 steps, cut to 10 + 30 (densifying at 5, 15 and 25)
+# to pay for phase 18
+SPREAD_SCHEDULE = ("opt.coarse_iterations=10", "opt.iterations=30",
+                   "opt.position_lr_max_steps=30", "opt.densify_from_iter=5",
+                   "opt.densification_interval=10", "tpu.capacity_init=2048")
 
 
 def check_gradient_timeline(dev, data_dir, model_path, n_times=TIMELINE_TIMES):
@@ -3987,7 +4216,7 @@ def check_viewer_under_mesh(dev, data_dir):
 
 def check_seed_spread(dev, data_dir):
     """Phase 16 (d) (module docstring): ``train_torch.py`` twice on phase
-    10 (b)'s scene with PERF.md §7's 20 + 60-step schedule and one
+    10 (b)'s scene with ``SPREAD_SCHEDULE`` (10 + 30 steps) and one
     ``--seed`` (its default): both held-out PSNRs (its last eval) and
     whether the two trained states are equal bit for bit. Returns them."""
     import bench_quality_torch as BQ
@@ -4392,6 +4621,15 @@ def main() -> int:
         check_rare_decoders()
         rare_chain = check_rare_chain(dev)
         phase_s[17] = time.perf_counter() - t0
+
+        # -- 18. the DyNeRF video extraction: the committed H.264 streams,
+        #    the host's times per 2704x2028 frame, then a scene of videos
+        #    through load_scene and the CLI chain
+        t0 = time.perf_counter()
+        check_h264_fixtures()
+        video_host = check_video_host_times()
+        video_chain = check_video_chain(dev)
+        phase_s[18] = time.perf_counter() - t0
     finally:
         scene_tmp.cleanup()
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
@@ -4442,6 +4680,11 @@ def main() -> int:
         "viewer_mesh": {"launches": viewer_mesh["launches"][0][0]},
         "multipleview_rare": {"launches": rare_chain["cli"][0],
                               **rare_chain["blend"]["blend_forward"]},
+        "dynerf_video": {"launches": video_chain["cli"][0],
+                         **video_chain["blend"]["blend_forward"],
+                         "host_ms_per_frame": {k: video_host[k] for k in (
+                             "decode_ms", "decode_i_ms", "decode_p_ms", "resize_ms",
+                             "png_ms")}},
     }, {
         "name": "blend_backward",
         "route": "cuda",
@@ -4481,6 +4724,8 @@ def main() -> int:
         "viewer_mesh": {"launches": viewer_mesh["launches"][0][1]},
         "multipleview_rare": {"launches": rare_chain["cli"][1],
                               **rare_chain["blend"]["blend_backward"]},
+        "dynerf_video": {"launches": video_chain["cli"][1],
+                         **video_chain["blend"]["blend_backward"]},
     }, *cost_kernels]
     print(f"chip_smoke.py took {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))

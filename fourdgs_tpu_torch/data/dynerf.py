@@ -20,10 +20,15 @@ Parity target: scene/neural_3D_dataset_NDC.py + readdynerfInfo
 - spiral validation path for the video split (get_spiral, :185-207)
 
 A frame whose size is not ``target_wh`` is resized with LANCZOS when it is
-read (:class:`ImageRef`), as JAX's is. One step of JAX's loader is not
-ported: the extraction of ``cam*.mp4`` into ``cam*/images`` (cv2): a scene
-with videos and no extracted frames raises ``NotImplementedError`` naming
-the step.
+read (:class:`ImageRef`), as JAX's is. A camera with a ``cam*.mp4`` and no
+``cam*/images`` is extracted first, as JAX's loader does with cv2
+(``_extract_video_frames``): the port's H.264 decoder
+(``utils/video.py::extract_video_frames``) writes its first ``n_frames``
+frames, LANCZOS-resized to ``target_wh``, as ``%04d.png``. One divergence
+is the port's own: a camera's directory is its video's path less the
+extension (``os.path.splitext``), where JAX cuts the path at its first dot
+(``v.split(".")[0]``), which puts the frames of a scene under a dotted
+directory outside it.
 
 Images are **lazy** (path-backed refs read at batch time): a full Neu3D
 scene is ~6k frames ≈ 23 GB decoded. The training loop decodes the next
@@ -40,7 +45,7 @@ import numpy as np
 
 from fourdgs_tpu_torch.data.blender import SceneData, get_nerfpp_norm
 from fourdgs_tpu_torch.data.ply import fetch_pointcloud
-from fourdgs_tpu_torch.utils import graphics, jpeg, png, resample
+from fourdgs_tpu_torch.utils import graphics, jpeg, png, resample, video
 
 
 class ImageRef:
@@ -106,7 +111,7 @@ def load_dynerf_scene(
             f"{len(videos)} videos vs {poses.shape[0]} poses in {path}"
         )
     cam_dirs = (
-        [v.split(".")[0] for v in videos]
+        [os.path.splitext(v)[0] for v in videos]
         if videos
         else sorted(
             d for d in glob.glob(os.path.join(path, "cam*")) if os.path.isdir(d)
@@ -121,10 +126,7 @@ def load_dynerf_scene(
     for ci, cam_dir in enumerate(cam_dirs):
         img_dir = os.path.join(cam_dir, "images")
         if not os.path.isdir(img_dir) and videos:
-            raise NotImplementedError(
-                f"{videos[ci]}: no extracted frames in {img_dir}; extracting "
-                f"them from the video (fourdgs_tpu/data/dynerf.py::"
-                f"_extract_video_frames, cv2 and Pillow) is not ported")
+            video.extract_video_frames(videos[ci], img_dir, target_wh, n_frames)
         frames = sorted(os.listdir(img_dir))[:n_frames]
         pose = poses[ci]
         R = -pose[:3, :3]

@@ -85,6 +85,10 @@ def shutdown() -> None:
     :func:`initialize` that returned True)."""
     global _initialized
     if dist.is_initialized():
+        if dist.get_world_size() > 1:
+            # every rank done with its collectives before any closes its
+            # connections (as parallel/launch.py's ranks end)
+            dist.barrier()
         dist.destroy_process_group()
     _initialized = False
 

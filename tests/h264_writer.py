@@ -1,0 +1,1566 @@
+"""An H.264 writer in Python for the video decoder's test fixtures.
+
+Nothing the tests depend on writes H.264 (cv2's ``VideoWriter`` needs an
+encoder its FFmpeg build may lack), so this module writes the streams the
+port's decoder (``fourdgs_tpu_torch/native/h264.cpp``) is held to: progressive 8-bit
+4:2:0 CABAC streams of I and P slices, as Annex-B byte streams or as MP4
+files, whose syntax is drawn at random from a seed and a :class:`Config`:
+macroblock types and partitions, intra modes, motion vectors (far outside
+the picture too), reference indices, weights, residuals, QP deltas,
+slices and their deblocking controls, scaling lists, cropping, POC types,
+memory management operations, long-term references and VUI colour
+descriptions. It needs no motion search and no reconstruction: it writes
+syntax, and cv2 decodes what it means.
+
+It is a second implementation of the syntax in ITU-T H.264 (07/2019)
+§7.3 and of the CABAC encoder in §9.3.4; it shares with the decoder only
+the context initialisation values (Tables 9-12 to 9-33), which it reads
+out of ``h264.cpp``. A wrong entry there makes both disagree with cv2.
+
+Refusal fixtures (:func:`header_only`) hold a parameter set or a slice
+header of a feature the decoder does not read.
+"""
+
+from __future__ import annotations
+
+import pathlib
+import re
+from dataclasses import dataclass, field
+
+import numpy as np
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+DECODER_SRC = ROOT / "fourdgs_tpu_torch" / "native" / "h264.cpp"
+
+
+def _cabac_init():
+    src = DECODER_SRC.read_text()
+    body = src[src.index("kCabacInit[4][460][2] = {"):]
+    body = body[body.index("{"):body.index("};")]
+    return np.array(list(map(int, re.findall(r"-?\d+", body))), np.int64).reshape(4, 460, 2)
+
+
+CABAC_INIT = _cabac_init()
+
+# Table 9-44: rangeTabLPS[pStateIdx][qCodIRangeIdx]
+RANGE_LPS = [
+    (128, 176, 208, 240), (128, 167, 197, 227), (128, 158, 187, 216), (123, 150, 178, 205),
+    (116, 142, 169, 195), (111, 135, 160, 185), (105, 128, 152, 175), (100, 122, 144, 166),
+    (95, 116, 137, 158), (90, 110, 130, 150), (85, 104, 123, 142), (81, 99, 117, 135),
+    (77, 94, 111, 128), (73, 89, 105, 122), (69, 85, 100, 116), (66, 80, 95, 110),
+    (62, 76, 90, 104), (59, 72, 86, 99), (56, 69, 81, 94), (53, 65, 77, 89),
+    (51, 62, 73, 85), (48, 59, 69, 80), (46, 56, 66, 76), (43, 53, 63, 72),
+    (41, 50, 59, 69), (39, 48, 56, 65), (37, 45, 54, 62), (35, 43, 51, 59),
+    (33, 41, 48, 56), (32, 39, 46, 53), (30, 37, 43, 50), (29, 35, 41, 48),
+    (27, 33, 39, 45), (26, 31, 37, 43), (24, 30, 35, 41), (23, 28, 33, 39),
+    (22, 27, 32, 37), (21, 26, 30, 35), (20, 24, 29, 33), (19, 23, 27, 31),
+    (18, 22, 26, 30), (17, 21, 25, 28), (16, 20, 23, 27), (15, 19, 22, 25),
+    (14, 18, 21, 24), (14, 17, 20, 23), (13, 16, 19, 22), (12, 15, 18, 21),
+    (12, 14, 17, 20), (11, 14, 16, 19), (11, 13, 15, 18), (10, 12, 15, 17),
+    (10, 12, 14, 16), (9, 11, 13, 15), (9, 11, 12, 14), (8, 10, 12, 14),
+    (8, 9, 11, 13), (7, 9, 11, 12), (7, 9, 10, 12), (7, 8, 10, 11),
+    (6, 8, 9, 11), (6, 7, 9, 10), (6, 7, 8, 9), (2, 2, 2, 2)]
+# Table 9-45: transIdxLPS
+TRANS_LPS = [0, 0, 1, 2, 2, 4, 4, 5, 6, 7, 8, 9, 9, 11, 11, 12, 13, 13, 15, 15, 16, 16, 18,
+             18, 19, 19, 21, 21, 22, 22, 23, 24, 24, 25, 26, 26, 27, 27, 28, 29, 29, 30, 30,
+             30, 31, 32, 32, 33, 33, 33, 34, 34, 35, 35, 35, 36, 36, 36, 37, 37, 37, 38, 38,
+             63]
+# Table 9-43: ctxIdxInc of significant_coeff_flag and last_significant_coeff_flag
+# of a frame-coded 8x8 block, by scanning position
+SIG8 = [0, 1, 2, 3, 4, 5, 5, 4, 4, 3, 3, 4, 4, 4, 5, 5, 4, 4, 4, 4, 3, 3, 6, 7, 7, 7, 8, 9,
+        10, 9, 8, 7, 7, 6, 11, 12, 13, 11, 6, 7, 8, 9, 14, 10, 9, 8, 6, 11, 12, 13, 11, 6, 9,
+        14, 10, 9, 11, 12, 13, 11, 14, 10, 12]
+LAST8 = [0] + [1] * 15 + [2] * 16 + [3] * 8 + [4] * 8 + [5] * 4 + [6] * 4 + [7] * 4 + [8] * 3
+ZIGZAG4 = [0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15]
+ZIGZAG8 = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41,
+           34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23,
+           30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63]
+# Tables 7-3 and 7-4, in zigzag order
+DEFAULT4 = ([6, 13, 13, 20, 20, 20, 28, 28, 28, 28, 32, 32, 32, 37, 37, 42],
+            [10, 14, 14, 20, 20, 20, 24, 24, 24, 24, 27, 27, 27, 30, 30, 34])
+DEFAULT8 = ([6, 10, 10, 13, 11, 13, 16, 16, 16, 16, 18, 18, 18, 18, 18, 23, 23, 23, 23, 23,
+             23, 25, 25, 25, 25, 25, 25, 25, 27, 27, 27, 27, 27, 27, 27, 27, 29, 29, 29, 29,
+             29, 29, 29, 31, 31, 31, 31, 31, 31, 33, 33, 33, 33, 33, 36, 36, 36, 36, 38, 38,
+             38, 40, 40, 42],
+            [9, 13, 13, 15, 13, 15, 17, 17, 17, 17, 19, 19, 19, 19, 19, 21, 21, 21, 21, 21, 21,
+             22, 22, 22, 22, 22, 22, 22, 24, 24, 24, 24, 24, 24, 24, 24, 25, 25, 25, 25, 25, 25,
+             25, 27, 27, 27, 27, 27, 27, 28, 28, 28, 28, 28, 30, 30, 30, 30, 32, 32, 32, 33, 33,
+             35])
+NORM4 = [(10, 16, 13), (11, 18, 14), (13, 20, 16), (14, 23, 18), (16, 25, 20), (18, 29, 23)]
+NORM8 = [(20, 18, 32, 19, 25, 24), (22, 19, 35, 21, 28, 26), (26, 23, 42, 24, 33, 31),
+         (28, 25, 45, 26, 35, 33), (32, 28, 51, 30, 40, 38), (36, 32, 58, 34, 46, 43)]
+
+# CABAC ctxIdxOffsets (Table 9-34) and ctxBlockCatOffsets (Table 9-40)
+CBF_CAT = (0, 4, 8, 12, 16)
+SIG_CAT = (0, 15, 29, 44, 47)
+ABS_CAT = (0, 10, 20, 30, 39)
+
+
+class Bits:
+    """An MSB-first bit writer."""
+
+    def __init__(self):
+        self.bits = []
+
+    def u(self, n, v):
+        self.bits.extend((v >> i) & 1 for i in range(n - 1, -1, -1))
+
+    def ue(self, v):
+        v += 1
+        n = v.bit_length()
+        self.u(n - 1, 0)
+        self.u(n, v)
+
+    def se(self, v):
+        self.ue(2 * v - 1 if v > 0 else -2 * v)
+
+    def trailing(self):
+        self.bits.append(1)
+        while len(self.bits) % 8:
+            self.bits.append(0)
+
+    def tobytes(self):
+        assert len(self.bits) % 8 == 0
+        return np.packbits(np.array(self.bits, np.uint8)).tobytes()
+
+
+def nal(ref_idc, ntype, rbsp: bytes) -> bytes:
+    """A NAL unit: its header and ``rbsp`` with emulation prevention."""
+    out = bytearray([(ref_idc << 5) | ntype])
+    zeros = 0
+    for b in rbsp:
+        if zeros >= 2 and b <= 3:
+            out.append(3)
+            zeros = 0
+        out.append(b)
+        zeros = zeros + 1 if b == 0 else 0
+    return bytes(out)
+
+
+class CabacEncoder:
+    """§9.3.4.2-9.3.4.6: the arithmetic encoder over a :class:`Bits`."""
+
+    def __init__(self, bits):
+        self.bits = bits
+        self.reset()
+
+    def reset(self):
+        self.low, self.range, self.first, self.outstanding = 0, 510, True, 0
+
+    def init_contexts(self, table, qp, used=None):
+        """Initialises the contexts from ``table`` at ``qp``; each context a
+        decision then codes is added to the set ``used``."""
+        self.used = used if used is not None else set()
+        self.state = [0] * 460
+        self.mps = [0] * 460
+        for i, (m, n) in enumerate(table):
+            pre = min(126, max(1, ((m * min(51, max(0, qp))) >> 4) + n))
+            self.state[i], self.mps[i] = (63 - pre, 0) if pre <= 63 else (pre - 64, 1)
+
+    def _put(self, b):
+        if self.first:
+            self.first = False
+        else:
+            self.bits.bits.append(b)
+        while self.outstanding:
+            self.bits.bits.append(1 - b)
+            self.outstanding -= 1
+
+    def _renorm(self):
+        while self.range < 256:
+            if self.low < 256:
+                self._put(0)
+            elif self.low >= 512:
+                self.low -= 512
+                self._put(1)
+            else:
+                self.low -= 256
+                self.outstanding += 1
+            self.range <<= 1
+            self.low <<= 1
+
+    def decision(self, ctx, b):
+        self.used.add(ctx)
+        s, m = self.state[ctx], self.mps[ctx]
+        lps = RANGE_LPS[s][(self.range >> 6) & 3]
+        self.range -= lps
+        if b != m:
+            self.low += self.range
+            self.range = lps
+            if s == 0:
+                self.mps[ctx] = 1 - m
+            self.state[ctx] = TRANS_LPS[s]
+        else:
+            self.state[ctx] = min(s + 1, 62)
+        self._renorm()
+
+    def bypass(self, b):
+        self.low <<= 1
+        if b:
+            self.low += self.range
+        if self.low >= 1024:
+            self._put(1)
+            self.low -= 1024
+        elif self.low < 512:
+            self._put(0)
+        else:
+            self.low -= 512
+            self.outstanding += 1
+
+    def terminate(self, b):
+        self.range -= 2
+        if b:
+            self.low += self.range
+            self.range = 2
+            self._renorm()
+            self._put((self.low >> 9) & 1)
+            self.bits.u(2, ((self.low >> 7) & 3) | 1)
+        else:
+            self._renorm()
+
+    # binarizations (§9.3.2)
+    def unary(self, v, ctxs, cmax=None):
+        """TU/U of ``v``: bin i uses ``ctxs[min(i, len - 1)]``."""
+        for i in range(v):
+            self.decision(ctxs[min(i, len(ctxs) - 1)], 1)
+        if cmax is None or v < cmax:
+            self.decision(ctxs[min(v, len(ctxs) - 1)], 0)
+
+    def exp_golomb(self, v, k):
+        while v >= (1 << k):
+            self.bypass(1)
+            v -= 1 << k
+            k += 1
+        self.bypass(0)
+        for i in range(k - 1, -1, -1):
+            self.bypass((v >> i) & 1)
+
+
+# ---------------------------------------------------------------- parameters
+
+
+@dataclass
+class Config:
+    """The stream's fixed parameters and the probabilities its syntax is
+    drawn with."""
+    width: int = 40                 # output (cropped) size; even
+    height: int = 24
+    crop: tuple = (0, 0, 0, 0)      # left, right, top, bottom extra pixels, even
+    frames: int = 4
+    profile: int = 100
+    level: int = 30
+    transform8x8: bool = True
+    sps_scaling: object = None      # None or a list of 8 lists (None: not sent,
+    pps_scaling: object = None      # "default": use default, else values)
+    log2_max_frame_num: int = 4
+    poc_type: int = 0
+    log2_max_poc_lsb: int = 5
+    poc1_offsets: tuple = (4,)      # offset_for_ref_frame
+    poc1_non_ref: int = 2
+    poc1_t2b: int = 0
+    bottom_poc: bool = False        # bottom_field_pic_order_in_frame_present_flag
+    max_refs: int = 3
+    vui: object = None              # None or dict(matrix=, full_range=, reorder=, hrd=)
+    qp: int = 28
+    qp_range: tuple = (12, 44)
+    chroma_qp_offset: int = 0
+    second_chroma_qp_offset: int = 0
+    constrained_intra: bool = False
+    weighted: bool = False
+    deblock_control: bool = True
+    filter_idcs: tuple = (0, 0, 1, 2)   # disable_deblocking_filter_idc drawn from
+    num_ref_default: int = 1
+    # per picture
+    p_idr: float = 0.0
+    p_intra_pic: float = 0.0
+    p_nonref: float = 0.0
+    p_mmco: float = 0.0
+    p_modify: float = 0.0
+    max_slices: int = 3
+    reorder: bool = False           # decode non-reference pictures after the next one
+    row_repeat: bool = False        # one slice a macroblock row, every row coded alike
+    # parameter-set fields only the refusal streams (:func:`header_only`) change
+    chroma_format: int = 1
+    bit_depth: int = 8
+    bypass: bool = False            # qpprime_y_zero_transform_bypass_flag
+    frame_mbs_only: bool = True
+    cavlc: bool = False
+    slice_groups: int = 1
+    # per macroblock
+    p_skip: float = 0.2
+    p_intra_in_p: float = 0.15
+    p_pcm: float = 0.04
+    p_i16: float = 0.3
+    p_i8: float = 0.35
+    p_qpd: float = 0.3
+    p_far_mv: float = 0.05
+    max_level: int = 40
+    seed: int = 0
+
+
+@dataclass
+class MB:
+    slice: int
+    kind: str = "skip"          # skip, P, I4, I8, I16, PCM
+    subs: tuple = ()
+    cbpl: int = 0
+    cbpc: int = 0
+    cmode: int = 0
+    t8: int = 0
+    i16mode: int = 0
+    qpd: int = 0
+    ipm: list = field(default_factory=lambda: [2] * 16)
+    cbf: list = field(default_factory=lambda: [0] * 16)
+    cbf_dc: int = 0
+    cbfc_dc: list = field(default_factory=lambda: [0, 0])
+    cbfc: list = field(default_factory=lambda: [[0] * 4, [0] * 4])
+    ref: list = field(default_factory=lambda: [-1] * 16)
+    mv: list = field(default_factory=lambda: [(0, 0)] * 16)
+    mvd: list = field(default_factory=lambda: [(0, 0)] * 16)
+
+    @property
+    def intra(self):
+        return self.kind in ("I4", "I8", "I16", "PCM")
+
+
+def _scaling_list(b, values, size):
+    """§7.3.2.1.1.1: ``values`` in zigzag order, or "default"."""
+    last = 8
+    if values == "default":
+        b.se(-8)
+        return
+    # stop early where the tail repeats
+    end = size
+    while end > 1 and values[end - 1] == values[end - 2]:
+        end -= 1
+    for j in range(size):
+        if j == end:
+            b.se((0 - last + 128) % 256 - 128)
+            return
+        d = (values[j] - last + 128) % 256 - 128
+        b.se(d)
+        last = values[j]
+
+
+def _scaling_lists(b, lists, n):
+    for i in range(n):
+        present = lists[i] is not None
+        b.u(1, present)
+        if present:
+            _scaling_list(b, lists[i], 16 if i < 6 else 64)
+
+
+class Writer:
+    """Draws and writes one stream (:meth:`write` → access units)."""
+
+    def __init__(self, cfg: Config):
+        self.c = cfg
+        self.rng = np.random.default_rng(cfg.seed)
+        cw, ch = cfg.width + cfg.crop[0] + cfg.crop[1], cfg.height + cfg.crop[2] + cfg.crop[3]
+        self.mbw, self.mbh = -(-cw // 16), -(-ch // 16)
+        # the crop brings the coded size to whole macroblocks: extra goes right/bottom
+        self.crop = (cfg.crop[0], self.mbw * 16 - cfg.width - cfg.crop[0],
+                     cfg.crop[2], self.mbh * 16 - cfg.height - cfg.crop[2])
+        self.max_frame_num = 1 << cfg.log2_max_frame_num
+        self.max_poc_lsb = 1 << cfg.log2_max_poc_lsb
+
+    # ------------------------------------------------------- parameter sets
+    def sps(self):
+        c, b = self.c, Bits()
+        b.u(8, c.profile)
+        b.u(8, 0)
+        b.u(8, c.level)
+        b.ue(0)
+        if c.profile in (100, 110, 122, 244):
+            b.ue(c.chroma_format)
+            if c.chroma_format == 3:
+                b.u(1, 0)        # separate_colour_plane_flag
+            b.ue(c.bit_depth - 8)
+            b.ue(c.bit_depth - 8)
+            b.u(1, c.bypass)
+            b.u(1, c.sps_scaling is not None)
+            if c.sps_scaling is not None:
+                _scaling_lists(b, c.sps_scaling, 8)
+        b.ue(c.log2_max_frame_num - 4)
+        b.ue(c.poc_type)
+        if c.poc_type == 0:
+            b.ue(c.log2_max_poc_lsb - 4)
+        elif c.poc_type == 1:
+            b.u(1, 0)            # delta_pic_order_always_zero_flag
+            b.se(c.poc1_non_ref)
+            b.se(c.poc1_t2b)
+            b.ue(len(c.poc1_offsets))
+            for o in c.poc1_offsets:
+                b.se(o)
+        b.ue(c.max_refs)
+        b.u(1, 0)                # gaps_in_frame_num_value_allowed_flag
+        b.ue(self.mbw - 1)
+        b.ue(self.mbh - 1)
+        b.u(1, c.frame_mbs_only)
+        if not c.frame_mbs_only:
+            b.u(1, 0)            # mb_adaptive_frame_field_flag
+        b.u(1, 1)                # direct_8x8_inference_flag
+        crop = any(self.crop)
+        b.u(1, crop)
+        if crop:
+            for v in self.crop:
+                b.ue(v // 2)
+        b.u(1, c.vui is not None)
+        if c.vui is not None:
+            self._vui(b, c.vui)
+        b.trailing()
+        return nal(3, 7, b.tobytes())
+
+    def _vui(self, b, v):
+        b.u(1, 1)                # aspect_ratio_info_present_flag
+        b.u(8, 255)              # Extended_SAR
+        b.u(16, 1)
+        b.u(16, 1)
+        b.u(1, 0)                # overscan_info_present_flag
+        signal = "matrix" in v or "full_range" in v
+        b.u(1, signal)
+        if signal:
+            b.u(3, 5)
+            b.u(1, v.get("full_range", 0))
+            b.u(1, "matrix" in v)
+            if "matrix" in v:
+                b.u(8, v["matrix"])
+                b.u(8, v["matrix"])
+                b.u(8, v["matrix"])
+        b.u(1, 1)                # chroma_loc_info_present_flag
+        b.ue(0)
+        b.ue(0)
+        b.u(1, 1)                # timing_info_present_flag
+        b.u(32, 1)
+        b.u(32, 60)
+        b.u(1, 1)
+        hrd = v.get("hrd", False)
+        for _ in range(2):       # nal and vcl HRD
+            b.u(1, hrd)
+            if hrd:
+                b.ue(1)          # cpb_cnt_minus1
+                b.u(4, 2)
+                b.u(4, 3)
+                for k in range(2):
+                    b.ue(1000 + k)
+                    b.ue(2000 + k)
+                    b.u(1, k)
+                for _ in range(4):
+                    b.u(5, 23)
+        if hrd:
+            b.u(1, 0)            # low_delay_hrd_flag
+        b.u(1, 0)                # pic_struct_present_flag
+        reorder = v.get("reorder")
+        b.u(1, reorder is not None)
+        if reorder is not None:
+            b.u(1, 1)
+            b.ue(2)
+            b.ue(1)
+            b.ue(16)
+            b.ue(16)
+            b.ue(reorder)
+            b.ue(max(reorder, self.c.max_refs))
+
+    def pps(self):
+        c, b = self.c, Bits()
+        b.ue(0)
+        b.ue(0)
+        b.u(1, not c.cavlc)      # entropy_coding_mode_flag
+        b.u(1, c.bottom_poc)
+        b.ue(c.slice_groups - 1)
+        if c.slice_groups > 1:
+            b.ue(0)              # slice_group_map_type 0: interleaved runs
+            for _ in range(c.slice_groups):
+                b.ue(0)
+        b.ue(c.num_ref_default - 1)
+        b.ue(0)
+        b.u(1, c.weighted)
+        b.u(2, 0)
+        b.se(c.qp - 26)
+        b.se(0)
+        b.se(c.chroma_qp_offset)
+        b.u(1, c.deblock_control)
+        b.u(1, c.constrained_intra)
+        b.u(1, 0)                # redundant_pic_cnt_present_flag
+        if c.profile in (100, 110, 122, 244) and (
+                c.transform8x8 or c.pps_scaling is not None
+                or c.second_chroma_qp_offset != c.chroma_qp_offset):
+            b.u(1, c.transform8x8)
+            b.u(1, c.pps_scaling is not None)
+            if c.pps_scaling is not None:
+                _scaling_lists(b, c.pps_scaling, 6 + 2 * c.transform8x8)
+            b.se(c.second_chroma_qp_offset)
+        b.trailing()
+        return nal(3, 8, b.tobytes())
+
+    # ------------------------------------------------------------- weights
+    def _level_scales(self):
+        """Per list (Y intra, Cb intra, Cr intra, Y inter, ...; then 8x8 Y
+        intra, Y inter) the largest weight in use, for the writer's bound on
+        dequantized coefficients."""
+        flat4, flat8 = [16] * 16, [16] * 64
+
+        def resolve(lists, fallback, n):
+            out = []
+            for i in range(n):
+                v = lists[i] if lists is not None else None
+                if v == "default":
+                    v = DEFAULT4[i // 3] if i < 6 else DEFAULT8[i - 6]
+                if v is None:
+                    v = fallback(i, out)
+                out.append(v)
+            return out
+
+        seq_fb = lambda i, out: (DEFAULT4[i // 3] if i in (0, 3) else DEFAULT8[i - 6]
+                                 if i >= 6 else out[i - 1])
+        c = self.c
+        if c.sps_scaling is None:
+            seq = [flat4] * 6 + [flat8] * 2
+        else:
+            seq = resolve(c.sps_scaling, seq_fb, 8)
+        if c.pps_scaling is None:
+            pic = seq
+        else:
+            fb = (lambda i, out: seq[i] if i in (0, 3, 6, 7) else out[i - 1]) \
+                if c.sps_scaling is not None else seq_fb
+            pic = resolve(c.pps_scaling, fb, 8)
+        return [max(v) for v in pic]
+
+    # -------------------------------------------------------------- stream
+    def write(self):
+        """Returns ``(sps, pps, access_units)``, each access unit a list of
+        NAL units (without start codes)."""
+        self.weights = self._level_scales()
+        self.contexts = {}          # init table (0 I, 1 + cabac_init_idc) -> ctxIdx coded
+        self.refs = []              # dicts: frame_num, long (LongTermFrameIdx or None)
+        self.max_long = None        # MaxLongTermFrameIdx (None: no long-term indices)
+        self.prev_ref_frame_num = 0
+        self.idr_id = -1
+        aus, last_nonref = [], False
+        for i in range(self.c.frames):
+            idr = i == 0 or self.rng.random() < self.c.p_idr
+            # two non-reference pictures in a row would share a POC
+            nonref = not idr and not last_nonref and self.rng.random() < self.c.p_nonref
+            # a reordered picture may not go back before an IDR or MMCO 5 one
+            nonref = nonref and not (self.c.reorder and self.top_poc < 4)
+            last_nonref = nonref
+            aus.append(self._picture(idr, nonref))
+        return self.sps(), self.pps(), aus
+
+    def _picture(self, idr, nonref):
+        c, rng = self.c, self.rng
+        if idr:
+            self.refs, self.max_long = [], None
+            self.idr_id = (self.idr_id + 1) % 65536
+            frame_num = 0
+            self.top_poc = self.last_ref_poc = 0
+        else:
+            frame_num = (self.prev_ref_frame_num + 1) % self.max_frame_num
+        self.cur_frame_num = frame_num
+        ref_idc = 0 if nonref else int(rng.integers(1, 4))
+        intra_pic = idr or rng.random() < c.p_intra_pic or not self.refs
+        # POC type 0 counts up by 2, or by 4 with each reordered non-reference
+        # picture between the last two reference ones
+        if idr:
+            self.poc = 0
+        elif nonref and c.reorder:
+            self.poc = self.last_ref_poc - 2
+        else:
+            self.poc = self.top_poc + (4 if c.reorder else 2)
+            self.top_poc = self.poc
+        if not nonref:
+            self.last_ref_poc = self.poc
+        self.delta_bottom = int(rng.integers(0, 3)) if c.bottom_poc else 0
+        mmco = self._mmco() if ref_idc and not idr else None
+        if (ref_idc and not idr and mmco is None and len(self.refs) >= max(c.max_refs, 1)
+                and all(r["long"] is not None for r in self.refs)):
+            # the sliding window needs a short-term picture to drop
+            mmco = [(2, self.refs[0]["long"])]
+        n_mbs = self.mbw * self.mbh
+        if c.row_repeat:
+            starts = list(range(0, n_mbs, self.mbw))
+        else:
+            n_slices = int(rng.integers(1, min(c.max_slices, n_mbs) + 1))
+            starts = [0] + sorted(int(v) for v in rng.choice(np.arange(1, n_mbs), n_slices - 1,
+                                                              replace=False))
+        self.mbs = [None] * n_mbs
+        nals = []
+        for si, first in enumerate(starts):
+            last = starts[si + 1] if si + 1 < len(starts) else n_mbs
+            if si == 0 or not c.row_repeat:
+                stype = 2 if intra_pic or rng.random() < 0.15 else 0
+            nals.append(self._slice(si, first, last, stype, idr, ref_idc, frame_num, mmco))
+        if ref_idc:
+            self._mark(idr, mmco, frame_num)
+        return nals
+
+    # ------------------------------------------------------------ marking
+    def _pic_num(self, r):
+        fn = r["frame_num"]
+        return fn - self.max_frame_num if fn > self.cur_frame_num else fn
+
+    def _mmco(self):
+        """Draws an adaptive marking (a list of (op, args)) or None for the
+        sliding window."""
+        c, rng = self.c, self.rng
+        if rng.random() >= c.p_mmco:
+            return None
+        ops = []
+        refs = [dict(r) for r in self.refs]
+        max_long = self.max_long
+        if rng.random() < 0.08:
+            return [(5,)]
+        for _ in range(int(rng.integers(1, 4))):
+            if any(o[0] == 6 for o in ops):
+                break                        # MMCO 6 goes last
+            shorts = [r for r in refs if r["long"] is None]
+            longs = [r for r in refs if r["long"] is not None]
+            k = int(rng.choice([1, 2, 3, 4, 6]))
+            if k == 1 and shorts:
+                r = shorts[rng.integers(len(shorts))]
+                ops.append((1, self.cur_frame_num - self._pic_num(r) - 1))
+                refs.remove(r)
+            elif k == 2 and longs:
+                r = longs[rng.integers(len(longs))]
+                ops.append((2, r["long"]))
+                refs.remove(r)
+            elif k == 3 and shorts and max_long is not None:
+                r = shorts[rng.integers(len(shorts))]
+                idx = int(rng.integers(0, max_long + 1))
+                for o in [o for o in refs if o["long"] == idx]:
+                    refs.remove(o)
+                ops.append((3, self.cur_frame_num - self._pic_num(r) - 1, idx))
+                r["long"] = idx
+            elif k == 4:
+                m = int(rng.integers(0, 3))
+                ops.append((4, m))
+                max_long = m - 1 if m else None
+                refs = [r for r in refs if r["long"] is None
+                        or (max_long is not None and r["long"] <= max_long)]
+            elif k == 6 and max_long is not None:
+                idx = int(rng.integers(0, max_long + 1))
+                for o in [o for o in refs if o["long"] == idx]:
+                    refs.remove(o)
+                ops.append((6, idx))
+        # keep room for the current picture (before an MMCO 6)
+        tail = [o for o in ops if o[0] == 6]
+        ops = [o for o in ops if o[0] != 6]
+        while len(refs) + 1 > c.max_refs:
+            shorts = [r for r in refs if r["long"] is None]
+            if shorts:
+                r = min(shorts, key=self._pic_num)
+                ops.append((1, self.cur_frame_num - self._pic_num(r) - 1))
+            else:
+                r = refs[0]
+                ops.append((2, r["long"]))
+            refs.remove(r)
+        return (ops + tail) or None
+
+    def _mark(self, idr, mmco, frame_num):
+        c = self.c
+        cur = {"frame_num": frame_num, "long": None}
+        if idr:
+            if self.idr_long:
+                cur["long"] = 0
+                self.max_long = 0
+            self.refs = [cur]
+            self.prev_ref_frame_num = frame_num
+            return
+        if mmco is None:
+            if len(self.refs) >= max(c.max_refs, 1):
+                shorts = [r for r in self.refs if r["long"] is None]
+                self.refs.remove(min(shorts, key=self._pic_num))
+        else:
+            for op in mmco:
+                if op[0] == 1:
+                    pn = self.cur_frame_num - (op[1] + 1)
+                    self.refs = [r for r in self.refs
+                                 if not (r["long"] is None and self._pic_num(r) == pn)]
+                elif op[0] == 2:
+                    self.refs = [r for r in self.refs if r["long"] != op[1]]
+                elif op[0] == 3:
+                    pn = self.cur_frame_num - (op[1] + 1)
+                    self.refs = [r for r in self.refs if r["long"] != op[2]]
+                    for r in self.refs:
+                        if r["long"] is None and self._pic_num(r) == pn:
+                            r["long"] = op[2]
+                elif op[0] == 4:
+                    self.max_long = op[1] - 1 if op[1] else None
+                    self.refs = [r for r in self.refs if r["long"] is None or (
+                        self.max_long is not None and r["long"] <= self.max_long)]
+                elif op[0] == 5:
+                    self.refs, self.max_long = [], None
+                elif op[0] == 6:
+                    self.refs = [r for r in self.refs if r["long"] != op[1]]
+                    cur["long"] = op[1]
+        if mmco and any(op[0] == 5 for op in mmco):
+            cur["frame_num"] = 0
+            frame_num = 0
+            self.top_poc = self.last_ref_poc = 0
+        self.refs.append(cur)
+        self.prev_ref_frame_num = frame_num
+
+    def _ref_list(self, nref, mods):
+        shorts = sorted([r for r in self.refs if r["long"] is None], key=self._pic_num,
+                        reverse=True)
+        longs = sorted([r for r in self.refs if r["long"] is not None], key=lambda r: r["long"])
+        lst = (shorts + longs)[:nref]
+        lst += [None] * (nref - len(lst))
+        pred = self.cur_frame_num
+        for i, (idc, v) in enumerate(mods):
+            if idc == 2:
+                pic = next(r for r in self.refs if r["long"] == v)
+            else:
+                d = v + 1
+                nw = pred - d if idc == 0 else pred + d
+                nw %= self.max_frame_num
+                pred = nw
+                pn = nw - self.max_frame_num if nw > self.cur_frame_num else nw
+                pic = next(r for r in self.refs if r["long"] is None and self._pic_num(r) == pn)
+            lst = lst[:i] + [pic] + [r for r in lst[i:] if r is not pic]
+            lst = lst[:nref]
+        return lst
+
+    def _draw_mods(self, nref):
+        rng = self.rng
+        if rng.random() >= self.c.p_modify:
+            return []
+        mods, pred = [], self.cur_frame_num
+        for _ in range(int(rng.integers(1, nref + 1))):
+            r = self.refs[rng.integers(len(self.refs))]
+            if r["long"] is not None:
+                mods.append((2, r["long"]))
+                continue
+            nw = self._pic_num(r) % self.max_frame_num
+            if nw < pred:
+                mods.append((0, pred - nw - 1))
+            elif nw > pred:
+                mods.append((1, nw - pred - 1))
+            else:
+                mods.append((0, self.max_frame_num - 1))      # wraps back to pred
+            pred = nw
+        return mods
+
+    # --------------------------------------------------------------- slice
+    def _slice(self, si, first, last, stype, idr, ref_idc, frame_num, mmco):
+        c, rng = self.c, self.rng
+        b = Bits()
+        b.ue(first)
+        if c.row_repeat and si > 0:
+            # a CABAC slice's data starts byte-aligned and depends on no other
+            # slice: the first row's header (less first_mb_in_slice) and data
+            b.bits += self._row_header
+            while len(b.bits) % 8:
+                b.bits.append(1)
+            return nal(ref_idc, 5 if idr else 1, b.tobytes() + self._row_data)
+        b.ue(stype)
+        b.ue(0)
+        b.u(c.log2_max_frame_num, frame_num)
+        if idr:
+            b.ue(self.idr_id)
+        if c.poc_type == 0:
+            b.u(c.log2_max_poc_lsb, self.poc % self.max_poc_lsb)
+            if c.bottom_poc:
+                b.se(self.delta_bottom)
+        elif c.poc_type == 1:
+            b.se(0)
+            if c.bottom_poc:
+                b.se(self.delta_bottom)
+        self.list0 = []
+        if stype == 0:
+            nrefs = len(self.refs)
+            nref = int(rng.integers(1, min(nrefs, 4) + 1))
+            override = nref != c.num_ref_default or rng.random() < 0.2
+            if not override:
+                nref = c.num_ref_default
+            b.u(1, override)
+            if override:
+                b.ue(nref - 1)
+            mods = self._draw_mods(nref)
+            b.u(1, bool(mods))
+            for idc, v in mods:
+                b.ue(idc)
+                b.ue(v)
+            if mods:
+                b.ue(3)
+            self.list0 = self._ref_list(nref, mods)
+            self.nref = nref
+            if c.weighted:
+                ld, cd = int(rng.integers(0, 8)), int(rng.integers(0, 8))
+                b.ue(ld)
+                b.ue(cd)
+                for _ in range(nref):
+                    f = rng.random() < 0.7
+                    b.u(1, f)
+                    if f:
+                        b.se(int(rng.integers(-128, 128)) if rng.random() < 0.2
+                             else min(127, (1 << ld) + int(rng.integers(-3, 4))))
+                        b.se(int(rng.integers(-128, 128)) if rng.random() < 0.2
+                             else int(rng.integers(-10, 11)))
+                    f = rng.random() < 0.6
+                    b.u(1, f)
+                    if f:
+                        for _ in range(2):
+                            b.se(min(127, (1 << cd) + int(rng.integers(-4, 5))))
+                            b.se(int(rng.integers(-20, 21)))
+        if ref_idc:
+            if idr:
+                if si == 0:
+                    self.idr_long = self.rng.random() < 0.3 and self.c.p_mmco > 0
+                b.u(1, 0)
+                b.u(1, self.idr_long)
+            else:
+                b.u(1, mmco is not None)
+                if mmco is not None:
+                    for op in mmco:
+                        b.ue(op[0])
+                        for a in op[1:]:
+                            b.ue(a)
+                    b.ue(0)
+        cabac_init_idc = int(rng.integers(0, 3)) if stype == 0 else 0
+        if stype == 0:
+            b.ue(cabac_init_idc)
+        lo, hi = c.qp_range
+        slice_qp = int(rng.integers(lo, hi + 1))
+        b.se(slice_qp - c.qp)
+        if c.deblock_control:
+            idc = int(rng.choice(c.filter_idcs))
+            b.ue(idc)
+            if idc != 1:
+                b.se(int(rng.integers(-6, 7)))
+                b.se(int(rng.integers(-6, 7)))
+        header_end = len(b.bits)
+        while len(b.bits) % 8:
+            b.bits.append(1)     # cabac_alignment_one_bit
+        data_start = len(b.bits) // 8
+        table = 0 if stype == 2 else 1 + cabac_init_idc
+        enc = CabacEncoder(b)
+        enc.init_contexts(CABAC_INIT[table], slice_qp, self.contexts.setdefault(table, set()))
+        self.enc, self.qp, self.stype = enc, slice_qp, stype
+        self.prev_mb = None
+        for addr in range(first, last):
+            self._macroblock(si, addr)
+            enc.terminate(1 if addr == last - 1 else 0)
+        # the terminate's last bit was rbsp_stop_one_bit
+        while len(b.bits) % 8:
+            b.bits.append(0)
+        if c.row_repeat:
+            self._row_header = b.bits[1:header_end]      # after ue(0)
+            self._row_data = b.tobytes()[data_start:]
+        return nal(ref_idc, 5 if idr else 1, b.tobytes())
+
+    # ----------------------------------------------------------- neighbours
+    def mb_nb(self, addr, dx, dy, si):
+        x, y = addr % self.mbw + dx, addr // self.mbw + dy
+        if x < 0 or x >= self.mbw or y < 0:
+            return None
+        m = self.mbs[y * self.mbw + x]
+        return m if m is not None and m.slice == si else None
+
+    def blk_nb(self, cur, addr, x, y):
+        """The MB and 4x4 raster index holding luma sample (x, y) relative to
+        the current MB, or None where it is not available."""
+        if x >= 16 and y >= 0:
+            return None
+        dx = -1 if x < 0 else (1 if x >= 16 else 0)
+        dy = -1 if y < 0 else 0
+        m = cur if dx == 0 and dy == 0 else self.mb_nb(addr, dx, dy, cur.slice)
+        if m is None:
+            return None
+        return m, ((y % 16) // 4) * 4 + (x % 16) // 4
+
+    # ---------------------------------------------------------- macroblock
+    def _macroblock(self, si, addr):
+        c, rng, enc = self.c, self.rng, self.enc
+        cur = MB(si)
+        self.mbs[addr] = cur
+        A, B = self.mb_nb(addr, -1, 0, si), self.mb_nb(addr, 0, -1, si)
+        if self.stype == 0:
+            skip = rng.random() < c.p_skip
+            enc.decision(11 + (A is not None and A.kind != "skip")
+                         + (B is not None and B.kind != "skip"), skip)
+            if skip:
+                cur.kind = "skip"
+                self._p_skip_mv(cur, addr)
+                self.prev_mb = cur
+                return
+        intra = self.stype == 2 or rng.random() < c.p_intra_in_p
+        if not intra:
+            return self._inter_mb(cur, addr)
+        kind = ("PCM" if rng.random() < c.p_pcm else "I16" if rng.random() < c.p_i16
+                else "I8" if c.transform8x8 and rng.random() < c.p_i8 else "I4")
+        cur.kind = kind
+        if self.stype == 0:
+            enc.decision(14, 1)          # the intra prefix
+            off, b0 = 17, [17]
+        else:
+            off = 3
+            b0 = [3 + (A is not None and A.kind not in ("I4", "I8"))
+                  + (B is not None and B.kind not in ("I4", "I8"))]
+        if kind in ("I4", "I8"):
+            enc.decision(b0[0], 0)
+        else:
+            enc.decision(b0[0], 1)
+            enc.terminate(kind == "PCM")
+        if kind == "PCM":
+            self._pcm(cur)
+            return
+        if kind == "I16":
+            avail = self._intra_avail(cur, addr)
+            modes = [m for m, need in ((0, "B"), (1, "A"), (2, ""), (3, "ABD"))
+                     if all(avail[n] for n in need)]
+            cur.i16mode = int(rng.choice(modes))
+            cur.cbpl = 15 if rng.random() < 0.5 else 0
+            cur.cbpc = int(rng.integers(0, 3))
+            # Table 9-39: ctxIdxInc of bins 2.. of an I_16x16 mb_type (prefix
+            # or P-slice suffix)
+            inc = ([3, 4, 5, 6, 7] if cur.cbpc else [3, 4, 6, 7]) if off == 3 else \
+                ([1, 2, 2, 3, 3] if cur.cbpc else [1, 2, 3, 3])
+            bins = [cur.cbpl != 0, cur.cbpc != 0] + ([cur.cbpc == 2] if cur.cbpc else []) + \
+                [cur.i16mode >> 1, cur.i16mode & 1]
+            for i, v in zip(inc, bins):
+                enc.decision(off + i, int(v))
+        else:
+            if c.transform8x8:
+                cur.t8 = kind == "I8"
+                enc.decision(399 + (A is not None and A.t8) + (B is not None and B.t8), cur.t8)
+            self._intra_nxn_modes(cur, addr)
+        self._chroma_mode(cur, addr, A, B)
+        if kind != "I16":
+            cur.cbpl, cur.cbpc = int(rng.integers(0, 16)), int(rng.integers(0, 3))
+            self._cbp(cur, addr)
+        self._residual_and_qp(cur, addr)
+
+    def _intra_ok(self, m, cur):
+        return m is not None and (m is cur or m.intra or not self.c.constrained_intra)
+
+    def _intra_avail(self, cur, addr):
+        si = cur.slice
+        return {"A": self._intra_ok(self.mb_nb(addr, -1, 0, si), cur),
+                "B": self._intra_ok(self.mb_nb(addr, 0, -1, si), cur),
+                "D": self._intra_ok(self.mb_nb(addr, -1, -1, si), cur)}
+
+    def _pcm(self, cur):
+        enc = self.enc
+        b = enc.bits
+        while len(b.bits) % 8:
+            b.bits.append(0)
+        for v in self.rng.integers(1, 256, 384):
+            b.u(8, int(v))
+        enc.reset()
+        cur.cbpl, cur.cbpc = 15, 2
+        cur.qpd = 0
+        self.prev_mb = cur
+
+    def _intra_nxn_modes(self, cur, addr):
+        rng, enc = self.rng, self.enc
+        size = 8 if cur.kind == "I8" else 4
+        n = 16 // size
+        for blk in range(n * n):
+            if size == 4:
+                bx = (blk // 4 % 2) * 2 + blk % 2
+                by = (blk // 8) * 2 + (blk // 2) % 2
+            else:
+                bx, by = blk % 2, blk // 2
+            x, y = bx * size, by * size
+            nbs = {}
+            for name, (px, py) in (("A", (x - 1, y)), ("B", (x, y - 1)), ("D", (x - 1, y - 1)),
+                                   ("C", (x + size, y - 1))):
+                nb = self.blk_nb(cur, addr, px, py)
+                ok = nb is not None and self._intra_ok(nb[0], cur)
+                if ok and name == "C" and nb[0] is cur:
+                    ok = self._decoded_before(nb[1], x // 4, y // 4, size)
+                nbs[name] = nb if ok else None
+            # predicted mode
+            pa, pb = nbs["A"], nbs["B"]
+            if pa is None or pb is None:
+                pred = 2
+            else:
+                def mode_of(nb, which):
+                    m, r = nb
+                    if m.kind == "I4" or m.kind == "I8":
+                        if size == 8 and m.kind == "I4" and m is not cur:
+                            # §8.3.2.1: the 4x4 block n of that 8x8 block
+                            rx, ry = r % 4, r // 4
+                            b8x, b8y = rx // 2 * 2, ry // 2 * 2
+                            rx, ry = (b8x + 1, b8y) if which == "A" else (b8x, b8y + 1)
+                            return m.ipm[ry * 4 + rx]
+                        return m.ipm[r]
+                    return 2
+                pred = min(mode_of(pa, "A"), mode_of(pb, "B"))
+            ok = [2]
+            if nbs["B"] is not None:
+                ok += [0, 3, 7]
+            if nbs["A"] is not None:
+                ok += [1, 8]
+            if nbs["A"] is not None and nbs["B"] is not None and nbs["D"] is not None:
+                ok += [4, 5, 6]
+            mode = pred if pred in ok and rng.random() < 0.4 else int(rng.choice(ok))
+            if mode == pred:
+                enc.decision(68, 1)
+            else:
+                enc.decision(68, 0)
+                rem = mode if mode < pred else mode - 1
+                for i in range(3):
+                    enc.decision(69, (rem >> i) & 1)
+            for yy in range(size // 4):
+                for xx in range(size // 4):
+                    cur.ipm[(y // 4 + yy) * 4 + x // 4 + xx] = mode
+
+    @staticmethod
+    def _decoded_before(r, bx, by, size):
+        """Whether 4x4 raster block ``r`` of the current MB precedes the
+        block at (bx, by) in decoding order (for a top-right neighbour)."""
+        def order(rx, ry):
+            return (ry // 2 * 2 + rx // 2) * 4 + (ry % 2) * 2 + rx % 2
+        rx, ry = r % 4, r // 4
+        if size == 8:
+            return (ry // 2 * 2 + rx // 2) < (by // 2 * 2 + bx // 2)
+        return order(rx, ry) < order(bx, by)
+
+    def _chroma_mode(self, cur, addr, A, B):
+        rng, enc = self.rng, self.enc
+        avail = self._intra_avail(cur, addr)
+        modes = [m for m, need in ((0, ""), (1, "A"), (2, "B"), (3, "ABD"))
+                 if all(avail[n] for n in need)]
+        cur.cmode = int(rng.choice(modes))
+        inc = sum(1 for N in (A, B) if N is not None and N.intra and N.kind != "PCM"
+                  and N.cmode != 0)
+        enc.unary(cur.cmode, [64 + inc, 67, 67], cmax=3)
+
+    def _cbp(self, cur, addr):
+        enc = self.enc
+        for b8 in range(4):
+            bx, by = (b8 % 2) * 8, (b8 // 2) * 8
+            conds = []
+            for px, py in ((bx - 1, by), (bx, by - 1)):
+                nb = self.blk_nb(cur, addr, px, py)
+                if nb is None:
+                    conds.append(0)
+                    continue
+                m, r = nb
+                nb8 = (r // 4 // 2) * 2 + (r % 4) // 2
+                if m.kind == "PCM":
+                    conds.append(0)
+                elif m is cur:
+                    conds.append(0 if (cur.cbpl >> nb8) & 1 else 1)
+                elif m.kind != "skip" and (m.cbpl >> nb8) & 1:
+                    conds.append(0)
+                else:
+                    conds.append(1)
+            enc.decision(73 + conds[0] + 2 * conds[1], (cur.cbpl >> b8) & 1)
+        A, B = self.mb_nb(addr, -1, 0, cur.slice), self.mb_nb(addr, 0, -1, cur.slice)
+
+        def cond(N, b1):
+            if N is None or N.kind == "skip":
+                return 0
+            if N.kind == "PCM":
+                return 1
+            return int(N.cbpc == 2) if b1 else int(N.cbpc != 0)
+        enc.decision(77 + cond(A, 0) + 2 * cond(B, 0), cur.cbpc != 0)
+        if cur.cbpc:
+            enc.decision(77 + 4 + cond(A, 1) + 2 * cond(B, 1), cur.cbpc == 2)
+
+    # -------------------------------------------------------------- inter
+    def _p_skip_mv(self, cur, addr):
+        A = self.blk_nb(cur, addr, -1, 0)
+        B = self.blk_nb(cur, addr, 0, -1)
+        cur.ref = [0] * 16
+        zero = A is None or B is None
+        for nb in (A, B):
+            if nb is not None and nb[0].ref[nb[1]] == 0 and nb[0].mv[nb[1]] == (0, 0):
+                zero = True
+        mv = (0, 0) if zero else self._mvp(cur, addr, 0, 0, 16, 16, 0, "16x16", 0)
+        cur.mv = [mv] * 16
+
+    def _mv_nb(self, cur, addr, x, y, done):
+        nb = self.blk_nb(cur, addr, x, y)
+        if nb is None:
+            return None
+        m, r = nb
+        if m is cur and not done[r]:
+            return None
+        if m.intra:
+            return (-1, (0, 0))
+        return (m.ref[r], m.mv[r])
+
+    def _mvp(self, cur, addr, x, y, w, h, ref, part, idx, done=None):
+        done = done if done is not None else [False] * 16
+        A = self._mv_nb(cur, addr, x - 1, y, done)
+        B = self._mv_nb(cur, addr, x, y - 1, done)
+        C = self._mv_nb(cur, addr, x + w, y - 1, done)
+        if C is None:
+            C = self._mv_nb(cur, addr, x - 1, y - 1, done)
+        un = (-1, (0, 0))
+        if part == "16x8":
+            if idx == 0 and B is not None and B[0] == ref:
+                return B[1]
+            if idx == 1 and A is not None and A[0] == ref:
+                return A[1]
+        if part == "8x16":
+            if idx == 0 and A is not None and A[0] == ref:
+                return A[1]
+            if idx == 1 and C is not None and C[0] == ref:
+                return C[1]
+        if B is None and C is None and A is not None:
+            return A[1]
+        A, B, C = A or un, B or un, C or un
+        match = [n for n in (A, B, C) if n[0] == ref]
+        if len(match) == 1:
+            return match[0][1]
+        return tuple(sorted((A[1][k], B[1][k], C[1][k]))[1] for k in range(2))
+
+    def _inter_mb(self, cur, addr):
+        c, rng, enc = self.c, self.rng, self.enc
+        cur.kind = "P"
+        part = str(rng.choice(["16x16", "16x8", "8x16", "8x8"]))
+        enc.decision(14, 0)
+        if part == "16x16":
+            enc.decision(15, 0)
+            enc.decision(16, 0)
+        elif part == "8x8":
+            enc.decision(15, 0)
+            enc.decision(16, 1)
+        else:
+            enc.decision(15, 1)
+            enc.decision(17, part == "16x8")
+        if part == "8x8":
+            subs = tuple(str(rng.choice(["8x8", "8x4", "4x8", "4x4"])) for _ in range(4))
+            cur.subs = subs
+            for s in subs:
+                if s == "8x8":
+                    enc.decision(21, 1)
+                else:
+                    enc.decision(21, 0)
+                    enc.decision(22, s != "8x4")
+                    if s != "8x4":
+                        enc.decision(23, s == "4x8")
+            parts = [(b8 % 2 * 8, b8 // 2 * 8, 8, 8) for b8 in range(4)]
+        else:
+            pw, ph = int(part.split("x")[0]), int(part.split("x")[1])
+            parts = [(x, y, pw, ph) for y in range(0, 16, ph) for x in range(0, 16, pw)]
+        usable = [i for i, r in enumerate(self.list0) if r is not None]
+        refs = []
+        for (x, y, w, h) in parts:
+            ref = int(rng.choice(usable))
+            refs.append(ref)
+            if self.nref > 1:
+                self._ref_idx(cur, addr, x, y, ref)
+            for yy in range(y // 4, (y + h) // 4):
+                for xx in range(x // 4, (x + w) // 4):
+                    cur.ref[yy * 4 + xx] = ref
+        done = [False] * 16
+        for pi, (x, y, w, h) in enumerate(parts):
+            if part == "8x8":
+                s = cur.subs[pi]
+                sw, sh = int(s.split("x")[0]), int(s.split("x")[1])
+                subparts = [(x + sx, y + sy, sw, sh) for sy in range(0, 8, sh)
+                            for sx in range(0, 8, sw)]
+            else:
+                subparts = [(x, y, w, h)]
+            for (sx, sy, sw, sh) in subparts:
+                mvp = self._mvp(cur, addr, sx, sy, sw, sh, refs[pi], part, pi, done)
+                if rng.random() < c.p_far_mv:
+                    mv = (int(rng.integers(-4 * (self.mbw * 16 + 160), 4 * (self.mbw * 16 + 160))),
+                          int(rng.integers(-4 * (self.mbh * 16 + 160), 4 * (self.mbh * 16 + 160))))
+                else:
+                    mv = (mvp[0] + int(rng.integers(-40, 41)), mvp[1] + int(rng.integers(-40, 41)))
+                    lim = (4 * (self.mbw * 16 + 200), 4 * (self.mbh * 16 + 200))
+                    mv = tuple(max(-lim[k], min(lim[k], mv[k])) for k in range(2))
+                mvd = (mv[0] - mvp[0], mv[1] - mvp[1])
+                for comp in range(2):
+                    self._mvd(cur, addr, sx, sy, comp, mvd[comp])
+                for yy in range(sy // 4, (sy + sh) // 4):
+                    for xx in range(sx // 4, (sx + sw) // 4):
+                        cur.mv[yy * 4 + xx] = mv
+                        cur.mvd[yy * 4 + xx] = mvd
+                        done[yy * 4 + xx] = True
+        cur.cbpl, cur.cbpc = int(rng.integers(0, 16)), int(rng.integers(0, 3))
+        self._cbp(cur, addr)
+        small = part == "8x8" and any(s != "8x8" for s in cur.subs)
+        if cur.cbpl and c.transform8x8 and not small:
+            A, B = self.mb_nb(addr, -1, 0, cur.slice), self.mb_nb(addr, 0, -1, cur.slice)
+            cur.t8 = int(rng.random() < 0.5)
+            enc.decision(399 + (A is not None and A.t8) + (B is not None and B.t8), cur.t8)
+        self._residual_and_qp(cur, addr)
+
+    def _ref_idx(self, cur, addr, x, y, ref):
+        conds = []
+        for px, py in ((x - 1, y), (x, y - 1)):
+            nb = self.blk_nb(cur, addr, px, py)
+            if nb is None or nb[0].kind == "skip" or nb[0].intra:
+                conds.append(0)
+            else:
+                conds.append(int(nb[0].ref[nb[1]] > 0))
+        self.enc.unary(ref, [54 + conds[0] + 2 * conds[1], 58, 59])
+
+    def _mvd(self, cur, addr, x, y, comp, v):
+        s = 0
+        for px, py in ((x - 1, y), (x, y - 1)):
+            nb = self.blk_nb(cur, addr, px, py)
+            if nb is not None and nb[0].kind not in ("skip",) and not nb[0].intra:
+                s += abs(nb[0].mvd[nb[1]][comp])
+        base = 40 if comp == 0 else 47
+        inc = 0 if s < 3 else (1 if s <= 32 else 2)
+        a = abs(v)
+        ctxs = [base + inc, base + 3, base + 4, base + 5, base + 6]
+        enc = self.enc
+        for i in range(min(a, 9)):
+            enc.decision(ctxs[min(i, 4)], 1)
+        if a < 9:
+            enc.decision(ctxs[min(a, 4)], 0)
+        else:
+            enc.exp_golomb(a - 9, 3)
+        if a:
+            enc.bypass(v < 0)
+
+    # ----------------------------------------------------------- residual
+    def _residual_and_qp(self, cur, addr):
+        c, rng, enc = self.c, self.rng, self.enc
+        if cur.cbpl or cur.cbpc or cur.kind == "I16":
+            lo, hi = c.qp_range
+            qpd = 0
+            if rng.random() < c.p_qpd:
+                qpd = int(rng.integers(max(-26, lo - self.qp), min(25, hi - self.qp) + 1))
+            p = self.prev_mb
+            inc = int(p is not None and p.kind not in ("skip", "PCM")
+                      and (p.kind == "I16" or p.cbpl or p.cbpc) and p.qpd != 0)
+            k = 2 * qpd - 1 if qpd > 0 else -2 * qpd
+            enc.unary(k, [60 + inc, 62, 63])
+            cur.qpd = qpd
+            self.qp = (self.qp + qpd + 52) % 52
+        self.prev_mb = cur
+        qp = self.qp
+        intra = cur.intra
+        if cur.kind == "I16":
+            self._block(cur, addr, 0, None, 16, qp, 0)
+        for b8 in range(4):
+            if not (cur.cbpl >> b8) & 1:
+                continue
+            if cur.t8:
+                self._block(cur, addr, 5, b8, 64, qp, 6 + (not intra))
+                continue
+            for s in range(4):
+                r = ((b8 // 2) * 2 + s // 2) * 4 + (b8 % 2) * 2 + s % 2
+                if cur.kind == "I16":
+                    self._block(cur, addr, 1, r, 15, qp, 0)
+                else:
+                    self._block(cur, addr, 2, r, 16, qp, 0 if intra else 3)
+        qpc = [self._qpc(qp, c.chroma_qp_offset), self._qpc(qp, c.second_chroma_qp_offset)]
+        if cur.cbpc:
+            for comp in range(2):
+                self._block(cur, addr, 3, comp, 4, qpc[comp], comp + 1 + (0 if intra else 3))
+        if cur.cbpc == 2:
+            for comp in range(2):
+                for r in range(4):
+                    self._block(cur, addr, 4, (comp, r), 15, qpc[comp],
+                                comp + 1 + (0 if intra else 3))
+
+    @staticmethod
+    def _qpc(qp, off):
+        qpi = min(51, max(0, qp + off))
+        table = [29, 30, 31, 32, 32, 33, 34, 34, 35, 35, 36, 36, 37, 37, 37, 38, 38, 38, 39,
+                 39, 39, 39]
+        return qpi if qpi < 30 else table[qpi - 30]
+
+    def _cbf_cond(self, cur, addr, cat, which, nbx, nby):
+        """condTermFlagN of coded_block_flag (§9.3.3.1.1.9)."""
+        if cat in (0, 3):
+            m = self.mb_nb(addr, nbx, nby, cur.slice)
+            nb = None if m is None else (m, None)
+        elif cat == 4:
+            comp, r = which
+            x, y = (r % 2) * 4 + nbx * 1, (r // 2) * 4 + nby * 1
+            if x < 0 or y < 0:
+                m = self.mb_nb(addr, -1 if x < 0 else 0, -1 if y < 0 else 0, cur.slice)
+                nb = None if m is None else (m, (y % 8) // 4 * 2 + (x % 8) // 4)
+            else:
+                nb = (cur, (y // 4) * 2 + x // 4)
+        else:
+            rx, ry = which % 4, which // 4
+            nb = self.blk_nb(cur, addr, rx * 4 + nbx, ry * 4 + nby)
+        if nb is None:
+            return int(cur.intra)
+        m, r = nb
+        if m.kind == "PCM":
+            return 1
+        if m.kind == "skip":
+            return 0
+        if cat == 0:
+            return m.cbf_dc if m.kind == "I16" else 0
+        if cat in (1, 2):
+            b8 = (r // 4 // 2) * 2 + (r % 4) // 2
+            if not (m.cbpl >> b8) & 1:
+                return 0
+            return 1 if m.t8 else m.cbf[r]
+        if cat == 3:
+            return m.cbfc_dc[which] if m.cbpc else 0
+        return m.cbfc[which[0]][r] if m.cbpc == 2 else 0
+
+    def _block(self, cur, addr, cat, which, n, qp, lst):
+        rng, enc = self.rng, self.enc
+        # coefficients: a sparse random list within the dequantized bound
+        coeffs = [0] * n
+        coded = rng.random() < 0.75 or cat == 5
+        if coded:
+            scale = self.weights[lst] * max(NORM8[qp % 6] if cat == 5 else NORM4[qp % 6])
+            unit = scale * (1 << (qp // 6)) / (64 if cat == 5 else 16)
+            if cat in (0, 3):
+                unit *= 4
+            lim = max(1, min(self.c.max_level, int(2000 / unit)))
+            k = int(rng.integers(1, min(n, 8) + 1)) if rng.random() < 0.8 else n
+            pos = rng.choice(n, size=k, replace=False)
+            budget = 3000
+            for p in pos:
+                v = int(rng.integers(1, lim + 1)) if rng.random() < 0.3 else int(rng.integers(1, 3))
+                v = min(v, max(1, int(budget / unit)))
+                budget -= v * unit
+                coeffs[p] = v if rng.random() < 0.5 else -v
+                if budget <= 0:
+                    break
+            if not any(coeffs):
+                coeffs[int(pos[0])] = 1
+        flag = int(any(coeffs))
+        if cat != 5:
+            ca = self._cbf_cond(cur, addr, cat, which, -1, 0)
+            cb = self._cbf_cond(cur, addr, cat, which, 0, -1)
+            enc.decision(85 + CBF_CAT[cat] + ca + 2 * cb, flag)
+        if cat == 0:
+            cur.cbf_dc = flag
+        elif cat in (1, 2):
+            cur.cbf[which] = flag
+        elif cat == 3:
+            cur.cbfc_dc[which] = flag
+        elif cat == 4:
+            cur.cbfc[which[0]][which[1]] = flag
+        if not flag:
+            return
+        last = max(i for i in range(n) if coeffs[i])
+        for i in range(n - 1):
+            sig = int(coeffs[i] != 0)
+            if cat == 5:
+                enc.decision(402 + SIG8[i], sig)
+            else:
+                inc = min(i, 2) if cat == 3 else i
+                enc.decision(105 + SIG_CAT[cat] + inc, sig)
+            if sig:
+                if cat == 5:
+                    enc.decision(417 + LAST8[i], i == last)
+                else:
+                    inc = min(i, 2) if cat == 3 else i
+                    enc.decision(166 + SIG_CAT[cat] + inc, i == last)
+                if i == last:
+                    break
+        gt1 = eq1 = 0
+        base = 426 if cat == 5 else 227 + ABS_CAT[cat]
+        for i in range(last, -1, -1):
+            v = coeffs[i]
+            if not v:
+                continue
+            a = abs(v) - 1
+            ctx0 = base + (0 if gt1 else min(4, 1 + eq1))
+            ctxn = base + 5 + min(4 - (cat == 3), gt1)
+            enc.decision(ctx0, a > 0)
+            if a > 0:
+                for j in range(1, min(a, 14)):
+                    enc.decision(ctxn, 1)
+                if a < 14:
+                    enc.decision(ctxn, 0)
+                else:
+                    enc.exp_golomb(a - 14, 0)
+            enc.bypass(v < 0)
+            if a == 0:
+                eq1 += 1
+            else:
+                gt1 += 1
+
+
+# ------------------------------------------------------------- containers
+
+
+def annexb(sps, pps, aus) -> bytes:
+    out = bytearray()
+    for i, au in enumerate(aus):
+        if i == 0:
+            out += b"\x00\x00\x00\x01" + sps + b"\x00\x00\x00\x01" + pps
+        for n in au:
+            out += b"\x00\x00\x01" + n
+    return bytes(out)
+
+
+def _box(kind, *payload):
+    body = b"".join(payload)
+    return (8 + len(body)).to_bytes(4, "big") + kind + body
+
+
+def _full(kind, version, flags, *payload):
+    return _box(kind, bytes([version]) + flags.to_bytes(3, "big"), *payload)
+
+
+def mp4(sps, pps, aus, width, height, length_size=4, moov_first=False, co64=False,
+        stz2=False, chunk=3, codec=b"avc1", edit=None) -> bytes:
+    """An MP4 file of one video track: ``aus`` as samples of
+    ``length_size``-byte NAL lengths, SPS and PPS in ``avcC``, ``chunk``
+    samples a chunk (the last chunk shorter), 60 samples a second."""
+    samples = [b"".join(len(n).to_bytes(length_size, "big") + n for n in au) for au in aus]
+    ftyp = _box(b"ftyp", b"isom", (512).to_bytes(4, "big"), b"isomiso2avc1mp41")
+    mdat_payload = b"".join(samples)
+
+    def moov(mdat_data_off):
+        u32 = lambda v: v.to_bytes(4, "big")
+        u16 = lambda v: v.to_bytes(2, "big")
+        n = len(samples)
+        avcc = _box(b"avcC", bytes([1, sps[1], sps[2], sps[3], 0xFC | (length_size - 1), 0xE1]),
+                    u16(len(sps)), sps, bytes([1]), u16(len(pps)), pps)
+        entry = _box(codec, bytes(6), u16(1), bytes(16), u16(width), u16(height),
+                     u32(0x00480000), u32(0x00480000), u32(0), u16(1), bytes(32), u16(24),
+                     (0xFFFF).to_bytes(2, "big"), avcc)
+        stsd = _full(b"stsd", 0, 0, u32(1), entry)
+        stts = _full(b"stts", 0, 0, u32(1), u32(n), u32(1))
+        chunks = [list(range(i, min(i + chunk, n))) for i in range(0, n, chunk)]
+        runs = []
+        for ci, ch in enumerate(chunks):
+            if not runs or runs[-1][1] != len(ch):
+                runs.append((ci + 1, len(ch)))
+        stsc = _full(b"stsc", 0, 0, u32(len(runs)), *[u32(a) + u32(b) + u32(1) for a, b in runs])
+        if stz2:
+            stsz = _full(b"stz2", 0, 0, bytes(3), bytes([16]), u32(n),
+                         *[u16(len(s)) for s in samples])
+        else:
+            stsz = _full(b"stsz", 0, 0, u32(0), u32(n), *[u32(len(s)) for s in samples])
+        offs, pos = [], mdat_data_off
+        for ch in chunks:
+            offs.append(pos)
+            pos += sum(len(samples[i]) for i in ch)
+        if co64:
+            stco = _full(b"co64", 0, 0, u32(len(offs)), *[o.to_bytes(8, "big") for o in offs])
+        else:
+            stco = _full(b"stco", 0, 0, u32(len(offs)), *[u32(o) for o in offs])
+        keys = [i + 1 for i, au in enumerate(aus) if any((x[0] & 31) == 5 for x in au)]
+        stss = _full(b"stss", 0, 0, u32(len(keys)), *[u32(k) for k in keys])
+        stbl = _box(b"stbl", stsd, stts, stsc, stsz, stco, stss)
+        vmhd = _full(b"vmhd", 0, 1, bytes(8))
+        dref = _full(b"dref", 0, 0, u32(1), _full(b"url ", 0, 1))
+        minf = _box(b"minf", vmhd, _box(b"dinf", dref), stbl)
+        hdlr = _full(b"hdlr", 0, 0, u32(0), b"vide", bytes(12), b"VideoHandler\x00")
+        mdhd = _full(b"mdhd", 0, 0, u32(0), u32(0), u32(60), u32(n), u16(0x55C4), u16(0))
+        mdia = _box(b"mdia", mdhd, hdlr, minf)
+        matrix = u32(0x10000) + u32(0) + u32(0) + u32(0) + u32(0x10000) + u32(0) + u32(0) + \
+            u32(0) + u32(0x40000000)
+        tkhd = _full(b"tkhd", 0, 3, u32(0), u32(0), u32(1), u32(0), u32(n * 1000 // 60),
+                     bytes(8), u16(0), u16(0), u16(0), u16(0), matrix,
+                     u32(width << 16), u32(height << 16))
+        trak_parts = [tkhd]
+        if edit is not None:
+            elst = _full(b"elst", 0, 0, u32(1), u32(n * 1000 // 60), u32(edit), u32(0x10000))
+            trak_parts.append(_box(b"edts", elst))
+        trak = _box(b"trak", *trak_parts, mdia)
+        mvhd = _full(b"mvhd", 0, 0, u32(0), u32(0), u32(1000), u32(n * 1000 // 60),
+                     u32(0x10000), u16(0x100), bytes(10), matrix, bytes(24), u32(2))
+        return _box(b"moov", mvhd, trak)
+
+    mdat_len = 8 + len(mdat_payload)
+    if moov_first:
+        size = len(moov(0))
+        m = moov(len(ftyp) + size + 8)
+        return ftyp + m + _box(b"mdat", mdat_payload)
+    m = moov(len(ftyp) + 8)
+    assert mdat_len
+    return ftyp + _box(b"mdat", mdat_payload) + m
+
+
+def write(cfg: Config):
+    """``(sps, pps, access_units)`` of the stream ``cfg`` draws."""
+    return Writer(cfg).write()
+
+
+# --------------------------------------------------------------- refusals
+
+# each feature the decoder refuses: the words its message holds
+REFUSALS = {
+    "b_slice": "B slices",
+    "cavlc": "CAVLC",
+    "interlace": "interlace",
+    "chroma_422": "4:2:0",
+    "bit_depth_10": "bit depth",
+    "transform_bypass": "lossless transform bypass",
+    "slice_groups": "slice groups",
+    "arbitrary_slice_order": "arbitrary slice order",
+    "sp_slice": "SP and SI slices",
+    "si_slice": "SP and SI slices",
+    "data_partitioning": "data partitioning",
+    "frame_num_gap": "gaps in frame_num",
+    "matrix_bt2020": "matrix_coefficients 9",
+    "edit_list": "edit list",
+    "codec_mp4v": "codecs other than H.264",
+    "codec_hevc": "codecs other than H.264",
+}
+
+
+def _slice_header(first_mb, slice_type, frame_num, idr, poc_lsb, cfg):
+    """A slice header of an I or P picture and nothing after it (for the
+    refusals, which the decoder raises while reading the header)."""
+    b = Bits()
+    b.ue(first_mb)
+    b.ue(slice_type)
+    b.ue(0)
+    b.u(cfg.log2_max_frame_num, frame_num)
+    if idr:
+        b.ue(0)
+    b.u(cfg.log2_max_poc_lsb, poc_lsb)
+    if slice_type % 5 in (0, 1, 3):
+        b.u(1, 0)                # num_ref_idx_active_override_flag
+        b.u(1, 0)                # ref_pic_list_modification_flag_l0
+    if slice_type % 5 == 1:
+        b.u(1, 0)                # ref_pic_list_modification_flag_l1
+    if idr:
+        b.u(2, 0)
+    else:
+        b.u(1, 0)                # adaptive_ref_pic_marking_mode_flag
+    if slice_type % 5 not in (2, 4):
+        b.ue(0)                  # cabac_init_idc
+    b.se(0)
+    if slice_type % 5 in (3, 4):
+        if slice_type % 5 == 3:
+            b.u(1, 0)
+        b.se(0)
+    b.ue(1)                      # disable_deblocking_filter_idc
+    b.trailing()
+    return nal(0 if slice_type % 5 == 1 else 2, 5 if idr else 1, b.tobytes())
+
+
+def header_only(feature: str):
+    """``(bytes, suffix)`` of a short stream of the refused ``feature`` (a
+    key of :data:`REFUSALS`): parameter sets and a slice header, or a
+    picture the writer codes before it."""
+    small = dict(width=32, height=32, frames=1, max_slices=1)
+    cfg = Config(**small, **{
+        "cavlc": {"cavlc": True}, "interlace": {"frame_mbs_only": False},
+        "chroma_422": {"chroma_format": 2, "profile": 122},
+        "bit_depth_10": {"bit_depth": 10, "profile": 110},
+        "transform_bypass": {"bypass": True, "profile": 244},
+        "slice_groups": {"slice_groups": 2},
+        "matrix_bt2020": {"vui": {"matrix": 9}},
+    }.get(feature, {}))
+    w = Writer(cfg)
+    sps, pps, aus = w.write()
+    if feature in ("b_slice", "sp_slice", "si_slice", "data_partitioning", "frame_num_gap"):
+        if feature == "data_partitioning":
+            extra = nal(2, 2, b"\x80")
+        else:
+            stype, fn = {"b_slice": (1, 1), "sp_slice": (3, 1), "si_slice": (4, 1),
+                         "frame_num_gap": (0, 2)}[feature]
+            extra = _slice_header(0, stype, fn, False, 4, cfg)
+        aus = aus + [[extra]]
+    if feature == "arbitrary_slice_order":
+        for seed in range(100):       # the first seed that draws three slices
+            sps, pps, aus = Writer(Config(**{**small, "max_slices": 3, "seed": seed})).write()
+            if len(aus[0]) == 3:
+                break
+        aus = [[aus[0][0], aus[0][2], aus[0][1]]]
+    if feature == "edit_list":
+        return mp4(sps, pps, aus, 32, 32, edit=1), ".mp4"
+    if feature.startswith("codec_"):
+        return mp4(sps, pps, aus, 32, 32, codec=b"mp4v" if feature == "codec_mp4v"
+                   else b"hvc1"), ".mp4"
+    return annexb(sps, pps, aus), ".h264"

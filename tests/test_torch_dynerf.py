@@ -6,10 +6,16 @@ the normalization, the point cloud and every lazy frame equal JAX's
 (exactly: both loaders run the same float64 NumPy, and both decoders are
 lossless). ``load_scene`` dispatches ``"dynerf"`` with JAX's default frame
 size; a frame of another size is resized with LANCZOS when it is read, as
-JAX's is, and videos without extracted frames raise, naming the step that is
-not ported."""
+JAX's is. A scene of ``cam*.mp4`` without extracted frames is extracted as
+JAX's loader extracts it (``_extract_video_frames``, cv2 and Pillow): the
+same PNG pixels, the same loaded images; a video the decoder does not read
+raises, naming the feature; a scene under a dotted directory keeps its
+frames inside it (the port's ``os.path.splitext``, where JAX cuts the path
+at its first dot)."""
 
 import inspect
+import os
+import pathlib
 
 import numpy as np
 import pytest
@@ -19,7 +25,8 @@ from fourdgs_tpu_torch.configs.core import load_config as tload
 from fourdgs_tpu_torch.data import dynerf as tdynerf
 from fourdgs_tpu_torch.data import scene as tscene
 from fourdgs_tpu_torch.data.ply import store_pointcloud
-from fourdgs_tpu_torch.utils import png
+from fourdgs_tpu_torch.utils import png, video
+from tests import h264_writer as HW
 
 W, H = 32, 24
 CAMERA_FIELDS = ("world_view", "full_proj", "camera_center", "tanfovx",
@@ -147,15 +154,89 @@ def test_frame_modes_read_as_rgb(tmp_path):
         np.testing.assert_array_equal(got.test_cameras[i].image(), want.test_cameras[i].image())
 
 
-def test_videos_without_frames_raise(tmp_path):
-    """The mp4 extraction (cv2 and Pillow's resize) is not ported: a scene
-    of videos only raises and names the step."""
-    make_dynerf_scene(tmp_path, n_cams=2, n_frames=1)
-    for c in range(2):
-        (tmp_path / f"cam{c:02d}.mp4").write_bytes(b"")
-    for d in tmp_path.glob("cam0*/images"):
-        for f in d.iterdir():
+VIDEO_SIZE = (58, 42)       # no multiple of 16 either way; resized to (W, H)
+
+
+def write_video(path, seed, frames=3, size=VIDEO_SIZE):
+    cfg = HW.Config(width=size[0], height=size[1], frames=frames, seed=seed)
+    sps, pps, aus = HW.write(cfg)
+    path.write_bytes(HW.mp4(sps, pps, aus, *size))
+
+
+def make_video_scene(root, n_cams=2, frames=3):
+    """:func:`make_dynerf_scene`'s poses and cloud with ``cam*.mp4`` and no
+    extracted frames."""
+    make_dynerf_scene(root, n_cams=n_cams, n_frames=1)
+    for c in range(n_cams):
+        cam = root / f"cam{c:02d}"
+        for f in (cam / "images").iterdir():
             f.unlink()
-        d.rmdir()
-    with pytest.raises(NotImplementedError, match="_extract_video_frames"):
+        (cam / "images").rmdir()
+        cam.rmdir()
+        write_video(root / f"cam{c:02d}.mp4", seed=c, frames=frames)
+
+
+@pytest.mark.parametrize("n_frames", [2, 10])
+def test_extract_matches_jax(tmp_path, n_frames):
+    """The port's ``extract_video_frames`` and JAX's
+    ``_extract_video_frames`` on one mp4: the same files, equal pixels;
+    ``n_frames`` stops early or the video's end does."""
+    path = tmp_path / "cam00.mp4"
+    write_video(path, seed=5)
+    jdynerf._extract_video_frames(str(path), str(tmp_path / "jax"), (W, H), n_frames)
+    assert video.extract_video_frames(str(path), str(tmp_path / "port"), (W, H),
+                                      n_frames) == min(n_frames, 3)
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert names == sorted(os.listdir(tmp_path / "port"))
+    assert names == ["%04d.png" % i for i in range(min(n_frames, 3))]
+    for n in names:
+        np.testing.assert_array_equal(png.read_png(str(tmp_path / "port" / n)),
+                                      png.read_png(str(tmp_path / "jax" / n)), err_msg=n)
+
+
+def test_videos_only_scene_matches_jax(tmp_path, monkeypatch):
+    """A scene of videos only, loaded by JAX's loader (which extracts with
+    cv2 and Pillow), then, its frames removed, by the port's (which
+    extracts with its own decoder): the cameras, splits and frame paths
+    agree, and every image the port loads equals JAX's. The scene is named
+    by a relative path without a dot, which JAX's ``v.split(".")[0]``
+    needs."""
+    monkeypatch.chdir(tmp_path)
+    root = pathlib.Path("scene")
+    root.mkdir()
+    make_video_scene(root)
+    want = jdynerf.load_dynerf_scene(str(root), target_wh=(W, H), n_frames=4)
+    want_images = [lc.image() for lc in want.train_cameras + want.test_cameras]
+    for c in range(2):
+        for f in (root / f"cam{c:02d}" / "images").iterdir():
+            f.unlink()
+        (root / f"cam{c:02d}" / "images").rmdir()
+    got = tdynerf.load_dynerf_scene(str(root), target_wh=(W, H), n_frames=4)
+    _same_scene(got, want)
+    assert len(got.train_cameras) == 3 and len(got.test_cameras) == 3
+    for g, w in zip(got.train_cameras + got.test_cameras, want_images):
+        np.testing.assert_array_equal(g.image(), w, err_msg=g.image.path)
+
+
+def test_video_the_decoder_refuses_names_its_feature(tmp_path):
+    """A camera whose video holds B slices raises while the loader
+    extracts it, naming B slices (no partial frame is written)."""
+    make_video_scene(tmp_path)
+    data, _ = HW.header_only("b_slice")
+    (tmp_path / "cam01.mp4").write_bytes(data)
+    with pytest.raises(NotImplementedError, match="B slices"):
         tdynerf.load_dynerf_scene(str(tmp_path), target_wh=(W, H))
+
+
+def test_dotted_scene_directory_keeps_its_frames(tmp_path):
+    """Under ``n3v.v1/coffee`` the port extracts into the scene's
+    ``cam*/images``; JAX's ``v.split(".")[0]`` would name ``…/n3v``, outside
+    it (ROADMAP.md Queue 3 keeps that divergence)."""
+    root = tmp_path / "n3v.v1" / "coffee"
+    root.mkdir(parents=True)
+    make_video_scene(root)
+    got = tdynerf.load_dynerf_scene(str(root), target_wh=(W, H))
+    assert sorted(os.listdir(root / "cam00" / "images")) == ["0000.png", "0001.png", "0002.png"]
+    assert not (tmp_path / "n3v").exists()
+    assert str(root / "cam00.mp4").split(".")[0] == str(tmp_path / "n3v")
+    assert all(lc.image.path.startswith(str(root)) for lc in got.test_cameras)

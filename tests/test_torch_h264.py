@@ -1,0 +1,284 @@
+"""The port's H.264 decoder (``native/h264.cpp``, ``utils/video.py``) bit
+for bit against cv2's ``VideoCapture`` (FFmpeg's libavcodec and
+libswscale), and the committed fixtures of ``tests/torch_fixtures/h264``.
+
+- The fixtures: streams ``tests/h264_writer.py`` writes (CABAC, I and P
+  slices) that between them hold every intra mode and partition, the 8x8
+  transform, scaling lists by both fall-back rules, explicit weights,
+  several references with list modifications, MMCO 1-6 and long-term
+  references, several slices with each deblocking control, POC types 0, 1
+  and 2 with the wraps of ``frame_num`` and ``pic_order_cnt_lsb``, a reorder
+  buffer, cropping, the VUI colour variants cv2 converts, and the MP4
+  forms (``moov`` first or last, ``co64``, ``stz2``, 1-, 2- and 4-byte NAL
+  lengths) and Annex-B. Each decodes to cv2's committed BGR frames and to
+  cv2's decode here, frame by frame with the same count; the writer
+  rewrites a few of them byte for byte; together they code every CABAC
+  context an I or P slice of a progressive 4:2:0 stream reaches.
+- Sixteen more streams of random syntax, each against cv2.
+- Each feature out of scope raises ``NotImplementedError`` naming it, on a
+  stream of its parameter sets and a slice header; a truncated stream
+  raises ``ValueError``.
+- A left crop that is not a multiple of 64 luma samples is the standard's
+  crop of the uncropped frame (cv2 rescales such a frame: FFmpeg keeps
+  the frame's alignment).
+- ``chip_smoke.py`` phase 18 on the CPU: (a) as on the card, (b) and (c)
+  at a small size.
+"""
+
+import os
+
+import cv2
+import numpy as np
+import pytest
+
+import chip_smoke as CS
+from fourdgs_tpu_torch.utils import video
+from tests import h264_writer as HW
+from tests.test_torch_cli import one_torch_thread  # noqa: F401  (autouse)
+
+H264_FIXTURES = CS.H264_FIXTURES
+
+# name: (Config fields, container, container options). Sizes are no
+# multiples of 16, and the crops cover every side (a left one of 64).
+_SL4 = [list(range(6, 22)), None, [40] * 8 + [9] * 8, "default", None,
+        list(range(60, 12, -3)), list(range(8, 72)), None]
+FIXTURES = {
+    "intra": (dict(width=58, height=42, crop=(0, 4, 2, 0), frames=3, p_intra_pic=1.0,
+                   p_pcm=0.06, p_i16=0.35, max_slices=3, qp_range=(0, 51), p_qpd=0.5),
+              "mp4", {}),
+    "intra_main": (dict(width=46, height=34, frames=3, profile=77, transform8x8=False,
+                        p_intra_pic=1.0, qp_range=(4, 30)), "mp4", {}),
+    "inter": (dict(width=74, height=38, frames=8, num_ref_default=2, max_refs=4,
+                   p_modify=0.4, p_far_mv=0.15, p_skip=0.3, qp_range=(10, 40)), "mp4", {}),
+    "inter_main": (dict(width=42, height=26, frames=6, profile=77, transform8x8=False,
+                        max_refs=2, p_far_mv=0.1), "mp4", {}),
+    "weights": (dict(width=50, height=34, frames=6, weighted=True, num_ref_default=3,
+                     max_refs=3, chroma_qp_offset=-5, second_chroma_qp_offset=7,
+                     constrained_intra=True, p_intra_in_p=0.3), "mp4", {}),
+    "scaling_sps": (dict(width=42, height=30, frames=4, sps_scaling=_SL4, qp_range=(0, 36)),
+                    "mp4", {}),
+    "scaling_pps": (dict(width=38, height=30, frames=4, sps_scaling=["default"] * 8,
+                         pps_scaling=[None, [20] * 16, None, list(range(30, 14, -1)), None,
+                                      None, None, list(range(70, 6, -1))],
+                         qp_range=(0, 36)), "mp4", {"moov_first": True}),
+    "scaling_pps_flat_sps": (dict(width=38, height=22, frames=4,
+                                  pps_scaling=[[24] * 16, None, None, None, [9] * 16, None,
+                                               "default", None], qp_range=(0, 30)),
+                             "mp4", {}),
+    "mmco": (dict(width=34, height=18, frames=24, p_mmco=0.6, p_modify=0.5, p_nonref=0.3,
+                  max_refs=4, num_ref_default=2, log2_max_frame_num=4, log2_max_poc_lsb=4,
+                  p_idr=0.05), "mp4", {"co64": True}),
+    "poc1": (dict(width=36, height=26, frames=10, poc_type=1, p_nonref=0.4, bottom_poc=True,
+                  log2_max_frame_num=4), "h264", {}),
+    "poc2": (dict(width=36, height=26, frames=10, poc_type=2, p_nonref=0.4, p_idr=0.2),
+             "mp4", {"stz2": True, "length_size": 2}),
+    "reorder": (dict(width=40, height=22, frames=10, reorder=True, p_nonref=0.5,
+                     bottom_poc=True, vui={"reorder": 1}), "mp4", {}),
+    "slices": (dict(width=90, height=46, frames=3, max_slices=9, filter_idcs=(0, 1, 2),
+                    qp_range=(20, 51), p_qpd=0.5), "mp4", {}),
+    "bt709": (dict(width=44, height=28, frames=3, vui={"matrix": 1, "hrd": True},
+                   p_pcm=0.2), "mp4", {}),
+    "full_range": (dict(width=44, height=28, frames=3, vui={"full_range": 1}, p_pcm=0.2),
+                   "mp4", {}),
+    "fcc_full": (dict(width=28, height=20, frames=2, vui={"matrix": 4, "full_range": 1},
+                      p_pcm=0.2), "mp4", {}),
+    "smpte240m": (dict(width=28, height=20, frames=2, vui={"matrix": 7}, p_pcm=0.2),
+                  "mp4", {}),
+    "crop_left64": (dict(width=40, height=22, crop=(64, 6, 4, 2), frames=3), "mp4", {}),
+    "annexb_idr": (dict(width=30, height=20, frames=6, p_idr=0.3), "h264", {}),
+    "nal_len1": (dict(width=16, height=14, frames=3, max_slices=2, qp_range=(36, 51)),
+                 "mp4", {"length_size": 1, "chunk": 1}),
+}
+# the CABAC contexts an I or P slice of a progressive 4:2:0 stream codes
+# (Table 9-34): all of 0-276 and 399-435 but SI's mb_type prefix (0-2), the
+# B slices' (24-39) and MBAFF's mb_field_decoding_flag (70-72)
+REACHABLE = (set(range(3, 24)) | set(range(40, 70)) | set(range(73, 277))
+             | set(range(399, 436))) - {276}
+
+
+def fixture_config(name, seed_base=180):
+    fields, _, _ = FIXTURES[name]
+    return HW.Config(seed=seed_base + sorted(FIXTURES).index(name), **fields)
+
+
+def fixture_bytes(name):
+    """The fixture ``name`` as the writer writes it, and the writer."""
+    fields, kind, options = FIXTURES[name]
+    cfg = fixture_config(name)
+    w = HW.Writer(cfg)
+    sps, pps, aus = w.write()
+    if kind == "h264":
+        return HW.annexb(sps, pps, aus), w
+    return HW.mp4(sps, pps, aus, cfg.width, cfg.height, **options), w
+
+
+def fixture_path(name):
+    return os.path.join(H264_FIXTURES, name + "." + FIXTURES[name][1])
+
+
+def cv2_frames(path):
+    cap = cv2.VideoCapture(str(path))
+    frames = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(frame)
+    cap.release()
+    return frames
+
+
+def write_committed_fixtures(out_dir=H264_FIXTURES):
+    """Write ``tests/torch_fixtures/h264``: each stream of :data:`FIXTURES`
+    and ``cv2_decode.npz``, cv2's BGR frames of each by name
+    ([frames, H, W, 3])."""
+    os.makedirs(out_dir, exist_ok=True)
+    decodes = {}
+    for name in sorted(FIXTURES):
+        data, _ = fixture_bytes(name)
+        path = os.path.join(out_dir, name + "." + FIXTURES[name][1])
+        with open(path, "wb") as f:
+            f.write(data)
+        decodes[name] = np.stack(cv2_frames(path))
+    np.savez_compressed(os.path.join(out_dir, "cv2_decode.npz"), **decodes)
+
+
+@pytest.fixture(scope="module")
+def committed():
+    with np.load(os.path.join(H264_FIXTURES, "cv2_decode.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_fixture_matches_cv2(name, committed):
+    path = fixture_path(name)
+    got = np.stack(list(video.read_frames(path, bgr=True)))
+    want = committed[name]
+    assert got.shape == want.shape, (got.shape, want.shape)
+    np.testing.assert_array_equal(got, want)
+    live = cv2_frames(path)
+    assert len(live) == len(got)
+    for i, frame in enumerate(live):
+        np.testing.assert_array_equal(got[i], frame, err_msg=f"{name} frame {i}")
+    rgb = np.stack(list(video.read_frames(path)))
+    np.testing.assert_array_equal(rgb, got[..., ::-1])
+
+
+@pytest.mark.parametrize("name", ["intra", "mmco", "poc1", "scaling_pps"])
+def test_writer_rewrites_fixture(name):
+    data, _ = fixture_bytes(name)
+    with open(fixture_path(name), "rb") as f:
+        assert f.read() == data
+
+
+def test_fixtures_code_every_context():
+    used, tables = set(), set()
+    for name in FIXTURES:
+        _, w = fixture_bytes(name)
+        for table, ctxs in w.contexts.items():
+            used |= ctxs
+            tables.add(table)
+    assert tables == {0, 1, 2, 3}           # I slices and cabac_init_idc 0, 1 and 2
+    assert not REACHABLE - used, sorted(REACHABLE - used)
+    assert used <= REACHABLE
+
+
+def _random_config(seed):
+    rng = np.random.default_rng(seed)
+    return HW.Config(
+        seed=seed, frames=int(rng.integers(2, 7)), width=int(rng.choice([18, 36, 52, 70])),
+        height=int(rng.choice([14, 30, 46])), weighted=bool(rng.random() < 0.4),
+        num_ref_default=int(rng.integers(1, 4)), p_mmco=float(rng.choice([0, 0.5])),
+        p_modify=float(rng.choice([0, 0.4])), p_nonref=float(rng.choice([0, 0.3])),
+        max_refs=int(rng.integers(1, 5)), constrained_intra=bool(rng.random() < 0.3),
+        chroma_qp_offset=int(rng.integers(-12, 13)),
+        second_chroma_qp_offset=int(rng.integers(-12, 13)),
+        qp_range=[(12, 44), (0, 51), (40, 51), (0, 15)][int(rng.integers(4))],
+        p_far_mv=float(rng.choice([0, 0.3])), poc_type=int(rng.choice([0, 1, 2])),
+        p_skip=float(rng.random() * 0.6), p_pcm=float(rng.random() * 0.1),
+        transform8x8=bool(rng.random() < 0.7), max_slices=int(rng.integers(1, 6)),
+        max_level=int(rng.choice([4, 40, 2000])))
+
+
+@pytest.mark.parametrize("seed", range(16))
+def test_random_streams_match_cv2(tmp_path, seed):
+    cfg = _random_config(seed)
+    sps, pps, aus = HW.write(cfg)
+    path = tmp_path / "r.mp4"
+    path.write_bytes(HW.mp4(sps, pps, aus, cfg.width, cfg.height))
+    got = list(video.read_frames(str(path), bgr=True))
+    want = cv2_frames(path)
+    assert len(got) == len(want) == cfg.frames
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("feature", sorted(HW.REFUSALS))
+def test_refusals_name_their_feature(tmp_path, feature):
+    data, suffix = HW.header_only(feature)
+    path = tmp_path / ("f" + suffix)
+    path.write_bytes(data)
+    with pytest.raises(NotImplementedError, match=HW.REFUSALS[feature]):
+        list(video.read_frames(str(path)))
+
+
+def test_truncated_stream_raises(tmp_path):
+    data, _ = fixture_bytes("inter")
+    path = tmp_path / "t.mp4"
+    path.write_bytes(data[:len(data) // 2])
+    with pytest.raises(ValueError):
+        list(video.read_frames(str(path)))
+    path.write_bytes(b"not a video")
+    with pytest.raises(ValueError):
+        list(video.read_frames(str(path)))
+
+
+def test_unaligned_left_crop_is_the_standard_crop(tmp_path):
+    """The same coded pictures with a left crop of 6 and without it: the
+    cropped frames are columns 6.. of the uncropped ones. cv2 returns a
+    rescaled frame here (FFmpeg keeps the data pointers aligned and leaves
+    the crop in; cv2 scales the wider frame to the stream's width)."""
+    frames = {}
+    for crop, width in (((6, 4, 2, 0), 36), ((0, 4, 2, 0), 42)):
+        cfg = HW.Config(seed=3, width=width, height=24, crop=crop, frames=3)
+        sps, pps, aus = HW.write(cfg)
+        path = tmp_path / f"c{crop[0]}.mp4"
+        path.write_bytes(HW.mp4(sps, pps, aus, cfg.width, cfg.height))
+        frames[crop[0]] = np.stack(list(video.read_frames(str(path), bgr=True)))
+    np.testing.assert_array_equal(frames[6], frames[0][:, :, 6:])
+    assert not np.array_equal(np.stack(cv2_frames(tmp_path / "c6.mp4")), frames[6])
+
+
+def test_chip_smoke_phase_18a_on_cpu():
+    out = CS.check_h264_fixtures()
+    assert out["files"] == len(FIXTURES)
+    assert out["frames"] == sum(FIXTURES[n][0]["frames"] for n in FIXTURES)
+
+
+def test_chip_smoke_phase_18_on_cpu(monkeypatch, capsys):
+    """Phase 18 (b) and (c) on the CPU at a small size: the host's times of
+    a row-repeated stream, and a scene of videos extracted by
+    ``load_scene`` then trained on the plain path (the dynerf preset's
+    widths cut as ``tests/test_torch_dynerf_cli.py`` cuts them), K1 and K2
+    held to their plain versions at a step of its model."""
+    import torch
+
+    from fourdgs_tpu_torch import scripts
+    from fourdgs_tpu_torch.data import scene as tscene
+    from fourdgs_tpu_torch.ops import blend
+    from tests.test_torch_dynerf_cli import OVERRIDES
+
+    host = CS.check_video_host_times(size=(96, 72), frames=3, target=(48, 36))
+    assert all(host[k] > 0 for k in ("decode_ms", "decode_i_ms", "decode_p_ms", "resize_ms",
+                                     "png_ms"))
+    monkeypatch.setattr(tscene, "DYNERF_SIZE", (48, 36))
+    for name in ("ITERS", "REPS", "WARMUP"):
+        monkeypatch.setattr(scripts, name, 1)
+    monkeypatch.setattr(blend, "k2_reduction",
+                        lambda: {"batch": 3, "shuffles": 31, "unbatched": 50})
+    chain = CS.check_video_chain(torch.device("cpu"), video_size=(96, 72),
+                                 schedule=OVERRIDES)
+    out = capsys.readouterr().out
+    assert chain["cli"] == (0, 0)                                  # the plain path
+    assert "each the resized decode of its video" in out
+    assert np.isfinite(chain["psnr"]) and chain["extract_s"] > 0

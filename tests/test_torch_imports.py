@@ -14,7 +14,7 @@ library the card's host lacks, CUDA by default.
   lazy imports inside functions included (JAX's ``debug_images.py`` and
   ``ImageRef`` import Pillow there, which only the card would find);
 - the native libraries build without a JPEG library (no ``-ljpeg``), the
-  resampler with no library at all;
+  resampler and the H.264 decoder with no library at all;
 - the shell drivers call only the port's entry points and scripts;
 - with CUDA absent, each entry point raises unless asked for the CPU;
 - the port's constants equal the JAX package's.
@@ -46,10 +46,11 @@ def _port_modules():
     return mods
 
 
-# JAX and the reference package, and the image libraries the card's host
-# does not have
-FORBIDDEN = ("jax", "jaxlib", "fourdgs_tpu", "PIL", "cv2", "imageio")
+# JAX and the reference package, and the image and video libraries the
+# card's host does not have
+FORBIDDEN = ("jax", "jaxlib", "fourdgs_tpu", "PIL", "cv2", "imageio", "av")
 PREP_SCRIPTS = ("blender2colmap", "colmap_converter", "hypernerf2colmap", "llff2colmap",
+                "preprocess_dynerf",
                 "llff_poses_from_colmap", "prepare_multipleview", "downsample_point",
                 "database", "read_all_metrics", "analyze_gradients", "plot_events",
                 "visualize_timing", "render_oracle_gt")
@@ -152,6 +153,14 @@ def test_native_builds_link_no_jpeg_library():
     assert not [f for f in resample.FLAGS if f.startswith("-l")]
     src = (PKG / "native" / "jpeg.cpp").read_text()
     assert "#include <jpeglib.h>" not in src and "jpeg_read_header" not in src
+
+
+def test_video_decoder_links_no_codec_library():
+    from fourdgs_tpu_torch.utils import video
+
+    assert not [f for f in video.FLAGS if f.startswith("-l")]
+    src = (PKG / "native" / "h264.cpp").read_text()
+    assert "#include <libav" not in src and "avcodec_" not in src
 
 
 def test_entry_points_default_to_cuda():

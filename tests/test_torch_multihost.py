@@ -218,11 +218,14 @@ def test_multihost_smoke_two_processes_agree(tmp_path):
              f"file://{tmp_path}/store", "--device", "cpu"] for r in range(2)]
     logs = launch.spawn(cmds, 180, str(tmp_path), cwd=launch.ROOT,
                         envs=[{"OMP_NUM_THREADS": "1"}] * 2)
-    losses = []
-    for r, path in enumerate(logs):
+    outs = []
+    for path in logs:
         with open(path) as f:
-            out = f.read()
-        assert f"RANK {r} OK" in out, out[-2000:]
+            outs.append(f.read())
+    both = "\n".join(f"--- rank {r} ---\n{out[-2000:]}" for r, out in enumerate(outs))
+    losses = []
+    for r, out in enumerate(outs):
+        assert f"RANK {r} OK" in out, both
         losses.append(out.split("loss=")[-1].split()[0])
     assert losses[0] == losses[1]
 

@@ -26,9 +26,11 @@ from fourdgs_tpu_torch.data.ply import store_pointcloud
 from fourdgs_tpu_torch.scripts import (analyze_gradients, blender2colmap, colmap_converter,
                                        database, downsample_point, hypernerf2colmap,
                                        llff2colmap, llff_poses_from_colmap, plot_events,
-                                       prepare_multipleview, read_all_metrics,
+                                       prepare_multipleview, preprocess_dynerf,
+                                       read_all_metrics,
                                        render_oracle_gt, visualize_timing)
 from fourdgs_tpu_torch.utils.png import read_png
+from tests import h264_writer as HW
 from tests.test_data import make_dnerf_dataset
 from tests.test_torch_cli import one_torch_thread  # noqa: F401  (autouse)
 
@@ -195,6 +197,32 @@ def test_prepare_multipleview(tmp_path):
                     str(td)], cwd=ROOT, check=True, capture_output=True, timeout=120)
     files_equal(jd / "image_colmap", td / "image_colmap")
     assert len(list((td / "image_colmap").iterdir())) == 3
+
+
+def _videos_fixture(d):
+    for c in range(2):
+        cfg = HW.Config(width=58, height=42, frames=3, seed=c)
+        sps, pps, aus = HW.write(cfg)
+        (d / f"cam{c:02d}.mp4").write_bytes(HW.mp4(sps, pps, aus, 58, 42))
+
+
+def test_preprocess_dynerf(tmp_path, capsys):
+    """The same frames (PNG pixels) for each camera, and the skip rule: a
+    camera already holding ``--frames`` files is left alone."""
+    jd, td = twin(tmp_path, _videos_fixture)
+    args = ["--frames", "2", "--width", "32", "--height", "24"]
+    run_jax("preprocess_dynerf", "--datadir", jd, *args)
+    preprocess_dynerf.main(["--datadir", str(td), *args])
+    for c in ("cam00", "cam01"):
+        names = sorted(p.name for p in (td / c / "images").iterdir())
+        assert names == sorted(p.name for p in (jd / c / "images").iterdir())
+        assert names == ["0000.png", "0001.png"]
+        for n in names:
+            np.testing.assert_array_equal(read_png(str(td / c / "images" / n)),
+                                          read_png(str(jd / c / "images" / n)))
+    capsys.readouterr()
+    preprocess_dynerf.main(["--datadir", str(td), *args])
+    assert capsys.readouterr().out.count("already extracted") == 2
 
 
 def test_downsample_point(tmp_path):

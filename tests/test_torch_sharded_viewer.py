@@ -34,7 +34,9 @@ def test_gathered_frames_equal_a_one_process_render(tmp_path):
                            iters=ITERS, **LOOP_KW),
                       str(tmp_path / "ranks"), timeout=300)
     first = ranks[0]
-    assert first["error"] is None, first["error"]
+    logs = [(tmp_path / "ranks" / f"rank_{r}.log").read_text()[-2000:] for r in range(2)]
+    both = "\n".join(f"--- rank {r} ---\n{log}" for r, log in enumerate(logs))
+    assert first["error"] is None, f"{first['error']}\n{both}"
     assert len(first["frames"]) == len(first["renders"]) == ITERS - 1
     for k, (frame, want) in enumerate(zip(first["frames"], first["renders"])):
         assert frame.shape == want.shape == (32, 32, 3)
