@@ -68,9 +68,9 @@ on failure:
    ``{"ok": true, "device": {...}}``; before them phases 9 to 17, the
    seconds of phases 10 to 17 and the script's own time:
 9. training from a point cloud (``bench_quality_torch.py``, bf16 payload):
-   (a) the bouncingballs preset at ``--gt oracle --scale 0.01`` (cut from
-   0.03 as phases were added; 30 coarse + 200 fine steps at 800×800 from
-   2,000 random points,
+   (a) the bouncingballs preset at ``--gt oracle --scale 0.0075`` (cut from
+   0.03 as phases were added, and from 0.01 to pay for phase 18's B-coded
+   camera; 50 coarse + 150 fine steps at 800×800 from 2,000 random points,
    the launch counts zeroed
    just before the training and read after the eval): K2 launches equal
    the renders of its steps, K1 launches those plus the 10 eval views, every
@@ -307,19 +307,25 @@ on failure:
    of the trained model against their plain versions
    (``multipleview_rare`` in the kernels line).
 18. the DyNeRF video extraction: (a) every committed stream of
-   ``tests/torch_fixtures/h264`` (CABAC I and P slices of every macroblock
-   type, partition and intra mode, the 8x8 transform, scaling lists,
-   weights, MMCO and long-term references, slices and deblocking controls,
-   POC types 0-2, a reorder buffer, cropping, the VUI colours, MP4 and
-   Annex-B) decoded on the card's host, frame by frame with the same
-   count, equal to cv2's committed BGR decode. (b) The host's ms per
-   2704×2028 frame of a stream ``tests/h264_writer.py`` writes there
-   (:func:`row_video`: an I picture then P pictures of one-row slices, not
-   a camera file): the decode alone (I and P apart), the LANCZOS resize to
-   1352×1014 and the PNG write. (c) A DyNeRF scene of two ``cam*.mp4`` at
-   2704×2028 and no frames on disk (:func:`write_video_scene`) through
-   ``load_scene``, which extracts each camera's frames (each equal to its
-   video's decode resized), then ``train_torch.py`` → ``render_torch.py``
+   ``tests/torch_fixtures/h264`` (CABAC I, P and B slices of every
+   macroblock type, partition and intra mode, the 8x8 transform, scaling
+   lists, weights, MMCO and long-term references, slices and deblocking
+   controls, POC types 0-2, reorder buffers with and without the VUI's
+   depth, cropping, the VUI colours, MP4 and Annex-B; spatial and temporal
+   direct prediction, bi-prediction with explicit and implicit weights,
+   referenced B pictures) decoded on the card's host, frame by frame with
+   the same count, equal to cv2's committed BGR decode. (b) The host's ms
+   per 2704×2028 frame of a stream ``tests/h264_writer.py`` writes there
+   (:func:`row_video`: I, P, B, B in decoding order, of one-row slices;
+   spatial direct, implicit weights and a referenced B picture as x264's
+   defaults have them; not a camera file): each picture's decode timed when
+   it is decoded (I, P and B apart), the mean per frame out with the RGB
+   conversion, the LANCZOS resize to 1352×1014 and the PNG write. (c) A
+   DyNeRF scene of two ``cam*.mp4`` at 2704×2028 of ``VIDEO_SCENE_FRAMES``
+   frames, the second coded with B slices, and no frames on disk
+   (:func:`write_video_scene`) through ``load_scene``, which extracts each
+   camera's frames (each equal to its video's decode resized), then
+   ``train_torch.py`` → ``render_torch.py``
    → ``metrics_torch.py`` with the dynerf preset at full width and
    ``VIDEO_SCHEDULE`` (2 coarse + 4 fine steps), K1 once per render of a
    step, eval view and rendered view and K2 once per render of a step,
@@ -1111,9 +1117,9 @@ def check_training_from_pcd(dev):
     from fourdgs_tpu_torch.ops import blend
 
     print("[9] training from a point cloud: (a) bench_quality_torch --gt oracle "
-          "--scale 0.01", flush=True)
+          "--scale 0.0075", flush=True)
     t0 = time.perf_counter()
-    a, model = BQ.run(scale=0.01, gt="oracle", log_interval=50, device=dev)
+    a, model = BQ.run(scale=0.0075, gt="oracle", log_interval=50, device=dev)
     launches = (blend.blend_forward.launches, blend.blend_backward.launches)
     renders = (a["schedule"]["coarse"] + a["schedule"]["fine"]) * a["batch_size"]
     log = a["train_log"]
@@ -3836,8 +3842,8 @@ def check_rare_chain(dev, schedule=MULTIPLEVIEW_SCHEDULE, preset=MULTIPLEVIEW_PR
 # (tests/test_torch_h264.py::write_committed_fixtures)
 H264_FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "h264")
 VIDEO_SIZE = (2704, 2028)          # a Neu3D camera's cam*.mp4
-VIDEO_HOST_FRAMES = 4              # phase 18 (b)'s stream: I, P, P, P
-VIDEO_SCENE_CAMS, VIDEO_SCENE_FRAMES = 2, 2   # phase 18 (c)'s scene
+VIDEO_HOST_FRAMES = 4              # phase 18 (b)'s stream: I, P, B, B in decoding order
+VIDEO_SCENE_CAMS, VIDEO_SCENE_FRAMES = 2, 3   # phase 18 (c)'s scene (camera 1: I, P, B)
 VIDEO_SCHEDULE = ("opt.coarse_iterations=2", "opt.iterations=4",
                   "opt.position_lr_max_steps=4", 'opt.custom_sampler="fine"')
 
@@ -3856,16 +3862,20 @@ def h264_writer():
     return sys.modules["h264_writer"]
 
 
-def row_video(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES, seed=0) -> bytes:
+def row_video(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES, seed=0, b_frames=0) -> bytes:
     """An MP4 of ``frames`` pictures at ``size`` written by
-    ``tests/h264_writer.py`` on this host: an IDR picture then P pictures,
-    each of one-row slices whose CABAC data the writer codes once and
-    repeats (a slice's data starts byte-aligned and depends on no other
-    slice). Not a camera file: random syntax, every macroblock type and
-    partition, residuals at QP 12-44."""
+    ``tests/h264_writer.py`` on this host: an IDR picture then P pictures
+    (with ``b_frames``, runs of that many B pictures, each coded after the
+    P picture that follows it, the first of a run of 2 or more a
+    reference; spatial direct and implicit weights), each of one-row
+    slices whose CABAC data the writer codes once and repeats (a slice's
+    data starts byte-aligned and depends on no other slice). Not a camera
+    file: random syntax, every macroblock type and partition, residuals at
+    QP 12-44."""
     W = h264_writer()
     cfg = W.Config(width=size[0], height=size[1], frames=frames, seed=seed, row_repeat=True,
-                   p_pcm=0.02, num_ref_default=2, max_refs=3)
+                   p_pcm=0.02, num_ref_default=2, max_refs=3, b_frames=b_frames,
+                   b_full_runs=True, b_pyramid=True, weighted_bipred=2)
     sps, pps, aus = W.write(cfg)
     return W.mp4(sps, pps, aus, size[0], size[1])
 
@@ -3902,22 +3912,25 @@ def check_h264_fixtures() -> dict:
 def check_video_host_times(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES,
                            target=(1352, 1014)) -> dict:
     """Phase 18 (b) (module docstring): on this host, ms per frame of the
-    :func:`row_video` stream at ``size``: the decode alone (to RGB, I and P
-    pictures apart), the LANCZOS resize to ``target`` and the PNG write,
-    each timed over every frame. Returns the ms and the stream's size."""
+    :func:`row_video` stream at ``size`` (I, P, B, B in decoding order):
+    each picture's decode as the decoder timed it when it decoded it (I, P
+    and B apart; a B picture leaves the reorder buffer before the P one it
+    was decoded after), the mean wall per frame out with the RGB
+    conversion, the LANCZOS resize to ``target`` and the PNG write, each
+    timed over every frame. Returns the ms and the stream's size."""
     from fourdgs_tpu_torch.utils import png, resample, video
 
     print(f"    (b) the card's host: decode, resize and PNG write of a {size[0]}x{size[1]} "
           f"stream", flush=True)
     t0 = time.perf_counter()
-    data = row_video(size, frames)
+    data = row_video(size, frames, b_frames=2)
     write_s = time.perf_counter() - t0
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_video_") as tmp:
         path = os.path.join(tmp, "rows.mp4")
         with open(path, "wb") as f:
             f.write(data)
-        decode_ms, imgs = [], []
-        it = video.read_frames(path)
+        decode_ms, imgs, stats = [], [], []
+        it = video.read_frames(path, stats=stats)
         while True:
             t0 = time.perf_counter()
             img = next(it, None)
@@ -3933,15 +3946,20 @@ def check_video_host_times(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES,
             t0 = time.perf_counter()
             png.write_png(os.path.join(tmp, "%04d.png" % i), small)
             write_ms.append(1e3 * (time.perf_counter() - t0))
-    if len(imgs) != frames or imgs[0].shape != (size[1], size[0], 3):
-        raise AssertionError(f"{len(imgs)} frames of {imgs[0].shape if imgs else None}")
-    out = {"decode_ms": float(np.mean(decode_ms)), "decode_i_ms": decode_ms[0],
-           "decode_p_ms": float(np.mean(decode_ms[1:])), "resize_ms": float(np.mean(resize_ms)),
-           "png_ms": float(np.mean(write_ms)), "mbytes": len(data) / 1e6, "write_s": write_s}
-    print(f"    {frames} frames ({out['mbytes']:.3f} MB, written in {write_s:.2f} s): decode "
-          f"{out['decode_ms']:.2f} ms a frame (I {out['decode_i_ms']:.2f}, P "
-          f"{out['decode_p_ms']:.2f}), LANCZOS to {target[0]}x{target[1]} "
-          f"{out['resize_ms']:.2f} ms, PNG write {out['png_ms']:.2f} ms")
+    kinds = "".join(k for k, _ in stats)
+    if len(imgs) != frames or imgs[0].shape != (size[1], size[0], 3) or kinds != "IBBP":
+        raise AssertionError(f"{len(imgs)} frames ({kinds}) of "
+                             f"{imgs[0].shape if imgs else None}")
+    per = {k: float(np.mean([ms for kind, ms in stats if kind == k])) for k in "IPB"}
+    out = {"decode_ms": float(np.mean(decode_ms)), "decode_i_ms": per["I"],
+           "decode_p_ms": per["P"], "decode_b_ms": per["B"],
+           "resize_ms": float(np.mean(resize_ms)), "png_ms": float(np.mean(write_ms)),
+           "mbytes": len(data) / 1e6, "write_s": write_s}
+    print(f"    {frames} frames out in the order {kinds} ({out['mbytes']:.3f} MB, written in "
+          f"{write_s:.2f} s): decode I {per['I']:.2f} ms, P {per['P']:.2f}, B {per['B']:.2f} "
+          f"(each timed as it was decoded); {out['decode_ms']:.2f} ms a frame out with the RGB "
+          f"conversion; LANCZOS to {target[0]}x{target[1]} {out['resize_ms']:.2f} ms, PNG "
+          f"write {out['png_ms']:.2f} ms")
     return out
 
 
@@ -3949,8 +3967,9 @@ def write_video_scene(root, dev, video_size=VIDEO_SIZE, target=(1352, 1014)) -> 
     """A DyNeRF scene of videos only: :func:`write_dynerf_scene`'s
     ``poses_bounds.npy`` and point cloud for ``target`` frames, and
     ``VIDEO_SCENE_CAMS`` videos ``cam00.mp4…`` of ``VIDEO_SCENE_FRAMES``
-    pictures at ``video_size`` (:func:`row_video`, a seed a camera) and no
-    ``cam*/images``. Returns the videos' paths."""
+    pictures at ``video_size`` (:func:`row_video`, a seed a camera, the
+    cameras after the first with B pictures) and no ``cam*/images``.
+    Returns the videos' paths."""
     write_dynerf_scene(root, dev, n_frames=0, size=target, n_cams=VIDEO_SCENE_CAMS)
     paths = []
     for ci in range(VIDEO_SCENE_CAMS):
@@ -3959,7 +3978,7 @@ def write_video_scene(root, dev, video_size=VIDEO_SIZE, target=(1352, 1014)) -> 
         os.rmdir(cam_dir)
         paths.append(cam_dir + ".mp4")
         with open(paths[-1], "wb") as f:
-            f.write(row_video(video_size, VIDEO_SCENE_FRAMES, seed=ci))
+            f.write(row_video(video_size, VIDEO_SCENE_FRAMES, seed=ci, b_frames=2 if ci else 0))
     return paths
 
 
@@ -4683,8 +4702,8 @@ def main() -> int:
         "dynerf_video": {"launches": video_chain["cli"][0],
                          **video_chain["blend"]["blend_forward"],
                          "host_ms_per_frame": {k: video_host[k] for k in (
-                             "decode_ms", "decode_i_ms", "decode_p_ms", "resize_ms",
-                             "png_ms")}},
+                             "decode_ms", "decode_i_ms", "decode_p_ms", "decode_b_ms",
+                             "resize_ms", "png_ms")}},
     }, {
         "name": "blend_backward",
         "route": "cuda",

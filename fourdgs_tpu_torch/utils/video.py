@@ -9,18 +9,20 @@ native build helper (``utils/native.py::build``, keyed by a hash of source
 and flags) and loaded with ``ctypes``.
 
 Scope: an MP4 file's first video track or an Annex-B byte stream of
-progressive 8-bit 4:2:0 H.264 coded with CABAC, I and P slices (what a
-stream without B slices needs in the Main and High profiles); its frames
-come out in the order cv2 returns them and equal cv2's bit for bit after
-the conversion cv2's libswscale makes (each chroma sample serving its 2x2
-block, the VUI's colour matrix and range), cropped as the standard says.
-What the decoder does not read raises ``NotImplementedError`` naming the
-feature: B slices, CAVLC (the Baseline profile), interlace, chroma other
-than 4:2:0, bit depths above 8, the lossless transform bypass, slice
-groups, arbitrary slice order, SP and SI slices, data partitioning, gaps
-in ``frame_num``, a colour matrix cv2 does not convert, an edit list that
-drops samples and codecs other than H.264. A truncated or corrupt stream
-raises ``ValueError``.
+progressive 8-bit 4:2:0 H.264 coded with CABAC, I, P and B slices (what
+the Main and High profiles code, B pictures as x264's defaults write them
+included); its frames come out in the order and number cv2 returns them
+(FFmpeg's reorder buffer, which without the VUI's bitstream_restriction
+grows as it meets pictures out of order and drops one whose turn has
+passed) and equal cv2's bit for bit after the conversion cv2's libswscale
+makes (each chroma sample serving its 2x2 block, the VUI's colour matrix
+and range), cropped as the standard says. What the decoder does not read
+raises ``NotImplementedError`` naming the feature: CAVLC (the Baseline
+profile), interlace, chroma other than 4:2:0, bit depths above 8, the
+lossless transform bypass, slice groups, arbitrary slice order, SP and SI
+slices, data partitioning, gaps in ``frame_num``, a colour matrix cv2
+does not convert, an edit list that drops samples and codecs other than
+H.264. A truncated or corrupt stream raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -55,6 +57,8 @@ def get_lib() -> ctypes.CDLL:
             lib.hv_next.restype = ctypes.c_int
             lib.hv_take.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
             lib.hv_take.restype = None
+            lib.hv_info.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_double)]
+            lib.hv_info.restype = ctypes.c_int
             lib.hv_close.argtypes = [ctypes.c_void_p]
             lib.hv_close.restype = None
             _lib = lib
@@ -68,9 +72,12 @@ def _raise(rc: int, err, path: str):
     raise ValueError(msg)
 
 
-def read_frames(path: str, bgr: bool = False):
+def read_frames(path: str, bgr: bool = False, stats=None):
     """Yields the video's frames in output order as uint8 [H, W, 3], RGB
-    (or BGR, as ``cv2.VideoCapture.read`` gives them)."""
+    (or BGR, as ``cv2.VideoCapture.read`` gives them). A list ``stats``
+    receives for each frame its first slice's type ("I", "P" or "B") and
+    the ms its decoding took, timed when it was decoded (a frame the reorder
+    buffer holds comes out later)."""
     with open(path, "rb") as f:
         data = f.read()
     lib = get_lib()
@@ -88,6 +95,9 @@ def read_frames(path: str, bgr: bool = False):
             if rc < 0:
                 _raise(rc, err, path)
             frame = np.empty((h.value, w.value, 3), np.uint8)
+            if stats is not None:
+                ms = ctypes.c_double()
+                stats.append((chr(lib.hv_info(handle, ctypes.byref(ms))), ms.value))
             lib.hv_take(handle, frame.ctypes.data_as(ctypes.c_void_p), int(bgr))
             yield frame
     finally:

@@ -3,14 +3,18 @@
 Nothing the tests depend on writes H.264 (cv2's ``VideoWriter`` needs an
 encoder its FFmpeg build may lack), so this module writes the streams the
 port's decoder (``fourdgs_tpu_torch/native/h264.cpp``) is held to: progressive 8-bit
-4:2:0 CABAC streams of I and P slices, as Annex-B byte streams or as MP4
-files, whose syntax is drawn at random from a seed and a :class:`Config`:
-macroblock types and partitions, intra modes, motion vectors (far outside
-the picture too), reference indices, weights, residuals, QP deltas,
-slices and their deblocking controls, scaling lists, cropping, POC types,
-memory management operations, long-term references and VUI colour
-descriptions. It needs no motion search and no reconstruction: it writes
-syntax, and cv2 decodes what it means.
+4:2:0 CABAC streams of I, P and B slices, as Annex-B byte streams or as
+MP4 files, whose syntax is drawn at random from a seed and a
+:class:`Config`: macroblock types and partitions, intra modes, motion
+vectors (far outside the picture too), reference indices, weights,
+residuals, QP deltas, slices and their deblocking controls, scaling lists,
+cropping, POC types, memory management operations, long-term references,
+VUI colour descriptions, and runs of B pictures between anchor pictures
+(direct prediction, bi-prediction, both lists' modifications and weights,
+referenced B pictures). It needs no motion search and no reconstruction:
+it writes syntax, and cv2 decodes what it means. The vectors it draws
+lean on predictions it makes itself, which take a direct-predicted block
+for one without motion: they steer the draws and reach no syntax.
 
 It is a second implementation of the syntax in ITU-T H.264 (07/2019)
 §7.3 and of the CABAC encoder in §9.3.4; it shares with the decoder only
@@ -278,6 +282,18 @@ class Config:
     p_modify: float = 0.0
     max_slices: int = 3
     reorder: bool = False           # decode non-reference pictures after the next one
+    # B pictures (b_frames 0: none): runs of up to b_frames B pictures between
+    # anchor pictures, each run coded after the anchor that follows it
+    b_frames: int = 0
+    b_full_runs: bool = False       # every run is b_frames long (as the frames allow)
+    b_pyramid: bool = False         # the middle B of a run of 2 or more is a reference
+    direct_spatial: object = True   # direct_spatial_mv_pred_flag; None: drawn per slice
+    weighted_bipred: int = 0        # weighted_bipred_idc
+    direct_8x8_inference: bool = True
+    num_ref_l1_default: int = 1
+    p_b_slice_mix: float = 0.0      # a slice of a B picture coded as P or I
+    p_b_anchor: float = 0.0         # a slice of an anchor picture coded as B
+    p_direct: float = 0.15          # B_Direct_16x16 among a B slice's inter MBs
     row_repeat: bool = False        # one slice a macroblock row, every row coded alike
     # parameter-set fields only the refusal streams (:func:`header_only`) change
     chroma_format: int = 1
@@ -317,6 +333,15 @@ class MB:
     ref: list = field(default_factory=lambda: [-1] * 16)
     mv: list = field(default_factory=lambda: [(0, 0)] * 16)
     mvd: list = field(default_factory=lambda: [(0, 0)] * 16)
+    # list 1, and the 4x4 blocks predicted in direct mode (B slices)
+    ref1: list = field(default_factory=lambda: [-1] * 16)
+    mv1: list = field(default_factory=lambda: [(0, 0)] * 16)
+    mvd1: list = field(default_factory=lambda: [(0, 0)] * 16)
+    direct: list = field(default_factory=lambda: [0] * 16)
+
+    def motion(self, lst):
+        """(ref, mv, mvd) of list ``lst``."""
+        return (self.ref, self.mv, self.mvd) if lst == 0 else (self.ref1, self.mv1, self.mvd1)
 
     @property
     def intra(self):
@@ -399,7 +424,7 @@ class Writer:
         b.u(1, c.frame_mbs_only)
         if not c.frame_mbs_only:
             b.u(1, 0)            # mb_adaptive_frame_field_flag
-        b.u(1, 1)                # direct_8x8_inference_flag
+        b.u(1, c.direct_8x8_inference)
         crop = any(self.crop)
         b.u(1, crop)
         if crop:
@@ -473,9 +498,9 @@ class Writer:
             for _ in range(c.slice_groups):
                 b.ue(0)
         b.ue(c.num_ref_default - 1)
-        b.ue(0)
+        b.ue(c.num_ref_l1_default - 1)
         b.u(1, c.weighted)
-        b.u(2, 0)
+        b.u(2, c.weighted_bipred)
         b.se(c.qp - 26)
         b.se(0)
         b.se(c.chroma_qp_offset)
@@ -536,6 +561,9 @@ class Writer:
         self.max_long = None        # MaxLongTermFrameIdx (None: no long-term indices)
         self.prev_ref_frame_num = 0
         self.idr_id = -1
+        self.uniform = False
+        if self.c.b_frames:
+            return self.sps(), self.pps(), self._write_b()
         aus, last_nonref = [], False
         for i in range(self.c.frames):
             idr = i == 0 or self.rng.random() < self.c.p_idr
@@ -547,7 +575,39 @@ class Writer:
             aus.append(self._picture(idr, nonref))
         return self.sps(), self.pps(), aus
 
-    def _picture(self, idr, nonref):
+    def _write_b(self):
+        """Access units of anchors (IDR, P or I pictures, some slices B) each
+        followed by the run of B pictures that display before it; POCs count
+        up by 2 in display order from each IDR picture."""
+        c, rng = self.c, self.rng
+        aus, disp = [self._picture(True, False, 0, "anchor")], 0
+        while len(aus) < c.frames:
+            idr = rng.random() < c.p_idr
+            most = min(c.b_frames, c.frames - len(aus) - 1)
+            run = 0 if idr else most if c.b_full_runs else int(rng.integers(0, most + 1))
+            disp = 0 if idr else disp + run + 1
+            aus.append(self._picture(idr, False, 2 * disp, "anchor"))
+            order = list(range(1, run + 1))
+            mid = (run + 1) // 2 if c.b_pyramid and run >= 2 else None
+            if mid is not None:
+                order = [mid] + [k for k in order if k != mid]
+            for k in order:
+                aus.append(self._picture(False, k != mid, 2 * (disp - run - 1 + k), "b"))
+        return aus
+
+    def _b_stype(self, role, intra_pic):
+        """A slice type of a picture of a B stream: an anchor's P (or I, or
+        B) and a B picture's B (or P, or I)."""
+        c, rng = self.c, self.rng
+        if intra_pic:
+            return 2
+        if role == "anchor":
+            return 2 if rng.random() < 0.15 else (1 if rng.random() < c.p_b_anchor else 0)
+        if rng.random() < c.p_b_slice_mix:
+            return int(rng.choice([0, 2]))
+        return 1
+
+    def _picture(self, idr, nonref, poc=None, role=None):
         c, rng = self.c, self.rng
         if idr:
             self.refs, self.max_long = [], None
@@ -561,7 +621,9 @@ class Writer:
         intra_pic = idr or rng.random() < c.p_intra_pic or not self.refs
         # POC type 0 counts up by 2, or by 4 with each reordered non-reference
         # picture between the last two reference ones
-        if idr:
+        if poc is not None:
+            self.poc = poc
+        elif idr:
             self.poc = 0
         elif nonref and c.reorder:
             self.poc = self.last_ref_poc - 2
@@ -584,10 +646,17 @@ class Writer:
             starts = [0] + sorted(int(v) for v in rng.choice(np.arange(1, n_mbs), n_slices - 1,
                                                               replace=False))
         self.mbs = [None] * n_mbs
+        # a reference picture of a stream that may predict in temporal direct
+        # mode codes every slice alike (one slice type, the same lists):
+        # libavcodec reads one set of co-located lists a picture
+        self.uniform = role is not None and ref_idc != 0 and c.direct_spatial is not True
         nals = []
         for si, first in enumerate(starts):
             last = starts[si + 1] if si + 1 < len(starts) else n_mbs
-            if si == 0 or not c.row_repeat:
+            if role is not None:
+                if si == 0 or not (c.row_repeat or self.uniform):
+                    stype = self._b_stype(role, intra_pic)
+            elif si == 0 or not c.row_repeat:
                 stype = 2 if intra_pic or rng.random() < 0.15 else 0
             nals.append(self._slice(si, first, last, stype, idr, ref_idc, frame_num, mmco))
         if ref_idc:
@@ -608,7 +677,7 @@ class Writer:
         ops = []
         refs = [dict(r) for r in self.refs]
         max_long = self.max_long
-        if rng.random() < 0.08:
+        if rng.random() < 0.08 and not c.b_frames:
             return [(5,)]
         for _ in range(int(rng.integers(1, 4))):
             if any(o[0] == 6 for o in ops):
@@ -658,7 +727,7 @@ class Writer:
 
     def _mark(self, idr, mmco, frame_num):
         c = self.c
-        cur = {"frame_num": frame_num, "long": None}
+        cur = {"frame_num": frame_num, "long": None, "poc": self.poc}
         if idr:
             if self.idr_long:
                 cur["long"] = 0
@@ -700,11 +769,16 @@ class Writer:
         self.refs.append(cur)
         self.prev_ref_frame_num = frame_num
 
-    def _ref_list(self, nref, mods):
-        shorts = sorted([r for r in self.refs if r["long"] is None], key=self._pic_num,
-                        reverse=True)
-        longs = sorted([r for r in self.refs if r["long"] is not None], key=lambda r: r["long"])
-        lst = (shorts + longs)[:nref]
+    def _ref_list(self, nref, mods, init=None):
+        """List 0 of a P slice (or the list ``init`` of a B slice) at
+        ``nref`` entries after the modifications ``mods``."""
+        if init is None:
+            shorts = sorted([r for r in self.refs if r["long"] is None], key=self._pic_num,
+                            reverse=True)
+            longs = sorted([r for r in self.refs if r["long"] is not None],
+                           key=lambda r: r["long"])
+            init = shorts + longs
+        lst = init[:nref]
         lst += [None] * (nref - len(lst))
         pred = self.cur_frame_num
         for i, (idc, v) in enumerate(mods):
@@ -720,6 +794,18 @@ class Writer:
             lst = lst[:i] + [pic] + [r for r in lst[i:] if r is not pic]
             lst = lst[:nref]
         return lst
+
+    def _b_lists(self, n0, n1, mods0, mods1):
+        """§8.2.4.2.3: the lists of a B slice by POC, list 1 with its first two
+        entries swapped where it equals list 0, then truncated and modified."""
+        shorts = [r for r in self.refs if r["long"] is None]
+        longs = sorted([r for r in self.refs if r["long"] is not None], key=lambda r: r["long"])
+        before = sorted([r for r in shorts if r["poc"] <= self.poc], key=lambda r: -r["poc"])
+        after = sorted([r for r in shorts if r["poc"] > self.poc], key=lambda r: r["poc"])
+        l0, l1 = before + after + longs, after + before + longs
+        if len(l1) > 1 and all(a is b for a, b in zip(l0, l1)):
+            l1[0], l1[1] = l1[1], l1[0]
+        return self._ref_list(n0, mods0, l0), self._ref_list(n1, mods1, l1)
 
     def _draw_mods(self, nref):
         rng = self.rng
@@ -767,16 +853,22 @@ class Writer:
             if c.bottom_poc:
                 b.se(self.delta_bottom)
         self.list0 = []
-        if stype == 0:
-            nrefs = len(self.refs)
-            nref = int(rng.integers(1, min(nrefs, 4) + 1))
-            override = nref != c.num_ref_default or rng.random() < 0.2
-            if not override:
-                nref = c.num_ref_default
+        if stype == 1:
+            self._b_slice_header(b, si)
+        elif stype == 0:
+            if self.uniform and si > 0:
+                nref, override, mods = self._uniform_lists
+            else:
+                nrefs = len(self.refs)
+                nref = int(rng.integers(1, min(nrefs, 4) + 1))
+                override = nref != c.num_ref_default or rng.random() < 0.2
+                if not override:
+                    nref = c.num_ref_default
+                mods = self._draw_mods(nref)
+                self._uniform_lists = (nref, override, mods)
             b.u(1, override)
             if override:
                 b.ue(nref - 1)
-            mods = self._draw_mods(nref)
             b.u(1, bool(mods))
             for idc, v in mods:
                 b.ue(idc)
@@ -786,23 +878,7 @@ class Writer:
             self.list0 = self._ref_list(nref, mods)
             self.nref = nref
             if c.weighted:
-                ld, cd = int(rng.integers(0, 8)), int(rng.integers(0, 8))
-                b.ue(ld)
-                b.ue(cd)
-                for _ in range(nref):
-                    f = rng.random() < 0.7
-                    b.u(1, f)
-                    if f:
-                        b.se(int(rng.integers(-128, 128)) if rng.random() < 0.2
-                             else min(127, (1 << ld) + int(rng.integers(-3, 4))))
-                        b.se(int(rng.integers(-128, 128)) if rng.random() < 0.2
-                             else int(rng.integers(-10, 11)))
-                    f = rng.random() < 0.6
-                    b.u(1, f)
-                    if f:
-                        for _ in range(2):
-                            b.se(min(127, (1 << cd) + int(rng.integers(-4, 5))))
-                            b.se(int(rng.integers(-20, 21)))
+                self._weight_table(b, [nref])
         if ref_idc:
             if idr:
                 if si == 0:
@@ -817,8 +893,8 @@ class Writer:
                         for a in op[1:]:
                             b.ue(a)
                     b.ue(0)
-        cabac_init_idc = int(rng.integers(0, 3)) if stype == 0 else 0
-        if stype == 0:
+        cabac_init_idc = int(rng.integers(0, 3)) if stype != 2 else 0
+        if stype != 2:
             b.ue(cabac_init_idc)
         lo, hi = c.qp_range
         slice_qp = int(rng.integers(lo, hi + 1))
@@ -849,6 +925,67 @@ class Writer:
             self._row_data = b.tobytes()[data_start:]
         return nal(ref_idc, 5 if idr else 1, b.tobytes())
 
+    def _weight_table(self, b, nrefs):
+        """pred_weight_table over lists of ``nrefs`` entries. Two lists (a B
+        slice) keep every sum of an entry's weight in list 0 and one in list
+        1 within [-128, 128] below a denominator of 2^7, as §7.4.3.2 requires
+        (libavcodec's x86 bi-prediction saturates 16-bit sums beyond it)."""
+        rng = self.rng
+        top = 8 if len(nrefs) == 1 else 7
+        lim = 127 if len(nrefs) == 1 else 64
+        ld, cd = int(rng.integers(0, top)), int(rng.integers(0, top))
+        b.ue(ld)
+        b.ue(cd)
+        for nref in nrefs:
+            for _ in range(nref):
+                f = rng.random() < 0.7
+                b.u(1, f)
+                if f:
+                    b.se(int(rng.integers(-lim - (lim == 127), lim + 1)) if rng.random() < 0.2
+                         else min(lim, (1 << ld) + int(rng.integers(-3, 4))))
+                    b.se(int(rng.integers(-128, 128)) if rng.random() < 0.2
+                         else int(rng.integers(-10, 11)))
+                f = rng.random() < 0.6
+                b.u(1, f)
+                if f:
+                    for _ in range(2):
+                        b.se(min(lim, (1 << cd) + int(rng.integers(-4, 5))))
+                        b.se(int(rng.integers(-20, 21)))
+
+    def _b_slice_header(self, b, si):
+        """A B slice's direct_spatial_mv_pred_flag, list sizes and
+        modifications (the same in every slice of a uniform picture) and,
+        under weighted_bipred_idc 1, its weights."""
+        c, rng = self.c, self.rng
+        spatial = c.direct_spatial if c.direct_spatial is not None else bool(rng.random() < 0.5)
+        b.u(1, spatial)
+        if self.uniform and si > 0:
+            n, override, mods = self._uniform_lists
+        else:
+            nrefs = len(self.refs)
+            n = [int(rng.integers(1, min(nrefs, 4) + 1)) for _ in range(2)]
+            override = (n[0] != c.num_ref_default or n[1] != c.num_ref_l1_default
+                        or rng.random() < 0.2)
+            if not override:
+                n = [c.num_ref_default, c.num_ref_l1_default]
+            mods = [self._draw_mods(n[0]), self._draw_mods(n[1])]
+            self._uniform_lists = (n, override, mods)
+        b.u(1, override)
+        if override:
+            b.ue(n[0] - 1)
+            b.ue(n[1] - 1)
+        for m in mods:
+            b.u(1, bool(m))
+            for idc, v in m:
+                b.ue(idc)
+                b.ue(v)
+            if m:
+                b.ue(3)
+        self.lists = list(self._b_lists(n[0], n[1], mods[0], mods[1]))
+        self.nrefs = n
+        if c.weighted_bipred == 1:
+            self._weight_table(b, n)
+
     # ----------------------------------------------------------- neighbours
     def mb_nb(self, addr, dx, dy, si):
         x, y = addr % self.mbw + dx, addr // self.mbw + dy
@@ -875,6 +1012,15 @@ class Writer:
         cur = MB(si)
         self.mbs[addr] = cur
         A, B = self.mb_nb(addr, -1, 0, si), self.mb_nb(addr, 0, -1, si)
+        if self.stype == 1:
+            skip = rng.random() < c.p_skip
+            enc.decision(24 + (A is not None and A.kind != "skip")
+                         + (B is not None and B.kind != "skip"), skip)
+            if skip:
+                cur.kind = "skip"
+                self._b_direct(cur, range(4))
+                self.prev_mb = cur
+                return
         if self.stype == 0:
             skip = rng.random() < c.p_skip
             enc.decision(11 + (A is not None and A.kind != "skip")
@@ -886,6 +1032,8 @@ class Writer:
                 return
         intra = self.stype == 2 or rng.random() < c.p_intra_in_p
         if not intra:
+            if self.stype == 1:
+                return self._b_inter_mb(cur, addr, A, B)
             return self._inter_mb(cur, addr)
         kind = ("PCM" if rng.random() < c.p_pcm else "I16" if rng.random() < c.p_i16
                 else "I8" if c.transform8x8 and rng.random() < c.p_i8 else "I4")
@@ -893,6 +1041,9 @@ class Writer:
         if self.stype == 0:
             enc.decision(14, 1)          # the intra prefix
             off, b0 = 17, [17]
+        elif self.stype == 1:
+            self._b_mb_type(A, B, "intra")
+            off, b0 = 32, [32]
         else:
             off = 3
             b0 = [3 + (A is not None and A.kind not in ("I4", "I8"))
@@ -1073,7 +1224,7 @@ class Writer:
         mv = (0, 0) if zero else self._mvp(cur, addr, 0, 0, 16, 16, 0, "16x16", 0)
         cur.mv = [mv] * 16
 
-    def _mv_nb(self, cur, addr, x, y, done):
+    def _mv_nb(self, cur, addr, x, y, done, lst=0):
         nb = self.blk_nb(cur, addr, x, y)
         if nb is None:
             return None
@@ -1082,15 +1233,16 @@ class Writer:
             return None
         if m.intra:
             return (-1, (0, 0))
-        return (m.ref[r], m.mv[r])
+        ref, mv, _ = m.motion(lst)
+        return (ref[r], mv[r])
 
-    def _mvp(self, cur, addr, x, y, w, h, ref, part, idx, done=None):
+    def _mvp(self, cur, addr, x, y, w, h, ref, part, idx, done=None, lst=0):
         done = done if done is not None else [False] * 16
-        A = self._mv_nb(cur, addr, x - 1, y, done)
-        B = self._mv_nb(cur, addr, x, y - 1, done)
-        C = self._mv_nb(cur, addr, x + w, y - 1, done)
+        A = self._mv_nb(cur, addr, x - 1, y, done, lst)
+        B = self._mv_nb(cur, addr, x, y - 1, done, lst)
+        C = self._mv_nb(cur, addr, x + w, y - 1, done, lst)
         if C is None:
-            C = self._mv_nb(cur, addr, x - 1, y - 1, done)
+            C = self._mv_nb(cur, addr, x - 1, y - 1, done, lst)
         un = (-1, (0, 0))
         if part == "16x8":
             if idx == 0 and B is not None and B[0] == ref:
@@ -1184,22 +1336,24 @@ class Writer:
             enc.decision(399 + (A is not None and A.t8) + (B is not None and B.t8), cur.t8)
         self._residual_and_qp(cur, addr)
 
-    def _ref_idx(self, cur, addr, x, y, ref):
+    def _ref_idx(self, cur, addr, x, y, ref, lst=0):
+        """ref_idx_lX: §9.3.3.1.1.6, a neighbour partition counts where its
+        refIdxLX exceeds 0 and it is neither skipped nor direct-predicted."""
         conds = []
         for px, py in ((x - 1, y), (x, y - 1)):
             nb = self.blk_nb(cur, addr, px, py)
-            if nb is None or nb[0].kind == "skip" or nb[0].intra:
+            if nb is None or nb[0].kind == "skip" or nb[0].intra or nb[0].direct[nb[1]]:
                 conds.append(0)
             else:
-                conds.append(int(nb[0].ref[nb[1]] > 0))
+                conds.append(int(nb[0].motion(lst)[0][nb[1]] > 0))
         self.enc.unary(ref, [54 + conds[0] + 2 * conds[1], 58, 59])
 
-    def _mvd(self, cur, addr, x, y, comp, v):
+    def _mvd(self, cur, addr, x, y, comp, v, lst=0):
         s = 0
         for px, py in ((x - 1, y), (x, y - 1)):
             nb = self.blk_nb(cur, addr, px, py)
             if nb is not None and nb[0].kind not in ("skip",) and not nb[0].intra:
-                s += abs(nb[0].mvd[nb[1]][comp])
+                s += abs(nb[0].motion(lst)[2][nb[1]][comp])
         base = 40 if comp == 0 else 47
         inc = 0 if s < 3 else (1 if s <= 32 else 2)
         a = abs(v)
@@ -1213,6 +1367,144 @@ class Writer:
             enc.exp_golomb(a - 9, 3)
         if a:
             enc.bypass(v < 0)
+
+    # --------------------------------------------------------- B inter
+    # Table 7-14 and 7-18 by their bins (Tables 9-37 and 9-38): mb_type 0
+    # B_Direct_16x16, 1-21 (shape, list of partition 0, of partition 1) with
+    # shape 16x16, 16x8 or 8x16 and list 1 L0, 2 L1, 3 Bi, 22 B_8x8; and the
+    # sub_mb_types 0 B_Direct_8x8, 1-12 (shape, list)
+    B_MB = {1: ("16x16", 1, 0), 2: ("16x16", 2, 0), 3: ("16x16", 3, 0),
+            4: ("16x8", 1, 1), 5: ("8x16", 1, 1), 6: ("16x8", 2, 2), 7: ("8x16", 2, 2),
+            8: ("16x8", 1, 2), 9: ("8x16", 1, 2), 10: ("16x8", 2, 1), 11: ("8x16", 2, 1),
+            12: ("16x8", 1, 3), 13: ("8x16", 1, 3), 14: ("16x8", 2, 3), 15: ("8x16", 2, 3),
+            16: ("16x8", 3, 1), 17: ("8x16", 3, 1), 18: ("16x8", 3, 2), 19: ("8x16", 3, 2),
+            20: ("16x8", 3, 3), 21: ("8x16", 3, 3)}
+    B_MB_BINS = {0: "0", 1: "100", 2: "101", 3: "110000", 4: "110001", 5: "110010",
+                 6: "110011", 7: "110100", 8: "110101", 9: "110110", 10: "110111",
+                 11: "111110", 12: "1110000", 13: "1110001", 14: "1110010", 15: "1110011",
+                 16: "1110100", 17: "1110101", 18: "1110110", 19: "1110111", 20: "1111000",
+                 21: "1111001", 22: "111111", "intra": "111101"}
+    B_SUB = {1: ("8x8", 1), 2: ("8x8", 2), 3: ("8x8", 3), 4: ("8x4", 1), 5: ("4x8", 1),
+             6: ("8x4", 2), 7: ("4x8", 2), 8: ("8x4", 3), 9: ("4x8", 3), 10: ("4x4", 1),
+             11: ("4x4", 2), 12: ("4x4", 3)}
+    B_SUB_BINS = {0: "0", 1: "100", 2: "101", 3: "11000", 4: "11001", 5: "11010", 6: "11011",
+                  7: "111000", 8: "111001", 9: "111010", 10: "111011", 11: "11110",
+                  12: "11111"}
+
+    def _b_mb_type(self, A, B, t):
+        """mb_type ``t`` of a B slice: ctxIdx 27 + 0..2 by the neighbours that
+        are neither B_Skip nor B_Direct_16x16, then 30; the third bin 31
+        after a 1, 32 after a 0; the rest 32."""
+        bins = self.B_MB_BINS[t]
+        inc = sum(1 for N in (A, B) if N is not None and N.kind not in ("skip", "direct"))
+        for i, v in enumerate(bins):
+            ctx = 27 + inc if i == 0 else 30 if i == 1 else \
+                (31 if bins[1] == "1" else 32) if i == 2 else 32
+            self.enc.decision(ctx, int(v))
+
+    def _b_sub_type(self, t):
+        bins = self.B_SUB_BINS[t]
+        for i, v in enumerate(bins):
+            ctx = 36 if i == 0 else 37 if i == 1 else \
+                (38 if bins[1] == "1" else 39) if i == 2 else 39
+            self.enc.decision(ctx, int(v))
+
+    @staticmethod
+    def _b_direct(cur, quarters):
+        """Marks the 8x8 ``quarters`` direct-predicted. The writer does not
+        derive their motion: it takes refIdx -1 and a zero vector for its own
+        predictions, which only steer the vectors it draws."""
+        for q in quarters:
+            for k in range(4):
+                cur.direct[(q // 2 * 2 + k // 2) * 4 + q % 2 * 2 + k % 2] = 1
+
+    def _b_inter_mb(self, cur, addr, A, B):
+        c, rng, enc = self.c, self.rng, self.enc
+        if rng.random() < c.p_direct:
+            t = 0
+        elif rng.random() < 0.3:
+            t = 22
+        else:
+            t = int(rng.integers(1, 22))
+        self._b_mb_type(A, B, t)
+        small = False
+        if t == 0:
+            cur.kind = "direct"
+            self._b_direct(cur, range(4))
+            small = not c.direct_8x8_inference
+        else:
+            cur.kind = "P"
+            if t == 22:
+                part = "8x8"
+                subs = [int(rng.integers(0, 13)) if rng.random() > 0.25 else 0 for _ in range(4)]
+                for st in subs:
+                    self._b_sub_type(st)
+                self._b_direct(cur, [q for q in range(4) if subs[q] == 0])
+                parts = [(q % 2 * 8, q // 2 * 8, 8, 8) for q in range(4)]
+                preds = [0 if st == 0 else self.B_SUB[st][1] for st in subs]
+                shapes = ["8x8" if st == 0 else self.B_SUB[st][0] for st in subs]
+                small = any(not c.direct_8x8_inference if st == 0 else self.B_SUB[st][0] != "8x8"
+                            for st in subs)
+                cur.subs = tuple(shapes)
+            else:
+                part, p0, p1 = self.B_MB[t]
+                pw, ph = int(part.split("x")[0]), int(part.split("x")[1])
+                parts = [(x, y, pw, ph) for y in range(0, 16, ph) for x in range(0, 16, pw)]
+                preds = [p0, p1][:len(parts)]
+                shapes = [part] * len(parts)
+            refs = [[0] * len(parts), [0] * len(parts)]
+            for lst in range(2):
+                usable = [i for i, r in enumerate(self.lists[lst]) if r is not None]
+                ref_arr = cur.motion(lst)[0]
+                for pi, (x, y, w, h) in enumerate(parts):
+                    if not (preds[pi] >> lst) & 1:
+                        continue
+                    ref = int(rng.choice(usable))
+                    refs[lst][pi] = ref
+                    if self.nrefs[lst] > 1:
+                        self._ref_idx(cur, addr, x, y, ref, lst)
+                    for yy in range(y // 4, (y + h) // 4):
+                        for xx in range(x // 4, (x + w) // 4):
+                            ref_arr[yy * 4 + xx] = ref
+            for lst in range(2):
+                _, mv_arr, mvd_arr = cur.motion(lst)
+                done = [False] * 16
+                for pi, (x, y, w, h) in enumerate(parts):
+                    if not (preds[pi] >> lst) & 1:
+                        for yy in range(y // 4, (y + h) // 4):
+                            for xx in range(x // 4, (x + w) // 4):
+                                done[yy * 4 + xx] = True
+                        continue
+                    sw, sh = int(shapes[pi].split("x")[0]), int(shapes[pi].split("x")[1])
+                    if part != "8x8":
+                        sw, sh = w, h
+                    for sy in range(y, y + h, sh):
+                        for sx in range(x, x + w, sw):
+                            mvp = self._mvp(cur, addr, sx, sy, sw, sh, refs[lst][pi], part, pi,
+                                            done, lst)
+                            mv = (mvp[0] + int(rng.integers(-40, 41)),
+                                  mvp[1] + int(rng.integers(-40, 41)))
+                            if rng.random() < c.p_far_mv:
+                                mv = (int(rng.integers(-4 * (self.mbw * 16 + 64),
+                                                       4 * (self.mbw * 16 + 64))),
+                                      int(rng.integers(-4 * (self.mbh * 16 + 64),
+                                                       4 * (self.mbh * 16 + 64))))
+                            lim = (4 * (self.mbw * 16 + 100), 4 * (self.mbh * 16 + 100))
+                            mv = tuple(max(-lim[k], min(lim[k], mv[k])) for k in range(2))
+                            mvd = (mv[0] - mvp[0], mv[1] - mvp[1])
+                            for comp in range(2):
+                                self._mvd(cur, addr, sx, sy, comp, mvd[comp], lst)
+                            for yy in range(sy // 4, (sy + sh) // 4):
+                                for xx in range(sx // 4, (sx + sw) // 4):
+                                    mv_arr[yy * 4 + xx] = mv
+                                    mvd_arr[yy * 4 + xx] = mvd
+                                    done[yy * 4 + xx] = True
+        cur.cbpl, cur.cbpc = int(rng.integers(0, 16)), int(rng.integers(0, 3))
+        self._cbp(cur, addr)
+        if cur.cbpl and c.transform8x8 and not small:
+            cur.t8 = int(rng.random() < 0.5)
+            enc.decision(399 + (A is not None and A.t8) + (B is not None and B.t8), cur.t8)
+        self._residual_and_qp(cur, addr)
 
     # ----------------------------------------------------------- residual
     def _residual_and_qp(self, cur, addr):
@@ -1478,7 +1770,6 @@ def write(cfg: Config):
 
 # each feature the decoder refuses: the words its message holds
 REFUSALS = {
-    "b_slice": "B slices",
     "cavlc": "CAVLC",
     "interlace": "interlace",
     "chroma_422": "4:2:0",
@@ -1508,11 +1799,9 @@ def _slice_header(first_mb, slice_type, frame_num, idr, poc_lsb, cfg):
     if idr:
         b.ue(0)
     b.u(cfg.log2_max_poc_lsb, poc_lsb)
-    if slice_type % 5 in (0, 1, 3):
+    if slice_type % 5 in (0, 3):
         b.u(1, 0)                # num_ref_idx_active_override_flag
         b.u(1, 0)                # ref_pic_list_modification_flag_l0
-    if slice_type % 5 == 1:
-        b.u(1, 0)                # ref_pic_list_modification_flag_l1
     if idr:
         b.u(2, 0)
     else:
@@ -1526,7 +1815,7 @@ def _slice_header(first_mb, slice_type, frame_num, idr, poc_lsb, cfg):
         b.se(0)
     b.ue(1)                      # disable_deblocking_filter_idc
     b.trailing()
-    return nal(0 if slice_type % 5 == 1 else 2, 5 if idr else 1, b.tobytes())
+    return nal(2, 5 if idr else 1, b.tobytes())
 
 
 def header_only(feature: str):
@@ -1544,12 +1833,11 @@ def header_only(feature: str):
     }.get(feature, {}))
     w = Writer(cfg)
     sps, pps, aus = w.write()
-    if feature in ("b_slice", "sp_slice", "si_slice", "data_partitioning", "frame_num_gap"):
+    if feature in ("sp_slice", "si_slice", "data_partitioning", "frame_num_gap"):
         if feature == "data_partitioning":
             extra = nal(2, 2, b"\x80")
         else:
-            stype, fn = {"b_slice": (1, 1), "sp_slice": (3, 1), "si_slice": (4, 1),
-                         "frame_num_gap": (0, 2)}[feature]
+            stype, fn = {"sp_slice": (3, 1), "si_slice": (4, 1), "frame_num_gap": (0, 2)}[feature]
             extra = _slice_header(0, stype, fn, False, 4, cfg)
         aus = aus + [[extra]]
     if feature == "arbitrary_slice_order":

@@ -157,8 +157,8 @@ def test_frame_modes_read_as_rgb(tmp_path):
 VIDEO_SIZE = (58, 42)       # no multiple of 16 either way; resized to (W, H)
 
 
-def write_video(path, seed, frames=3, size=VIDEO_SIZE):
-    cfg = HW.Config(width=size[0], height=size[1], frames=frames, seed=seed)
+def write_video(path, seed, frames=3, size=VIDEO_SIZE, b_frames=0):
+    cfg = HW.Config(width=size[0], height=size[1], frames=frames, seed=seed, b_frames=b_frames)
     sps, pps, aus = HW.write(cfg)
     path.write_bytes(HW.mp4(sps, pps, aus, *size))
 
@@ -176,19 +176,21 @@ def make_video_scene(root, n_cams=2, frames=3):
         write_video(root / f"cam{c:02d}.mp4", seed=c, frames=frames)
 
 
-@pytest.mark.parametrize("n_frames", [2, 10])
-def test_extract_matches_jax(tmp_path, n_frames):
+@pytest.mark.parametrize("n_frames,b_frames,frames", [(2, 0, 3), (10, 0, 3), (10, 3, 7)],
+                         ids=["2", "10", "b-10"])
+def test_extract_matches_jax(tmp_path, n_frames, b_frames, frames):
     """The port's ``extract_video_frames`` and JAX's
-    ``_extract_video_frames`` on one mp4: the same files, equal pixels;
+    ``_extract_video_frames`` on one mp4 (I and P slices, or runs of up to 3
+    B pictures coded after the next anchor): the same files, equal pixels;
     ``n_frames`` stops early or the video's end does."""
     path = tmp_path / "cam00.mp4"
-    write_video(path, seed=5)
+    write_video(path, seed=5, frames=frames, b_frames=b_frames)
     jdynerf._extract_video_frames(str(path), str(tmp_path / "jax"), (W, H), n_frames)
     assert video.extract_video_frames(str(path), str(tmp_path / "port"), (W, H),
-                                      n_frames) == min(n_frames, 3)
+                                      n_frames) == min(n_frames, frames)
     names = sorted(os.listdir(tmp_path / "jax"))
     assert names == sorted(os.listdir(tmp_path / "port"))
-    assert names == ["%04d.png" % i for i in range(min(n_frames, 3))]
+    assert names == ["%04d.png" % i for i in range(min(n_frames, frames))]
     for n in names:
         np.testing.assert_array_equal(png.read_png(str(tmp_path / "port" / n)),
                                       png.read_png(str(tmp_path / "jax" / n)), err_msg=n)
@@ -219,12 +221,12 @@ def test_videos_only_scene_matches_jax(tmp_path, monkeypatch):
 
 
 def test_video_the_decoder_refuses_names_its_feature(tmp_path):
-    """A camera whose video holds B slices raises while the loader
-    extracts it, naming B slices (no partial frame is written)."""
+    """A camera whose video is coded with CAVLC raises while the loader
+    extracts it, naming CAVLC (no partial frame is written)."""
     make_video_scene(tmp_path)
-    data, _ = HW.header_only("b_slice")
+    data, _ = HW.header_only("cavlc")
     (tmp_path / "cam01.mp4").write_bytes(data)
-    with pytest.raises(NotImplementedError, match="B slices"):
+    with pytest.raises(NotImplementedError, match="CAVLC"):
         tdynerf.load_dynerf_scene(str(tmp_path), target_wh=(W, H))
 
 

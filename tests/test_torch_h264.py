@@ -2,19 +2,28 @@
 for bit against cv2's ``VideoCapture`` (FFmpeg's libavcodec and
 libswscale), and the committed fixtures of ``tests/torch_fixtures/h264``.
 
-- The fixtures: streams ``tests/h264_writer.py`` writes (CABAC, I and P
-  slices) that between them hold every intra mode and partition, the 8x8
+- The fixtures: streams ``tests/h264_writer.py`` writes (CABAC, I, P and
+  B slices) that between them hold every intra mode and partition, the 8x8
   transform, scaling lists by both fall-back rules, explicit weights,
   several references with list modifications, MMCO 1-6 and long-term
   references, several slices with each deblocking control, POC types 0, 1
   and 2 with the wraps of ``frame_num`` and ``pic_order_cnt_lsb``, a reorder
-  buffer, cropping, the VUI colour variants cv2 converts, and the MP4
-  forms (``moov`` first or last, ``co64``, ``stz2``, 1-, 2- and 4-byte NAL
-  lengths) and Annex-B. Each decodes to cv2's committed BGR frames and to
-  cv2's decode here, frame by frame with the same count; the writer
-  rewrites a few of them byte for byte; together they code every CABAC
-  context an I or P slice of a progressive 4:2:0 stream reaches.
-- Sixteen more streams of random syntax, each against cv2.
+  buffer with and without the VUI's ``max_num_reorder_frames``, cropping,
+  the VUI colour variants cv2 converts, the MP4 forms (``moov`` first or
+  last, ``co64``, ``stz2``, 1-, 2- and 4-byte NAL lengths) and Annex-B; and
+  B slices: every B macroblock and sub-macroblock type, B_Skip, spatial and
+  temporal direct prediction (with and without ``direct_8x8_inference``,
+  co-located intra blocks, a long-term first list-1 picture), referenced B
+  pictures with memory management and list-1 modifications, list 1 equal to
+  list 0, and explicit and implicit bi-predictive weights with the latter's
+  fall-backs. Each decodes to cv2's committed BGR frames and to cv2's
+  decode here, frame by frame with the same count; the writer rewrites some
+  of them byte for byte; together they code every CABAC context an I, P or
+  B slice of a progressive 4:2:0 stream reaches.
+- Sixteen more streams of random syntax of I and P slices and sixteen with
+  B slices, each against cv2; and streams coded out of display order whose
+  frames come out in cv2's order (FFmpeg grows its reorder buffer as it
+  meets such pictures and drops one whose turn has passed).
 - Each feature out of scope raises ``NotImplementedError`` naming it, on a
   stream of its parameter sets and a slice header; a truncated stream
   raises ``ValueError``.
@@ -89,21 +98,49 @@ FIXTURES = {
     "nal_len1": (dict(width=16, height=14, frames=3, max_slices=2, qp_range=(36, 51)),
                  "mp4", {"length_size": 1, "chunk": 1}),
 }
-# the CABAC contexts an I or P slice of a progressive 4:2:0 stream codes
-# (Table 9-34): all of 0-276 and 399-435 but SI's mb_type prefix (0-2), the
-# B slices' (24-39) and MBAFF's mb_field_decoding_flag (70-72)
-REACHABLE = (set(range(3, 24)) | set(range(40, 70)) | set(range(73, 277))
-             | set(range(399, 436))) - {276}
+# the streams of B slices, and one coded out of display order without the
+# VUI's bitstream_restriction; each names its seed
+FIXTURES_B = {
+    "reorder_novui": (dict(seed=0, width=40, height=22, frames=10, reorder=True, p_nonref=0.5),
+                      "mp4", {}),
+    "b_spatial": (dict(seed=24, width=64, height=48, frames=12, b_frames=3, max_slices=3,
+                       p_skip=0.06, p_direct=0.06, p_intra_in_p=0.05, max_refs=3,
+                       num_ref_default=2, p_i16=0.6), "mp4", {}),
+    "b_temporal": (dict(seed=0, width=64, height=48, frames=12, b_frames=2, direct_spatial=False,
+                        p_intra_in_p=0.25, p_mmco=0.6, p_modify=0.5, max_refs=4, p_direct=0.3,
+                        p_skip=0.3), "mp4", {}),
+    "b_temporal_4x4": (dict(seed=0, width=64, height=48, frames=10, b_frames=2,
+                            direct_spatial=False, direct_8x8_inference=False, p_intra_in_p=0.25,
+                            p_direct=0.3, p_skip=0.3, max_refs=3), "mp4", {}),
+    "b_pyramid": (dict(seed=0, width=48, height=32, frames=12, b_frames=3, b_pyramid=True,
+                       p_mmco=0.5, p_modify=0.5, max_refs=4, num_ref_l1_default=2,
+                       p_b_anchor=0.4, direct_spatial=None), "mp4", {}),
+    "b_weights_explicit": (dict(seed=0, width=48, height=32, frames=10, b_frames=2,
+                                weighted_bipred=1, weighted=True, max_refs=3, num_ref_default=2),
+                           "mp4", {}),
+    "b_weights_implicit": (dict(seed=3, width=48, height=32, frames=12, b_frames=3,
+                                weighted_bipred=2, p_b_anchor=0.5, p_mmco=0.5, p_modify=0.5,
+                                max_refs=4, max_slices=2), "mp4", {}),
+    "b_novui": (dict(seed=0, width=44, height=30, crop=(0, 0, 2, 0), frames=9, b_frames=3,
+                     p_idr=0.15, p_b_slice_mix=0.3, max_slices=2), "h264", {}),
+}
+ALL_FIXTURES = {**FIXTURES, **FIXTURES_B}
+# the CABAC contexts an I, P or B slice of a progressive 4:2:0 stream codes
+# (Table 9-34): all of 0-276 and 399-435 but SI's mb_type prefix (0-2) and
+# MBAFF's mb_field_decoding_flag (70-72)
+REACHABLE = (set(range(3, 70)) | set(range(73, 277)) | set(range(399, 436))) - {276}
 
 
 def fixture_config(name, seed_base=180):
+    if name in FIXTURES_B:
+        return HW.Config(**FIXTURES_B[name][0])
     fields, _, _ = FIXTURES[name]
     return HW.Config(seed=seed_base + sorted(FIXTURES).index(name), **fields)
 
 
 def fixture_bytes(name):
     """The fixture ``name`` as the writer writes it, and the writer."""
-    fields, kind, options = FIXTURES[name]
+    _, kind, options = ALL_FIXTURES[name]
     cfg = fixture_config(name)
     w = HW.Writer(cfg)
     sps, pps, aus = w.write()
@@ -113,7 +150,7 @@ def fixture_bytes(name):
 
 
 def fixture_path(name):
-    return os.path.join(H264_FIXTURES, name + "." + FIXTURES[name][1])
+    return os.path.join(H264_FIXTURES, name + "." + ALL_FIXTURES[name][1])
 
 
 def cv2_frames(path):
@@ -129,14 +166,14 @@ def cv2_frames(path):
 
 
 def write_committed_fixtures(out_dir=H264_FIXTURES):
-    """Write ``tests/torch_fixtures/h264``: each stream of :data:`FIXTURES`
-    and ``cv2_decode.npz``, cv2's BGR frames of each by name
-    ([frames, H, W, 3])."""
+    """Write ``tests/torch_fixtures/h264``: each stream of
+    :data:`ALL_FIXTURES` and ``cv2_decode.npz``, cv2's BGR frames of each by
+    name ([frames, H, W, 3])."""
     os.makedirs(out_dir, exist_ok=True)
     decodes = {}
-    for name in sorted(FIXTURES):
+    for name in sorted(ALL_FIXTURES):
         data, _ = fixture_bytes(name)
-        path = os.path.join(out_dir, name + "." + FIXTURES[name][1])
+        path = os.path.join(out_dir, name + "." + ALL_FIXTURES[name][1])
         with open(path, "wb") as f:
             f.write(data)
         decodes[name] = np.stack(cv2_frames(path))
@@ -149,7 +186,7 @@ def committed():
         return {k: z[k] for k in z.files}
 
 
-@pytest.mark.parametrize("name", sorted(FIXTURES))
+@pytest.mark.parametrize("name", sorted(ALL_FIXTURES))
 def test_fixture_matches_cv2(name, committed):
     path = fixture_path(name)
     got = np.stack(list(video.read_frames(path, bgr=True)))
@@ -171,9 +208,16 @@ def test_writer_rewrites_fixture(name):
         assert f.read() == data
 
 
+@pytest.mark.parametrize("name", ["b_spatial", "b_pyramid", "reorder_novui"])
+def test_writer_rewrites_b_fixture(name):
+    data, _ = fixture_bytes(name)
+    with open(fixture_path(name), "rb") as f:
+        assert f.read() == data
+
+
 def test_fixtures_code_every_context():
     used, tables = set(), set()
-    for name in FIXTURES:
+    for name in ALL_FIXTURES:
         _, w = fixture_bytes(name)
         for table, ctxs in w.contexts.items():
             used |= ctxs
@@ -200,17 +244,73 @@ def _random_config(seed):
         max_level=int(rng.choice([4, 40, 2000])))
 
 
-@pytest.mark.parametrize("seed", range(16))
-def test_random_streams_match_cv2(tmp_path, seed):
-    cfg = _random_config(seed)
+def _same_as_cv2(tmp_path, cfg, count=None):
+    """The stream ``cfg`` draws as MP4: the port's frames equal cv2's, in
+    cv2's order and number (``count`` where given)."""
     sps, pps, aus = HW.write(cfg)
     path = tmp_path / "r.mp4"
     path.write_bytes(HW.mp4(sps, pps, aus, cfg.width, cfg.height))
     got = list(video.read_frames(str(path), bgr=True))
     want = cv2_frames(path)
-    assert len(got) == len(want) == cfg.frames
-    for a, b in zip(got, want):
-        np.testing.assert_array_equal(a, b)
+    assert len(got) == len(want), (len(got), len(want))
+    if count is not None:
+        assert len(got) == count
+    for i, (a, b) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(a, b, err_msg=f"frame {i}")
+
+
+@pytest.mark.parametrize("seed", range(16))
+def test_random_streams_match_cv2(tmp_path, seed):
+    cfg = _random_config(seed)
+    _same_as_cv2(tmp_path, cfg, count=cfg.frames)
+
+
+def _random_b_config(seed):
+    rng = np.random.default_rng(1000 + seed)
+    return HW.Config(
+        seed=seed, frames=int(rng.integers(4, 10)), width=int(rng.choice([18, 36, 52, 70])),
+        height=int(rng.choice([14, 30, 46])), b_frames=int(rng.integers(1, 4)),
+        b_pyramid=bool(rng.random() < 0.5), direct_spatial=[True, False, None][int(rng.integers(3))],
+        weighted_bipred=int(rng.integers(0, 3)), weighted=bool(rng.random() < 0.3),
+        direct_8x8_inference=bool(rng.random() < 0.6), num_ref_default=int(rng.integers(1, 4)),
+        num_ref_l1_default=int(rng.integers(1, 3)), p_mmco=float(rng.choice([0, 0.5])),
+        p_modify=float(rng.choice([0, 0.4])), max_refs=int(rng.integers(2, 6)),
+        constrained_intra=bool(rng.random() < 0.2),
+        qp_range=[(12, 44), (0, 51), (30, 51)][int(rng.integers(3))],
+        p_far_mv=float(rng.choice([0, 0.2])), p_skip=float(rng.random() * 0.5),
+        p_direct=float(rng.random() * 0.4), p_intra_in_p=float(rng.random() * 0.2),
+        transform8x8=bool(rng.random() < 0.7), max_slices=int(rng.integers(1, 5)),
+        p_b_slice_mix=float(rng.choice([0, 0.3])), p_b_anchor=float(rng.choice([0, 0.4])),
+        p_idr=float(rng.choice([0, 0.2])), bottom_poc=bool(rng.random() < 0.3),
+        log2_max_frame_num=int(rng.integers(4, 6)))
+
+
+@pytest.mark.parametrize("seed", range(16))
+def test_random_b_streams_match_cv2(tmp_path, seed):
+    _same_as_cv2(tmp_path, _random_b_config(seed))
+
+
+# streams coded out of display order: non-reference pictures decoded after
+# the next reference one (depth 1), without the VUI's bitstream_restriction;
+# runs of 1, 2 and 3 B pictures between IDR pictures; MMCO 5; and a level
+# whose MaxDpbMbs holds fewer frames than the depth
+ORDER_CASES = {
+    **{f"novui_{s}": dict(seed=s, width=40, height=22, frames=10, reorder=True, p_nonref=0.5)
+       for s in range(6)},
+    "novui_level_10": dict(seed=0, width=368, height=288, level=10, frames=6, reorder=True,
+                           p_nonref=0.5, max_slices=1),
+    "b1_idr": dict(seed=1, width=32, height=16, frames=12, b_frames=1, p_idr=0.3),
+    "b2_idr": dict(seed=2, width=32, height=16, frames=12, b_frames=2, p_idr=0.3),
+    "b3_pyramid_idr": dict(seed=3, width=32, height=16, frames=12, b_frames=3, b_pyramid=True,
+                           max_refs=4, p_idr=0.2),
+    "reorder_mmco5": dict(seed=4, width=32, height=16, frames=14, reorder=True, p_nonref=0.5,
+                          p_mmco=0.6, max_refs=3, p_idr=0.1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ORDER_CASES))
+def test_output_order_matches_cv2(tmp_path, case):
+    _same_as_cv2(tmp_path, HW.Config(**ORDER_CASES[case]))
 
 
 @pytest.mark.parametrize("feature", sorted(HW.REFUSALS))
@@ -249,16 +349,16 @@ def test_unaligned_left_crop_is_the_standard_crop(tmp_path):
     assert not np.array_equal(np.stack(cv2_frames(tmp_path / "c6.mp4")), frames[6])
 
 
-def test_chip_smoke_phase_18a_on_cpu():
+def test_chip_smoke_phase_18a_on_cpu(committed):
     out = CS.check_h264_fixtures()
-    assert out["files"] == len(FIXTURES)
-    assert out["frames"] == sum(FIXTURES[n][0]["frames"] for n in FIXTURES)
+    assert out["files"] == len(ALL_FIXTURES)
+    assert out["frames"] == sum(len(committed[n]) for n in ALL_FIXTURES)
 
 
 def test_chip_smoke_phase_18_on_cpu(monkeypatch, capsys):
     """Phase 18 (b) and (c) on the CPU at a small size: the host's times of
-    a row-repeated stream, and a scene of videos extracted by
-    ``load_scene`` then trained on the plain path (the dynerf preset's
+    a row-repeated I, P, B, B stream, and a scene of videos (one with B
+    pictures) extracted by ``load_scene`` then trained on the plain path (the dynerf preset's
     widths cut as ``tests/test_torch_dynerf_cli.py`` cuts them), K1 and K2
     held to their plain versions at a step of its model."""
     import torch
@@ -268,9 +368,9 @@ def test_chip_smoke_phase_18_on_cpu(monkeypatch, capsys):
     from fourdgs_tpu_torch.ops import blend
     from tests.test_torch_dynerf_cli import OVERRIDES
 
-    host = CS.check_video_host_times(size=(96, 72), frames=3, target=(48, 36))
-    assert all(host[k] > 0 for k in ("decode_ms", "decode_i_ms", "decode_p_ms", "resize_ms",
-                                     "png_ms"))
+    host = CS.check_video_host_times(size=(96, 72), frames=4, target=(48, 36))
+    assert all(host[k] > 0 for k in ("decode_ms", "decode_i_ms", "decode_p_ms", "decode_b_ms",
+                                     "resize_ms", "png_ms"))
     monkeypatch.setattr(tscene, "DYNERF_SIZE", (48, 36))
     for name in ("ITERS", "REPS", "WARMUP"):
         monkeypatch.setattr(scripts, name, 1)
