@@ -314,15 +314,19 @@ on failure:
    depth, cropping, the VUI colours, MP4 and Annex-B; spatial and temporal
    direct prediction, bi-prediction with explicit and implicit weights,
    referenced B pictures) decoded on the card's host, frame by frame with
-   the same count, equal to cv2's committed BGR decode. (b) The host's ms
-   per 2704×2028 frame of a stream ``tests/h264_writer.py`` writes there
-   (:func:`row_video`: I, P, B, B in decoding order, of one-row slices;
-   spatial direct, implicit weights and a referenced B picture as x264's
-   defaults have them; not a camera file): each picture's decode timed when
-   it is decoded (I, P and B apart), the mean per frame out with the RGB
-   conversion, the LANCZOS resize to 1352×1014 and the PNG write. (c) A
-   DyNeRF scene of two ``cam*.mp4`` at 2704×2028 of ``VIDEO_SCENE_FRAMES``
-   frames, the second coded with B slices, and no frames on disk
+   the same count, equal to cv2's committed BGR decode; the CAVLC streams
+   too (Baseline, Main and High, I, P and B slices, P_8x8ref0, empty 8x8
+   parses, level escapes). (b) The host's ms per 2704×2028 frame of a
+   stream ``tests/h264_writer.py`` writes there (:func:`row_video`: I, P,
+   B, B in decoding order, of one-row slices; spatial direct, implicit
+   weights and a referenced B picture as x264's defaults have them; not a
+   camera file), coded with CABAC and again with CAVLC from the same draws
+   (the same frames): each picture's decode timed when it is decoded (I, P
+   and B apart, ``decode_*_ms`` and ``decode_cavlc_*_ms``), the mean per
+   frame out with the RGB conversion, the LANCZOS resize to 1352×1014 and
+   the PNG write. (c) A DyNeRF scene of two ``cam*.mp4`` at 2704×2028 of
+   ``VIDEO_SCENE_FRAMES`` frames, the first coded with CAVLC (I and P), the
+   second with CABAC and B slices, and no frames on disk
    (:func:`write_video_scene`) through ``load_scene``, which extracts each
    camera's frames (each equal to its video's decode resized), then
    ``train_torch.py`` → ``render_torch.py``
@@ -3843,7 +3847,8 @@ def check_rare_chain(dev, schedule=MULTIPLEVIEW_SCHEDULE, preset=MULTIPLEVIEW_PR
 H264_FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "h264")
 VIDEO_SIZE = (2704, 2028)          # a Neu3D camera's cam*.mp4
 VIDEO_HOST_FRAMES = 4              # phase 18 (b)'s stream: I, P, B, B in decoding order
-VIDEO_SCENE_CAMS, VIDEO_SCENE_FRAMES = 2, 3   # phase 18 (c)'s scene (camera 1: I, P, B)
+VIDEO_SCENE_CAMS, VIDEO_SCENE_FRAMES = 2, 3   # phase 18 (c)'s scene (camera 0: CAVLC I, P;
+                                              # camera 1: CABAC I, P, B)
 VIDEO_SCHEDULE = ("opt.coarse_iterations=2", "opt.iterations=4",
                   "opt.position_lr_max_steps=4", 'opt.custom_sampler="fine"')
 
@@ -3862,20 +3867,21 @@ def h264_writer():
     return sys.modules["h264_writer"]
 
 
-def row_video(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES, seed=0, b_frames=0) -> bytes:
+def row_video(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES, seed=0, b_frames=0,
+              cavlc=False) -> bytes:
     """An MP4 of ``frames`` pictures at ``size`` written by
-    ``tests/h264_writer.py`` on this host: an IDR picture then P pictures
-    (with ``b_frames``, runs of that many B pictures, each coded after the
-    P picture that follows it, the first of a run of 2 or more a
-    reference; spatial direct and implicit weights), each of one-row
-    slices whose CABAC data the writer codes once and repeats (a slice's
-    data starts byte-aligned and depends on no other slice). Not a camera
-    file: random syntax, every macroblock type and partition, residuals at
-    QP 12-44."""
+    ``tests/h264_writer.py`` on this host (High profile): an IDR picture
+    then P pictures (with ``b_frames``, runs of that many B pictures, each
+    coded after the P picture that follows it, the first of a run of 2 or
+    more a reference; spatial direct and implicit weights), each of one-row
+    slices whose data the writer codes once and repeats (a slice's data
+    depends on no other slice), with CABAC or, with ``cavlc``, CAVLC from
+    the same draws (the same pictures). Not a camera file: random syntax,
+    every macroblock type and partition, residuals at QP 12-44."""
     W = h264_writer()
     cfg = W.Config(width=size[0], height=size[1], frames=frames, seed=seed, row_repeat=True,
                    p_pcm=0.02, num_ref_default=2, max_refs=3, b_frames=b_frames,
-                   b_full_runs=True, b_pyramid=True, weighted_bipred=2)
+                   b_full_runs=True, b_pyramid=True, weighted_bipred=2, cavlc=cavlc)
     sps, pps, aus = W.write(cfg)
     return W.mp4(sps, pps, aus, size[0], size[1])
 
@@ -3909,57 +3915,80 @@ def check_h264_fixtures() -> dict:
     return {"files": files, "frames": frames}
 
 
+def _time_decode(path) -> tuple:
+    """Decodes ``path`` frame by frame: the frames, each picture's (kind,
+    decode ms) as the decoder timed it when it decoded it, and the wall ms
+    of each frame out with the RGB conversion."""
+    from fourdgs_tpu_torch.utils import video
+
+    decode_ms, imgs, stats = [], [], []
+    it = video.read_frames(path, stats=stats)
+    while True:
+        t0 = time.perf_counter()
+        img = next(it, None)
+        if img is None:
+            break
+        decode_ms.append(1e3 * (time.perf_counter() - t0))
+        imgs.append(img)
+    return imgs, stats, decode_ms
+
+
 def check_video_host_times(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES,
                            target=(1352, 1014)) -> dict:
     """Phase 18 (b) (module docstring): on this host, ms per frame of the
-    :func:`row_video` stream at ``size`` (I, P, B, B in decoding order):
-    each picture's decode as the decoder timed it when it decoded it (I, P
-    and B apart; a B picture leaves the reorder buffer before the P one it
-    was decoded after), the mean wall per frame out with the RGB
-    conversion, the LANCZOS resize to ``target`` and the PNG write, each
-    timed over every frame. Returns the ms and the stream's size."""
-    from fourdgs_tpu_torch.utils import png, resample, video
+    :func:`row_video` stream at ``size`` (I, P, B, B in decoding order),
+    coded with CABAC and then with CAVLC from the same draws: each
+    picture's decode as the decoder timed it when it decoded it (I, P and B
+    apart; a B picture leaves the reorder buffer before the P one it was
+    decoded after), the mean wall per frame out with the RGB conversion,
+    the LANCZOS resize to ``target`` and the PNG write (of the CABAC
+    frames), each timed over every frame. The CAVLC stream's frames equal
+    the CABAC stream's. Returns the ms and the streams' sizes."""
+    from fourdgs_tpu_torch.utils import png, resample
 
     print(f"    (b) the card's host: decode, resize and PNG write of a {size[0]}x{size[1]} "
-          f"stream", flush=True)
-    t0 = time.perf_counter()
-    data = row_video(size, frames, b_frames=2)
-    write_s = time.perf_counter() - t0
+          f"stream, coded with CABAC and with CAVLC", flush=True)
+    out, first = {}, None
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_video_") as tmp:
-        path = os.path.join(tmp, "rows.mp4")
-        with open(path, "wb") as f:
-            f.write(data)
-        decode_ms, imgs, stats = [], [], []
-        it = video.read_frames(path, stats=stats)
-        while True:
+        for coding in ("cabac", "cavlc"):
             t0 = time.perf_counter()
-            img = next(it, None)
-            if img is None:
-                break
-            decode_ms.append(1e3 * (time.perf_counter() - t0))
-            imgs.append(img)
+            data = row_video(size, frames, b_frames=2, cavlc=coding == "cavlc")
+            write_s = time.perf_counter() - t0
+            path = os.path.join(tmp, f"rows_{coding}.mp4")
+            with open(path, "wb") as f:
+                f.write(data)
+            imgs, stats, decode_ms = _time_decode(path)
+            kinds = "".join(k for k, _ in stats)
+            if len(imgs) != frames or imgs[0].shape != (size[1], size[0], 3) or kinds != "IBBP":
+                raise AssertionError(f"{coding}: {len(imgs)} frames ({kinds}) of "
+                                     f"{imgs[0].shape if imgs else None}")
+            per = {k: float(np.mean([ms for kind, ms in stats if kind == k])) for k in "IPB"}
+            pre = "decode_" if coding == "cabac" else "decode_cavlc_"
+            out.update({pre + "ms": float(np.mean(decode_ms)), pre + "i_ms": per["I"],
+                        pre + "p_ms": per["P"], pre + "b_ms": per["B"]})
+            out["mbytes" if coding == "cabac" else "cavlc_mbytes"] = len(data) / 1e6
+            out["write_s" if coding == "cabac" else "cavlc_write_s"] = write_s
+            print(f"    {coding.upper()}: {frames} frames out in the order {kinds} "
+                  f"({len(data) / 1e6:.3f} MB, written in {write_s:.2f} s): decode I "
+                  f"{per['I']:.2f} ms, P {per['P']:.2f}, B {per['B']:.2f} (each timed as it "
+                  f"was decoded); {np.mean(decode_ms):.2f} ms a frame out with the RGB "
+                  f"conversion", flush=True)
+            if first is None:
+                first = imgs
+            elif not all(np.array_equal(a, b) for a, b in zip(imgs, first)):
+                raise AssertionError("the CAVLC stream's frames are not the CABAC stream's")
         resize_ms, write_ms = [], []
-        for i, img in enumerate(imgs):
+        for i, img in enumerate(first):
             t0 = time.perf_counter()
             small = resample.resize(img, target, "lanczos")
             resize_ms.append(1e3 * (time.perf_counter() - t0))
             t0 = time.perf_counter()
             png.write_png(os.path.join(tmp, "%04d.png" % i), small)
             write_ms.append(1e3 * (time.perf_counter() - t0))
-    kinds = "".join(k for k, _ in stats)
-    if len(imgs) != frames or imgs[0].shape != (size[1], size[0], 3) or kinds != "IBBP":
-        raise AssertionError(f"{len(imgs)} frames ({kinds}) of "
-                             f"{imgs[0].shape if imgs else None}")
-    per = {k: float(np.mean([ms for kind, ms in stats if kind == k])) for k in "IPB"}
-    out = {"decode_ms": float(np.mean(decode_ms)), "decode_i_ms": per["I"],
-           "decode_p_ms": per["P"], "decode_b_ms": per["B"],
-           "resize_ms": float(np.mean(resize_ms)), "png_ms": float(np.mean(write_ms)),
-           "mbytes": len(data) / 1e6, "write_s": write_s}
-    print(f"    {frames} frames out in the order {kinds} ({out['mbytes']:.3f} MB, written in "
-          f"{write_s:.2f} s): decode I {per['I']:.2f} ms, P {per['P']:.2f}, B {per['B']:.2f} "
-          f"(each timed as it was decoded); {out['decode_ms']:.2f} ms a frame out with the RGB "
-          f"conversion; LANCZOS to {target[0]}x{target[1]} {out['resize_ms']:.2f} ms, PNG "
-          f"write {out['png_ms']:.2f} ms")
+    out.update({"resize_ms": float(np.mean(resize_ms)), "png_ms": float(np.mean(write_ms))})
+    print(f"    the same frames from both; LANCZOS to {target[0]}x{target[1]} "
+          f"{out['resize_ms']:.2f} ms, PNG write {out['png_ms']:.2f} ms; decode_ms "
+          + json.dumps({k: round(v, 3) for k, v in out.items() if k.startswith("decode")}))
     return out
 
 
@@ -3967,8 +3996,9 @@ def write_video_scene(root, dev, video_size=VIDEO_SIZE, target=(1352, 1014)) -> 
     """A DyNeRF scene of videos only: :func:`write_dynerf_scene`'s
     ``poses_bounds.npy`` and point cloud for ``target`` frames, and
     ``VIDEO_SCENE_CAMS`` videos ``cam00.mp4…`` of ``VIDEO_SCENE_FRAMES``
-    pictures at ``video_size`` (:func:`row_video`, a seed a camera, the
-    cameras after the first with B pictures) and no ``cam*/images``.
+    pictures at ``video_size`` (:func:`row_video`, a seed a camera; the
+    first I and P pictures coded with CAVLC, the others with B pictures
+    and CABAC) and no ``cam*/images``.
     Returns the videos' paths."""
     write_dynerf_scene(root, dev, n_frames=0, size=target, n_cams=VIDEO_SCENE_CAMS)
     paths = []
@@ -3978,7 +4008,8 @@ def write_video_scene(root, dev, video_size=VIDEO_SIZE, target=(1352, 1014)) -> 
         os.rmdir(cam_dir)
         paths.append(cam_dir + ".mp4")
         with open(paths[-1], "wb") as f:
-            f.write(row_video(video_size, VIDEO_SCENE_FRAMES, seed=ci, b_frames=2 if ci else 0))
+            f.write(row_video(video_size, VIDEO_SCENE_FRAMES, seed=ci, b_frames=2 if ci else 0,
+                              cavlc=ci == 0))
     return paths
 
 
@@ -4002,7 +4033,8 @@ def check_video_chain(dev, video_size=VIDEO_SIZE, schedule=VIDEO_SCHEDULE) -> di
 
     target = tscene.DYNERF_SIZE
     print(f"    (c) a DyNeRF scene of {VIDEO_SCENE_CAMS} cam*.mp4 at {video_size[0]}x"
-          f"{video_size[1]}: load_scene extracts, then the CLI chain", flush=True)
+          f"{video_size[1]} (camera 0 CAVLC I and P, camera 1 CABAC I, P and B): load_scene "
+          f"extracts, then the CLI chain", flush=True)
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_video_scene_") as tmp:
         data_dir, model_path = os.path.join(tmp, "data"), os.path.join(tmp, "model")
         videos = write_video_scene(data_dir, dev, video_size, target)
@@ -4703,7 +4735,8 @@ def main() -> int:
                          **video_chain["blend"]["blend_forward"],
                          "host_ms_per_frame": {k: video_host[k] for k in (
                              "decode_ms", "decode_i_ms", "decode_p_ms", "decode_b_ms",
-                             "resize_ms", "png_ms")}},
+                             "decode_cavlc_ms", "decode_cavlc_i_ms", "decode_cavlc_p_ms",
+                             "decode_cavlc_b_ms", "resize_ms", "png_ms")}},
     }, {
         "name": "blend_backward",
         "route": "cuda",

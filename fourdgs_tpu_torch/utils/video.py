@@ -9,16 +9,16 @@ native build helper (``utils/native.py::build``, keyed by a hash of source
 and flags) and loaded with ``ctypes``.
 
 Scope: an MP4 file's first video track or an Annex-B byte stream of
-progressive 8-bit 4:2:0 H.264 coded with CABAC, I, P and B slices (what
-the Main and High profiles code, B pictures as x264's defaults write them
-included); its frames come out in the order and number cv2 returns them
+progressive 8-bit 4:2:0 H.264 coded with CABAC or CAVLC, I, P and B slices
+(what the Baseline, Main and High profiles code, B pictures as x264's
+defaults write them included); its frames come out in the order and number cv2 returns them
 (FFmpeg's reorder buffer, which without the VUI's bitstream_restriction
 grows as it meets pictures out of order and drops one whose turn has
 passed) and equal cv2's bit for bit after the conversion cv2's libswscale
 makes (each chroma sample serving its 2x2 block, the VUI's colour matrix
 and range), cropped as the standard says. What the decoder does not read
-raises ``NotImplementedError`` naming the feature: CAVLC (the Baseline
-profile), interlace, chroma other than 4:2:0, bit depths above 8, the
+raises ``NotImplementedError`` naming the feature: interlace, chroma
+other than 4:2:0, bit depths above 8, the
 lossless transform bypass, slice groups, arbitrary slice order, SP and SI
 slices, data partitioning, gaps in ``frame_num``, a colour matrix cv2
 does not convert, an edit list that drops samples and codecs other than

@@ -3,8 +3,9 @@
 Nothing the tests depend on writes H.264 (cv2's ``VideoWriter`` needs an
 encoder its FFmpeg build may lack), so this module writes the streams the
 port's decoder (``fourdgs_tpu_torch/native/h264.cpp``) is held to: progressive 8-bit
-4:2:0 CABAC streams of I, P and B slices, as Annex-B byte streams or as
-MP4 files, whose syntax is drawn at random from a seed and a
+4:2:0 streams of I, P and B slices coded with CABAC or CAVLC (from the same
+draws, so that one seed gives the same pictures in both), as Annex-B byte
+streams or as MP4 files, whose syntax is drawn at random from a seed and a
 :class:`Config`: macroblock types and partitions, intra modes, motion
 vectors (far outside the picture too), reference indices, weights,
 residuals, QP deltas, slices and their deblocking controls, scaling lists,
@@ -17,9 +18,11 @@ lean on predictions it makes itself, which take a direct-predicted block
 for one without motion: they steer the draws and reach no syntax.
 
 It is a second implementation of the syntax in ITU-T H.264 (07/2019)
-§7.3 and of the CABAC encoder in §9.3.4; it shares with the decoder only
-the context initialisation values (Tables 9-12 to 9-33), which it reads
-out of ``h264.cpp``. A wrong entry there makes both disagree with cv2.
+§7.3, of the CAVLC codes of §9.2 (its own copy of Tables 9-4 to 9-10, as
+the standard prints them) and of the CABAC encoder in §9.3.4; it shares
+with the decoder only the context initialisation values (Tables 9-12 to
+9-33), which it reads out of ``h264.cpp``. A wrong entry there makes both
+disagree with cv2.
 
 Refusal fixtures (:func:`header_only`) hold a parameter set or a slice
 header of a feature the decoder does not read.
@@ -99,6 +102,128 @@ CBF_CAT = (0, 4, 8, 12, 16)
 SIG_CAT = (0, 15, 29, 44, 47)
 ABS_CAT = (0, 10, 20, 30, 39)
 
+# CAVLC (§9.2), as the standard prints its codes
+# Table 9-5: coeff_token by (TrailingOnes, TotalCoeff), for 0 <= nC < 2,
+# 2 <= nC < 4, 4 <= nC < 8, 8 <= nC and nC == -1 (chroma DC 4:2:0)
+COEFF_TOKEN = {
+    (0, 0): ('1', '11', '1111', '0000 11', '01'),
+    (0, 1): ('0001 01', '0010 11', '0011 11', '0000 00', '0001 11'),
+    (0, 2): ('0000 0111', '0001 11', '0010 11', '0001 00', '0001 00'),
+    (0, 3): ('0000 0011 1', '0000 111', '0010 00', '0010 00', '0000 11'),
+    (0, 4): ('0000 0001 11', '0000 0111', '0001 111', '0011 00', '0000 10'),
+    (0, 5): ('0000 0000 111', '0000 0100', '0001 011', '0100 00', None),
+    (0, 6): ('0000 0000 0111 1', '0000 0011 1', '0001 001', '0101 00', None),
+    (0, 7): ('0000 0000 0101 1', '0000 0001 111', '0001 000', '0110 00', None),
+    (0, 8): ('0000 0000 0100 0', '0000 0001 011', '0000 1111', '0111 00', None),
+    (0, 9): ('0000 0000 0011 11', '0000 0000 1111', '0000 1011', '1000 00', None),
+    (0, 10): ('0000 0000 0010 11', '0000 0000 1011', '0000 0111 1', '1001 00', None),
+    (0, 11): ('0000 0000 0001 111', '0000 0000 1000', '0000 0101 1', '1010 00', None),
+    (0, 12): ('0000 0000 0001 011', '0000 0000 0111 1', '0000 0100 0', '1011 00', None),
+    (0, 13): ('0000 0000 0000 1111', '0000 0000 0101 1', '0000 0011 01', '1100 00', None),
+    (0, 14): ('0000 0000 0000 1011', '0000 0000 0011 1', '0000 0010 01', '1101 00', None),
+    (0, 15): ('0000 0000 0000 0111', '0000 0000 0010 01', '0000 0001 01', '1110 00', None),
+    (0, 16): ('0000 0000 0000 0100', '0000 0000 0001 11', '0000 0000 01', '1111 00', None),
+    (1, 1): ('01', '10', '1110', '0000 01', '1'),
+    (1, 2): ('0001 00', '0011 1', '0111 1', '0001 01', '0001 10'),
+    (1, 3): ('0000 0110', '0010 10', '0110 0', '0010 01', '0000 011'),
+    (1, 4): ('0000 0011 0', '0001 10', '0101 0', '0011 01', '0000 0011'),
+    (1, 5): ('0000 0001 10', '0000 110', '0100 0', '0100 01', None),
+    (1, 6): ('0000 0000 110', '0000 0110', '0011 10', '0101 01', None),
+    (1, 7): ('0000 0000 0111 0', '0000 0011 0', '0010 10', '0110 01', None),
+    (1, 8): ('0000 0000 0101 0', '0000 0001 110', '0001 110', '0111 01', None),
+    (1, 9): ('0000 0000 0011 10', '0000 0001 010', '0000 1110', '1000 01', None),
+    (1, 10): ('0000 0000 0010 10', '0000 0000 1110', '0000 1010', '1001 01', None),
+    (1, 11): ('0000 0000 0001 110', '0000 0000 1010', '0000 0111 0', '1010 01', None),
+    (1, 12): ('0000 0000 0001 010', '0000 0000 0111 0', '0000 0101 0', '1011 01', None),
+    (1, 13): ('0000 0000 0000 001', '0000 0000 0101 0', '0000 0011 1', '1100 01', None),
+    (1, 14): ('0000 0000 0000 1110', '0000 0000 0010 11', '0000 0011 00', '1101 01', None),
+    (1, 15): ('0000 0000 0000 1010', '0000 0000 0010 00', '0000 0010 00', '1110 01', None),
+    (1, 16): ('0000 0000 0000 0110', '0000 0000 0001 10', '0000 0001 00', '1111 01', None),
+    (2, 2): ('001', '011', '1101', '0001 10', '001'),
+    (2, 3): ('0000 101', '0010 01', '0111 0', '0010 10', '0000 010'),
+    (2, 4): ('0000 0101', '0001 01', '0101 1', '0011 10', '0000 0010'),
+    (2, 5): ('0000 0010 1', '0000 101', '0100 1', '0100 10', None),
+    (2, 6): ('0000 0001 01', '0000 0101', '0011 01', '0101 10', None),
+    (2, 7): ('0000 0000 101', '0000 0010 1', '0010 01', '0110 10', None),
+    (2, 8): ('0000 0000 0110 1', '0000 0001 101', '0001 101', '0111 10', None),
+    (2, 9): ('0000 0000 0100 1', '0000 0001 001', '0001 010', '1000 10', None),
+    (2, 10): ('0000 0000 0011 01', '0000 0000 1101', '0000 1101', '1001 10', None),
+    (2, 11): ('0000 0000 0010 01', '0000 0000 1001', '0000 1001', '1010 10', None),
+    (2, 12): ('0000 0000 0001 101', '0000 0000 0110 1', '0000 0110 1', '1011 10', None),
+    (2, 13): ('0000 0000 0001 001', '0000 0000 0100 1', '0000 0100 1', '1100 10', None),
+    (2, 14): ('0000 0000 0000 1101', '0000 0000 0011 0', '0000 0010 11', '1101 10', None),
+    (2, 15): ('0000 0000 0000 1001', '0000 0000 0010 10', '0000 0001 11', '1110 10', None),
+    (2, 16): ('0000 0000 0000 0101', '0000 0000 0001 01', '0000 0000 11', '1111 10', None),
+    (3, 3): ('0001 1', '0101', '1100', '0010 11', '0001 01'),
+    (3, 4): ('0000 11', '0100', '1011', '0011 11', '0000 000'),
+    (3, 5): ('0000 100', '0011 0', '1010', '0100 11', None),
+    (3, 6): ('0000 0100', '0010 00', '1001', '0101 11', None),
+    (3, 7): ('0000 0010 0', '0001 00', '1000', '0110 11', None),
+    (3, 8): ('0000 0001 00', '0000 100', '0110 1', '0111 11', None),
+    (3, 9): ('0000 0000 100', '0000 0010 0', '0011 00', '1000 11', None),
+    (3, 10): ('0000 0000 0110 0', '0000 0001 100', '0001 100', '1001 11', None),
+    (3, 11): ('0000 0000 0011 00', '0000 0001 000', '0000 1100', '1010 11', None),
+    (3, 12): ('0000 0000 0010 00', '0000 0000 1100', '0000 1000', '1011 11', None),
+    (3, 13): ('0000 0000 0001 100', '0000 0000 0110 0', '0000 0110 0', '1100 11', None),
+    (3, 14): ('0000 0000 0001 000', '0000 0000 0100 0', '0000 0010 10', '1101 11', None),
+    (3, 15): ('0000 0000 0000 1100', '0000 0000 0000 1', '0000 0001 10', '1110 11', None),
+    (3, 16): ('0000 0000 0000 1000', '0000 0000 0001 00', '0000 0000 10', '1111 11', None),
+}
+# Tables 9-7 and 9-8: total_zeros of a 4x4 block by tzVlcIndex 1-15 (index 0
+# unused), then by its value; Table 9-9a: of a chroma DC 4:2:0 block
+TOTAL_ZEROS = [None,
+    ['1', '011', '010', '0011', '0010', '0001 1', '0001 0', '0000 11', '0000 10', '0000 011',
+     '0000 010', '0000 0011', '0000 0010', '0000 0001 1', '0000 0001 0', '0000 0000 1'],
+    ['111', '110', '101', '100', '011', '0101', '0100', '0011', '0010', '0001 1', '0001 0',
+     '0000 11', '0000 10', '0000 01', '0000 00'],
+    ['0101', '111', '110', '101', '0100', '0011', '100', '011', '0010', '0001 1', '0001 0',
+     '0000 01', '0000 1', '0000 00'],
+    ['0001 1', '111', '0101', '0100', '110', '101', '100', '0011', '011', '0010', '0001 0',
+     '0000 1', '0000 0'],
+    ['0101', '0100', '0011', '111', '110', '101', '100', '011', '0010', '0000 1', '0001',
+     '0000 0'],
+    ['0000 01', '0000 1', '111', '110', '101', '100', '011', '010', '0001', '001', '0000 00'],
+    ['0000 01', '0000 1', '101', '100', '011', '11', '010', '0001', '001', '0000 00'],
+    ['0000 01', '0001', '0000 1', '011', '11', '10', '010', '001', '0000 00'],
+    ['0000 01', '0000 00', '0001', '11', '10', '001', '01', '0000 1'],
+    ['0000 1', '0000 0', '001', '11', '10', '01', '0001'],
+    ['0000', '0001', '001', '010', '1', '011'],
+    ['0000', '0001', '01', '1', '001'],
+    ['000', '001', '1', '01'],
+    ['00', '01', '1'],
+    ['0', '1'],
+]
+TOTAL_ZEROS_DC = [None,
+    ['1', '01', '001', '000'],
+    ['1', '01', '00'],
+    ['1', '0'],
+]
+# Table 9-10: run_before by zerosLeft 1-6 and above 6 (index 7), then by its
+# value
+RUN_BEFORE = [None,
+    ['1', '0'],
+    ['1', '01', '00'],
+    ['11', '10', '01', '00'],
+    ['11', '10', '01', '001', '000'],
+    ['11', '10', '011', '010', '001', '000'],
+    ['11', '000', '001', '011', '010', '101', '100'],
+    ['111', '110', '101', '100', '011', '010', '001', '0001', '0000 1', '0000 01', '0000 001',
+     '0000 0001', '0000 0000 1', '0000 0000 01', '0000 0000 001'],
+]
+# Table 9-4 (ChromaArrayType 1 and 2): coded_block_pattern by codeNum, of
+# Intra_4x4 and Intra_8x8 macroblocks and of inter ones
+CBP_INTRA = [
+    47, 31, 15, 0, 23, 27, 29, 30, 7, 11, 13, 14, 39, 43, 45, 46,
+    16, 3, 5, 10, 12, 19, 21, 26, 28, 35, 37, 42, 44, 1, 2, 4,
+    8, 17, 18, 20, 24, 6, 9, 22, 25, 32, 33, 34, 36, 40, 38, 41,
+]
+CBP_INTER = [
+    0, 16, 1, 2, 4, 8, 32, 3, 5, 10, 12, 15, 47, 7, 11, 13,
+    14, 6, 9, 31, 35, 37, 42, 44, 33, 34, 36, 40, 39, 43, 45, 46,
+    17, 18, 20, 24, 19, 21, 26, 28, 23, 27, 29, 30, 22, 25, 38, 41,
+]
+CBP_CODE = ({v: k for k, v in enumerate(CBP_INTRA)}, {v: k for k, v in enumerate(CBP_INTER)})
+
 
 class Bits:
     """An MSB-first bit writer."""
@@ -117,6 +242,10 @@ class Bits:
 
     def se(self, v):
         self.ue(2 * v - 1 if v > 0 else -2 * v)
+
+    def code(self, s):
+        """A code as the standard's tables print it (\"0001 01\")."""
+        self.bits.extend(int(ch) for ch in s if ch != " ")
 
     def trailing(self):
         self.bits.append(1)
@@ -300,8 +429,13 @@ class Config:
     bit_depth: int = 8
     bypass: bool = False            # qpprime_y_zero_transform_bypass_flag
     frame_mbs_only: bool = True
-    cavlc: bool = False
     slice_groups: int = 1
+    # CAVLC (entropy_coding_mode_flag 0) from the same draws as CABAC, and
+    # what only it codes: P_8x8ref0 and an 8x8-transform block whose cbp
+    # bit is 1 and whose four 4x4 parses are empty
+    cavlc: bool = False
+    p_8x8ref0: float = 0.0
+    p_empty8x8: float = 0.0
     # per macroblock
     p_skip: float = 0.2
     p_intra_in_p: float = 0.15
@@ -311,6 +445,7 @@ class Config:
     p_qpd: float = 0.3
     p_far_mv: float = 0.05
     max_level: int = 40
+    level_bound: int = 2000         # of a dequantized coefficient; a block's sum 1.5 times it
     seed: int = 0
 
 
@@ -338,6 +473,9 @@ class MB:
     mv1: list = field(default_factory=lambda: [(0, 0)] * 16)
     mvd1: list = field(default_factory=lambda: [(0, 0)] * 16)
     direct: list = field(default_factory=lambda: [0] * 16)
+    # CAVLC: TotalCoeff of each luma 4x4 block (raster) and chroma AC block
+    tc: list = field(default_factory=lambda: [0] * 16)
+    tcc: list = field(default_factory=lambda: [[0] * 4, [0] * 4])
 
     def motion(self, lst):
         """(ref, mv, mvd) of list ``lst``."""
@@ -388,6 +526,7 @@ class Writer:
                      cfg.crop[2], self.mbh * 16 - cfg.height - cfg.crop[2])
         self.max_frame_num = 1 << cfg.log2_max_frame_num
         self.max_poc_lsb = 1 << cfg.log2_max_poc_lsb
+        self.cavlc = cfg.cavlc
 
     # ------------------------------------------------------- parameter sets
     def sps(self):
@@ -557,6 +696,8 @@ class Writer:
         NAL units (without start codes)."""
         self.weights = self._level_scales()
         self.contexts = {}          # init table (0 I, 1 + cabac_init_idc) -> ctxIdx coded
+        self.tables = set()         # CAVLC: the (table, class) pairs coded
+        self.counts = {"8x8ref0": 0, "empty8x8": 0}
         self.refs = []              # dicts: frame_num, long (LongTermFrameIdx or None)
         self.max_long = None        # MaxLongTermFrameIdx (None: no long-term indices)
         self.prev_ref_frame_num = 0
@@ -833,9 +974,12 @@ class Writer:
         b = Bits()
         b.ue(first)
         if c.row_repeat and si > 0:
-            # a CABAC slice's data starts byte-aligned and depends on no other
-            # slice: the first row's header (less first_mb_in_slice) and data
+            # a slice's data depends on no other slice: the first row's header
+            # (less first_mb_in_slice) and data, which under CABAC start
+            # byte-aligned
             b.bits += self._row_header
+            if self.cavlc:
+                return nal(ref_idc, 5 if idr else 1, self._row_tail(b))
             while len(b.bits) % 8:
                 b.bits.append(1)
             return nal(ref_idc, 5 if idr else 1, b.tobytes() + self._row_data)
@@ -894,7 +1038,7 @@ class Writer:
                             b.ue(a)
                     b.ue(0)
         cabac_init_idc = int(rng.integers(0, 3)) if stype != 2 else 0
-        if stype != 2:
+        if stype != 2 and not self.cavlc:
             b.ue(cabac_init_idc)
         lo, hi = c.qp_range
         slice_qp = int(rng.integers(lo, hi + 1))
@@ -906,14 +1050,37 @@ class Writer:
                 b.se(int(rng.integers(-6, 7)))
                 b.se(int(rng.integers(-6, 7)))
         header_end = len(b.bits)
+        self.qp, self.stype, self.bits, self.enc = slice_qp, stype, b, None
+        self.prev_mb = None
+        if self.cavlc:
+            # the data follows the header unaligned; a run of skipped MBs
+            # before each coded one (P and B slices) may end the slice
+            self.skip_run, self.pcm_pads = 0, []
+            for addr in range(first, last):
+                self._macroblock(si, addr)
+            if self.skip_run:
+                b.ue(self.skip_run)
+            data_end = len(b.bits)
+            b.trailing()
+            if c.row_repeat:
+                # the row's data without the I_PCM alignment bits, which
+                # depend on where the data starts, and where they went
+                self._row_header = b.bits[1:header_end]
+                data, pads, at = [], [], header_end
+                for start, n in self.pcm_pads:
+                    data += b.bits[at:start]
+                    pads.append(len(data))
+                    at = start + n
+                data += b.bits[at:data_end]
+                self._row_data, self._row_pads, self._row_packed = data, pads, {}
+            return nal(ref_idc, 5 if idr else 1, b.tobytes())
         while len(b.bits) % 8:
             b.bits.append(1)     # cabac_alignment_one_bit
         data_start = len(b.bits) // 8
         table = 0 if stype == 2 else 1 + cabac_init_idc
         enc = CabacEncoder(b)
         enc.init_contexts(CABAC_INIT[table], slice_qp, self.contexts.setdefault(table, set()))
-        self.enc, self.qp, self.stype = enc, slice_qp, stype
-        self.prev_mb = None
+        self.enc = enc
         for addr in range(first, last):
             self._macroblock(si, addr)
             enc.terminate(1 if addr == last - 1 else 0)
@@ -924,6 +1091,26 @@ class Writer:
             self._row_header = b.bits[1:header_end]      # after ue(0)
             self._row_data = b.tobytes()[data_start:]
         return nal(ref_idc, 5 if idr else 1, b.tobytes())
+
+    def _row_tail(self, b):
+        """A CAVLC slice of the repeated row: the header in ``b``, then the
+        first row's data, which follows it unaligned (packed once for each
+        bit offset), and the trailing bits."""
+        off = len(b.bits) % 8
+        if off not in self._row_packed:
+            bits, at = [0] * off, 0
+            for pad in self._row_pads:
+                bits += self._row_data[at:pad]
+                bits += [0] * (-len(bits) % 8)       # pcm_alignment_zero_bit
+                at = pad
+            bits += self._row_data[at:] + [1]
+            bits += [0] * (-len(bits) % 8)
+            self._row_packed[off] = np.packbits(np.array(bits, np.uint8))
+        data = self._row_packed[off].copy()
+        if off:
+            data[0] |= np.packbits(np.array(b.bits[-off:], np.uint8))[0]
+        head = np.packbits(np.array(b.bits[:len(b.bits) - off], np.uint8))
+        return head.tobytes() + data.tobytes()
 
     def _weight_table(self, b, nrefs):
         """pred_weight_table over lists of ``nrefs`` entries. Two lists (a B
@@ -1006,28 +1193,30 @@ class Writer:
             return None
         return m, ((y % 16) // 4) * 4 + (x % 16) // 4
 
+    def chroma_nb(self, cur, addr, r, dx, dy):
+        """The MB and chroma 4x4 block (raster within the component) at
+        (dx, dy) from block ``r``'s corner, or None where it is not
+        available."""
+        x, y = (r % 2) * 4 + dx, (r // 2) * 4 + dy
+        m = cur if x >= 0 and y >= 0 else \
+            self.mb_nb(addr, -1 if x < 0 else 0, -1 if y < 0 else 0, cur.slice)
+        return None if m is None else (m, (y % 8) // 4 * 2 + (x % 8) // 4)
+
     # ---------------------------------------------------------- macroblock
     def _macroblock(self, si, addr):
-        c, rng, enc = self.c, self.rng, self.enc
+        c, rng = self.c, self.rng
         cur = MB(si)
         self.mbs[addr] = cur
         A, B = self.mb_nb(addr, -1, 0, si), self.mb_nb(addr, 0, -1, si)
-        if self.stype == 1:
+        if self.stype != 2:
             skip = rng.random() < c.p_skip
-            enc.decision(24 + (A is not None and A.kind != "skip")
-                         + (B is not None and B.kind != "skip"), skip)
+            self._skip(A, B, skip)
             if skip:
                 cur.kind = "skip"
-                self._b_direct(cur, range(4))
-                self.prev_mb = cur
-                return
-        if self.stype == 0:
-            skip = rng.random() < c.p_skip
-            enc.decision(11 + (A is not None and A.kind != "skip")
-                         + (B is not None and B.kind != "skip"), skip)
-            if skip:
-                cur.kind = "skip"
-                self._p_skip_mv(cur, addr)
+                if self.stype == 1:
+                    self._b_direct(cur, range(4))
+                else:
+                    self._p_skip_mv(cur, addr)
                 self.prev_mb = cur
                 return
         intra = self.stype == 2 or rng.random() < c.p_intra_in_p
@@ -1038,24 +1227,6 @@ class Writer:
         kind = ("PCM" if rng.random() < c.p_pcm else "I16" if rng.random() < c.p_i16
                 else "I8" if c.transform8x8 and rng.random() < c.p_i8 else "I4")
         cur.kind = kind
-        if self.stype == 0:
-            enc.decision(14, 1)          # the intra prefix
-            off, b0 = 17, [17]
-        elif self.stype == 1:
-            self._b_mb_type(A, B, "intra")
-            off, b0 = 32, [32]
-        else:
-            off = 3
-            b0 = [3 + (A is not None and A.kind not in ("I4", "I8"))
-                  + (B is not None and B.kind not in ("I4", "I8"))]
-        if kind in ("I4", "I8"):
-            enc.decision(b0[0], 0)
-        else:
-            enc.decision(b0[0], 1)
-            enc.terminate(kind == "PCM")
-        if kind == "PCM":
-            self._pcm(cur)
-            return
         if kind == "I16":
             avail = self._intra_avail(cur, addr)
             modes = [m for m, need in ((0, "B"), (1, "A"), (2, ""), (3, "ABD"))
@@ -1063,6 +1234,66 @@ class Writer:
             cur.i16mode = int(rng.choice(modes))
             cur.cbpl = 15 if rng.random() < 0.5 else 0
             cur.cbpc = int(rng.integers(0, 3))
+        self._i_mb_type(cur, A, B)
+        if kind == "PCM":
+            self._pcm(cur)
+            return
+        if kind != "I16":
+            if c.transform8x8:
+                cur.t8 = int(kind == "I8")
+                self._t8(A, B, cur.t8)
+            self._intra_nxn_modes(cur, addr)
+        self._chroma_mode(cur, addr, A, B)
+        if kind != "I16":
+            cur.cbpl, cur.cbpc = int(rng.integers(0, 16)), int(rng.integers(0, 3))
+            self._cbp(cur, addr)
+        self._residual_and_qp(cur, addr)
+
+    def _skip(self, A, B, skip):
+        """mb_skip_flag, or under CAVLC the run of skipped MBs before a
+        coded one."""
+        if self.cavlc:
+            if skip:
+                self.skip_run += 1
+            else:
+                self.bits.ue(self.skip_run)
+                self.skip_run = 0
+            return
+        self.enc.decision((11 if self.stype == 0 else 24) + (A is not None and A.kind != "skip")
+                          + (B is not None and B.kind != "skip"), skip)
+
+    def _t8(self, A, B, v):
+        """transform_size_8x8_flag."""
+        if self.cavlc:
+            self.bits.u(1, v)
+        else:
+            self.enc.decision(399 + (A is not None and A.t8) + (B is not None and B.t8), v)
+
+    def _i_mb_type(self, cur, A, B):
+        """The mb_type of an I macroblock (Table 7-11), after the inter
+        types in a P or B slice."""
+        kind, enc = cur.kind, self.enc
+        if self.cavlc:
+            t = 0 if kind in ("I4", "I8") else 25 if kind == "PCM" else \
+                1 + cur.i16mode + 4 * cur.cbpc + 12 * (cur.cbpl != 0)
+            self.bits.ue(t + (5, 23, 0)[self.stype])
+            return
+        if self.stype == 0:
+            enc.decision(14, 1)          # the intra prefix
+            off, b0 = 17, 17
+        elif self.stype == 1:
+            self._b_mb_type(A, B, "intra")
+            off, b0 = 32, 32
+        else:
+            off = 3
+            b0 = 3 + (A is not None and A.kind not in ("I4", "I8")) \
+                + (B is not None and B.kind not in ("I4", "I8"))
+        if kind in ("I4", "I8"):
+            enc.decision(b0, 0)
+            return
+        enc.decision(b0, 1)
+        enc.terminate(kind == "PCM")
+        if kind == "I16":
             # Table 9-39: ctxIdxInc of bins 2.. of an I_16x16 mb_type (prefix
             # or P-slice suffix)
             inc = ([3, 4, 5, 6, 7] if cur.cbpc else [3, 4, 6, 7]) if off == 3 else \
@@ -1071,16 +1302,6 @@ class Writer:
                 [cur.i16mode >> 1, cur.i16mode & 1]
             for i, v in zip(inc, bins):
                 enc.decision(off + i, int(v))
-        else:
-            if c.transform8x8:
-                cur.t8 = kind == "I8"
-                enc.decision(399 + (A is not None and A.t8) + (B is not None and B.t8), cur.t8)
-            self._intra_nxn_modes(cur, addr)
-        self._chroma_mode(cur, addr, A, B)
-        if kind != "I16":
-            cur.cbpl, cur.cbpc = int(rng.integers(0, 16)), int(rng.integers(0, 3))
-            self._cbp(cur, addr)
-        self._residual_and_qp(cur, addr)
 
     def _intra_ok(self, m, cur):
         return m is not None and (m is cur or m.intra or not self.c.constrained_intra)
@@ -1092,19 +1313,22 @@ class Writer:
                 "D": self._intra_ok(self.mb_nb(addr, -1, -1, si), cur)}
 
     def _pcm(self, cur):
-        enc = self.enc
-        b = enc.bits
+        b = self.bits
+        if self.cavlc:
+            self.pcm_pads.append((len(b.bits), -len(b.bits) % 8))
         while len(b.bits) % 8:
-            b.bits.append(0)
+            b.bits.append(0)     # pcm_alignment_zero_bit
         for v in self.rng.integers(1, 256, 384):
             b.u(8, int(v))
-        enc.reset()
+        if not self.cavlc:
+            self.enc.reset()
+        cur.tc, cur.tcc = [16] * 16, [[16] * 4, [16] * 4]
         cur.cbpl, cur.cbpc = 15, 2
         cur.qpd = 0
         self.prev_mb = cur
 
     def _intra_nxn_modes(self, cur, addr):
-        rng, enc = self.rng, self.enc
+        rng = self.rng
         size = 8 if cur.kind == "I8" else 4
         n = 16 // size
         for blk in range(n * n):
@@ -1147,13 +1371,17 @@ class Writer:
             if nbs["A"] is not None and nbs["B"] is not None and nbs["D"] is not None:
                 ok += [4, 5, 6]
             mode = pred if pred in ok and rng.random() < 0.4 else int(rng.choice(ok))
-            if mode == pred:
-                enc.decision(68, 1)
+            rem = mode if mode < pred else mode - 1
+            if self.cavlc:
+                self.bits.u(1, mode == pred)
+                if mode != pred:
+                    self.bits.u(3, rem)
+            elif mode == pred:
+                self.enc.decision(68, 1)
             else:
-                enc.decision(68, 0)
-                rem = mode if mode < pred else mode - 1
+                self.enc.decision(68, 0)
                 for i in range(3):
-                    enc.decision(69, (rem >> i) & 1)
+                    self.enc.decision(69, (rem >> i) & 1)
             for yy in range(size // 4):
                 for xx in range(size // 4):
                     cur.ipm[(y // 4 + yy) * 4 + x // 4 + xx] = mode
@@ -1170,16 +1398,22 @@ class Writer:
         return order(rx, ry) < order(bx, by)
 
     def _chroma_mode(self, cur, addr, A, B):
-        rng, enc = self.rng, self.enc
         avail = self._intra_avail(cur, addr)
         modes = [m for m, need in ((0, ""), (1, "A"), (2, "B"), (3, "ABD"))
                  if all(avail[n] for n in need)]
-        cur.cmode = int(rng.choice(modes))
+        cur.cmode = int(self.rng.choice(modes))
+        if self.cavlc:
+            self.bits.ue(cur.cmode)
+            return
+        enc = self.enc
         inc = sum(1 for N in (A, B) if N is not None and N.intra and N.kind != "PCM"
                   and N.cmode != 0)
         enc.unary(cur.cmode, [64 + inc, 67, 67], cmax=3)
 
     def _cbp(self, cur, addr):
+        if self.cavlc:               # me(v)
+            self.bits.ue(CBP_CODE[0 if cur.intra else 1][cur.cbpl | cur.cbpc << 4])
+            return
         enc = self.enc
         for b8 in range(4):
             bx, by = (b8 % 2) * 8, (b8 // 2) * 8
@@ -1262,25 +1496,36 @@ class Writer:
             return match[0][1]
         return tuple(sorted((A[1][k], B[1][k], C[1][k]))[1] for k in range(2))
 
+    P_SUBS = ("8x8", "8x4", "4x8", "4x4")
+
     def _inter_mb(self, cur, addr):
         c, rng, enc = self.c, self.rng, self.enc
         cur.kind = "P"
         part = str(rng.choice(["16x16", "16x8", "8x16", "8x8"]))
-        enc.decision(14, 0)
-        if part == "16x16":
+        # P_8x8ref0 (CAVLC only): every quarter on reference index 0
+        ref0 = part == "8x8" and self.cavlc and c.p_8x8ref0 > 0 and rng.random() < c.p_8x8ref0
+        if self.cavlc:
+            self.bits.ue(4 if ref0 else ("16x16", "16x8", "8x16", "8x8").index(part))
+            self.counts["8x8ref0"] += ref0
+        elif part == "16x16":
+            enc.decision(14, 0)
             enc.decision(15, 0)
             enc.decision(16, 0)
         elif part == "8x8":
+            enc.decision(14, 0)
             enc.decision(15, 0)
             enc.decision(16, 1)
         else:
+            enc.decision(14, 0)
             enc.decision(15, 1)
             enc.decision(17, part == "16x8")
         if part == "8x8":
             subs = tuple(str(rng.choice(["8x8", "8x4", "4x8", "4x4"])) for _ in range(4))
             cur.subs = subs
             for s in subs:
-                if s == "8x8":
+                if self.cavlc:
+                    self.bits.ue(self.P_SUBS.index(s))
+                elif s == "8x8":
                     enc.decision(21, 1)
                 else:
                     enc.decision(21, 0)
@@ -1294,9 +1539,9 @@ class Writer:
         usable = [i for i, r in enumerate(self.list0) if r is not None]
         refs = []
         for (x, y, w, h) in parts:
-            ref = int(rng.choice(usable))
+            ref = 0 if ref0 else int(rng.choice(usable))
             refs.append(ref)
-            if self.nref > 1:
+            if self.nref > 1 and not ref0:
                 self._ref_idx(cur, addr, x, y, ref)
             for yy in range(y // 4, (y + h) // 4):
                 for xx in range(x // 4, (x + w) // 4):
@@ -1333,12 +1578,21 @@ class Writer:
         if cur.cbpl and c.transform8x8 and not small:
             A, B = self.mb_nb(addr, -1, 0, cur.slice), self.mb_nb(addr, 0, -1, cur.slice)
             cur.t8 = int(rng.random() < 0.5)
-            enc.decision(399 + (A is not None and A.t8) + (B is not None and B.t8), cur.t8)
+            self._t8(A, B, cur.t8)
         self._residual_and_qp(cur, addr)
 
     def _ref_idx(self, cur, addr, x, y, ref, lst=0):
-        """ref_idx_lX: §9.3.3.1.1.6, a neighbour partition counts where its
-        refIdxLX exceeds 0 and it is neither skipped nor direct-predicted."""
+        """ref_idx_lX: te(v) under CAVLC; under CABAC §9.3.3.1.1.6, a
+        neighbour partition counts where its refIdxLX exceeds 0 and it is
+        neither skipped nor direct-predicted."""
+        if self.cavlc:
+            nref = self.nrefs[lst] if self.stype == 1 else self.nref
+            self.tables.add(("te", nref))
+            if nref == 2:
+                self.bits.u(1, 1 - ref)
+            else:
+                self.bits.ue(ref)
+            return
         conds = []
         for px, py in ((x - 1, y), (x, y - 1)):
             nb = self.blk_nb(cur, addr, px, py)
@@ -1349,6 +1603,9 @@ class Writer:
         self.enc.unary(ref, [54 + conds[0] + 2 * conds[1], 58, 59])
 
     def _mvd(self, cur, addr, x, y, comp, v, lst=0):
+        if self.cavlc:
+            self.bits.se(v)
+            return
         s = 0
         for px, py in ((x - 1, y), (x, y - 1)):
             nb = self.blk_nb(cur, addr, px, py)
@@ -1395,6 +1652,10 @@ class Writer:
         """mb_type ``t`` of a B slice: ctxIdx 27 + 0..2 by the neighbours that
         are neither B_Skip nor B_Direct_16x16, then 30; the third bin 31
         after a 1, 32 after a 0; the rest 32."""
+        if self.cavlc:
+            assert t != "intra"          # _i_mb_type codes it
+            self.bits.ue(t)
+            return
         bins = self.B_MB_BINS[t]
         inc = sum(1 for N in (A, B) if N is not None and N.kind not in ("skip", "direct"))
         for i, v in enumerate(bins):
@@ -1403,6 +1664,9 @@ class Writer:
             self.enc.decision(ctx, int(v))
 
     def _b_sub_type(self, t):
+        if self.cavlc:
+            self.bits.ue(t)
+            return
         bins = self.B_SUB_BINS[t]
         for i, v in enumerate(bins):
             ctx = 36 if i == 0 else 37 if i == 1 else \
@@ -1503,7 +1767,7 @@ class Writer:
         self._cbp(cur, addr)
         if cur.cbpl and c.transform8x8 and not small:
             cur.t8 = int(rng.random() < 0.5)
-            enc.decision(399 + (A is not None and A.t8) + (B is not None and B.t8), cur.t8)
+            self._t8(A, B, cur.t8)
         self._residual_and_qp(cur, addr)
 
     # ----------------------------------------------------------- residual
@@ -1517,8 +1781,10 @@ class Writer:
             p = self.prev_mb
             inc = int(p is not None and p.kind not in ("skip", "PCM")
                       and (p.kind == "I16" or p.cbpl or p.cbpc) and p.qpd != 0)
-            k = 2 * qpd - 1 if qpd > 0 else -2 * qpd
-            enc.unary(k, [60 + inc, 62, 63])
+            if self.cavlc:
+                self.bits.se(qpd)
+            else:
+                enc.unary(2 * qpd - 1 if qpd > 0 else -2 * qpd, [60 + inc, 62, 63])
             cur.qpd = qpd
             self.qp = (self.qp + qpd + 52) % 52
         self.prev_mb = cur
@@ -1561,13 +1827,7 @@ class Writer:
             m = self.mb_nb(addr, nbx, nby, cur.slice)
             nb = None if m is None else (m, None)
         elif cat == 4:
-            comp, r = which
-            x, y = (r % 2) * 4 + nbx * 1, (r // 2) * 4 + nby * 1
-            if x < 0 or y < 0:
-                m = self.mb_nb(addr, -1 if x < 0 else 0, -1 if y < 0 else 0, cur.slice)
-                nb = None if m is None else (m, (y % 8) // 4 * 2 + (x % 8) // 4)
-            else:
-                nb = (cur, (y // 4) * 2 + x // 4)
+            nb = self.chroma_nb(cur, addr, which[1], nbx, nby)
         else:
             rx, ry = which % 4, which // 4
             nb = self.blk_nb(cur, addr, rx * 4 + nbx, ry * 4 + nby)
@@ -1594,15 +1854,18 @@ class Writer:
         # coefficients: a sparse random list within the dequantized bound
         coeffs = [0] * n
         coded = rng.random() < 0.75 or cat == 5
+        if cat == 5 and self.cavlc and self.c.p_empty8x8 > 0 and rng.random() < self.c.p_empty8x8:
+            coded = False
+            self.counts["empty8x8"] += 1
         if coded:
             scale = self.weights[lst] * max(NORM8[qp % 6] if cat == 5 else NORM4[qp % 6])
             unit = scale * (1 << (qp // 6)) / (64 if cat == 5 else 16)
             if cat in (0, 3):
                 unit *= 4
-            lim = max(1, min(self.c.max_level, int(2000 / unit)))
+            lim = max(1, min(self.c.max_level, int(self.c.level_bound / unit)))
             k = int(rng.integers(1, min(n, 8) + 1)) if rng.random() < 0.8 else n
             pos = rng.choice(n, size=k, replace=False)
-            budget = 3000
+            budget = self.c.level_bound * 3 // 2
             for p in pos:
                 v = int(rng.integers(1, lim + 1)) if rng.random() < 0.3 else int(rng.integers(1, 3))
                 v = min(v, max(1, int(budget / unit)))
@@ -1612,6 +1875,9 @@ class Writer:
                     break
             if not any(coeffs):
                 coeffs[int(pos[0])] = 1
+        if self.cavlc:
+            self._cavlc_residual(cur, addr, cat, which, coeffs)
+            return
         flag = int(any(coeffs))
         if cat != 5:
             ca = self._cbf_cond(cur, addr, cat, which, -1, 0)
@@ -1665,6 +1931,112 @@ class Writer:
                 eq1 += 1
             else:
                 gt1 += 1
+
+
+    # -------------------------------------------------------------- CAVLC
+    def _nc(self, cur, addr, comp, r):
+        """§9.2.1: nC of luma 4x4 block ``r`` (raster; ``comp`` None) or of
+        chroma AC block ``r`` of component ``comp``, from the TotalCoeff of
+        the blocks left of and above it in the slice."""
+        counts = []
+        for dx, dy in ((-1, 0), (0, -1)):
+            if comp is None:
+                nb = self.blk_nb(cur, addr, (r % 4) * 4 + dx, (r // 4) * 4 + dy)
+            else:
+                nb = self.chroma_nb(cur, addr, r, dx, dy)
+            counts.append(None if nb is None else
+                          nb[0].tc[nb[1]] if comp is None else nb[0].tcc[comp][nb[1]])
+        a, b = counts
+        if a is not None and b is not None:
+            return (a + b + 1) >> 1
+        return a if a is not None else b if b is not None else 0
+
+    def _cavlc_residual(self, cur, addr, cat, which, coeffs):
+        """The block of ``_block`` (its ctxBlockCat and ``which``) as CAVLC
+        codes it: an 8x8 block as four interleaved 4x4 blocks (coefficient
+        4 k + i in the i-th), each block's TotalCoeff kept for later nC."""
+        if cat == 0:
+            self._cavlc_block(coeffs, self._nc(cur, addr, None, 0), 16)
+        elif cat == 3:
+            self._cavlc_block(coeffs, -1, 4)
+        elif cat == 4:
+            comp, r = which
+            cur.tcc[comp][r] = self._cavlc_block(coeffs, self._nc(cur, addr, comp, r), 15)
+        elif cat == 5:
+            for i in range(4):
+                r = ((which // 2) * 2 + i // 2) * 4 + (which % 2) * 2 + i % 2
+                cur.tc[r] = self._cavlc_block(coeffs[i::4], self._nc(cur, addr, None, r), 16)
+        else:
+            cur.tc[which] = self._cavlc_block(coeffs, self._nc(cur, addr, None, which),
+                                              len(coeffs))
+
+    def _cavlc_block(self, coeffs, nc, max_coeff):
+        """§7.3.5.3.2 residual_block_cavlc of ``coeffs`` (scanning order);
+        returns TotalCoeff. Each table class it codes goes into
+        ``self.tables``."""
+        b, used = self.bits, self.tables
+        where = [i for i, v in enumerate(coeffs) if v]
+        levels = [coeffs[i] for i in reversed(where)]          # highest frequency first
+        total, ones = len(where), 0
+        while ones < min(3, total) and abs(levels[ones]) == 1:
+            ones += 1
+        col = 4 if nc < 0 else 0 if nc < 2 else 1 if nc < 4 else 2 if nc < 8 else 3
+        b.code(COEFF_TOKEN[(ones, total)][col])
+        used.add(("coeff_token", col))
+        if not total:
+            return 0
+        suffix = 1 if total > 10 and ones < 3 else 0           # suffixLength
+        for i, v in enumerate(levels):
+            if i < ones:
+                b.u(1, v < 0)
+                continue
+            code = 2 * v - 2 if v > 0 else -2 * v - 1         # levelCode
+            if i == ones and ones < 3:
+                code -= 2
+            used.add(("suffix_length", suffix))
+            self._level(code, suffix)
+            if suffix == 0:
+                suffix = 1
+            if abs(v) > (3 << (suffix - 1)) and suffix < 6:
+                suffix += 1
+        zeros = where[-1] + 1 - total
+        if total < max_coeff:
+            table = TOTAL_ZEROS_DC if max_coeff == 4 else TOTAL_ZEROS
+            b.code(table[total][zeros])
+            used.add(("total_zeros_dc" if max_coeff == 4 else "total_zeros", total))
+        for i in range(total - 1, 0, -1):
+            if not zeros:
+                break
+            run = where[i] - where[i - 1] - 1
+            b.code(RUN_BEFORE[min(zeros, 7)][run])
+            used.add(("run_before", min(zeros, 7)))
+            zeros -= run
+        return total
+
+    def _level(self, code, suffix):
+        """level_prefix and level_suffix of levelCode ``code`` at
+        suffixLength ``suffix`` (§9.2.2.1): the escapes at prefix 14 (its
+        4-bit suffix at suffixLength 0) and 15, and above 15 the High
+        profiles' longer ones (1 << (prefix - 3)) - 4096 further on."""
+        if suffix == 0 and code < 14:
+            prefix, size, value = code, 0, 0
+        elif suffix == 0 and code < 30:
+            prefix, size, value = 14, 4, code - 14
+        elif suffix and code < 15 << suffix:
+            prefix, size, value = code >> suffix, suffix, code & ((1 << suffix) - 1)
+        else:
+            value = code - (15 << suffix) - (15 if suffix == 0 else 0)
+            prefix = 15
+            while value - max(0, (1 << (prefix - 3)) - 4096) >= 1 << (prefix - 3):
+                prefix += 1
+            value -= max(0, (1 << (prefix - 3)) - 4096)
+            size = prefix - 3
+            if prefix > 15 and self.c.profile < 100:
+                raise ValueError("level_prefix above 15 outside the High profiles")
+        self.tables.add(("level_prefix", min(prefix, 16)))
+        self.bits.u(prefix, 0)
+        self.bits.u(1, 1)
+        self.bits.u(size, value)
 
 
 # ------------------------------------------------------------- containers
@@ -1770,7 +2142,6 @@ def write(cfg: Config):
 
 # each feature the decoder refuses: the words its message holds
 REFUSALS = {
-    "cavlc": "CAVLC",
     "interlace": "interlace",
     "chroma_422": "4:2:0",
     "bit_depth_10": "bit depth",
@@ -1824,11 +2195,11 @@ def header_only(feature: str):
     picture the writer codes before it."""
     small = dict(width=32, height=32, frames=1, max_slices=1)
     cfg = Config(**small, **{
-        "cavlc": {"cavlc": True}, "interlace": {"frame_mbs_only": False},
+        "interlace": {"frame_mbs_only": False},
         "chroma_422": {"chroma_format": 2, "profile": 122},
         "bit_depth_10": {"bit_depth": 10, "profile": 110},
         "transform_bypass": {"bypass": True, "profile": 244},
-        "slice_groups": {"slice_groups": 2},
+        "slice_groups": {"slice_groups": 2, "cavlc": True, "profile": 66},
         "matrix_bt2020": {"vui": {"matrix": 9}},
     }.get(feature, {}))
     w = Writer(cfg)

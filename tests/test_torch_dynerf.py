@@ -157,8 +157,9 @@ def test_frame_modes_read_as_rgb(tmp_path):
 VIDEO_SIZE = (58, 42)       # no multiple of 16 either way; resized to (W, H)
 
 
-def write_video(path, seed, frames=3, size=VIDEO_SIZE, b_frames=0):
-    cfg = HW.Config(width=size[0], height=size[1], frames=frames, seed=seed, b_frames=b_frames)
+def write_video(path, seed, frames=3, size=VIDEO_SIZE, b_frames=0, cavlc=False):
+    cfg = HW.Config(width=size[0], height=size[1], frames=frames, seed=seed, b_frames=b_frames,
+                    cavlc=cavlc)
     sps, pps, aus = HW.write(cfg)
     path.write_bytes(HW.mp4(sps, pps, aus, *size))
 
@@ -176,15 +177,17 @@ def make_video_scene(root, n_cams=2, frames=3):
         write_video(root / f"cam{c:02d}.mp4", seed=c, frames=frames)
 
 
-@pytest.mark.parametrize("n_frames,b_frames,frames", [(2, 0, 3), (10, 0, 3), (10, 3, 7)],
-                         ids=["2", "10", "b-10"])
-def test_extract_matches_jax(tmp_path, n_frames, b_frames, frames):
+@pytest.mark.parametrize("n_frames,b_frames,frames,cavlc",
+                         [(2, 0, 3, False), (10, 0, 3, False), (10, 3, 7, False), (10, 3, 7, True)],
+                         ids=["2", "10", "b-10", "cavlc"])
+def test_extract_matches_jax(tmp_path, n_frames, b_frames, frames, cavlc):
     """The port's ``extract_video_frames`` and JAX's
     ``_extract_video_frames`` on one mp4 (I and P slices, or runs of up to 3
-    B pictures coded after the next anchor): the same files, equal pixels;
-    ``n_frames`` stops early or the video's end does."""
+    B pictures coded after the next anchor, coded with CABAC or CAVLC): the
+    same files, equal pixels; ``n_frames`` stops early or the video's end
+    does."""
     path = tmp_path / "cam00.mp4"
-    write_video(path, seed=5, frames=frames, b_frames=b_frames)
+    write_video(path, seed=5, frames=frames, b_frames=b_frames, cavlc=cavlc)
     jdynerf._extract_video_frames(str(path), str(tmp_path / "jax"), (W, H), n_frames)
     assert video.extract_video_frames(str(path), str(tmp_path / "port"), (W, H),
                                       n_frames) == min(n_frames, frames)
@@ -221,12 +224,13 @@ def test_videos_only_scene_matches_jax(tmp_path, monkeypatch):
 
 
 def test_video_the_decoder_refuses_names_its_feature(tmp_path):
-    """A camera whose video is coded with CAVLC raises while the loader
-    extracts it, naming CAVLC (no partial frame is written)."""
+    """A camera whose video is interlaced (a feature the decoder refuses)
+    raises while the loader extracts it, naming interlace (no partial
+    frame is written)."""
     make_video_scene(tmp_path)
-    data, _ = HW.header_only("cavlc")
+    data, _ = HW.header_only("interlace")
     (tmp_path / "cam01.mp4").write_bytes(data)
-    with pytest.raises(NotImplementedError, match="CAVLC"):
+    with pytest.raises(NotImplementedError, match="interlace"):
         tdynerf.load_dynerf_scene(str(tmp_path), target_wh=(W, H))
 
 

@@ -2,8 +2,8 @@
 for bit against cv2's ``VideoCapture`` (FFmpeg's libavcodec and
 libswscale), and the committed fixtures of ``tests/torch_fixtures/h264``.
 
-- The fixtures: streams ``tests/h264_writer.py`` writes (CABAC, I, P and
-  B slices) that between them hold every intra mode and partition, the 8x8
+- The fixtures: streams ``tests/h264_writer.py`` writes (CABAC and CAVLC,
+  I, P and B slices) that between them hold every intra mode and partition, the 8x8
   transform, scaling lists by both fall-back rules, explicit weights,
   several references with list modifications, MMCO 1-6 and long-term
   references, several slices with each deblocking control, POC types 0, 1
@@ -19,7 +19,13 @@ libswscale), and the committed fixtures of ``tests/torch_fixtures/h264``.
   fall-backs. Each decodes to cv2's committed BGR frames and to cv2's
   decode here, frame by frame with the same count; the writer rewrites some
   of them byte for byte; together they code every CABAC context an I, P or
-  B slice of a progressive 4:2:0 stream reaches.
+  B slice of a progressive 4:2:0 stream reaches, and the CAVLC ones every
+  table class (coeff_token by nC, total_zeros, run_before, each
+  suffixLength, level_prefix 14, 15 and above).
+- CAVLC: sixteen random streams over the Baseline, Main and High profiles;
+  streams coded with CAVLC from a CABAC stream's draws decode to its
+  pictures; an 8x8 block of cbp bit 1 and four empty parses deblocks as
+  libavcodec deblocks it under both of its loop filters.
 - Sixteen more streams of random syntax of I and P slices and sixteen with
   B slices, each against cv2; and streams coded out of display order whose
   frames come out in cv2's order (FFmpeg grows its reorder buffer as it
@@ -124,7 +130,33 @@ FIXTURES_B = {
     "b_novui": (dict(seed=0, width=44, height=30, crop=(0, 0, 2, 0), frames=9, b_frames=3,
                      p_idr=0.15, p_b_slice_mix=0.3, max_slices=2), "h264", {}),
 }
-ALL_FIXTURES = {**FIXTURES, **FIXTURES_B}
+# the streams coded with CAVLC (entropy_coding_mode_flag 0), each naming its
+# seed: Baseline intra pictures of each type at QPs down to 0 (level_prefix
+# 14 and 15); Baseline P pictures with P_8x8ref0, te(v) over lists of 1-4
+# entries, skip runs that end slices, several slices and constrained intra
+# prediction; High with the 8x8 transform, an 8x8 block of cbp bit 1 and
+# four empty parses and scaling lists of small weights (level_prefix above
+# 15, suffixLength 6); Main B pictures (spatial and temporal direct, B_8x8,
+# explicit weights); and Annex-B
+_SMALL = [[1, 2, 2, 3] * 4, None, None, [2] * 16, None, None, [1] * 64, [2, 1] * 32]
+FIXTURES_CAVLC = {
+    "cavlc_intra": (dict(seed=0, cavlc=True, profile=66, transform8x8=False, width=58, height=42,
+                         frames=3, p_intra_pic=1.0, p_pcm=0.06, p_i16=0.35, max_slices=3,
+                         qp_range=(0, 51), p_qpd=0.5, max_level=2000), "mp4", {}),
+    "cavlc_inter": (dict(seed=0, cavlc=True, profile=66, transform8x8=False, width=74, height=38,
+                         frames=8, num_ref_default=2, max_refs=4, p_modify=0.4, p_far_mv=0.15,
+                         p_skip=0.35, max_slices=4, constrained_intra=True, p_intra_in_p=0.2,
+                         p_8x8ref0=0.4, qp_range=(10, 40)), "mp4", {}),
+    "cavlc_t8": (dict(seed=0, cavlc=True, profile=100, width=50, height=34, frames=4,
+                      sps_scaling=_SMALL, qp_range=(0, 12), max_level=8000, level_bound=4000,
+                      p_empty8x8=0.15), "mp4", {}),
+    "cavlc_b": (dict(seed=0, cavlc=True, profile=77, transform8x8=False, width=64, height=48,
+                     frames=10, b_frames=2, direct_spatial=None, weighted_bipred=1, weighted=True,
+                     max_refs=3, num_ref_default=2, p_direct=0.2, p_skip=0.2), "mp4", {}),
+    "cavlc_annexb": (dict(seed=0, cavlc=True, profile=66, transform8x8=False, width=30,
+                          height=20, frames=6, p_idr=0.3), "h264", {}),
+}
+ALL_FIXTURES = {**FIXTURES, **FIXTURES_B, **FIXTURES_CAVLC}
 # the CABAC contexts an I, P or B slice of a progressive 4:2:0 stream codes
 # (Table 9-34): all of 0-276 and 399-435 but SI's mb_type prefix (0-2) and
 # MBAFF's mb_field_decoding_flag (70-72)
@@ -132,8 +164,8 @@ REACHABLE = (set(range(3, 70)) | set(range(73, 277)) | set(range(399, 436))) - {
 
 
 def fixture_config(name, seed_base=180):
-    if name in FIXTURES_B:
-        return HW.Config(**FIXTURES_B[name][0])
+    if name in FIXTURES_B or name in FIXTURES_CAVLC:
+        return HW.Config(**ALL_FIXTURES[name][0])
     fields, _, _ = FIXTURES[name]
     return HW.Config(seed=seed_base + sorted(FIXTURES).index(name), **fields)
 
@@ -201,7 +233,8 @@ def test_fixture_matches_cv2(name, committed):
     np.testing.assert_array_equal(rgb, got[..., ::-1])
 
 
-@pytest.mark.parametrize("name", ["intra", "mmco", "poc1", "scaling_pps"])
+@pytest.mark.parametrize("name", ["intra", "mmco", "poc1", "scaling_pps",
+                                  *sorted(FIXTURES_CAVLC)])
 def test_writer_rewrites_fixture(name):
     data, _ = fixture_bytes(name)
     with open(fixture_path(name), "rb") as f:
@@ -225,6 +258,32 @@ def test_fixtures_code_every_context():
     assert tables == {0, 1, 2, 3}           # I slices and cabac_init_idc 0, 1 and 2
     assert not REACHABLE - used, sorted(REACHABLE - used)
     assert used <= REACHABLE
+
+
+# the CAVLC table classes an I, P or B slice of a progressive 4:2:0 stream
+# codes (§9.2): coeff_token by nC 0-1, 2-3, 4-7, 8 and above and -1 (chroma
+# DC); total_zeros by tzVlcIndex (1-15, chroma DC 1-3); run_before by
+# zerosLeft (1-6, above 6 as 7); each suffixLength; level_prefix 14, 15 and
+# above 15 (as 16)
+CAVLC_CLASSES = ({("coeff_token", k) for k in range(5)}
+                 | {("total_zeros", k) for k in range(1, 16)}
+                 | {("total_zeros_dc", k) for k in range(1, 4)}
+                 | {("run_before", k) for k in range(1, 8)}
+                 | {("suffix_length", k) for k in range(7)}
+                 | {("level_prefix", k) for k in (14, 15, 16)})
+
+
+def test_cavlc_fixtures_code_every_table():
+    used = set()
+    for name in FIXTURES_CAVLC:
+        _, w = fixture_bytes(name)
+        used |= w.tables
+    assert not CAVLC_CLASSES - used, sorted(CAVLC_CLASSES - used)
+    _, w = fixture_bytes("cavlc_inter")
+    assert {n for kind, n in w.tables if kind == "te"} >= {2, 4}   # te(v): 1 bit, and ue(v)
+    assert w.counts["8x8ref0"] > 0
+    _, w = fixture_bytes("cavlc_t8")
+    assert w.counts["empty8x8"] > 0
 
 
 def _random_config(seed):
@@ -288,6 +347,83 @@ def _random_b_config(seed):
 @pytest.mark.parametrize("seed", range(16))
 def test_random_b_streams_match_cv2(tmp_path, seed):
     _same_as_cv2(tmp_path, _random_b_config(seed))
+
+
+def _random_cavlc_config(seed):
+    """CAVLC streams as the random CABAC ones draw them, over the Baseline
+    (I and P, no weights), Main (B pictures, weights) and High (the 8x8
+    transform, scaling lists of small weights, empty 8x8 parses) profiles."""
+    rng = np.random.default_rng(3000 + seed)
+    profile = (66, 77, 100)[seed % 3]
+    b_frames = int(rng.integers(1, 4)) if profile != 66 and rng.random() < 0.6 else 0
+    high = profile == 100
+    scaling = None
+    if high and rng.random() < 0.4:
+        scaling = [[int(v) for v in rng.integers(1, 6, 16 if i < 6 else 64)] for i in range(8)]
+    return HW.Config(
+        cavlc=True, profile=profile, seed=seed, frames=int(rng.integers(3, 8)),
+        width=int(rng.choice([18, 36, 52, 70])), height=int(rng.choice([14, 30, 46])),
+        transform8x8=high and bool(rng.random() < 0.7),
+        weighted=profile != 66 and bool(rng.random() < 0.3), b_frames=b_frames,
+        direct_spatial=[True, False, None][int(rng.integers(3))],
+        weighted_bipred=int(rng.integers(0, 3)) if profile != 66 else 0,
+        direct_8x8_inference=high or bool(rng.random() < 0.6),
+        num_ref_default=int(rng.integers(1, 4)), num_ref_l1_default=int(rng.integers(1, 3)),
+        p_mmco=float(rng.choice([0, 0.5])), p_modify=float(rng.choice([0, 0.4])),
+        max_refs=int(rng.integers(2, 6)), constrained_intra=bool(rng.random() < 0.3),
+        qp_range=[(12, 44), (0, 51), (0, 15), (30, 51)][int(rng.integers(4))],
+        p_far_mv=float(rng.choice([0, 0.2])), p_skip=float(rng.random() * 0.6),
+        p_pcm=float(rng.random() * 0.1), max_slices=int(rng.integers(1, 6)),
+        max_level=int(rng.choice([4, 40, 2000, 5000])), p_8x8ref0=float(rng.choice([0, 0.5])),
+        p_empty8x8=float(rng.choice([0, 0.3])) if high else 0.0, sps_scaling=scaling,
+        level_bound=4000 if scaling else 2000,
+        p_nonref=float(rng.choice([0, 0.3])) if not b_frames else 0.0,
+        p_idr=float(rng.choice([0, 0.2])),
+        poc_type=int(rng.choice([0, 1, 2])) if not b_frames else 0,
+        chroma_qp_offset=int(rng.integers(-12, 13)),
+        second_chroma_qp_offset=int(rng.integers(-12, 13)) if high else 0)
+
+
+@pytest.mark.parametrize("seed", range(16))
+def test_random_cavlc_streams_match_cv2(tmp_path, seed):
+    _same_as_cv2(tmp_path, _random_cavlc_config(seed))
+
+
+@pytest.mark.parametrize("offsets", [(0, 0), (2, -1)], ids=["fast_filter", "general_filter"])
+def test_cavlc_8x8_empty_block_deblocks_as_cv2(tmp_path, offsets):
+    """P pictures whose 8x8-transform blocks of cbp bit 1 are at times four
+    empty CAVLC parses, deblocked (disable_deblocking_filter_idc 0, QP
+    28-40) beside neighbours across each edge: cv2's frames. An empty block
+    is a block without coefficients to the loop filter, as libavcodec keeps
+    it (cbp_table bits 12-15), except where its x86 filter, taken under
+    equal chroma QP offsets, gives a whole MB bS 2 for cbp bits 0-2 set; a
+    decoder that reads the cbp bit, as CABAC may, fails here."""
+    cfg = HW.Config(seed=0, cavlc=True, profile=100, width=96, height=64, frames=4,
+                    p_empty8x8=0.3, p_intra_in_p=0.05, p_skip=0.1, qp_range=(28, 40),
+                    filter_idcs=(0,), chroma_qp_offset=offsets[0],
+                    second_chroma_qp_offset=offsets[1])
+    w = HW.Writer(cfg)
+    w.write()
+    assert w.counts["empty8x8"] >= 4
+    _same_as_cv2(tmp_path, cfg, count=cfg.frames)
+
+
+@pytest.mark.parametrize("case", ["intra", "inter", "b", "rows"])
+def test_cavlc_codes_cabac_pictures(tmp_path, case):
+    """A stream written with CAVLC from the draws of a CABAC one decodes
+    to the CABAC one's pictures, each equal to cv2's; also one of repeated
+    one-row slices (phase 18's streams), whose I_PCM alignment differs from
+    row to row."""
+    fields = {"intra": dict(p_intra_pic=1.0, p_pcm=0.1, qp_range=(0, 51)),
+              "inter": dict(num_ref_default=3, max_refs=4, p_modify=0.4, weighted=True),
+              "b": dict(b_frames=3, b_pyramid=True, direct_spatial=None, weighted_bipred=2),
+              "rows": dict(row_repeat=True, p_pcm=0.3, b_frames=2, b_full_runs=True)}[case]
+    frames = {}
+    for cavlc in (False, True):
+        cfg = HW.Config(seed=7, width=52, height=30, frames=6, cavlc=cavlc, **fields)
+        _same_as_cv2(tmp_path, cfg)
+        frames[cavlc] = np.stack(list(video.read_frames(str(tmp_path / "r.mp4"))))
+    np.testing.assert_array_equal(frames[True], frames[False])
 
 
 # streams coded out of display order: non-reference pictures decoded after
@@ -357,8 +493,9 @@ def test_chip_smoke_phase_18a_on_cpu(committed):
 
 def test_chip_smoke_phase_18_on_cpu(monkeypatch, capsys):
     """Phase 18 (b) and (c) on the CPU at a small size: the host's times of
-    a row-repeated I, P, B, B stream, and a scene of videos (one with B
-    pictures) extracted by ``load_scene`` then trained on the plain path (the dynerf preset's
+    a row-repeated I, P, B, B stream coded with CABAC and with CAVLC, and a
+    scene of videos (one coded with CAVLC, one with B pictures) extracted by
+    ``load_scene`` then trained on the plain path (the dynerf preset's
     widths cut as ``tests/test_torch_dynerf_cli.py`` cuts them), K1 and K2
     held to their plain versions at a step of its model."""
     import torch
@@ -370,7 +507,12 @@ def test_chip_smoke_phase_18_on_cpu(monkeypatch, capsys):
 
     host = CS.check_video_host_times(size=(96, 72), frames=4, target=(48, 36))
     assert all(host[k] > 0 for k in ("decode_ms", "decode_i_ms", "decode_p_ms", "decode_b_ms",
-                                     "resize_ms", "png_ms"))
+                                     "decode_cavlc_i_ms", "decode_cavlc_p_ms",
+                                     "decode_cavlc_b_ms", "resize_ms", "png_ms"))
+    codings = []
+    row_video = CS.row_video
+    monkeypatch.setattr(CS, "row_video", lambda *a, **k: codings.append(
+        (k.get("b_frames"), k.get("cavlc"))) or row_video(*a, **k))
     monkeypatch.setattr(tscene, "DYNERF_SIZE", (48, 36))
     for name in ("ITERS", "REPS", "WARMUP"):
         monkeypatch.setattr(scripts, name, 1)
@@ -380,5 +522,6 @@ def test_chip_smoke_phase_18_on_cpu(monkeypatch, capsys):
                                  schedule=OVERRIDES)
     out = capsys.readouterr().out
     assert chain["cli"] == (0, 0)                                  # the plain path
+    assert codings == [(0, True), (2, False)]           # camera 0 CAVLC, camera 1 B
     assert "each the resized decode of its video" in out
     assert np.isfinite(chain["psnr"]) and chain["extract_s"] > 0
