@@ -316,7 +316,12 @@ on failure:
    referenced B pictures) decoded on the card's host, frame by frame with
    the same count, equal to cv2's committed BGR decode; the CAVLC streams
    too (Baseline, Main and High, I, P and B slices, P_8x8ref0, empty 8x8
-   parses, level escapes). (b) The host's ms per 2704×2028 frame of a
+   parses, level escapes); and the interlaced ones (frame pictures with
+   frame_mbs_only_flag 0, field pairs of either parity first, frames and
+   field pairs mixed, field marking and lists, direct prediction across
+   the two structures, unpaired fields; a frame coded as fields held to
+   cv2's conversion of libavcodec's decode, which cv2 itself cannot
+   return). (b) The host's ms per 2704×2028 frame of a
    stream ``tests/h264_writer.py`` writes there (:func:`row_video`: I, P,
    B, B in decoding order, of one-row slices; spatial direct, implicit
    weights and a referenced B picture as x264's defaults have them; not a
@@ -324,9 +329,13 @@ on failure:
    (the same frames): each picture's decode timed when it is decoded (I, P
    and B apart, ``decode_*_ms`` and ``decode_cavlc_*_ms``), the mean per
    frame out with the RGB conversion, the LANCZOS resize to 1352×1014 and
-   the PNG write. (c) A DyNeRF scene of two ``cam*.mp4`` at 2704×2028 of
-   ``VIDEO_SCENE_FRAMES`` frames, the first coded with CAVLC (I and P), the
-   second with CABAC and B slices, and no frames on disk
+   the PNG write; and of the same kind of stream coded as field pairs (I/P,
+   P/P, B/B, B/B; frame_mbs_only_flag 0): each field's decode by its type
+   and each pair's (``decode_field_*_ms``, ``decode_pair_*_ms``) beside
+   the frames'. (c) A DyNeRF scene of two ``cam*.mp4`` at 2704×2028 of
+   ``VIDEO_SCENE_FRAMES`` frames, the first coded with CAVLC (I and P
+   frames), the second with CABAC as field pairs (I/P, P/P, B/B), and no
+   frames on disk
    (:func:`write_video_scene`) through ``load_scene``, which extracts each
    camera's frames (each equal to its video's decode resized), then
    ``train_torch.py`` → ``render_torch.py``
@@ -3847,8 +3856,8 @@ def check_rare_chain(dev, schedule=MULTIPLEVIEW_SCHEDULE, preset=MULTIPLEVIEW_PR
 H264_FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "h264")
 VIDEO_SIZE = (2704, 2028)          # a Neu3D camera's cam*.mp4
 VIDEO_HOST_FRAMES = 4              # phase 18 (b)'s stream: I, P, B, B in decoding order
-VIDEO_SCENE_CAMS, VIDEO_SCENE_FRAMES = 2, 3   # phase 18 (c)'s scene (camera 0: CAVLC I, P;
-                                              # camera 1: CABAC I, P, B)
+VIDEO_SCENE_CAMS, VIDEO_SCENE_FRAMES = 2, 3   # phase 18 (c)'s scene (camera 0: CAVLC I, P
+                                              # frames; camera 1: CABAC I/P, P/P, B/B fields)
 VIDEO_SCHEDULE = ("opt.coarse_iterations=2", "opt.iterations=4",
                   "opt.position_lr_max_steps=4", 'opt.custom_sampler="fine"')
 
@@ -3868,7 +3877,7 @@ def h264_writer():
 
 
 def row_video(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES, seed=0, b_frames=0,
-              cavlc=False) -> bytes:
+              cavlc=False, fields=False) -> bytes:
     """An MP4 of ``frames`` pictures at ``size`` written by
     ``tests/h264_writer.py`` on this host (High profile): an IDR picture
     then P pictures (with ``b_frames``, runs of that many B pictures, each
@@ -3876,12 +3885,16 @@ def row_video(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES, seed=0, b_frames=0,
     more a reference; spatial direct and implicit weights), each of one-row
     slices whose data the writer codes once and repeats (a slice's data
     depends on no other slice), with CABAC or, with ``cavlc``, CAVLC from
-    the same draws (the same pictures). Not a camera file: random syntax,
-    every macroblock type and partition, residuals at QP 12-44."""
+    the same draws (the same pictures). With ``fields`` each frame is coded
+    as two fields, the top one first (frame_mbs_only_flag 0): the IDR frame
+    an I field and a P field predicted from it, then P/P and B/B pairs. Not
+    a camera file: random syntax, every macroblock type and partition,
+    residuals at QP 12-44."""
     W = h264_writer()
     cfg = W.Config(width=size[0], height=size[1], frames=frames, seed=seed, row_repeat=True,
                    p_pcm=0.02, num_ref_default=2, max_refs=3, b_frames=b_frames,
-                   b_full_runs=True, b_pyramid=True, weighted_bipred=2, cavlc=cavlc)
+                   b_full_runs=True, b_pyramid=True, weighted_bipred=2, cavlc=cavlc,
+                   frame_mbs_only=not fields, field_pics=float(fields))
     sps, pps, aus = W.write(cfg)
     return W.mp4(sps, pps, aus, size[0], size[1])
 
@@ -3916,9 +3929,10 @@ def check_h264_fixtures() -> dict:
 
 
 def _time_decode(path) -> tuple:
-    """Decodes ``path`` frame by frame: the frames, each picture's (kind,
-    decode ms) as the decoder timed it when it decoded it, and the wall ms
-    of each frame out with the RGB conversion."""
+    """Decodes ``path`` frame by frame: the frames, each frame's (kinds,
+    decode ms) of its coded pictures (one a frame, two a field pair) as the
+    decoder timed them when it decoded them, and the wall ms of each frame
+    out with the RGB conversion."""
     from fourdgs_tpu_torch.utils import video
 
     decode_ms, imgs, stats = [], [], []
@@ -3937,32 +3951,57 @@ def check_video_host_times(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES,
                            target=(1352, 1014)) -> dict:
     """Phase 18 (b) (module docstring): on this host, ms per frame of the
     :func:`row_video` stream at ``size`` (I, P, B, B in decoding order),
-    coded with CABAC and then with CAVLC from the same draws: each
+    coded with CABAC and then with CAVLC from the same draws, and of one
+    whose frames are coded as field pairs (I/P, P/P, B/B, B/B; CABAC): each
     picture's decode as the decoder timed it when it decoded it (I, P and B
-    apart; a B picture leaves the reorder buffer before the P one it was
-    decoded after), the mean wall per frame out with the RGB conversion,
-    the LANCZOS resize to ``target`` and the PNG write (of the CABAC
-    frames), each timed over every frame. The CAVLC stream's frames equal
-    the CABAC stream's. Returns the ms and the streams' sizes."""
+    apart, each field apart and each pair of fields; a B picture leaves the
+    reorder buffer before the P one it was decoded after), the mean wall
+    per frame out with the RGB conversion, the LANCZOS resize to ``target``
+    and the PNG write (of the CABAC frames), each timed over every frame.
+    The CAVLC stream's frames equal the CABAC stream's. Returns the ms and
+    the streams' sizes."""
     from fourdgs_tpu_torch.utils import png, resample
 
     print(f"    (b) the card's host: decode, resize and PNG write of a {size[0]}x{size[1]} "
-          f"stream, coded with CABAC and with CAVLC", flush=True)
+          f"stream, coded with CABAC and with CAVLC, and of one coded as field pairs",
+          flush=True)
     out, first = {}, None
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_video_") as tmp:
-        for coding in ("cabac", "cavlc"):
+        for coding in ("cabac", "cavlc", "fields"):
             t0 = time.perf_counter()
-            data = row_video(size, frames, b_frames=2, cavlc=coding == "cavlc")
+            data = row_video(size, frames, b_frames=2, cavlc=coding == "cavlc",
+                             fields=coding == "fields")
             write_s = time.perf_counter() - t0
             path = os.path.join(tmp, f"rows_{coding}.mp4")
             with open(path, "wb") as f:
                 f.write(data)
             imgs, stats, decode_ms = _time_decode(path)
-            kinds = "".join(k for k, _ in stats)
-            if len(imgs) != frames or imgs[0].shape != (size[1], size[0], 3) or kinds != "IBBP":
+            kinds = " ".join(k for k, _ in stats)
+            # the anchor after the IDR frame is P or, as the draws have it, I
+            want = ("IP BB BB PP", "IP BB BB IP", "IP BB BB II") if coding == "fields" else \
+                ("I B B P",)
+            if len(imgs) != frames or imgs[0].shape != (size[1], size[0], 3) or kinds not in want:
                 raise AssertionError(f"{coding}: {len(imgs)} frames ({kinds}) of "
                                      f"{imgs[0].shape if imgs else None}")
-            per = {k: float(np.mean([ms for kind, ms in stats if kind == k])) for k in "IPB"}
+            if coding == "fields":
+                # each field by its type, and each frame by its pair's types
+                fld = {k: float(np.mean([m for ks, ms in stats for kk, m in zip(ks, ms)
+                                         if kk == k])) for k in "IPB"}
+                pair = {ks: float(np.mean([sum(ms) for k2, ms in stats if k2 == ks]))
+                        for ks in sorted({k2 for k2, _ in stats})}
+                out.update({"decode_fields_ms": float(np.mean(decode_ms)),
+                            "fields_mbytes": len(data) / 1e6, "fields_write_s": write_s,
+                            **{f"decode_field_{k.lower()}_ms": v for k, v in fld.items()},
+                            **{f"decode_pair_{k.lower()}_ms": v for k, v in pair.items()}})
+                print(f"    FIELDS: {frames} frames out in the order {kinds} "
+                      f"({len(data) / 1e6:.3f} MB, written in {write_s:.2f} s): decode per field "
+                      f"I {fld['I']:.2f} ms, P {fld['P']:.2f}, B {fld['B']:.2f}; per frame "
+                      + ", ".join(f"{k[0]}/{k[1]} {v:.2f}" for k, v in pair.items()) + " (beside "
+                      f"the CABAC frames' I {out['decode_i_ms']:.2f}, P {out['decode_p_ms']:.2f}, "
+                      f"B {out['decode_b_ms']:.2f}); {np.mean(decode_ms):.2f} ms a frame out "
+                      f"with the RGB conversion", flush=True)
+                continue
+            per = {k: float(np.mean([ms[0] for kind, ms in stats if kind == k])) for k in "IPB"}
             pre = "decode_" if coding == "cabac" else "decode_cavlc_"
             out.update({pre + "ms": float(np.mean(decode_ms)), pre + "i_ms": per["I"],
                         pre + "p_ms": per["P"], pre + "b_ms": per["B"]})
@@ -3997,8 +4036,8 @@ def write_video_scene(root, dev, video_size=VIDEO_SIZE, target=(1352, 1014)) -> 
     ``poses_bounds.npy`` and point cloud for ``target`` frames, and
     ``VIDEO_SCENE_CAMS`` videos ``cam00.mp4…`` of ``VIDEO_SCENE_FRAMES``
     pictures at ``video_size`` (:func:`row_video`, a seed a camera; the
-    first I and P pictures coded with CAVLC, the others with B pictures
-    and CABAC) and no ``cam*/images``.
+    first I and P frames coded with CAVLC, the others field pairs I/P, P/P
+    and B/B coded with CABAC) and no ``cam*/images``.
     Returns the videos' paths."""
     write_dynerf_scene(root, dev, n_frames=0, size=target, n_cams=VIDEO_SCENE_CAMS)
     paths = []
@@ -4009,7 +4048,7 @@ def write_video_scene(root, dev, video_size=VIDEO_SIZE, target=(1352, 1014)) -> 
         paths.append(cam_dir + ".mp4")
         with open(paths[-1], "wb") as f:
             f.write(row_video(video_size, VIDEO_SCENE_FRAMES, seed=ci, b_frames=2 if ci else 0,
-                              cavlc=ci == 0))
+                              cavlc=ci == 0, fields=ci > 0))
     return paths
 
 
@@ -4033,7 +4072,8 @@ def check_video_chain(dev, video_size=VIDEO_SIZE, schedule=VIDEO_SCHEDULE) -> di
 
     target = tscene.DYNERF_SIZE
     print(f"    (c) a DyNeRF scene of {VIDEO_SCENE_CAMS} cam*.mp4 at {video_size[0]}x"
-          f"{video_size[1]} (camera 0 CAVLC I and P, camera 1 CABAC I, P and B): load_scene "
+          f"{video_size[1]} (camera 0 CAVLC I and P frames, camera 1 CABAC I/P, P/P and B/B "
+          f"field pairs): load_scene "
           f"extracts, then the CLI chain", flush=True)
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_video_scene_") as tmp:
         data_dir, model_path = os.path.join(tmp, "data"), os.path.join(tmp, "model")

@@ -1,12 +1,14 @@
 """Build helper for the port's host C++ libraries (``native/*.cpp``): the
-PNG prefetcher (``data/fastloader.py``) and the JPEG decoder
-(``utils/jpeg.py``).
+PNG prefetcher (``data/fastloader.py``), the JPEG decoder
+(``utils/jpeg.py``), the H.264 decoder (``utils/video.py``) and the
+resampler (``utils/resample.py``).
 
-A library builds at first use with ``g++ -O2 -shared -fPIC`` and its own
-link flags into ``fourdgs_tpu_torch/_build/``, its name keyed by a hash of
-the source and the flags (as ``ops/_build.py`` keys the kernels), so an
-edited source or flag builds anew. A failed build raises with the
-compiler's output.
+A library builds at first use with ``g++ -O2 -shared -fPIC`` followed by
+its caller's own flags (link flags; ``-O3`` for the H.264 decoder and the
+resampler, which overrides ``-O2``) into ``fourdgs_tpu_torch/_build/``,
+its name keyed by a hash of the source and the flags (as
+``ops/_build.py`` keys the kernels), so an edited source or flag builds
+anew. A failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -33,8 +35,9 @@ def lib_path(src: pathlib.Path, link_flags: tuple = ()) -> pathlib.Path:
 
 
 def build(src: pathlib.Path, link_flags: tuple = ()) -> pathlib.Path:
-    """Build the host C++ file ``src`` with ``g++ -O2 -shared -fPIC`` and
-    ``link_flags`` unless its library exists; returns the library's path.
+    """Build the host C++ file ``src`` with ``g++ -O2 -shared -fPIC``, then
+    ``link_flags`` (the caller's flags, which may override those), unless
+    its library exists; returns the library's path.
     Raises ``RuntimeError`` with the compiler's output if the build fails."""
     lib = lib_path(src, link_flags)
     if lib.exists():

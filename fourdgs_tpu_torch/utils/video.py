@@ -9,15 +9,21 @@ native build helper (``utils/native.py::build``, keyed by a hash of source
 and flags) and loaded with ``ctypes``.
 
 Scope: an MP4 file's first video track or an Annex-B byte stream of
-progressive 8-bit 4:2:0 H.264 coded with CABAC or CAVLC, I, P and B slices
-(what the Baseline, Main and High profiles code, B pictures as x264's
-defaults write them included); its frames come out in the order and number cv2 returns them
+8-bit 4:2:0 H.264 coded with CABAC or CAVLC, I, P and B slices (what the
+Baseline, Main and High profiles code, B pictures as x264's defaults write
+them included), progressive or interlaced without MBAFF: frame pictures
+of streams with ``frame_mbs_only_flag`` 0 and field pictures (PAFF), a
+field pair leaving as one frame of interleaved lines and an unpaired field
+not at all, as libavcodec has them; its frames come out in the order and number cv2 returns them
 (FFmpeg's reorder buffer, which without the VUI's bitstream_restriction
 grows as it meets pictures out of order and drops one whose turn has
 passed) and equal cv2's bit for bit after the conversion cv2's libswscale
 makes (each chroma sample serving its 2x2 block, the VUI's colour matrix
-and range), cropped as the standard says. What the decoder does not read
-raises ``NotImplementedError`` naming the feature: interlace, chroma
+and range), cropped as the standard says. A frame coded as two fields is
+converted the same way: cv2 returns no decode of it (its libswscale
+refuses a frame libavcodec flags interlaced), so such frames are held to
+libavcodec's samples in the tests. What the decoder does not read
+raises ``NotImplementedError`` naming the feature: MBAFF, chroma
 other than 4:2:0, bit depths above 8, the
 lossless transform bypass, slice groups, arbitrary slice order, SP and SI
 slices, data partitioning, gaps in ``frame_num``, a colour matrix cv2
@@ -57,7 +63,10 @@ def get_lib() -> ctypes.CDLL:
             lib.hv_next.restype = ctypes.c_int
             lib.hv_take.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
             lib.hv_take.restype = None
-            lib.hv_info.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_double)]
+            lib.hv_take_yuv.argtypes = [ctypes.c_void_p] * 4
+            lib.hv_take_yuv.restype = None
+            lib.hv_info.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                    ctypes.POINTER(ctypes.c_double)]
             lib.hv_info.restype = ctypes.c_int
             lib.hv_close.argtypes = [ctypes.c_void_p]
             lib.hv_close.restype = None
@@ -72,12 +81,16 @@ def _raise(rc: int, err, path: str):
     raise ValueError(msg)
 
 
-def read_frames(path: str, bgr: bool = False, stats=None):
+def read_frames(path: str, bgr: bool = False, stats=None, planes: bool = False):
     """Yields the video's frames in output order as uint8 [H, W, 3], RGB
     (or BGR, as ``cv2.VideoCapture.read`` gives them). A list ``stats``
-    receives for each frame its first slice's type ("I", "P" or "B") and
-    the ms its decoding took, timed when it was decoded (a frame the reorder
-    buffer holds comes out later)."""
+    receives for each frame ``(kinds, ms)``: one letter and one float for a
+    frame coded as a frame, two for a frame coded as two fields (in
+    decoding order), each coded picture's first slice type ("I", "P" or
+    "B") and the ms its decoding took, timed when it was decoded (a frame
+    the reorder buffer holds comes out later). With ``planes`` each frame
+    is instead its decoded samples, cropped: ``(Y [H, W], U, V [H/2, W/2])``
+    uint8."""
     with open(path, "rb") as f:
         data = f.read()
     lib = get_lib()
@@ -94,10 +107,17 @@ def read_frames(path: str, bgr: bool = False, stats=None):
                 return
             if rc < 0:
                 _raise(rc, err, path)
-            frame = np.empty((h.value, w.value, 3), np.uint8)
             if stats is not None:
-                ms = ctypes.c_double()
-                stats.append((chr(lib.hv_info(handle, ctypes.byref(ms))), ms.value))
+                kinds, ms = ctypes.create_string_buffer(2), (ctypes.c_double * 2)()
+                n = lib.hv_info(handle, kinds, ms)
+                stats.append((kinds.raw[:n].decode(), tuple(ms[:n])))
+            if planes:
+                yuv = (np.empty((h.value, w.value), np.uint8),
+                       *(np.empty((h.value // 2, w.value // 2), np.uint8) for _ in range(2)))
+                lib.hv_take_yuv(handle, *(p.ctypes.data_as(ctypes.c_void_p) for p in yuv))
+                yield yuv
+                continue
+            frame = np.empty((h.value, w.value, 3), np.uint8)
             lib.hv_take(handle, frame.ctypes.data_as(ctypes.c_void_p), int(bgr))
             yield frame
     finally:

@@ -2,11 +2,15 @@
 
 Nothing the tests depend on writes H.264 (cv2's ``VideoWriter`` needs an
 encoder its FFmpeg build may lack), so this module writes the streams the
-port's decoder (``fourdgs_tpu_torch/native/h264.cpp``) is held to: progressive 8-bit
+port's decoder (``fourdgs_tpu_torch/native/h264.cpp``) is held to: 8-bit
 4:2:0 streams of I, P and B slices coded with CABAC or CAVLC (from the same
-draws, so that one seed gives the same pictures in both), as Annex-B byte
-streams or as MP4 files, whose syntax is drawn at random from a seed and a
-:class:`Config`: macroblock types and partitions, intra modes, motion
+draws, so that one seed gives the same pictures in both), progressive or
+with ``frame_mbs_only_flag`` 0 (frames coded as frames or as field pairs:
+field POCs, marking of single fields, field lists and their
+modifications, the field scans' CABAC contexts, unpaired fields), as
+Annex-B byte streams or as MP4 files (a field pair one sample), whose
+syntax is drawn at random from a seed and a :class:`Config`: macroblock
+types and partitions, intra modes, motion
 vectors (far outside the picture too), reference indices, weights,
 residuals, QP deltas, slices and their deblocking controls, scaling lists,
 cropping, POC types, memory management operations, long-term references,
@@ -25,7 +29,8 @@ with the decoder only the context initialisation values (Tables 9-12 to
 disagree with cv2.
 
 Refusal fixtures (:func:`header_only`) hold a parameter set or a slice
-header of a feature the decoder does not read.
+header of a feature the decoder does not read. :func:`pcm_stream` writes
+given samples as I_PCM pictures (for cv2 to convert them).
 """
 
 from __future__ import annotations
@@ -77,6 +82,10 @@ TRANS_LPS = [0, 0, 1, 2, 2, 4, 4, 5, 6, 7, 8, 9, 9, 11, 11, 12, 13, 13, 15, 15, 
 SIG8 = [0, 1, 2, 3, 4, 5, 5, 4, 4, 3, 3, 4, 4, 4, 5, 5, 4, 4, 4, 4, 3, 3, 6, 7, 7, 7, 8, 9,
         10, 9, 8, 7, 7, 6, 11, 12, 13, 11, 6, 7, 8, 9, 14, 10, 9, 8, 6, 11, 12, 13, 11, 6, 9,
         14, 10, 9, 11, 12, 13, 11, 14, 10, 12]
+# ... of a field-coded 8x8 block (Table 9-43's field column)
+SIG8_FIELD = [0, 1, 1, 2, 2, 3, 3, 4, 5, 6, 7, 7, 7, 8, 4, 5, 6, 9, 10, 10, 8, 11, 12, 11, 9, 9,
+              10, 10, 8, 11, 12, 11, 9, 9, 10, 10, 8, 11, 12, 11, 9, 9, 10, 10, 8, 13, 13, 9, 9,
+              10, 10, 8, 13, 13, 9, 9, 10, 10, 14, 14, 14, 14, 14]
 LAST8 = [0] + [1] * 15 + [2] * 16 + [3] * 8 + [4] * 8 + [5] * 4 + [6] * 4 + [7] * 4 + [8] * 3
 ZIGZAG4 = [0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15]
 ZIGZAG8 = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41,
@@ -428,8 +437,24 @@ class Config:
     chroma_format: int = 1
     bit_depth: int = 8
     bypass: bool = False            # qpprime_y_zero_transform_bypass_flag
-    frame_mbs_only: bool = True
     slice_groups: int = 1
+    # interlace (frame_mbs_only False): each frame coded as a frame (with
+    # probability 1 - field_pics; x264's fake-interlaced form) or as two
+    # fields, the bottom one first with probability p_bottom_first; a
+    # non-reference field left unpaired with probability p_lone (its frame
+    # then coded as one field); mb_adaptive_frame_field_flag (mbaff), which
+    # the decoder refuses at the first frame picture
+    frame_mbs_only: bool = True
+    mbaff: bool = False
+    field_pics: float = 0.0
+    p_bottom_first: float = 0.0
+    p_lone: float = 0.0
+    # the temporal-direct twins (mixed_lists 1 and 2): a reference P
+    # picture of two slices whose list 0 orders differ (1), or the same
+    # pictures with the first slice's list made the second's and its
+    # ref_idx remapped (2); their vectors drawn without regard to the
+    # predictions, no P_Skip
+    mixed_lists: int = 0
     # CAVLC (entropy_coding_mode_flag 0) from the same draws as CABAC, and
     # what only it codes: P_8x8ref0 and an 8x8-transform block whose cbp
     # bit is 1 and whose four 4x4 parses are empty
@@ -521,6 +546,9 @@ class Writer:
         self.rng = np.random.default_rng(cfg.seed)
         cw, ch = cfg.width + cfg.crop[0] + cfg.crop[1], cfg.height + cfg.crop[2] + cfg.crop[3]
         self.mbw, self.mbh = -(-cw // 16), -(-ch // 16)
+        if not cfg.frame_mbs_only:
+            self.mbh += self.mbh % 2         # frame height in MB pairs
+        self.frame_mbh = self.mbh
         # the crop brings the coded size to whole macroblocks: extra goes right/bottom
         self.crop = (cfg.crop[0], self.mbw * 16 - cfg.width - cfg.crop[0],
                      cfg.crop[2], self.mbh * 16 - cfg.height - cfg.crop[2])
@@ -559,16 +587,18 @@ class Writer:
         b.ue(c.max_refs)
         b.u(1, 0)                # gaps_in_frame_num_value_allowed_flag
         b.ue(self.mbw - 1)
-        b.ue(self.mbh - 1)
+        b.ue(self.mbh // (1 if c.frame_mbs_only else 2) - 1)
         b.u(1, c.frame_mbs_only)
         if not c.frame_mbs_only:
-            b.u(1, 0)            # mb_adaptive_frame_field_flag
+            b.u(1, c.mbaff)      # mb_adaptive_frame_field_flag
         b.u(1, c.direct_8x8_inference)
         crop = any(self.crop)
         b.u(1, crop)
         if crop:
-            for v in self.crop:
-                b.ue(v // 2)
+            unit_y = 2 if c.frame_mbs_only else 4     # CropUnitY
+            assert all(v % unit_y == 0 for v in self.crop[2:]), self.crop
+            for k, v in enumerate(self.crop):
+                b.ue(v // (2 if k < 2 else unit_y))
         b.u(1, c.vui is not None)
         if c.vui is not None:
             self._vui(b, c.vui)
@@ -693,16 +723,24 @@ class Writer:
     # -------------------------------------------------------------- stream
     def write(self):
         """Returns ``(sps, pps, access_units)``, each access unit a list of
-        NAL units (without start codes)."""
+        NAL units (without start codes; a frame coded as two fields is one
+        access unit of both)."""
         self.weights = self._level_scales()
         self.contexts = {}          # init table (0 I, 1 + cabac_init_idc) -> ctxIdx coded
         self.tables = set()         # CAVLC: the (table, class) pairs coded
-        self.counts = {"8x8ref0": 0, "empty8x8": 0}
-        self.refs = []              # dicts: frame_num, long (LongTermFrameIdx or None)
+        # what only some streams code: CAVLC's P_8x8ref0 and empty 8x8
+        # parses, field pairs, unpaired fields, and B pictures whose
+        # co-located picture is coded in the other structure (a frame's
+        # co-located field pair, a field's co-located frame)
+        self.counts = {"8x8ref0": 0, "empty8x8": 0, "field_pairs": 0, "lone": 0,
+                       "fld_to_frm": 0, "frm_to_fld": 0}
+        self.refs = []              # frame stores with a field marked as reference (_picture)
         self.max_long = None        # MaxLongTermFrameIdx (None: no long-term indices)
         self.prev_ref_frame_num = 0
         self.idr_id = -1
         self.uniform = False
+        self.field, self.par = False, 2
+        self.mixed, self.remap = False, None
         if self.c.b_frames:
             return self.sps(), self.pps(), self._write_b()
         aus, last_nonref = [], False
@@ -743,12 +781,29 @@ class Writer:
         if intra_pic:
             return 2
         if role == "anchor":
-            return 2 if rng.random() < 0.15 else (1 if rng.random() < c.p_b_anchor else 0)
+            if rng.random() < 0.15:
+                return 2
+            b = 1 if rng.random() < c.p_b_anchor else 0
+            # not the second field of a reference pair, whose list 1 starts
+            # with its own first field (_b_slice_header)
+            return 0 if self._own_first() else b
         if rng.random() < c.p_b_slice_mix:
             return int(rng.choice([0, 2]))
         return 1
 
+    def _own_first(self):
+        """Whether the current picture is the second field of a reference
+        pair (its store's first field is marked)."""
+        return self.field and any(self.store["marked"])
+
     def _picture(self, idr, nonref, poc=None, role=None):
+        """A frame: one frame store, coded as a frame or, in an interlaced
+        stream, as two fields (POCs ``poc`` and ``poc + 1``, either parity
+        first; a non-reference one at times left unpaired). Returns the NAL
+        units of its pictures. A store is a dict: frame_num, long
+        (LongTermFrameIdx or None, the whole store's), fpoc (each field's
+        POC or None), poc (the smaller) and marked (each field's marking as
+        reference)."""
         c, rng = self.c, self.rng
         if idr:
             self.refs, self.max_long = [], None
@@ -759,26 +814,60 @@ class Writer:
             frame_num = (self.prev_ref_frame_num + 1) % self.max_frame_num
         self.cur_frame_num = frame_num
         ref_idc = 0 if nonref else int(rng.integers(1, 4))
-        intra_pic = idr or rng.random() < c.p_intra_pic or not self.refs
         # POC type 0 counts up by 2, or by 4 with each reordered non-reference
         # picture between the last two reference ones
-        if poc is not None:
-            self.poc = poc
-        elif idr:
-            self.poc = 0
-        elif nonref and c.reorder:
-            self.poc = self.last_ref_poc - 2
-        else:
-            self.poc = self.top_poc + (4 if c.reorder else 2)
-            self.top_poc = self.poc
+        if poc is None:
+            if idr:
+                poc = 0
+            elif nonref and c.reorder:
+                poc = self.last_ref_poc - 2
+            else:
+                poc = self.top_poc + (4 if c.reorder else 2)
+                self.top_poc = poc
         if not nonref:
-            self.last_ref_poc = self.poc
-        self.delta_bottom = int(rng.integers(0, 3)) if c.bottom_poc else 0
-        mmco = self._mmco() if ref_idc and not idr else None
-        if (ref_idc and not idr and mmco is None and len(self.refs) >= max(c.max_refs, 1)
+            self.last_ref_poc = poc
+        pars = [2]
+        if not c.frame_mbs_only and rng.random() < c.field_pics:
+            pars = [1, 0] if rng.random() < c.p_bottom_first else [0, 1]
+            if nonref and role is None and rng.random() < c.p_lone:
+                pars = pars[:1]
+                self.counts["lone"] += 1
+            else:
+                self.counts["field_pairs"] += 1
+        self.store = {"frame_num": frame_num, "long": None, "fpoc": [None, None], "poc": None,
+                      "marked": [False, False], "fields": pars != [2]}
+        nals = []
+        for k, par in enumerate(pars):
+            nals += self._coded(idr and k == 0, ref_idc, frame_num, par, poc + k, role)
+        return nals
+
+    def _coded(self, idr, ref_idc, frame_num, par, poc, role):
+        """One coded picture of the current store: the frame (``par`` 2) or
+        its field of parity ``par`` (0 top, 1 bottom); its slices, then its
+        marking."""
+        c, rng, st = self.c, self.rng, self.store
+        self.field, self.par = par != 2, par
+        self.mbh = self.frame_mbh // 2 if self.field else self.frame_mbh
+        intra_pic = idr or rng.random() < c.p_intra_pic or not self.refs
+        self.poc = poc
+        self.delta_bottom = int(rng.integers(0, 3)) if c.bottom_poc and not self.field else 0
+        if self.field:
+            st["fpoc"][par] = poc
+        else:
+            st["fpoc"] = [poc, poc + self.delta_bottom]
+        st["poc"] = min(v for v in st["fpoc"] if v is not None)
+        # the second field of a reference pair
+        paired = self.field and any(st["marked"])
+        mmco = None
+        if ref_idc and not idr:
+            mmco = self._mmco_field(paired) if self.field else self._mmco()
+        if (ref_idc and not idr and mmco is None and not paired
+                and len(self.refs) >= max(c.max_refs, 1)
                 and all(r["long"] is not None for r in self.refs)):
             # the sliding window needs a short-term picture to drop
-            mmco = [(2, self.refs[0]["long"])]
+            r = self.refs[0]
+            mmco = [(2, r["long"])] if not self.field else \
+                [(2, 2 * r["long"] + (f == par)) for f in (0, 1) if r["marked"][f]]
         n_mbs = self.mbw * self.mbh
         if c.row_repeat:
             starts = list(range(0, n_mbs, self.mbw))
@@ -786,6 +875,12 @@ class Writer:
             n_slices = int(rng.integers(1, min(c.max_slices, n_mbs) + 1))
             starts = [0] + sorted(int(v) for v in rng.choice(np.arange(1, n_mbs), n_slices - 1,
                                                               replace=False))
+        # the twins' reference P picture: two P slices (Config.mixed_lists)
+        self.mixed = bool(c.mixed_lists and role == "anchor" and ref_idc and not intra_pic
+                          and self._n_refs() >= 2)
+        self.remap = None
+        if self.mixed:
+            starts = [0, n_mbs // 2]
         self.mbs = [None] * n_mbs
         # a reference picture of a stream that may predict in temporal direct
         # mode codes every slice alike (one slice type, the same lists):
@@ -799,19 +894,31 @@ class Writer:
                     stype = self._b_stype(role, intra_pic)
             elif si == 0 or not c.row_repeat:
                 stype = 2 if intra_pic or rng.random() < 0.15 else 0
+            if self.mixed:
+                stype = 0
             nals.append(self._slice(si, first, last, stype, idr, ref_idc, frame_num, mmco))
         if ref_idc:
             self._mark(idr, mmco, frame_num)
+        self.mbh = self.frame_mbh
+        self.mixed, self.remap = False, None
         return nals
 
     # ------------------------------------------------------------ marking
     def _pic_num(self, r):
+        """FrameNumWrap of store ``r``."""
         fn = r["frame_num"]
         return fn - self.max_frame_num if fn > self.cur_frame_num else fn
 
+    def _field_pic_num(self, r, f):
+        """PicNum of field ``f`` of short-term store ``r`` (8.2.4.1), or
+        LongTermPicNum of a long-term one: twice the frame's number, plus 1
+        for the current field's parity."""
+        base = self._pic_num(r) if r["long"] is None else r["long"]
+        return 2 * base + (f == self.par)
+
     def _mmco(self):
-        """Draws an adaptive marking (a list of (op, args)) or None for the
-        sliding window."""
+        """Draws an adaptive marking of a frame (a list of (op, args)) or
+        None for the sliding window."""
         c, rng = self.c, self.rng
         if rng.random() >= c.p_mmco:
             return None
@@ -866,85 +973,262 @@ class Writer:
             refs.remove(r)
         return (ops + tail) or None
 
+    def _mmco_field(self, paired):
+        """Draws an adaptive marking of a field, in field picture numbers,
+        or None for the sliding window. The second field of a reference pair
+        marks none but, where its first field is long-term, itself at that
+        index (MMCO 6, which libavcodec's MMCO_LONG takes to unmark the first
+        field: it takes the store off the long-term list and puts it back
+        with the current field alone). A store's two fields are unmarked or made long-term
+        together (MMCO 3 always: libavcodec moves the whole store), except
+        that MMCO 1 and 2 take single fields in a stream of P field pairs
+        only; MMCO 6 (and a long-term IDR field) only in a stream of fields,
+        where no frame picture meets the store it leaves half marked."""
+        c, rng, st = self.c, self.rng, self.store
+        if paired:
+            return [(6, st["long"])] if st["long"] is not None else None
+        if rng.random() >= c.p_mmco:
+            return None
+        single = c.field_pics >= 1 and not c.b_frames
+        sim = [dict(r, marked=list(r["marked"]), src=r) for r in self.refs]
+        cur_pn = 2 * self.cur_frame_num + 1
+        max_long, ops = self.max_long, []
+
+        def fields(r):
+            fs = [f for f in (0, 1) if r["marked"][f]]
+            return [fs[rng.integers(len(fs))]] if single else fs
+        for _ in range(int(rng.integers(1, 4))):
+            if any(o[0] == 6 for o in ops):
+                break
+            shorts = [r for r in sim if r["long"] is None]
+            longs = [r for r in sim if r["long"] is not None]
+            k = int(rng.choice([1, 2, 3, 4, 6]))
+            if k == 1 and shorts:
+                r = shorts[rng.integers(len(shorts))]
+                for f in fields(r):
+                    ops.append((1, cur_pn - self._field_pic_num(r, f) - 1))
+                    r["marked"][f] = False
+            elif k == 2 and longs:
+                r = longs[rng.integers(len(longs))]
+                for f in fields(r):
+                    ops.append((2, self._field_pic_num(r, f)))
+                    r["marked"][f] = False
+            elif k == 3 and shorts and max_long is not None:
+                r = shorts[rng.integers(len(shorts))]
+                idx = int(rng.integers(0, max_long + 1))
+                for o in sim:
+                    if o["long"] == idx:
+                        o["marked"] = [False, False]
+                for f in (0, 1):
+                    if r["marked"][f]:
+                        ops.append((3, cur_pn - self._field_pic_num(r, f) - 1, idx))
+                r["long"] = idx
+            elif k == 4:
+                m = int(rng.integers(0, 3))
+                ops.append((4, m))
+                max_long = m - 1 if m else None
+                for o in sim:
+                    if o["long"] is not None and (max_long is None or o["long"] > max_long):
+                        o["marked"] = [False, False]
+            elif k == 6 and max_long is not None and c.field_pics >= 1:
+                idx = int(rng.integers(0, max_long + 1))
+                for o in sim:
+                    if o["long"] == idx:
+                        o["marked"] = [False, False]
+                ops.append((6, idx))
+            sim = [r for r in sim if any(r["marked"])]
+        tail = [o for o in ops if o[0] == 6]
+        ops = [o for o in ops if o[0] != 6]
+        while len(sim) + 1 > c.max_refs:
+            shorts = [r for r in sim if r["long"] is None]
+            r = min(shorts, key=self._pic_num) if shorts else sim[0]
+            for f in (0, 1):
+                if r["marked"][f]:
+                    ops.append((1, cur_pn - self._field_pic_num(r, f) - 1) if shorts
+                               else (2, self._field_pic_num(r, f)))
+            sim.remove(r)
+        return (ops + tail) or None
+
     def _mark(self, idr, mmco, frame_num):
-        c = self.c
-        cur = {"frame_num": frame_num, "long": None, "poc": self.poc}
+        """8.2.5 on the stores: the current frame (both fields) or field."""
+        c, st = self.c, self.store
+        pars = [self.par] if self.field else [0, 1]
+        paired = self.field and any(st["marked"])
+
+        def keep(refs):
+            return [r for r in refs if any(r["marked"])]
+
+        def store_of_short(pn):
+            if not self.field:
+                return next(((r, None) for r in self.refs if r["long"] is None
+                             and self._pic_num(r) == pn), (None, None))
+            f = self.par if pn & 1 else 1 - self.par
+            fn = (pn >> 1) % self.max_frame_num
+            return next(((r, f) for r in self.refs if r["long"] is None
+                         and r["frame_num"] == fn), (None, None))
         if idr:
             if self.idr_long:
-                cur["long"] = 0
+                st["long"] = 0
                 self.max_long = 0
-            self.refs = [cur]
+            for f in pars:
+                st["marked"][f] = True
+            self.refs = [st]
             self.prev_ref_frame_num = frame_num
             return
         if mmco is None:
-            if len(self.refs) >= max(c.max_refs, 1):
+            if not paired and len(self.refs) >= max(c.max_refs, 1):
                 shorts = [r for r in self.refs if r["long"] is None]
-                self.refs.remove(min(shorts, key=self._pic_num))
+                oldest = min(shorts, key=self._pic_num)
+                self.refs = [r for r in self.refs if r is not oldest]
         else:
+            cur_pn = 2 * frame_num + 1 if self.field else frame_num
+            max_pn = self.max_frame_num * (2 if self.field else 1)
             for op in mmco:
-                if op[0] == 1:
-                    pn = self.cur_frame_num - (op[1] + 1)
-                    self.refs = [r for r in self.refs
-                                 if not (r["long"] is None and self._pic_num(r) == pn)]
+                if op[0] in (1, 3):
+                    r, f = store_of_short((cur_pn - (op[1] + 1)) % max_pn
+                                          if self.field else cur_pn - (op[1] + 1))
+                    if op[0] == 1:
+                        for g in ((0, 1) if f is None else (f,)):
+                            r["marked"][g] = False
+                    elif r is not None:     # (a second MMCO 3 finds its store long-term)
+                        for o in self.refs:
+                            if o["long"] == op[2] and o is not r:
+                                o["marked"] = [False, False]
+                        r["long"] = op[2]
                 elif op[0] == 2:
-                    self.refs = [r for r in self.refs if r["long"] != op[1]]
-                elif op[0] == 3:
-                    pn = self.cur_frame_num - (op[1] + 1)
-                    self.refs = [r for r in self.refs if r["long"] != op[2]]
-                    for r in self.refs:
-                        if r["long"] is None and self._pic_num(r) == pn:
-                            r["long"] = op[2]
+                    if not self.field:
+                        for o in self.refs:
+                            if o["long"] == op[1]:
+                                o["marked"] = [False, False]
+                    else:
+                        f = self.par if op[1] & 1 else 1 - self.par
+                        for o in self.refs:
+                            if o["long"] == op[1] >> 1:
+                                o["marked"][f] = False
                 elif op[0] == 4:
                     self.max_long = op[1] - 1 if op[1] else None
-                    self.refs = [r for r in self.refs if r["long"] is None or (
-                        self.max_long is not None and r["long"] <= self.max_long)]
+                    for o in self.refs:
+                        if o["long"] is not None and (self.max_long is None
+                                                      or o["long"] > self.max_long):
+                            o["marked"] = [False, False]
                 elif op[0] == 5:
-                    self.refs, self.max_long = [], None
+                    for o in self.refs:
+                        o["marked"] = [False, False]
+                    self.max_long = None
                 elif op[0] == 6:
-                    self.refs = [r for r in self.refs if r["long"] != op[1]]
-                    cur["long"] = op[1]
+                    if paired:
+                        # libavcodec's MMCO_LONG drops the long-term first
+                        # field of the current store (_mmco_field)
+                        st["marked"][1 - self.par] = False
+                    for o in self.refs:
+                        if o["long"] == op[1] and o is not st:
+                            o["marked"] = [False, False]
+                    st["long"] = op[1]
+                self.refs = keep(self.refs)
         if mmco and any(op[0] == 5 for op in mmco):
-            cur["frame_num"] = 0
+            st["frame_num"] = 0
             frame_num = 0
             self.top_poc = self.last_ref_poc = 0
-        self.refs.append(cur)
+        for f in pars:
+            st["marked"][f] = True
+        if not any(r is st for r in self.refs):
+            self.refs.append(st)
         self.prev_ref_frame_num = frame_num
+
+    # -------------------------------------------------------------- lists
+    def _field_views(self, stores):
+        """8.2.4.2.5: the fields of ``stores`` as (store, parity),
+        alternately of the current parity and the other, each side skipping
+        stores without such a marked field."""
+        same, opp = self.par, 1 - self.par
+        out, i0, i1, n = [], 0, 0, len(stores)
+        while i0 < n or i1 < n:
+            while i0 < n and not stores[i0]["marked"][same]:
+                i0 += 1
+            while i1 < n and not stores[i1]["marked"][opp]:
+                i1 += 1
+            if i0 < n:
+                out.append((stores[i0], same))
+                i0 += 1
+            if i1 < n:
+                out.append((stores[i1], opp))
+                i1 += 1
+        return out
+
+    def _views(self, stores):
+        """The reference pictures of ``stores``: frames (stores with both
+        fields marked) or, in a field, fields."""
+        if self.field:
+            return self._field_views(stores)
+        return [r for r in stores if all(r["marked"])]
+
+    def _n_refs(self):
+        """How many reference pictures the current picture has."""
+        if self.field:
+            return sum(sum(r["marked"]) for r in self.refs)
+        return len(self._views(self.refs))
+
+    @staticmethod
+    def _same(a, b):
+        if a is None or b is None:
+            return False
+        if isinstance(a, tuple):
+            return a[0] is b[0] and a[1] == b[1]
+        return a is b
 
     def _ref_list(self, nref, mods, init=None):
         """List 0 of a P slice (or the list ``init`` of a B slice) at
-        ``nref`` entries after the modifications ``mods``."""
+        ``nref`` entries after the modifications ``mods``, in picture
+        numbers of frames or of fields."""
         if init is None:
             shorts = sorted([r for r in self.refs if r["long"] is None], key=self._pic_num,
                             reverse=True)
             longs = sorted([r for r in self.refs if r["long"] is not None],
                            key=lambda r: r["long"])
-            init = shorts + longs
+            init = self._views(shorts) + self._views(longs)
         lst = init[:nref]
         lst += [None] * (nref - len(lst))
-        pred = self.cur_frame_num
+        max_pn = self.max_frame_num * (2 if self.field else 1)
+        pred = 2 * self.cur_frame_num + 1 if self.field else self.cur_frame_num
         for i, (idc, v) in enumerate(mods):
             if idc == 2:
-                pic = next(r for r in self.refs if r["long"] == v)
+                if self.field:
+                    f = self.par if v & 1 else 1 - self.par
+                    pic = next((r, f) for r in self.refs if r["long"] == v >> 1 and r["marked"][f])
+                else:
+                    pic = next(r for r in self.refs if r["long"] == v)
             else:
                 d = v + 1
                 nw = pred - d if idc == 0 else pred + d
-                nw %= self.max_frame_num
+                nw %= max_pn
                 pred = nw
-                pn = nw - self.max_frame_num if nw > self.cur_frame_num else nw
-                pic = next(r for r in self.refs if r["long"] is None and self._pic_num(r) == pn)
-            lst = lst[:i] + [pic] + [r for r in lst[i:] if r is not pic]
+                if self.field:
+                    f = self.par if nw & 1 else 1 - self.par
+                    fn = nw >> 1
+                    pic = next((r, f) for r in self.refs
+                               if r["long"] is None and r["frame_num"] == fn and r["marked"][f])
+                else:
+                    pn = nw - self.max_frame_num if nw > self.cur_frame_num else nw
+                    pic = next(r for r in self.refs
+                               if r["long"] is None and self._pic_num(r) == pn)
+            lst = lst[:i] + [pic] + [r for r in lst[i:] if not self._same(r, pic)]
             lst = lst[:nref]
         return lst
 
     def _b_lists(self, n0, n1, mods0, mods1):
-        """§8.2.4.2.3: the lists of a B slice by POC, list 1 with its first two
-        entries swapped where it equals list 0, then truncated and modified."""
+        """§8.2.4.2.3-4: the lists of a B slice by POC (of the current frame
+        or field, and of each store the smaller of its fields'), list 1 with
+        its first two entries swapped where it equals list 0 store for
+        store, then truncated and modified."""
         shorts = [r for r in self.refs if r["long"] is None]
         longs = sorted([r for r in self.refs if r["long"] is not None], key=lambda r: r["long"])
         before = sorted([r for r in shorts if r["poc"] <= self.poc], key=lambda r: -r["poc"])
         after = sorted([r for r in shorts if r["poc"] > self.poc], key=lambda r: r["poc"])
-        l0, l1 = before + after + longs, after + before + longs
-        if len(l1) > 1 and all(a is b for a, b in zip(l0, l1)):
+        l0 = self._views(before + after) + self._views(longs)
+        l1 = self._views(after + before) + self._views(longs)
+        store = (lambda v: v[0]) if self.field else (lambda v: v)
+        if len(l1) > 1 and len(l0) == len(l1) and all(store(a) is store(b)
+                                                      for a, b in zip(l0, l1)):
             l1[0], l1[1] = l1[1], l1[0]
         return self._ref_list(n0, mods0, l0), self._ref_list(n1, mods1, l1)
 
@@ -952,19 +1236,38 @@ class Writer:
         rng = self.rng
         if rng.random() >= self.c.p_modify:
             return []
+        if self.field:
+            pool = [(r, f) for r in self.refs for f in (0, 1) if r["marked"][f]]
+            picks = [pool[rng.integers(len(pool))] for _ in range(int(rng.integers(1, nref + 1)))]
+        else:
+            picks = [self.refs[rng.integers(len(self.refs))]
+                     for _ in range(int(rng.integers(1, nref + 1)))]
+        return self._mods_for(picks)
+
+    def _mods_for(self, picks):
+        """The ref_pic_list_modification operations that name the reference
+        pictures ``picks`` (stores, or (store, parity) in a field) in turn."""
         mods, pred = [], self.cur_frame_num
-        for _ in range(int(rng.integers(1, nref + 1))):
-            r = self.refs[rng.integers(len(self.refs))]
+        if self.field:
+            pred = 2 * self.cur_frame_num + 1
+        max_pn = self.max_frame_num * (2 if self.field else 1)
+        for pick in picks:
+            if self.field:
+                r, f = pick
+                num = self._field_pic_num(r, f)
+            else:
+                r = pick
+                num = r["long"] if r["long"] is not None else self._pic_num(r)
             if r["long"] is not None:
-                mods.append((2, r["long"]))
+                mods.append((2, num))
                 continue
-            nw = self._pic_num(r) % self.max_frame_num
+            nw = num % max_pn
             if nw < pred:
                 mods.append((0, pred - nw - 1))
             elif nw > pred:
                 mods.append((1, nw - pred - 1))
             else:
-                mods.append((0, self.max_frame_num - 1))      # wraps back to pred
+                mods.append((0, max_pn - 1))      # wraps back to pred
             pred = nw
         return mods
 
@@ -986,30 +1289,48 @@ class Writer:
         b.ue(stype)
         b.ue(0)
         b.u(c.log2_max_frame_num, frame_num)
+        if not c.frame_mbs_only:
+            b.u(1, self.field)   # field_pic_flag
+            if self.field:
+                b.u(1, self.par)     # bottom_field_flag
         if idr:
             b.ue(self.idr_id)
         if c.poc_type == 0:
             b.u(c.log2_max_poc_lsb, self.poc % self.max_poc_lsb)
-            if c.bottom_poc:
+            if c.bottom_poc and not self.field:
                 b.se(self.delta_bottom)
         elif c.poc_type == 1:
             b.se(0)
-            if c.bottom_poc:
+            if c.bottom_poc and not self.field:
                 b.se(self.delta_bottom)
         self.list0 = []
         if stype == 1:
             self._b_slice_header(b, si)
         elif stype == 0:
-            if self.uniform and si > 0:
+            if (self.uniform or self.mixed) and si > 0:
                 nref, override, mods = self._uniform_lists
+                self.remap = None
             else:
-                nrefs = len(self.refs)
+                nrefs = self._n_refs()
                 nref = int(rng.integers(1, min(nrefs, 4) + 1))
                 override = nref != c.num_ref_default or rng.random() < 0.2
                 if not override:
                     nref = c.num_ref_default
-                mods = self._draw_mods(nref)
-                self._uniform_lists = (nref, override, mods)
+                if self.mixed:
+                    # slice 0 on the initial list, slice 1 on it reversed; the
+                    # twin codes slice 0 on slice 1's list, its ref_idx
+                    # remapped to the same pictures
+                    nref, override = max(nref, 2), True
+                    init = self._ref_list(nref, [])
+                    mods = self._mods_for(init[::-1])
+                    self._uniform_lists = (nref, override, mods)
+                    if c.mixed_lists == 1:
+                        mods = []
+                    else:
+                        self.remap = {i: nref - 1 - i for i in range(nref)}
+                else:
+                    mods = self._draw_mods(nref)
+                    self._uniform_lists = (nref, override, mods)
             b.u(1, override)
             if override:
                 b.ue(nref - 1)
@@ -1027,6 +1348,7 @@ class Writer:
             if idr:
                 if si == 0:
                     self.idr_long = self.rng.random() < 0.3 and self.c.p_mmco > 0
+                    self.idr_long &= not self.field or self.c.field_pics >= 1
                 b.u(1, 0)
                 b.u(1, self.idr_long)
             else:
@@ -1149,13 +1471,18 @@ class Writer:
         if self.uniform and si > 0:
             n, override, mods = self._uniform_lists
         else:
-            nrefs = len(self.refs)
+            nrefs = self._n_refs()
             n = [int(rng.integers(1, min(nrefs, 4) + 1)) for _ in range(2)]
             override = (n[0] != c.num_ref_default or n[1] != c.num_ref_l1_default
                         or rng.random() < 0.2)
             if not override:
                 n = [c.num_ref_default, c.num_ref_l1_default]
             mods = [self._draw_mods(n[0]), self._draw_mods(n[1])]
+            if self._own_first() and self._b_lists(*n, *mods)[1][0][0] is self.store:
+                # libavcodec would read the co-located macroblocks of a
+                # field's own first field from the current field's rows of
+                # its store, not yet written
+                mods[1] = []
             self._uniform_lists = (n, override, mods)
         b.u(1, override)
         if override:
@@ -1169,6 +1496,10 @@ class Writer:
             if m:
                 b.ue(3)
         self.lists = list(self._b_lists(n[0], n[1], mods[0], mods[1]))
+        assert not (self._own_first() and self.lists[1][0][0] is self.store)
+        col = self.lists[1][0][0] if self.field else self.lists[1][0]
+        if col["fields"] != self.field:
+            self.counts["frm_to_fld" if self.field else "fld_to_frm"] += 1
         self.nrefs = n
         if c.weighted_bipred == 1:
             self._weight_table(b, n)
@@ -1209,7 +1540,7 @@ class Writer:
         self.mbs[addr] = cur
         A, B = self.mb_nb(addr, -1, 0, si), self.mb_nb(addr, 0, -1, si)
         if self.stype != 2:
-            skip = rng.random() < c.p_skip
+            skip = rng.random() < c.p_skip and not self.mixed
             self._skip(A, B, skip)
             if skip:
                 cur.kind = "skip"
@@ -1540,6 +1871,8 @@ class Writer:
         refs = []
         for (x, y, w, h) in parts:
             ref = 0 if ref0 else int(rng.choice(usable))
+            if self.remap is not None and self.stype == 0 and not ref0:
+                ref = self.remap[ref]
             refs.append(ref)
             if self.nref > 1 and not ref0:
                 self._ref_idx(cur, addr, x, y, ref)
@@ -1557,7 +1890,10 @@ class Writer:
                 subparts = [(x, y, w, h)]
             for (sx, sy, sw, sh) in subparts:
                 mvp = self._mvp(cur, addr, sx, sy, sw, sh, refs[pi], part, pi, done)
-                if rng.random() < c.p_far_mv:
+                if self.mixed:
+                    # the twins' vectors, the same whatever the predictions
+                    mv = (int(rng.integers(-64, 65)), int(rng.integers(-64, 65)))
+                elif rng.random() < c.p_far_mv:
                     mv = (int(rng.integers(-4 * (self.mbw * 16 + 160), 4 * (self.mbw * 16 + 160))),
                           int(rng.integers(-4 * (self.mbh * 16 + 160), 4 * (self.mbh * 16 + 160))))
                 else:
@@ -1894,19 +2230,23 @@ class Writer:
         if not flag:
             return
         last = max(i for i in range(n) if coeffs[i])
+        # a field macroblock's significance contexts (ctxIdxOffset 277 and
+        # 338; 436 and 451 with Table 9-43's field column for cat 5)
+        sig0, last0 = (277, 338) if self.field else (105, 166)
+        sig8, sig80, last80 = (SIG8_FIELD, 436, 451) if self.field else (SIG8, 402, 417)
         for i in range(n - 1):
             sig = int(coeffs[i] != 0)
             if cat == 5:
-                enc.decision(402 + SIG8[i], sig)
+                enc.decision(sig80 + sig8[i], sig)
             else:
                 inc = min(i, 2) if cat == 3 else i
-                enc.decision(105 + SIG_CAT[cat] + inc, sig)
+                enc.decision(sig0 + SIG_CAT[cat] + inc, sig)
             if sig:
                 if cat == 5:
-                    enc.decision(417 + LAST8[i], i == last)
+                    enc.decision(last80 + LAST8[i], i == last)
                 else:
                     inc = min(i, 2) if cat == 3 else i
-                    enc.decision(166 + SIG_CAT[cat] + inc, i == last)
+                    enc.decision(last0 + SIG_CAT[cat] + inc, i == last)
                 if i == last:
                     break
         gt1 = eq1 = 0
@@ -2142,7 +2482,7 @@ def write(cfg: Config):
 
 # each feature the decoder refuses: the words its message holds
 REFUSALS = {
-    "interlace": "interlace",
+    "mbaff": "MBAFF",
     "chroma_422": "4:2:0",
     "bit_depth_10": "bit depth",
     "transform_bypass": "lossless transform bypass",
@@ -2195,7 +2535,7 @@ def header_only(feature: str):
     picture the writer codes before it."""
     small = dict(width=32, height=32, frames=1, max_slices=1)
     cfg = Config(**small, **{
-        "interlace": {"frame_mbs_only": False},
+        "mbaff": {"frame_mbs_only": False, "mbaff": True},
         "chroma_422": {"chroma_format": 2, "profile": 122},
         "bit_depth_10": {"bit_depth": 10, "profile": 110},
         "transform_bypass": {"bypass": True, "profile": 244},
@@ -2223,3 +2563,49 @@ def header_only(feature: str):
         return mp4(sps, pps, aus, 32, 32, codec=b"mp4v" if feature == "codec_mp4v"
                    else b"hvc1"), ".mp4"
     return annexb(sps, pps, aus), ".h264"
+
+
+# ---------------------------------------------------------- sample streams
+
+
+def pcm_stream(frames, vui=None):
+    """An MP4 of progressive IDR pictures of I_PCM macroblocks (Baseline,
+    CAVLC, no deblocking) holding the samples ``frames``, each ``(Y, U, V)``
+    uint8 planes of one size (even), padded to whole macroblocks and cropped
+    back; ``vui`` as :class:`Config`'s. A decoder returns the samples
+    themselves, so cv2 reading it converts them to BGR as it converts any
+    progressive frame."""
+    h, w = frames[0][0].shape
+    c = Config(width=w, height=h, profile=66, cavlc=True, transform8x8=False, vui=vui,
+               max_refs=1, log2_max_frame_num=4, log2_max_poc_lsb=4)
+    wr = Writer(c)
+    mbw, mbh = wr.mbw, wr.mbh
+    aus = []
+    for i, (y, u, v) in enumerate(frames):
+        planes = []
+        for p, s in ((y, 16), (u, 8), (v, 8)):
+            full = np.zeros((mbh * s, mbw * s), np.uint8)
+            full[:p.shape[0], :p.shape[1]] = p
+            planes.append(full)
+        b = Bits()
+        b.ue(0)                  # first_mb_in_slice
+        b.ue(7)                  # I, every slice of the picture
+        b.ue(0)
+        b.u(4, 0)                # frame_num
+        b.ue(i % 2)              # idr_pic_id
+        b.u(4, 0)                # pic_order_cnt_lsb
+        b.u(1, 0)                # no_output_of_prior_pics_flag
+        b.u(1, 0)                # long_term_reference_flag
+        b.se(0)                  # slice_qp_delta
+        b.ue(1)                  # disable_deblocking_filter_idc
+        for my in range(mbh):
+            for mx in range(mbw):
+                b.ue(25)         # I_PCM
+                while len(b.bits) % 8:
+                    b.bits.append(0)
+                for p, s in zip(planes, (16, 8, 8)):
+                    blk = p[my * s:(my + 1) * s, mx * s:(mx + 1) * s]
+                    b.bits.extend(np.unpackbits(blk.reshape(-1)).tolist())
+        b.trailing()
+        aus.append([nal(3, 5, b.tobytes())])
+    return mp4(wr.sps(), wr.pps(), aus, w, h)

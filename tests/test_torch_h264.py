@@ -22,6 +22,18 @@ libswscale), and the committed fixtures of ``tests/torch_fixtures/h264``.
   B slice of a progressive 4:2:0 stream reaches, and the CAVLC ones every
   table class (coeff_token by nC, total_zeros, run_before, each
   suffixLength, level_prefix 14, 15 and above).
+- Interlace (``frame_mbs_only_flag`` 0): fixtures of frame pictures, of
+  field pairs (I, P and B, either parity first, field marking and lists,
+  POC types 0-2, reorder buffers, unpaired fields) and of both mixed, with
+  CABAC and CAVLC, and sixteen random streams of each coding. cv2 returns
+  no decode of a frame coded as two fields (its libswscale refuses a frame
+  libavcodec flags interlaced): such frames are held to the samples of
+  cv2's own libavcodec (``tests/avcodec_oracle.py``) and to cv2's
+  conversion of them; frames coded as frames to cv2's frames. MBAFF
+  raises at the first frame picture it codes.
+- Temporal direct prediction from a reference picture whose two slices
+  order list 0 differently decodes as its twin coded on one list, where
+  libavcodec, keeping one set of lists a picture, does not.
 - CAVLC: sixteen random streams over the Baseline, Main and High profiles;
   streams coded with CAVLC from a CABAC stream's draws decode to its
   pictures; an 8x8 block of cbp bit 1 and four empty parses deblocks as
@@ -41,6 +53,7 @@ libswscale), and the committed fixtures of ``tests/torch_fixtures/h264``.
 """
 
 import os
+import tempfile
 
 import cv2
 import numpy as np
@@ -48,6 +61,7 @@ import pytest
 
 import chip_smoke as CS
 from fourdgs_tpu_torch.utils import video
+from tests import avcodec_oracle as AO
 from tests import h264_writer as HW
 from tests.test_torch_cli import one_torch_thread  # noqa: F401  (autouse)
 
@@ -156,29 +170,116 @@ FIXTURES_CAVLC = {
     "cavlc_annexb": (dict(seed=0, cavlc=True, profile=66, transform8x8=False, width=30,
                           height=20, frames=6, p_idr=0.3), "h264", {}),
 }
-ALL_FIXTURES = {**FIXTURES, **FIXTURES_B, **FIXTURES_CAVLC}
-# the CABAC contexts an I, P or B slice of a progressive 4:2:0 stream codes
-# (Table 9-34): all of 0-276 and 399-435 but SI's mb_type prefix (0-2) and
-# MBAFF's mb_field_decoding_flag (70-72)
-REACHABLE = (set(range(3, 70)) | set(range(73, 277)) | set(range(399, 436))) - {276}
+# the streams with frame_mbs_only_flag 0, each naming its seed: frames
+# coded as frames only (x264's fake-interlaced form, a bottom crop of 4);
+# I/I and I/P field pairs of both parities first; P fields over several
+# references with list modifications, MMCO 1-4 and 6 on fields and
+# long-term fields; B field pairs with spatial and temporal direct and
+# implicit weights; frames and field pairs mixed (PAFF) with temporal
+# direct across the two structures; POC types 1 and 2 in fields; fields out
+# of display order without the VUI's bitstream_restriction and with it;
+# unpaired fields; mb_adaptive_frame_field_flag 1 with field pictures only;
+# and CAVLC forms of these
+_I = dict(frame_mbs_only=False)
+_F = dict(frame_mbs_only=False, field_pics=1.0)
+FIXTURES_FIELD = {
+    "fake_interlaced": (dict(seed=0, **_I, width=44, height=60, frames=8, b_frames=2,
+                             direct_spatial=False, max_refs=3, num_ref_default=2, p_modify=0.4,
+                             bottom_poc=True), "mp4", {}),
+    "field_intra": (dict(seed=1, **_F, width=40, height=44, frames=4, p_intra_pic=1.0,
+                         p_bottom_first=0.5, p_pcm=0.08, max_slices=3, qp_range=(0, 51)), "mp4", {}),
+    "field_ip": (dict(seed=0, **_F, width=48, height=32, frames=8, p_idr=0.4, p_bottom_first=0.5,
+                      num_ref_default=2, max_refs=3, p_skip=0.3), "mp4", {}),
+    "field_mmco": (dict(seed=0, **_F, width=32, height=32, frames=14, p_mmco=0.6, p_modify=0.5,
+                        max_refs=4, num_ref_default=3, p_bottom_first=0.3, weighted=True),
+                   "mp4", {}),
+    "field_b_spatial": (dict(seed=0, **_F, width=48, height=32, frames=9, b_frames=2,
+                             b_pyramid=True, p_direct=0.3, p_skip=0.3, max_refs=4,
+                             num_ref_default=2, num_ref_l1_default=2, p_bottom_first=0.5),
+                        "mp4", {}),
+    "field_b_temporal": (dict(seed=0, **_F, width=48, height=32, frames=9, b_frames=3,
+                              direct_spatial=False, weighted_bipred=2, p_direct=0.4, p_skip=0.3,
+                              max_refs=3, p_mmco=0.4, p_modify=0.4), "mp4", {}),
+    "paff_temporal": (dict(seed=2, **_I, field_pics=0.5, width=48, height=32, frames=12,
+                           b_frames=2, direct_spatial=False, p_direct=0.4, p_skip=0.3,
+                           p_bottom_first=0.5, max_refs=3, num_ref_default=2), "mp4", {}),
+    "field_poc1": (dict(seed=0, **_F, width=32, height=32, frames=8, poc_type=1, poc1_t2b=1,
+                        p_nonref=0.4), "h264", {}),
+    "field_poc2": (dict(seed=0, **_F, width=32, height=32, frames=8, poc_type=2, p_nonref=0.4,
+                        p_idr=0.2), "mp4", {}),
+    "field_reorder_novui": (dict(seed=0, **_F, width=32, height=32, frames=10, reorder=True,
+                                 p_nonref=0.5), "mp4", {}),
+    "field_vui": (dict(seed=0, **_F, width=32, height=32, frames=8, b_frames=2,
+                       vui={"reorder": 1}), "mp4", {}),
+    "field_lone": (dict(seed=0, **_I, field_pics=0.7, width=32, height=32, frames=10,
+                        p_nonref=0.5, p_lone=0.8), "mp4", {}),
+    "mbaff_fields": (dict(seed=0, **_F, mbaff=True, width=32, height=32, frames=4), "mp4", {}),
+    "cavlc_fake_interlaced": (dict(seed=0, **_I, cavlc=True, profile=77, transform8x8=False,
+                                   width=44, height=60, frames=6, b_frames=1,
+                                   direct_spatial=None), "mp4", {}),
+    "cavlc_field_ip": (dict(seed=0, **_F, cavlc=True, profile=77, transform8x8=False, width=48,
+                            height=32, frames=8, p_idr=0.3, p_bottom_first=0.5,
+                            num_ref_default=2, max_refs=3), "mp4", {}),
+    "cavlc_field_mmco": (dict(seed=0, **_F, cavlc=True, profile=100, width=32, height=32,
+                              frames=12, p_mmco=0.6, p_modify=0.5, max_refs=4,
+                              num_ref_default=3), "mp4", {}),
+    "cavlc_field_b": (dict(seed=0, **_F, cavlc=True, profile=77, transform8x8=False, width=48,
+                           height=32, frames=8, b_frames=2, direct_spatial=None,
+                           weighted_bipred=2, p_direct=0.3), "mp4", {}),
+    "cavlc_paff": (dict(seed=0, **_I, cavlc=True, profile=100, field_pics=0.5, width=48,
+                        height=32, frames=10, b_frames=2, direct_spatial=False,
+                        p_bottom_first=0.5), "h264", {}),
+}
+ALL_FIXTURES = {**FIXTURES, **FIXTURES_B, **FIXTURES_CAVLC, **FIXTURES_FIELD}
+# the CABAC contexts an I, P or B slice of a 4:2:0 stream without MBAFF
+# codes (Table 9-34): all of 0-459 but SI's mb_type prefix (0-2), MBAFF's
+# mb_field_decoding_flag (70-72) and end_of_slice_flag (276); 277-398 and
+# 436-459 are those of field macroblocks
+REACHABLE = set(range(3, 70)) | set(range(73, 276)) | set(range(277, 460))
 
 
 def fixture_config(name, seed_base=180):
-    if name in FIXTURES_B or name in FIXTURES_CAVLC:
+    if name not in FIXTURES:
         return HW.Config(**ALL_FIXTURES[name][0])
     fields, _, _ = FIXTURES[name]
     return HW.Config(seed=seed_base + sorted(FIXTURES).index(name), **fields)
 
 
+def fixture_stream(name):
+    """The fixture ``name``'s ``(sps, pps, access units)`` and its writer."""
+    w = HW.Writer(fixture_config(name))
+    return w.write(), w
+
+
 def fixture_bytes(name):
     """The fixture ``name`` as the writer writes it, and the writer."""
     _, kind, options = ALL_FIXTURES[name]
-    cfg = fixture_config(name)
-    w = HW.Writer(cfg)
-    sps, pps, aus = w.write()
+    (sps, pps, aus), w = fixture_stream(name)
     if kind == "h264":
         return HW.annexb(sps, pps, aus), w
-    return HW.mp4(sps, pps, aus, cfg.width, cfg.height, **options), w
+    return HW.mp4(sps, pps, aus, w.c.width, w.c.height, **options), w
+
+
+def has_fields(w) -> bool:
+    """Whether the writer ``w`` coded a field picture."""
+    return w.counts["field_pairs"] + w.counts["lone"] > 0
+
+
+def avcodec_planes(stream):
+    """cv2's libavcodec's decode of ``(sps, pps, access units)`` as planes."""
+    return AO.decode(AO.annexb_packets(*stream))
+
+
+def field_reference(stream, vui):
+    """The frames of ``stream`` (which codes field pictures, which cv2
+    returns none of) as cv2 converts libavcodec's decode of them (an I_PCM
+    stream of its samples, read by cv2), and that decode's planes."""
+    planes = avcodec_planes(stream)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "pcm.mp4")
+        with open(path, "wb") as f:
+            f.write(HW.pcm_stream(planes, vui))
+        return cv2_frames(path), planes
 
 
 def fixture_path(name):
@@ -200,15 +301,21 @@ def cv2_frames(path):
 def write_committed_fixtures(out_dir=H264_FIXTURES):
     """Write ``tests/torch_fixtures/h264``: each stream of
     :data:`ALL_FIXTURES` and ``cv2_decode.npz``, cv2's BGR frames of each by
-    name ([frames, H, W, 3])."""
+    name ([frames, H, W, 3]); of a stream that codes field pictures, cv2's
+    conversion of libavcodec's decode (:func:`field_reference`)."""
     os.makedirs(out_dir, exist_ok=True)
     decodes = {}
     for name in sorted(ALL_FIXTURES):
-        data, _ = fixture_bytes(name)
+        data, w = fixture_bytes(name)
         path = os.path.join(out_dir, name + "." + ALL_FIXTURES[name][1])
         with open(path, "wb") as f:
             f.write(data)
-        decodes[name] = np.stack(cv2_frames(path))
+        live = cv2_frames(path)
+        if has_fields(w):
+            frames, _ = field_reference(fixture_stream(name)[0], w.c.vui)
+            assert len(frames) == len(live), name
+            live = frames
+        decodes[name] = np.stack(live)
     np.savez_compressed(os.path.join(out_dir, "cv2_decode.npz"), **decodes)
 
 
@@ -218,23 +325,38 @@ def committed():
         return {k: z[k] for k in z.files}
 
 
+def _same_planes(got, want, what=""):
+    assert len(got) == len(want), (what, len(got), len(want))
+    for i, (a, b) in enumerate(zip(got, want)):
+        for p in range(3):
+            np.testing.assert_array_equal(a[p], b[p], err_msg=f"{what} frame {i} plane {p}")
+
+
 @pytest.mark.parametrize("name", sorted(ALL_FIXTURES))
 def test_fixture_matches_cv2(name, committed):
+    """Each fixture's frames: cv2's committed decode, and cv2's live one in
+    number and, of each frame coded as a frame, in value; a frame coded as
+    two fields (which cv2 returns none of) has libavcodec's samples."""
     path = fixture_path(name)
-    got = np.stack(list(video.read_frames(path, bgr=True)))
+    stats = []
+    got = np.stack(list(video.read_frames(path, bgr=True, stats=stats)))
     want = committed[name]
     assert got.shape == want.shape, (got.shape, want.shape)
     np.testing.assert_array_equal(got, want)
     live = cv2_frames(path)
     assert len(live) == len(got)
     for i, frame in enumerate(live):
-        np.testing.assert_array_equal(got[i], frame, err_msg=f"{name} frame {i}")
+        if len(stats[i][0]) == 1:
+            np.testing.assert_array_equal(got[i], frame, err_msg=f"{name} frame {i}")
+    if name in FIXTURES_FIELD and any(len(k) == 2 for k, _ in stats):
+        _same_planes(list(video.read_frames(path, planes=True)),
+                     avcodec_planes(fixture_stream(name)[0]), name)
     rgb = np.stack(list(video.read_frames(path)))
     np.testing.assert_array_equal(rgb, got[..., ::-1])
 
 
 @pytest.mark.parametrize("name", ["intra", "mmco", "poc1", "scaling_pps",
-                                  *sorted(FIXTURES_CAVLC)])
+                                  *sorted(FIXTURES_CAVLC), "field_mmco", "cavlc_paff"])
 def test_writer_rewrites_fixture(name):
     data, _ = fixture_bytes(name)
     with open(fixture_path(name), "rb") as f:
@@ -249,15 +371,19 @@ def test_writer_rewrites_b_fixture(name):
 
 
 def test_fixtures_code_every_context():
-    used, tables = set(), set()
+    used, tables, field = set(), set(), set()
     for name in ALL_FIXTURES:
-        _, w = fixture_bytes(name)
+        _, w = fixture_stream(name)
         for table, ctxs in w.contexts.items():
             used |= ctxs
             tables.add(table)
+            if name in FIXTURES_FIELD:
+                field |= ctxs
     assert tables == {0, 1, 2, 3}           # I slices and cabac_init_idc 0, 1 and 2
     assert not REACHABLE - used, sorted(REACHABLE - used)
     assert used <= REACHABLE
+    # the field macroblocks' significance contexts, from the field streams
+    assert set(range(277, 399)) | set(range(436, 460)) <= field
 
 
 # the CAVLC table classes an I, P or B slice of a progressive 4:2:0 stream
@@ -389,6 +515,135 @@ def test_random_cavlc_streams_match_cv2(tmp_path, seed):
     _same_as_cv2(tmp_path, _random_cavlc_config(seed))
 
 
+def _random_field_config(seed, cavlc):
+    """Streams with frame_mbs_only_flag 0 as the random ones draw them:
+    field pairs of either parity first, frames among them (PAFF) or none,
+    B pictures with spatial or temporal direct and each weighting, POC
+    types 0-2, several references, modifications and MMCOs."""
+    rng = np.random.default_rng(5000 + seed + 100 * cavlc)
+    b_frames = int(rng.integers(1, 4)) if rng.random() < 0.5 else 0
+    profile = 77 if cavlc and rng.random() < 0.5 else 100
+    return HW.Config(
+        seed=seed, cavlc=cavlc, profile=profile, frame_mbs_only=False,
+        field_pics=float(rng.choice([1.0, 0.5, 0.8])),
+        p_bottom_first=float(rng.choice([0, 0.5, 1.0])), frames=int(rng.integers(3, 9)),
+        width=int(rng.choice([16, 32, 48, 64])), height=int(rng.choice([32, 48, 64, 28, 44])),
+        transform8x8=profile == 100 and bool(rng.random() < 0.7),
+        weighted=bool(rng.random() < 0.3), b_frames=b_frames, b_pyramid=bool(rng.random() < 0.5),
+        direct_spatial=[True, False, None][int(rng.integers(3))],
+        weighted_bipred=int(rng.integers(0, 3)), num_ref_default=int(rng.integers(1, 4)),
+        num_ref_l1_default=int(rng.integers(1, 3)), p_mmco=float(rng.choice([0, 0.5])),
+        p_modify=float(rng.choice([0, 0.4])), max_refs=int(rng.integers(2, 6)),
+        constrained_intra=bool(rng.random() < 0.2),
+        qp_range=[(12, 44), (0, 51), (30, 51)][int(rng.integers(3))],
+        p_far_mv=float(rng.choice([0, 0.2])), p_skip=float(rng.random() * 0.5),
+        p_direct=float(rng.random() * 0.4), p_intra_in_p=float(rng.random() * 0.2),
+        max_slices=int(rng.integers(1, 4)), p_b_slice_mix=float(rng.choice([0, 0.3])),
+        p_b_anchor=float(rng.choice([0, 0.4])), p_idr=float(rng.choice([0, 0.2])),
+        bottom_poc=bool(rng.random() < 0.3),
+        p_nonref=0.0 if b_frames else float(rng.choice([0, 0.3])),
+        poc_type=0 if b_frames else int(rng.choice([0, 1, 2])), poc1_t2b=1,
+        chroma_qp_offset=int(rng.integers(-6, 7)))
+
+
+def _same_as_avcodec(tmp_path, cfg):
+    """The stream ``cfg`` draws as MP4: the port's frames have the samples
+    of cv2's libavcodec, as many as cv2 returns, and each frame coded as a
+    frame is cv2's BGR frame."""
+    stream = HW.write(cfg)
+    path = tmp_path / "f.mp4"
+    path.write_bytes(HW.mp4(*stream, cfg.width, cfg.height))
+    stats = []
+    got = list(video.read_frames(str(path), bgr=True, stats=stats))
+    live = cv2_frames(path)
+    assert len(got) == len(live)
+    for i, (a, b) in enumerate(zip(got, live)):
+        if len(stats[i][0]) == 1:
+            np.testing.assert_array_equal(a, b, err_msg=f"frame {i}")
+    _same_planes(list(video.read_frames(str(path), planes=True)), avcodec_planes(stream))
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_random_field_streams_match_cv2(tmp_path, seed):
+    _same_as_avcodec(tmp_path, _random_field_config(seed, cavlc=False))
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_random_cavlc_field_streams_match_cv2(tmp_path, seed):
+    _same_as_avcodec(tmp_path, _random_field_config(seed, cavlc=True))
+
+
+def test_cv2_returns_no_frame_coded_as_fields(tmp_path):
+    """cv2 returns as many frames as the port for a stream of field pairs,
+    but none of them is the decode: libswscale refuses to convert a frame
+    libavcodec flags interlaced and cv2 returns a buffer it did not write.
+    The port's frames are cv2's conversion of libavcodec's decode."""
+    cfg = HW.Config(seed=1, width=48, height=32, frames=4, frame_mbs_only=False, field_pics=1.0)
+    stream = HW.write(cfg)
+    path = tmp_path / "f.mp4"
+    path.write_bytes(HW.mp4(*stream, cfg.width, cfg.height))
+    got = list(video.read_frames(str(path), bgr=True))
+    live = cv2_frames(path)
+    want, _ = field_reference(stream, None)
+    assert len(got) == len(live) == len(want) == cfg.frames
+    for a, b, c in zip(got, want, live):
+        np.testing.assert_array_equal(a, b)
+        assert not np.array_equal(a, c)
+
+
+def test_mbaff_flag_with_field_pictures_decodes(tmp_path):
+    """mb_adaptive_frame_field_flag 1 in a stream of field pictures only
+    decodes (the ``mbaff_fields`` fixture); its first frame picture, which
+    MBAFF codes, raises NotImplementedError naming MBAFF."""
+    cfg = HW.Config(seed=4, width=32, height=32, frames=6, frame_mbs_only=False, mbaff=True,
+                    field_pics=0.5)
+    w = HW.Writer(cfg)
+    sps, pps, aus = w.write()
+    assert 0 < w.counts["field_pairs"] < cfg.frames       # a frame picture among the fields
+    path = tmp_path / "m.mp4"
+    path.write_bytes(HW.mp4(sps, pps, aus, cfg.width, cfg.height))
+    with pytest.raises(NotImplementedError, match="MBAFF"):
+        list(video.read_frames(str(path)))
+
+
+@pytest.mark.parametrize("structure", ["frame", "field"])
+def test_temporal_direct_reads_each_slices_lists(tmp_path, structure):
+    """A reference P picture of two slices whose list 0 orders differ, and
+    B pictures that predict from it in temporal direct mode; and its twin,
+    the first slice coded on the second's list with its ref_idx remapped to
+    the same pictures. The port decodes both to the same frames (the
+    standard reads each co-located block's reference in its own slice's
+    list); cv2 decodes the twin to those frames and the original otherwise
+    (libavcodec keeps one set of lists a picture). Field-coded, the same of
+    libavcodec's samples, on one thread and on four."""
+    field = structure == "field"
+    got, ref = {}, {}
+    for mode in (1, 2):
+        cfg = HW.Config(seed=0, width=64, height=64 if field else 48, frames=7, b_frames=2,
+                        b_full_runs=True, direct_spatial=False, mixed_lists=mode, max_refs=4,
+                        num_ref_default=3, p_direct=0.6, p_skip=0.4, p_intra_in_p=0.0,
+                        max_slices=1, qp_range=(20, 30), frame_mbs_only=not field,
+                        field_pics=float(field))
+        stream = HW.write(cfg)
+        path = tmp_path / f"t{mode}.mp4"
+        path.write_bytes(HW.mp4(*stream, cfg.width, cfg.height))
+        if field:
+            got[mode] = list(video.read_frames(str(path), planes=True))
+            ref[mode] = [AO.decode(AO.annexb_packets(*stream), threads=t) for t in (1, 4)]
+        else:
+            got[mode] = [(f,) for f in video.read_frames(str(path), bgr=True)]
+            ref[mode] = [[(f,) for f in cv2_frames(path)]]
+    assert len(got[1]) == len(got[2]) == 7
+
+    def same(a, b):
+        return len(a) == len(b) and all(np.array_equal(x[p], y[p]) for x, y in zip(a, b)
+                                        for p in range(len(x)))
+    assert same(got[1], got[2])
+    for twin, original in zip(ref[2], ref[1]):
+        assert same(twin, got[2])
+        assert not same(original, got[1])
+
+
 @pytest.mark.parametrize("offsets", [(0, 0), (2, -1)], ids=["fast_filter", "general_filter"])
 def test_cavlc_8x8_empty_block_deblocks_as_cv2(tmp_path, offsets):
     """P pictures whose 8x8-transform blocks of cbp bit 1 are at times four
@@ -493,8 +748,9 @@ def test_chip_smoke_phase_18a_on_cpu(committed):
 
 def test_chip_smoke_phase_18_on_cpu(monkeypatch, capsys):
     """Phase 18 (b) and (c) on the CPU at a small size: the host's times of
-    a row-repeated I, P, B, B stream coded with CABAC and with CAVLC, and a
-    scene of videos (one coded with CAVLC, one with B pictures) extracted by
+    a row-repeated I, P, B, B stream coded with CABAC and with CAVLC and of
+    one coded as field pairs, and a scene of videos (one coded with CAVLC,
+    one as field pairs with B pictures) extracted by
     ``load_scene`` then trained on the plain path (the dynerf preset's
     widths cut as ``tests/test_torch_dynerf_cli.py`` cuts them), K1 and K2
     held to their plain versions at a step of its model."""
@@ -508,11 +764,15 @@ def test_chip_smoke_phase_18_on_cpu(monkeypatch, capsys):
     host = CS.check_video_host_times(size=(96, 72), frames=4, target=(48, 36))
     assert all(host[k] > 0 for k in ("decode_ms", "decode_i_ms", "decode_p_ms", "decode_b_ms",
                                      "decode_cavlc_i_ms", "decode_cavlc_p_ms",
-                                     "decode_cavlc_b_ms", "resize_ms", "png_ms"))
+                                     "decode_cavlc_b_ms", "decode_fields_ms",
+                                     "decode_field_i_ms", "decode_field_p_ms",
+                                     "decode_field_b_ms", "decode_pair_ip_ms",
+                                     "decode_pair_bb_ms", "resize_ms",
+                                     "png_ms"))
     codings = []
     row_video = CS.row_video
     monkeypatch.setattr(CS, "row_video", lambda *a, **k: codings.append(
-        (k.get("b_frames"), k.get("cavlc"))) or row_video(*a, **k))
+        (k.get("b_frames"), k.get("cavlc"), k.get("fields"))) or row_video(*a, **k))
     monkeypatch.setattr(tscene, "DYNERF_SIZE", (48, 36))
     for name in ("ITERS", "REPS", "WARMUP"):
         monkeypatch.setattr(scripts, name, 1)
@@ -522,6 +782,6 @@ def test_chip_smoke_phase_18_on_cpu(monkeypatch, capsys):
                                  schedule=OVERRIDES)
     out = capsys.readouterr().out
     assert chain["cli"] == (0, 0)                                  # the plain path
-    assert codings == [(0, True), (2, False)]           # camera 0 CAVLC, camera 1 B
+    assert codings == [(0, True, False), (2, False, True)]   # camera 0 CAVLC, 1 B fields
     assert "each the resized decode of its video" in out
     assert np.isfinite(chain["psnr"]) and chain["extract_s"] > 0
