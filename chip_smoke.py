@@ -321,7 +321,9 @@ on failure:
    field pairs mixed, field marking and lists, direct prediction across
    the two structures, unpaired fields; a frame coded as fields held to
    cv2's conversion of libavcodec's decode, which cv2 itself cannot
-   return). (b) The host's ms per 2704×2028 frame of a
+   return); and the MBAFF ones (frames of field and frame macroblock pairs,
+   CABAC and CAVLC, I, P and B, alone and mixed with field pairs, held to
+   libavcodec likewise). (b) The host's ms per 2704×2028 frame of a
    stream ``tests/h264_writer.py`` writes there (:func:`row_video`: I, P,
    B, B in decoding order, of one-row slices; spatial direct, implicit
    weights and a referenced B picture as x264's defaults have them; not a
@@ -332,10 +334,13 @@ on failure:
    the PNG write; and of the same kind of stream coded as field pairs (I/P,
    P/P, B/B, B/B; frame_mbs_only_flag 0): each field's decode by its type
    and each pair's (``decode_field_*_ms``, ``decode_pair_*_ms``) beside
-   the frames'. (c) A DyNeRF scene of two ``cam*.mp4`` at 2704×2028 of
+   the frames'; and of it coded as MBAFF frames (mb_adaptive_frame_field_flag
+   1, each macroblock pair field-coded with probability 0.5; CABAC; I, B, B,
+   P out): each frame's decode by its type (``decode_mbaff_*_ms``). (c) A
+   DyNeRF scene of two ``cam*.mp4`` at 2704×2028 of
    ``VIDEO_SCENE_FRAMES`` frames, the first coded with CAVLC (I and P
-   frames), the second with CABAC as field pairs (I/P, P/P, B/B), and no
-   frames on disk
+   frames), the second with CABAC as an I/P field pair then MBAFF P and B
+   frames, and no frames on disk
    (:func:`write_video_scene`) through ``load_scene``, which extracts each
    camera's frames (each equal to its video's decode resized), then
    ``train_torch.py`` → ``render_torch.py``
@@ -3857,7 +3862,8 @@ H264_FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "h264")
 VIDEO_SIZE = (2704, 2028)          # a Neu3D camera's cam*.mp4
 VIDEO_HOST_FRAMES = 4              # phase 18 (b)'s stream: I, P, B, B in decoding order
 VIDEO_SCENE_CAMS, VIDEO_SCENE_FRAMES = 2, 3   # phase 18 (c)'s scene (camera 0: CAVLC I, P
-                                              # frames; camera 1: CABAC I/P, P/P, B/B fields)
+                                              # frames; camera 1: CABAC I/P fields, then
+                                              # MBAFF P and B frames)
 VIDEO_SCHEDULE = ("opt.coarse_iterations=2", "opt.iterations=4",
                   "opt.position_lr_max_steps=4", 'opt.custom_sampler="fine"')
 
@@ -3877,7 +3883,7 @@ def h264_writer():
 
 
 def row_video(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES, seed=0, b_frames=0,
-              cavlc=False, fields=False) -> bytes:
+              cavlc=False, fields=False, mbaff=False) -> bytes:
     """An MP4 of ``frames`` pictures at ``size`` written by
     ``tests/h264_writer.py`` on this host (High profile): an IDR picture
     then P pictures (with ``b_frames``, runs of that many B pictures, each
@@ -3887,14 +3893,19 @@ def row_video(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES, seed=0, b_frames=0,
     depends on no other slice), with CABAC or, with ``cavlc``, CAVLC from
     the same draws (the same pictures). With ``fields`` each frame is coded
     as two fields, the top one first (frame_mbs_only_flag 0): the IDR frame
-    an I field and a P field predicted from it, then P/P and B/B pairs. Not
-    a camera file: random syntax, every macroblock type and partition,
+    an I field and a P field predicted from it, then P/P and B/B pairs. With
+    ``mbaff`` the frames are MBAFF frames, each macroblock pair coded as
+    frame or as field macroblocks with probability 0.5 (and with ``fields``
+    too, the IDR frame as the I/P field pair, the others MBAFF). Not a
+    camera file: random syntax, every macroblock type and partition,
     residuals at QP 12-44."""
     W = h264_writer()
     cfg = W.Config(width=size[0], height=size[1], frames=frames, seed=seed, row_repeat=True,
                    p_pcm=0.02, num_ref_default=2, max_refs=3, b_frames=b_frames,
                    b_full_runs=True, b_pyramid=True, weighted_bipred=2, cavlc=cavlc,
-                   frame_mbs_only=not fields, field_pics=float(fields))
+                   frame_mbs_only=not (fields or mbaff),
+                   field_pics=float(fields and not mbaff), mbaff=mbaff,
+                   idr_fields=fields and mbaff)
     sps, pps, aus = W.write(cfg)
     return W.mp4(sps, pps, aus, size[0], size[1])
 
@@ -3951,8 +3962,9 @@ def check_video_host_times(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES,
                            target=(1352, 1014)) -> dict:
     """Phase 18 (b) (module docstring): on this host, ms per frame of the
     :func:`row_video` stream at ``size`` (I, P, B, B in decoding order),
-    coded with CABAC and then with CAVLC from the same draws, and of one
-    whose frames are coded as field pairs (I/P, P/P, B/B, B/B; CABAC): each
+    coded with CABAC and then with CAVLC from the same draws, of one whose
+    frames are coded as field pairs (I/P, P/P, B/B, B/B; CABAC) and of one
+    of MBAFF frames (CABAC, pairs field-coded with probability 0.5): each
     picture's decode as the decoder timed it when it decoded it (I, P and B
     apart, each field apart and each pair of fields; a B picture leaves the
     reorder buffer before the P one it was decoded after), the mean wall
@@ -3963,14 +3975,14 @@ def check_video_host_times(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES,
     from fourdgs_tpu_torch.utils import png, resample
 
     print(f"    (b) the card's host: decode, resize and PNG write of a {size[0]}x{size[1]} "
-          f"stream, coded with CABAC and with CAVLC, and of one coded as field pairs",
-          flush=True)
+          f"stream, coded with CABAC and with CAVLC, and of one coded as field pairs and one "
+          f"of MBAFF frames", flush=True)
     out, first = {}, None
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_video_") as tmp:
-        for coding in ("cabac", "cavlc", "fields"):
+        for coding in ("cabac", "cavlc", "fields", "mbaff"):
             t0 = time.perf_counter()
             data = row_video(size, frames, b_frames=2, cavlc=coding == "cavlc",
-                             fields=coding == "fields")
+                             fields=coding == "fields", mbaff=coding == "mbaff")
             write_s = time.perf_counter() - t0
             path = os.path.join(tmp, f"rows_{coding}.mp4")
             with open(path, "wb") as f:
@@ -4002,11 +4014,12 @@ def check_video_host_times(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES,
                       f"with the RGB conversion", flush=True)
                 continue
             per = {k: float(np.mean([ms[0] for kind, ms in stats if kind == k])) for k in "IPB"}
-            pre = "decode_" if coding == "cabac" else "decode_cavlc_"
+            pre = {"cabac": "decode_", "cavlc": "decode_cavlc_", "mbaff": "decode_mbaff_"}[coding]
             out.update({pre + "ms": float(np.mean(decode_ms)), pre + "i_ms": per["I"],
                         pre + "p_ms": per["P"], pre + "b_ms": per["B"]})
-            out["mbytes" if coding == "cabac" else "cavlc_mbytes"] = len(data) / 1e6
-            out["write_s" if coding == "cabac" else "cavlc_write_s"] = write_s
+            tag = "" if coding == "cabac" else coding + "_"
+            out[tag + "mbytes"] = len(data) / 1e6
+            out[tag + "write_s"] = write_s
             print(f"    {coding.upper()}: {frames} frames out in the order {kinds} "
                   f"({len(data) / 1e6:.3f} MB, written in {write_s:.2f} s): decode I "
                   f"{per['I']:.2f} ms, P {per['P']:.2f}, B {per['B']:.2f} (each timed as it "
@@ -4014,7 +4027,7 @@ def check_video_host_times(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES,
                   f"conversion", flush=True)
             if first is None:
                 first = imgs
-            elif not all(np.array_equal(a, b) for a, b in zip(imgs, first)):
+            elif coding == "cavlc" and not all(np.array_equal(a, b) for a, b in zip(imgs, first)):
                 raise AssertionError("the CAVLC stream's frames are not the CABAC stream's")
         resize_ms, write_ms = [], []
         for i, img in enumerate(first):
@@ -4036,8 +4049,8 @@ def write_video_scene(root, dev, video_size=VIDEO_SIZE, target=(1352, 1014)) -> 
     ``poses_bounds.npy`` and point cloud for ``target`` frames, and
     ``VIDEO_SCENE_CAMS`` videos ``cam00.mp4…`` of ``VIDEO_SCENE_FRAMES``
     pictures at ``video_size`` (:func:`row_video`, a seed a camera; the
-    first I and P frames coded with CAVLC, the others field pairs I/P, P/P
-    and B/B coded with CABAC) and no ``cam*/images``.
+    first I and P frames coded with CAVLC, the others an I/P field pair then
+    MBAFF P and B frames coded with CABAC) and no ``cam*/images``.
     Returns the videos' paths."""
     write_dynerf_scene(root, dev, n_frames=0, size=target, n_cams=VIDEO_SCENE_CAMS)
     paths = []
@@ -4047,8 +4060,9 @@ def write_video_scene(root, dev, video_size=VIDEO_SIZE, target=(1352, 1014)) -> 
         os.rmdir(cam_dir)
         paths.append(cam_dir + ".mp4")
         with open(paths[-1], "wb") as f:
-            f.write(row_video(video_size, VIDEO_SCENE_FRAMES, seed=ci, b_frames=2 if ci else 0,
-                              cavlc=ci == 0, fields=ci > 0))
+            f.write(row_video(video_size, VIDEO_SCENE_FRAMES, seed=2 * ci,
+                              b_frames=2 if ci else 0, cavlc=ci == 0, fields=ci > 0,
+                              mbaff=ci > 0))
     return paths
 
 
@@ -4072,8 +4086,8 @@ def check_video_chain(dev, video_size=VIDEO_SIZE, schedule=VIDEO_SCHEDULE) -> di
 
     target = tscene.DYNERF_SIZE
     print(f"    (c) a DyNeRF scene of {VIDEO_SCENE_CAMS} cam*.mp4 at {video_size[0]}x"
-          f"{video_size[1]} (camera 0 CAVLC I and P frames, camera 1 CABAC I/P, P/P and B/B "
-          f"field pairs): load_scene "
+          f"{video_size[1]} (camera 0 CAVLC I and P frames, camera 1 a CABAC I/P field pair "
+          f"then MBAFF P and B frames): load_scene "
           f"extracts, then the CLI chain", flush=True)
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_video_scene_") as tmp:
         data_dir, model_path = os.path.join(tmp, "data"), os.path.join(tmp, "model")
@@ -4776,7 +4790,9 @@ def main() -> int:
                          "host_ms_per_frame": {k: video_host[k] for k in (
                              "decode_ms", "decode_i_ms", "decode_p_ms", "decode_b_ms",
                              "decode_cavlc_ms", "decode_cavlc_i_ms", "decode_cavlc_p_ms",
-                             "decode_cavlc_b_ms", "resize_ms", "png_ms")}},
+                             "decode_cavlc_b_ms", "decode_mbaff_ms", "decode_mbaff_i_ms",
+                             "decode_mbaff_p_ms", "decode_mbaff_b_ms", "resize_ms",
+                             "png_ms")}},
     }, {
         "name": "blend_backward",
         "route": "cuda",

@@ -11,19 +11,21 @@ and flags) and loaded with ``ctypes``.
 Scope: an MP4 file's first video track or an Annex-B byte stream of
 8-bit 4:2:0 H.264 coded with CABAC or CAVLC, I, P and B slices (what the
 Baseline, Main and High profiles code, B pictures as x264's defaults write
-them included), progressive or interlaced without MBAFF: frame pictures
-of streams with ``frame_mbs_only_flag`` 0 and field pictures (PAFF), a
-field pair leaving as one frame of interleaved lines and an unpaired field
-not at all, as libavcodec has them; its frames come out in the order and number cv2 returns them
+them included), progressive or interlaced: frame pictures of streams
+with ``frame_mbs_only_flag`` 0, with or without MBAFF (macroblock pairs
+coded as frame or field macroblocks, as x264 codes interlace), and field
+pictures (PAFF) among them, a field pair leaving as one frame of
+interleaved lines and an unpaired field not at all, as libavcodec has
+them; its frames come out in the order and number cv2 returns them
 (FFmpeg's reorder buffer, which without the VUI's bitstream_restriction
 grows as it meets pictures out of order and drops one whose turn has
 passed) and equal cv2's bit for bit after the conversion cv2's libswscale
 makes (each chroma sample serving its 2x2 block, the VUI's colour matrix
-and range), cropped as the standard says. A frame coded as two fields is
-converted the same way: cv2 returns no decode of it (its libswscale
-refuses a frame libavcodec flags interlaced), so such frames are held to
-libavcodec's samples in the tests. What the decoder does not read
-raises ``NotImplementedError`` naming the feature: MBAFF, chroma
+and range), cropped as the standard says. A frame coded as two fields or
+as an MBAFF frame is converted the same way: cv2 returns no decode of it
+(its libswscale refuses a frame libavcodec flags interlaced), so such
+frames are held to libavcodec's samples in the tests. What the decoder
+does not read raises ``NotImplementedError`` naming the feature: chroma
 other than 4:2:0, bit depths above 8, the
 lossless transform bypass, slice groups, arbitrary slice order, SP and SI
 slices, data partitioning, gaps in ``frame_num``, a colour matrix cv2

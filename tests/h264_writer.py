@@ -5,9 +5,10 @@ encoder its FFmpeg build may lack), so this module writes the streams the
 port's decoder (``fourdgs_tpu_torch/native/h264.cpp``) is held to: 8-bit
 4:2:0 streams of I, P and B slices coded with CABAC or CAVLC (from the same
 draws, so that one seed gives the same pictures in both), progressive or
-with ``frame_mbs_only_flag`` 0 (frames coded as frames or as field pairs:
-field POCs, marking of single fields, field lists and their
-modifications, the field scans' CABAC contexts, unpaired fields), as
+with ``frame_mbs_only_flag`` 0 (frames coded as frames, as MBAFF frames of
+field and frame macroblock pairs, or as field pairs: field POCs, marking
+of single fields, field lists and their modifications, the field scans'
+CABAC contexts, unpaired fields), as
 Annex-B byte streams or as MP4 files (a field pair one sample), whose
 syntax is drawn at random from a seed and a :class:`Config`: macroblock
 types and partitions, intra modes, motion
@@ -442,10 +443,13 @@ class Config:
     # probability 1 - field_pics; x264's fake-interlaced form) or as two
     # fields, the bottom one first with probability p_bottom_first; a
     # non-reference field left unpaired with probability p_lone (its frame
-    # then coded as one field); mb_adaptive_frame_field_flag (mbaff), which
-    # the decoder refuses at the first frame picture
+    # then coded as one field); mb_adaptive_frame_field_flag (mbaff): each
+    # frame picture then of macroblock pairs, each pair field-coded with
+    # probability p_field_mb
     frame_mbs_only: bool = True
     mbaff: bool = False
+    p_field_mb: float = 0.5
+    idr_fields: bool = False        # every IDR frame coded as two fields
     field_pics: float = 0.0
     p_bottom_first: float = 0.0
     p_lone: float = 0.0
@@ -477,6 +481,7 @@ class Config:
 @dataclass
 class MB:
     slice: int
+    fld: int = 0                # mb_field_decoding_flag (an MBAFF frame's field MB)
     kind: str = "skip"          # skip, P, I4, I8, I16, PCM
     subs: tuple = ()
     cbpl: int = 0
@@ -731,15 +736,20 @@ class Writer:
         # what only some streams code: CAVLC's P_8x8ref0 and empty 8x8
         # parses, field pairs, unpaired fields, and B pictures whose
         # co-located picture is coded in the other structure (a frame's
-        # co-located field pair, a field's co-located frame)
+        # co-located field pair, a field's co-located frame), MBAFF frames,
+        # their field and frame MBs, and the B slices of an MBAFF frame
+        # whose co-located picture is an MBAFF frame or a field pair, and of
+        # a field whose co-located picture is an MBAFF frame
         self.counts = {"8x8ref0": 0, "empty8x8": 0, "field_pairs": 0, "lone": 0,
-                       "fld_to_frm": 0, "frm_to_fld": 0}
+                       "fld_to_frm": 0, "frm_to_fld": 0, "mbaff_frames": 0, "field_mbs": 0,
+                       "frame_mbs": 0, "mbaff_from_mbaff": 0, "mbaff_from_fields": 0,
+                       "fields_from_mbaff": 0}
         self.refs = []              # frame stores with a field marked as reference (_picture)
         self.max_long = None        # MaxLongTermFrameIdx (None: no long-term indices)
         self.prev_ref_frame_num = 0
         self.idr_id = -1
         self.uniform = False
-        self.field, self.par = False, 2
+        self.field, self.par, self.aff = False, 2, False
         self.mixed, self.remap = False, None
         if self.c.b_frames:
             return self.sps(), self.pps(), self._write_b()
@@ -827,7 +837,8 @@ class Writer:
         if not nonref:
             self.last_ref_poc = poc
         pars = [2]
-        if not c.frame_mbs_only and rng.random() < c.field_pics:
+        fields = not c.frame_mbs_only and rng.random() < c.field_pics
+        if fields or (idr and c.idr_fields):
             pars = [1, 0] if rng.random() < c.p_bottom_first else [0, 1]
             if nonref and role is None and rng.random() < c.p_lone:
                 pars = pars[:1]
@@ -835,7 +846,8 @@ class Writer:
             else:
                 self.counts["field_pairs"] += 1
         self.store = {"frame_num": frame_num, "long": None, "fpoc": [None, None], "poc": None,
-                      "marked": [False, False], "fields": pars != [2]}
+                      "marked": [False, False], "fields": pars != [2],
+                      "mbaff": pars == [2] and c.mbaff}
         nals = []
         for k, par in enumerate(pars):
             nals += self._coded(idr and k == 0, ref_idc, frame_num, par, poc + k, role)
@@ -847,6 +859,8 @@ class Writer:
         marking."""
         c, rng, st = self.c, self.rng, self.store
         self.field, self.par = par != 2, par
+        self.aff = c.mbaff and par == 2           # a frame of macroblock pairs
+        self.counts["mbaff_frames"] += self.aff
         self.mbh = self.frame_mbh // 2 if self.field else self.frame_mbh
         intra_pic = idr or rng.random() < c.p_intra_pic or not self.refs
         self.poc = poc
@@ -869,18 +883,20 @@ class Writer:
             mmco = [(2, r["long"])] if not self.field else \
                 [(2, 2 * r["long"] + (f == par)) for f in (0, 1) if r["marked"][f]]
         n_mbs = self.mbw * self.mbh
+        unit = 2 if self.aff else 1               # slices of whole pairs
         if c.row_repeat:
-            starts = list(range(0, n_mbs, self.mbw))
+            starts = list(range(0, n_mbs, self.mbw * unit))
         else:
-            n_slices = int(rng.integers(1, min(c.max_slices, n_mbs) + 1))
-            starts = [0] + sorted(int(v) for v in rng.choice(np.arange(1, n_mbs), n_slices - 1,
-                                                              replace=False))
+            n_units = n_mbs // unit
+            n_slices = int(rng.integers(1, min(c.max_slices, n_units) + 1))
+            starts = [0] + sorted(unit * int(v) for v in rng.choice(np.arange(1, n_units),
+                                                                     n_slices - 1, replace=False))
         # the twins' reference P picture: two P slices (Config.mixed_lists)
         self.mixed = bool(c.mixed_lists and role == "anchor" and ref_idc and not intra_pic
                           and self._n_refs() >= 2)
         self.remap = None
         if self.mixed:
-            starts = [0, n_mbs // 2]
+            starts = [0, n_mbs // (2 * unit) * unit]
         self.mbs = [None] * n_mbs
         # a reference picture of a stream that may predict in temporal direct
         # mode codes every slice alike (one slice type, the same lists):
@@ -900,7 +916,7 @@ class Writer:
         if ref_idc:
             self._mark(idr, mmco, frame_num)
         self.mbh = self.frame_mbh
-        self.mixed, self.remap = False, None
+        self.mixed, self.remap, self.aff = False, None, False
         return nals
 
     # ------------------------------------------------------------ marking
@@ -1275,7 +1291,7 @@ class Writer:
     def _slice(self, si, first, last, stype, idr, ref_idc, frame_num, mmco):
         c, rng = self.c, self.rng
         b = Bits()
-        b.ue(first)
+        b.ue(first // 2 if self.aff else first)   # an MBAFF frame counts pairs
         if c.row_repeat and si > 0:
             # a slice's data depends on no other slice: the first row's header
             # (less first_mb_in_slice) and data, which under CABAC start
@@ -1378,8 +1394,11 @@ class Writer:
             # the data follows the header unaligned; a run of skipped MBs
             # before each coded one (P and B slices) may end the slice
             self.skip_run, self.pcm_pads = 0, []
-            for addr in range(first, last):
-                self._macroblock(si, addr)
+            for addr in range(first, last, 2 if self.aff else 1):
+                if self.aff:
+                    self._pair(si, addr)
+                else:
+                    self._macroblock(si, addr)
             if self.skip_run:
                 b.ue(self.skip_run)
             data_end = len(b.bits)
@@ -1403,7 +1422,11 @@ class Writer:
         enc = CabacEncoder(b)
         enc.init_contexts(CABAC_INIT[table], slice_qp, self.contexts.setdefault(table, set()))
         self.enc = enc
-        for addr in range(first, last):
+        for addr in range(first, last, 2 if self.aff else 1):
+            if self.aff:     # end_of_slice_flag after each pair
+                self._pair(si, addr)
+                enc.terminate(1 if addr == last - 2 else 0)
+                continue
             self._macroblock(si, addr)
             enc.terminate(1 if addr == last - 1 else 0)
         # the terminate's last bit was rbsp_stop_one_bit
@@ -1500,12 +1523,77 @@ class Writer:
         col = self.lists[1][0][0] if self.field else self.lists[1][0]
         if col["fields"] != self.field:
             self.counts["frm_to_fld" if self.field else "fld_to_frm"] += 1
+        if self.aff:
+            self.counts["mbaff_from_fields" if col["fields"] else "mbaff_from_mbaff"] += \
+                col["fields"] or col["mbaff"]
+        elif self.field and col["mbaff"]:
+            self.counts["fields_from_mbaff"] += 1
         self.nrefs = n
         if c.weighted_bipred == 1:
             self._weight_table(b, n)
 
     # ----------------------------------------------------------- neighbours
+    def _aff_nb(self, addr, xN, yN, maxW=16, maxH=16):
+        """§6.4.12.2 (Table 6-4), in an MBAFF frame: ``(MB, xW, yW)`` of the
+        sample (xN, yN) relative to MB ``addr`` in its own lines, of a block
+        ``maxW`` x ``maxH`` (16 luma, 8 chroma), or None where it is not
+        available."""
+        cur = self.mbs[addr]
+        if 0 <= xN < maxW and 0 <= yN < maxH:
+            return cur, xN, yN
+        if yN >= maxH or (xN >= maxW and yN >= 0):
+            return None
+        p = addr // 2
+        px, prow = p % self.mbw, p // self.mbw
+        top, frame = addr % 2 == 0, not cur.fld
+
+        def pair(dx, dy):
+            x, y = px + dx, prow + dy
+            if x < 0 or x >= self.mbw or y < 0:
+                return None
+            a = 2 * (y * self.mbw + x)
+            m = self.mbs[a]
+            return a if m is not None and m.slice == cur.slice else None
+        n, yM = None, yN
+        if yN < 0:
+            X = pair(-1, -1) if xN < 0 else pair(0, -1) if xN < maxW else pair(1, -1)
+            if frame and not top:
+                if xN < 0:
+                    X = pair(-1, 0)
+                    if X is not None and self.mbs[X].fld:
+                        n, yM = X + 1, (yN + maxH) >> 1
+                    else:
+                        n = X
+                elif xN < maxW:
+                    n = addr - 1
+            elif X is not None:
+                if frame or not top:
+                    n = X + 1
+                elif not self.mbs[X].fld:
+                    n, yM = X + 1, 2 * yN
+                else:
+                    n = X
+        else:
+            A = pair(-1, 0)
+            if A is not None:
+                af = self.mbs[A].fld
+                if frame and not af:
+                    n = A if top else A + 1
+                elif frame:
+                    n, yM = A + (yN & 1), (yN >> 1 if top else (yN + maxH) >> 1)
+                elif not af:
+                    y2 = 2 * yN + (0 if top else 1)
+                    n, yM = (A, y2) if yN < maxH // 2 else (A + 1, y2 - maxH)
+                else:
+                    n = A if top else A + 1
+        if n is None:
+            return None
+        return self.mbs[n], (xN + maxW) % maxW, (yM + maxH) % maxH
+
     def mb_nb(self, addr, dx, dy, si):
+        if self.aff:
+            nb = self._aff_nb(addr, -1 if dx < 0 else 16 if dx > 0 else 0, -1 if dy < 0 else 0)
+            return None if nb is None else nb[0]
         x, y = addr % self.mbw + dx, addr // self.mbw + dy
         if x < 0 or x >= self.mbw or y < 0:
             return None
@@ -1515,6 +1603,9 @@ class Writer:
     def blk_nb(self, cur, addr, x, y):
         """The MB and 4x4 raster index holding luma sample (x, y) relative to
         the current MB, or None where it is not available."""
+        if self.aff:
+            nb = self._aff_nb(addr, x, y)
+            return None if nb is None else (nb[0], (nb[2] // 4) * 4 + nb[1] // 4)
         if x >= 16 and y >= 0:
             return None
         dx = -1 if x < 0 else (1 if x >= 16 else 0)
@@ -1529,6 +1620,9 @@ class Writer:
         (dx, dy) from block ``r``'s corner, or None where it is not
         available."""
         x, y = (r % 2) * 4 + dx, (r // 2) * 4 + dy
+        if self.aff:
+            nb = self._aff_nb(addr, x, y, 8, 8)
+            return None if nb is None else (nb[0], (nb[2] // 4) * 2 + nb[1] // 4)
         m = cur if x >= 0 and y >= 0 else \
             self.mb_nb(addr, -1 if x < 0 else 0, -1 if y < 0 else 0, cur.slice)
         return None if m is None else (m, (y % 8) // 4 * 2 + (x % 8) // 4)
@@ -1543,13 +1637,91 @@ class Writer:
             skip = rng.random() < c.p_skip and not self.mixed
             self._skip(A, B, skip)
             if skip:
-                cur.kind = "skip"
-                if self.stype == 1:
-                    self._b_direct(cur, range(4))
-                else:
-                    self._p_skip_mv(cur, addr)
-                self.prev_mb = cur
-                return
+                return self._skipped(cur, addr)
+        self._body(cur, si, addr, A, B)
+
+    def _skipped(self, cur, addr):
+        cur.kind = "skip"
+        if self.stype == 1:
+            self._b_direct(cur, range(4))
+        else:
+            self._p_skip_mv(cur, addr)
+        self.prev_mb = cur
+
+    def _ab(self, addr, si):
+        return self.mb_nb(addr, -1, 0, si), self.mb_nb(addr, 0, -1, si)
+
+    def _pair(self, si, top):
+        """An MBAFF frame's macroblock pair ``top``, ``top + 1``. Its
+        mb_field_decoding_flag goes with the top MB or, where that is
+        skipped, with the bottom one; where both are skipped it is inferred
+        (§7.4.4). Under CABAC a skipped top MB's mb_skip_flag is followed by
+        the bottom's (its contexts from the inferred flag) and then the
+        flag, as libavcodec reads them."""
+        c, rng = self.c, self.rng
+        inferred = self._infer_fld(top, si)
+        fld = int(rng.random() < c.p_field_mb)
+        skip = [False, False]
+        if self.stype != 2:
+            skip = [bool(rng.random() < c.p_skip) for _ in range(2)]
+        if skip[0] and skip[1]:
+            fld = inferred
+        t, b = MB(si, fld=inferred), MB(si, fld=inferred)
+        self.mbs[top] = t
+        self.counts["field_mbs" if fld else "frame_mbs"] += 2
+        if skip[0]:
+            self._skip(*self._ab(top, si), True)
+            self.mbs[top + 1] = b
+            if not self.cavlc:
+                self._skip(*self._ab(top + 1, si), skip[1])
+            elif not skip[1]:
+                self._skip(None, None, False)      # the run before the bottom MB
+            if not skip[1]:
+                self._field_flag(top, si, fld)
+            t.fld = b.fld = fld
+            self._skipped(t, top)
+            if skip[1]:
+                if self.cavlc:
+                    self.skip_run += 1
+                return self._skipped(b, top + 1)
+            return self._body(b, si, top + 1, *self._ab(top + 1, si))
+        if self.stype != 2:
+            self._skip(*self._ab(top, si), False)
+        self._field_flag(top, si, fld)
+        t.fld = b.fld = fld
+        self._body(t, si, top, *self._ab(top, si))
+        self.mbs[top + 1] = b
+        if self.stype != 2:
+            self._skip(*self._ab(top + 1, si), skip[1])
+            if skip[1]:
+                return self._skipped(b, top + 1)
+        self._body(b, si, top + 1, *self._ab(top + 1, si))
+
+    def _pair_nbs(self, top, si):
+        """The top MBs of the pairs left of and above pair ``top`` where
+        they are in the slice."""
+        p, out = top // 2, []
+        for ok, a in ((p % self.mbw > 0, top - 2), (p >= self.mbw, top - 2 * self.mbw)):
+            m = self.mbs[a] if ok else None
+            out.append(m if m is not None and m.slice == si else None)
+        return out
+
+    def _infer_fld(self, top, si):
+        left, above = self._pair_nbs(top, si)
+        return left.fld if left is not None else above.fld if above is not None else 0
+
+    def _field_flag(self, top, si, fld):
+        """mb_field_decoding_flag: u(1), or under CABAC ctxIdx 70 + the
+        left and above pairs that are field pairs."""
+        if self.cavlc:
+            self.bits.u(1, fld)
+            return
+        inc = sum(1 for m in self._pair_nbs(top, si) if m is not None and m.fld)
+        self.enc.decision(70 + inc, fld)
+
+    def _body(self, cur, si, addr, A, B):
+        """A macroblock that is not skipped, from its mb_type on."""
+        c, rng = self.c, self.rng
         intra = self.stype == 2 or rng.random() < c.p_intra_in_p
         if not intra:
             if self.stype == 1:
@@ -1637,8 +1809,18 @@ class Writer:
     def _intra_ok(self, m, cur):
         return m is not None and (m is cur or m.intra or not self.c.constrained_intra)
 
+    def _left_ok(self, cur, addr, y0, n):
+        """Whether the left samples of rows y0 .. y0 + n - 1 are available
+        for intra prediction (in an MBAFF frame they may lie in two MBs)."""
+        return all(self._intra_ok(None if nb is None else nb[0], cur)
+                   for nb in (self._aff_nb(addr, -1, y) for y in range(y0, y0 + n)))
+
     def _intra_avail(self, cur, addr):
         si = cur.slice
+        if self.aff:
+            return {"A": self._left_ok(cur, addr, 0, 16),
+                    "B": self._intra_ok(self.mb_nb(addr, 0, -1, si), cur),
+                    "D": self._intra_ok(self.mb_nb(addr, -1, -1, si), cur)}
         return {"A": self._intra_ok(self.mb_nb(addr, -1, 0, si), cur),
                 "B": self._intra_ok(self.mb_nb(addr, 0, -1, si), cur),
                 "D": self._intra_ok(self.mb_nb(addr, -1, -1, si), cur)}
@@ -1677,23 +1859,22 @@ class Writer:
                 if ok and name == "C" and nb[0] is cur:
                     ok = self._decoded_before(nb[1], x // 4, y // 4, size)
                 nbs[name] = nb if ok else None
-            # predicted mode
+            # predicted mode (from the block holding the sample left of the
+            # first row, whose MB may differ from others of the left samples)
             pa, pb = nbs["A"], nbs["B"]
+            if self.aff and x == 0 and not self._left_ok(cur, addr, y, size):
+                nbs["A"] = None
             if pa is None or pb is None:
                 pred = 2
             else:
-                def mode_of(nb, which):
+                def mode_of(nb):
+                    # of an Intra_4x4 neighbour of an 8x8 block, its 4x4
+                    # block holding the sample (§8.3.2.1's n: 1 for A, 2
+                    # for B, 3 for A of block 2 of a frame MB beside a
+                    # field pair)
                     m, r = nb
-                    if m.kind == "I4" or m.kind == "I8":
-                        if size == 8 and m.kind == "I4" and m is not cur:
-                            # §8.3.2.1: the 4x4 block n of that 8x8 block
-                            rx, ry = r % 4, r // 4
-                            b8x, b8y = rx // 2 * 2, ry // 2 * 2
-                            rx, ry = (b8x + 1, b8y) if which == "A" else (b8x, b8y + 1)
-                            return m.ipm[ry * 4 + rx]
-                        return m.ipm[r]
-                    return 2
-                pred = min(mode_of(pa, "A"), mode_of(pb, "B"))
+                    return m.ipm[r] if m.kind in ("I4", "I8") else 2
+                pred = min(mode_of(pa), mode_of(pb))
             ok = [2]
             if nbs["B"] is not None:
                 ok += [0, 3, 7]
@@ -1799,7 +1980,11 @@ class Writer:
         if m.intra:
             return (-1, (0, 0))
         ref, mv, _ = m.motion(lst)
-        return (ref[r], mv[r])
+        ref, mv = ref[r], mv[r]
+        if m.fld != cur.fld and ref >= 0:      # §8.4.1.3.1 across MBAFF structures
+            ref, mv = (2 * ref, (mv[0], int(mv[1] / 2))) if cur.fld else \
+                (ref >> 1, (mv[0], 2 * mv[1]))
+        return (ref, mv)
 
     def _mvp(self, cur, addr, x, y, w, h, ref, part, idx, done=None, lst=0):
         done = done if done is not None else [False] * 16
@@ -1867,14 +2052,14 @@ class Writer:
         else:
             pw, ph = int(part.split("x")[0]), int(part.split("x")[1])
             parts = [(x, y, pw, ph) for y in range(0, 16, ph) for x in range(0, 16, pw)]
-        usable = [i for i, r in enumerate(self.list0) if r is not None]
+        usable = self._usable(self.list0, cur)
         refs = []
         for (x, y, w, h) in parts:
             ref = 0 if ref0 else int(rng.choice(usable))
             if self.remap is not None and self.stype == 0 and not ref0:
                 ref = self.remap[ref]
             refs.append(ref)
-            if self.nref > 1 and not ref0:
+            if self.nref * (1 + cur.fld * self.aff) > 1 and not ref0:
                 self._ref_idx(cur, addr, x, y, ref)
             for yy in range(y // 4, (y + h) // 4):
                 for xx in range(x // 4, (x + w) // 4):
@@ -1917,12 +2102,21 @@ class Writer:
             self._t8(A, B, cur.t8)
         self._residual_and_qp(cur, addr)
 
+    def _usable(self, lst, cur):
+        """The reference indices of list ``lst`` that name a picture; an MBAFF
+        field MB's name its frames' fields, the MB's parity first."""
+        usable = [i for i, r in enumerate(lst) if r is not None]
+        if self.aff and cur.fld:
+            usable = [2 * i + k for i in usable for k in (0, 1)]
+        return usable
+
     def _ref_idx(self, cur, addr, x, y, ref, lst=0):
         """ref_idx_lX: te(v) under CAVLC; under CABAC §9.3.3.1.1.6, a
         neighbour partition counts where its refIdxLX exceeds 0 and it is
         neither skipped nor direct-predicted."""
         if self.cavlc:
             nref = self.nrefs[lst] if self.stype == 1 else self.nref
+            nref *= 1 + cur.fld * self.aff      # an MBAFF field MB's list of fields
             self.tables.add(("te", nref))
             if nref == 2:
                 self.bits.u(1, 1 - ref)
@@ -1935,7 +2129,8 @@ class Writer:
             if nb is None or nb[0].kind == "skip" or nb[0].intra or nb[0].direct[nb[1]]:
                 conds.append(0)
             else:
-                conds.append(int(nb[0].motion(lst)[0][nb[1]] > 0))
+                # refIdxZeroFlagN: a field neighbour of a frame MB counts from 2
+                conds.append(int(nb[0].motion(lst)[0][nb[1]] > int(nb[0].fld > cur.fld)))
         self.enc.unary(ref, [54 + conds[0] + 2 * conds[1], 58, 59])
 
     def _mvd(self, cur, addr, x, y, comp, v, lst=0):
@@ -1946,7 +2141,10 @@ class Writer:
         for px, py in ((x - 1, y), (x, y - 1)):
             nb = self.blk_nb(cur, addr, px, py)
             if nb is not None and nb[0].kind not in ("skip",) and not nb[0].intra:
-                s += abs(nb[0].motion(lst)[2][nb[1]][comp])
+                a = abs(nb[0].motion(lst)[2][nb[1]][comp])
+                if comp == 1 and nb[0].fld != cur.fld:    # §9.3.3.1.1.7
+                    a = a >> 1 if cur.fld else a << 1
+                s += a
         base = 40 if comp == 0 else 47
         inc = 0 if s < 3 else (1 if s <= 32 else 2)
         a = abs(v)
@@ -2054,14 +2252,14 @@ class Writer:
                 shapes = [part] * len(parts)
             refs = [[0] * len(parts), [0] * len(parts)]
             for lst in range(2):
-                usable = [i for i, r in enumerate(self.lists[lst]) if r is not None]
+                usable = self._usable(self.lists[lst], cur)
                 ref_arr = cur.motion(lst)[0]
                 for pi, (x, y, w, h) in enumerate(parts):
                     if not (preds[pi] >> lst) & 1:
                         continue
                     ref = int(rng.choice(usable))
                     refs[lst][pi] = ref
-                    if self.nrefs[lst] > 1:
+                    if self.nrefs[lst] * (1 + cur.fld * self.aff) > 1:
                         self._ref_idx(cur, addr, x, y, ref, lst)
                     for yy in range(y // 4, (y + h) // 4):
                         for xx in range(x // 4, (x + w) // 4):
@@ -2232,8 +2430,9 @@ class Writer:
         last = max(i for i in range(n) if coeffs[i])
         # a field macroblock's significance contexts (ctxIdxOffset 277 and
         # 338; 436 and 451 with Table 9-43's field column for cat 5)
-        sig0, last0 = (277, 338) if self.field else (105, 166)
-        sig8, sig80, last80 = (SIG8_FIELD, 436, 451) if self.field else (SIG8, 402, 417)
+        fld = self.field or cur.fld
+        sig0, last0 = (277, 338) if fld else (105, 166)
+        sig8, sig80, last80 = (SIG8_FIELD, 436, 451) if fld else (SIG8, 402, 417)
         for i in range(n - 1):
             sig = int(coeffs[i] != 0)
             if cat == 5:
@@ -2482,8 +2681,8 @@ def write(cfg: Config):
 
 # each feature the decoder refuses: the words its message holds
 REFUSALS = {
-    "mbaff": "MBAFF",
     "chroma_422": "4:2:0",
+    "chroma_444": "4:2:0",
     "bit_depth_10": "bit depth",
     "transform_bypass": "lossless transform bypass",
     "slice_groups": "slice groups",
@@ -2535,8 +2734,8 @@ def header_only(feature: str):
     picture the writer codes before it."""
     small = dict(width=32, height=32, frames=1, max_slices=1)
     cfg = Config(**small, **{
-        "mbaff": {"frame_mbs_only": False, "mbaff": True},
         "chroma_422": {"chroma_format": 2, "profile": 122},
+        "chroma_444": {"chroma_format": 3, "profile": 244},
         "bit_depth_10": {"bit_depth": 10, "profile": 110},
         "transform_bypass": {"bypass": True, "profile": 244},
         "slice_groups": {"slice_groups": 2, "cavlc": True, "profile": 66},

@@ -224,13 +224,13 @@ def test_videos_only_scene_matches_jax(tmp_path, monkeypatch):
 
 
 def test_video_the_decoder_refuses_names_its_feature(tmp_path):
-    """A camera whose video codes MBAFF frames (a feature the decoder
-    refuses) raises while the loader extracts it, naming MBAFF (no partial
+    """A camera whose video codes 4:2:2 chroma (a feature the decoder
+    refuses) raises while the loader extracts it, naming 4:2:0 (no partial
     frame is written)."""
     make_video_scene(tmp_path)
-    data, _ = HW.header_only("mbaff")
+    data, _ = HW.header_only("chroma_422")
     (tmp_path / "cam01.mp4").write_bytes(data)
-    with pytest.raises(NotImplementedError, match="MBAFF"):
+    with pytest.raises(NotImplementedError, match="4:2:0"):
         tdynerf.load_dynerf_scene(str(tmp_path), target_wh=(W, H))
 
 

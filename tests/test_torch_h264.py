@@ -30,7 +30,8 @@ libswscale), and the committed fixtures of ``tests/torch_fixtures/h264``.
   libavcodec flags interlaced): such frames are held to the samples of
   cv2's own libavcodec (``tests/avcodec_oracle.py``) and to cv2's
   conversion of them; frames coded as frames to cv2's frames. MBAFF
-  raises at the first frame picture it codes.
+  frames (``FIXTURES_MBAFF``) are held to the same in
+  ``tests/test_torch_h264_mbaff.py``.
 - Temporal direct prediction from a reference picture whose two slices
   order list 0 differently decodes as its twin coded on one list, where
   libavcodec, keeping one set of lists a picture, does not.
@@ -230,12 +231,47 @@ FIXTURES_FIELD = {
                         height=32, frames=10, b_frames=2, direct_spatial=False,
                         p_bottom_first=0.5), "h264", {}),
 }
-ALL_FIXTURES = {**FIXTURES, **FIXTURES_B, **FIXTURES_CAVLC, **FIXTURES_FIELD}
-# the CABAC contexts an I, P or B slice of a 4:2:0 stream without MBAFF
-# codes (Table 9-34): all of 0-459 but SI's mb_type prefix (0-2), MBAFF's
-# mb_field_decoding_flag (70-72) and end_of_slice_flag (276); 277-398 and
-# 436-459 are those of field macroblocks
-REACHABLE = set(range(3, 70)) | set(range(73, 276)) | set(range(277, 460))
+# frames of macroblock pairs (mb_adaptive_frame_field_flag 1), each naming
+# its seed: I pictures of every intra type and I_PCM in field and frame
+# pairs; P pictures over several references with explicit weights and
+# constrained intra prediction; MMCO and list modifications; many slices
+# deblocked with disable_deblocking_filter_idc 2; B pictures with spatial
+# direct and explicit weights, and with temporal direct and implicit
+# weights among field pairs (co-location from an MBAFF frame and from a
+# field pair, and a field's from an MBAFF frame); CAVLC I, P and B
+# (P_8x8ref0, empty 8x8 parses); and MBAFF frames mixed with field pairs
+_A = dict(frame_mbs_only=False, mbaff=True)
+FIXTURES_MBAFF = {
+    "mbaff_intra": (dict(seed=0, **_A, width=48, height=48, frames=3, p_intra_pic=1.0,
+                         p_pcm=0.06, p_i16=0.35, max_slices=3, qp_range=(0, 51)), "mp4", {}),
+    "mbaff_ip": (dict(seed=0, **_A, p_field_mb=0.6, width=48, height=48, frames=6,
+                      num_ref_default=2, max_refs=3,
+                      weighted=True, constrained_intra=True, p_intra_in_p=0.3, p_skip=0.3,
+                      chroma_qp_offset=-3), "mp4", {}),
+    "mbaff_mmco": (dict(seed=0, **_A, width=32, height=32, frames=12, p_mmco=0.6, p_modify=0.5,
+                        max_refs=4, num_ref_default=3, p_nonref=0.3), "mp4", {}),
+    "mbaff_slices": (dict(seed=0, **_A, width=64, height=32, frames=4, max_slices=6,
+                          filter_idcs=(2,), qp_range=(24, 51)), "mp4", {}),
+    "mbaff_b_spatial": (dict(seed=0, **_A, width=48, height=32, frames=9, b_frames=2,
+                             b_pyramid=True, p_direct=0.3, p_skip=0.3, max_refs=4,
+                             num_ref_default=2, num_ref_l1_default=2, weighted_bipred=1,
+                             weighted=True), "mp4", {}),
+    "mbaff_b_temporal": (dict(seed=5, **_A, field_pics=0.4, width=48, height=32, frames=12,
+                              b_frames=2, direct_spatial=False, weighted_bipred=2, p_direct=0.4,
+                              p_skip=0.3, max_refs=3, p_bottom_first=0.5), "mp4", {}),
+    "cavlc_mbaff": (dict(seed=0, **_A, cavlc=True, profile=100, width=48, height=32, frames=8,
+                         b_frames=2, direct_spatial=None, p_8x8ref0=0.3, p_empty8x8=0.2,
+                         weighted_bipred=2), "mp4", {}),
+    "mbaff_paff": (dict(seed=0, **_A, field_pics=0.5, width=48, height=48, frames=10,
+                        p_bottom_first=0.5, num_ref_default=2, max_refs=3, b_frames=1,
+                        direct_spatial=None), "h264", {}),
+}
+ALL_FIXTURES = {**FIXTURES, **FIXTURES_B, **FIXTURES_CAVLC, **FIXTURES_FIELD, **FIXTURES_MBAFF}
+# the CABAC contexts an I, P or B slice of a 4:2:0 stream codes (Table
+# 9-34): all of 0-459 but SI's mb_type prefix (0-2) and end_of_slice_flag
+# (276); 70-72 are MBAFF's mb_field_decoding_flag, 277-398 and 436-459 those
+# of field macroblocks
+REACHABLE = set(range(3, 276)) | set(range(277, 460))
 
 
 def fixture_config(name, seed_base=180):
@@ -261,8 +297,9 @@ def fixture_bytes(name):
 
 
 def has_fields(w) -> bool:
-    """Whether the writer ``w`` coded a field picture."""
-    return w.counts["field_pairs"] + w.counts["lone"] > 0
+    """Whether the writer ``w`` coded a field picture or an MBAFF frame
+    (whose frames libavcodec flags interlaced, and cv2 returns none of)."""
+    return w.counts["field_pairs"] + w.counts["lone"] + w.counts["mbaff_frames"] > 0
 
 
 def avcodec_planes(stream):
@@ -332,7 +369,7 @@ def _same_planes(got, want, what=""):
             np.testing.assert_array_equal(a[p], b[p], err_msg=f"{what} frame {i} plane {p}")
 
 
-@pytest.mark.parametrize("name", sorted(ALL_FIXTURES))
+@pytest.mark.parametrize("name", sorted(set(ALL_FIXTURES) - set(FIXTURES_MBAFF)))
 def test_fixture_matches_cv2(name, committed):
     """Each fixture's frames: cv2's committed decode, and cv2's live one in
     number and, of each frame coded as a frame, in value; a frame coded as
@@ -549,7 +586,7 @@ def _random_field_config(seed, cavlc):
 def _same_as_avcodec(tmp_path, cfg):
     """The stream ``cfg`` draws as MP4: the port's frames have the samples
     of cv2's libavcodec, as many as cv2 returns, and each frame coded as a
-    frame is cv2's BGR frame."""
+    frame is cv2's BGR frame (but an MBAFF one, which cv2 returns none of)."""
     stream = HW.write(cfg)
     path = tmp_path / "f.mp4"
     path.write_bytes(HW.mp4(*stream, cfg.width, cfg.height))
@@ -558,7 +595,7 @@ def _same_as_avcodec(tmp_path, cfg):
     live = cv2_frames(path)
     assert len(got) == len(live)
     for i, (a, b) in enumerate(zip(got, live)):
-        if len(stats[i][0]) == 1:
+        if len(stats[i][0]) == 1 and not cfg.mbaff:
             np.testing.assert_array_equal(a, b, err_msg=f"frame {i}")
     _same_planes(list(video.read_frames(str(path), planes=True)), avcodec_planes(stream))
 
@@ -593,17 +630,15 @@ def test_cv2_returns_no_frame_coded_as_fields(tmp_path):
 
 def test_mbaff_flag_with_field_pictures_decodes(tmp_path):
     """mb_adaptive_frame_field_flag 1 in a stream of field pictures only
-    decodes (the ``mbaff_fields`` fixture); its first frame picture, which
-    MBAFF codes, raises NotImplementedError naming MBAFF."""
+    decodes (the ``mbaff_fields`` fixture); among them frame pictures, which
+    MBAFF codes as macroblock pairs, decode to libavcodec's samples."""
     cfg = HW.Config(seed=4, width=32, height=32, frames=6, frame_mbs_only=False, mbaff=True,
                     field_pics=0.5)
     w = HW.Writer(cfg)
-    sps, pps, aus = w.write()
+    w.write()
     assert 0 < w.counts["field_pairs"] < cfg.frames       # a frame picture among the fields
-    path = tmp_path / "m.mp4"
-    path.write_bytes(HW.mp4(sps, pps, aus, cfg.width, cfg.height))
-    with pytest.raises(NotImplementedError, match="MBAFF"):
-        list(video.read_frames(str(path)))
+    assert w.counts["mbaff_frames"] > 0
+    _same_as_avcodec(tmp_path, cfg)
 
 
 @pytest.mark.parametrize("structure", ["frame", "field"])
@@ -748,9 +783,10 @@ def test_chip_smoke_phase_18a_on_cpu(committed):
 
 def test_chip_smoke_phase_18_on_cpu(monkeypatch, capsys):
     """Phase 18 (b) and (c) on the CPU at a small size: the host's times of
-    a row-repeated I, P, B, B stream coded with CABAC and with CAVLC and of
-    one coded as field pairs, and a scene of videos (one coded with CAVLC,
-    one as field pairs with B pictures) extracted by
+    a row-repeated I, P, B, B stream coded with CABAC and with CAVLC, of
+    one coded as field pairs and of one of MBAFF frames, and a scene of
+    videos (one coded with CAVLC, one as a field pair then MBAFF P and B
+    frames) extracted by
     ``load_scene`` then trained on the plain path (the dynerf preset's
     widths cut as ``tests/test_torch_dynerf_cli.py`` cuts them), K1 and K2
     held to their plain versions at a step of its model."""
@@ -767,12 +803,15 @@ def test_chip_smoke_phase_18_on_cpu(monkeypatch, capsys):
                                      "decode_cavlc_b_ms", "decode_fields_ms",
                                      "decode_field_i_ms", "decode_field_p_ms",
                                      "decode_field_b_ms", "decode_pair_ip_ms",
-                                     "decode_pair_bb_ms", "resize_ms",
+                                     "decode_pair_bb_ms", "decode_mbaff_ms",
+                                     "decode_mbaff_i_ms", "decode_mbaff_p_ms", "decode_mbaff_b_ms",
+                                     "resize_ms",
                                      "png_ms"))
     codings = []
     row_video = CS.row_video
     monkeypatch.setattr(CS, "row_video", lambda *a, **k: codings.append(
-        (k.get("b_frames"), k.get("cavlc"), k.get("fields"))) or row_video(*a, **k))
+        (k.get("b_frames"), k.get("cavlc"), k.get("fields"), k.get("mbaff"))) or
+        row_video(*a, **k))
     monkeypatch.setattr(tscene, "DYNERF_SIZE", (48, 36))
     for name in ("ITERS", "REPS", "WARMUP"):
         monkeypatch.setattr(scripts, name, 1)
@@ -782,6 +821,7 @@ def test_chip_smoke_phase_18_on_cpu(monkeypatch, capsys):
                                  schedule=OVERRIDES)
     out = capsys.readouterr().out
     assert chain["cli"] == (0, 0)                                  # the plain path
-    assert codings == [(0, True, False), (2, False, True)]   # camera 0 CAVLC, 1 B fields
+    # camera 0 CAVLC frames, camera 1 a field pair then MBAFF frames with B
+    assert codings == [(0, True, False, False), (2, False, True, True)]
     assert "each the resized decode of its video" in out
     assert np.isfinite(chain["psnr"]) and chain["extract_s"] > 0
