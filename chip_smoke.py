@@ -323,7 +323,13 @@ on failure:
    cv2's conversion of libavcodec's decode, which cv2 itself cannot
    return); and the MBAFF ones (frames of field and frame macroblock pairs,
    CABAC and CAVLC, I, P and B, alone and mixed with field pairs, held to
-   libavcodec likewise). (b) The host's ms per 2704×2028 frame of a
+   libavcodec likewise); then every committed stream of
+   ``tests/torch_fixtures/mpeg4`` (MPEG-4 Part 2: an ``mp4v`` stream cv2's
+   VideoWriter wrote, and the writer's I- and P-VOPs of every macroblock
+   type, inter4v, DQUANT, AC prediction, every escape mode, H.263 and MPEG
+   quantisation with loaded matrices, video packets, N-VOPs, the colour
+   variants), each equal to cv2's committed decode, the MPEG-4 decoder
+   built while the H.264 one is. (b) The host's ms per 2704×2028 frame of a
    stream ``tests/h264_writer.py`` writes there (:func:`row_video`: I, P,
    B, B in decoding order, of one-row slices; spatial direct, implicit
    weights and a referenced B picture as x264's defaults have them; not a
@@ -336,11 +342,15 @@ on failure:
    and each pair's (``decode_field_*_ms``, ``decode_pair_*_ms``) beside
    the frames'; and of it coded as MBAFF frames (mb_adaptive_frame_field_flag
    1, each macroblock pair field-coded with probability 0.5; CABAC; I, B, B,
-   P out): each frame's decode by its type (``decode_mbaff_*_ms``). (c) A
-   DyNeRF scene of two ``cam*.mp4`` at 2704×2028 of
-   ``VIDEO_SCENE_FRAMES`` frames, the first coded with CAVLC (I and P
-   frames), the second with CABAC as an I/P field pair then MBAFF P and B
-   frames, and no frames on disk
+   P out): each frame's decode by its type (``decode_mbaff_*_ms``); and of
+   an MPEG-4 Part 2 stream ``tests/mpeg4_writer.py`` writes there
+   (:func:`mpeg4_video`: I, P, P, P of one-row video packets): each VOP's
+   decode by its type and the mean per frame out with the RGB conversion
+   (``decode_mpeg4_*_ms``). (c) A DyNeRF scene of two ``cam*.mp4`` at
+   2704×2028 of ``VIDEO_SCENE_FRAMES`` frames, the first MPEG-4 Part 2 (I
+   and P VOPs, as cv2's VideoWriter writes an .mp4), the second H.264 coded
+   with CABAC as an I/P field pair then MBAFF P and B frames, and no frames
+   on disk
    (:func:`write_video_scene`) through ``load_scene``, which extracts each
    camera's frames (each equal to its video's decode resized), then
    ``train_torch.py`` → ``render_torch.py``
@@ -3856,30 +3866,47 @@ def check_rare_chain(dev, schedule=MULTIPLEVIEW_SCHEDULE, preset=MULTIPLEVIEW_PR
 
 # -- phase 18: the DyNeRF video extraction ------------------------------------
 
-# the committed H.264 streams and cv2's decode of each
-# (tests/test_torch_h264.py::write_committed_fixtures)
+# the committed H.264 and MPEG-4 Part 2 streams and cv2's decode of each
+# (tests/test_torch_h264.py::write_committed_fixtures,
+# tests/test_torch_mpeg4.py::write_committed_fixtures)
 H264_FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "h264")
+MPEG4_FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "mpeg4")
 VIDEO_SIZE = (2704, 2028)          # a Neu3D camera's cam*.mp4
 VIDEO_HOST_FRAMES = 4              # phase 18 (b)'s stream: I, P, B, B in decoding order
-VIDEO_SCENE_CAMS, VIDEO_SCENE_FRAMES = 2, 3   # phase 18 (c)'s scene (camera 0: CAVLC I, P
-                                              # frames; camera 1: CABAC I/P fields, then
-                                              # MBAFF P and B frames)
+VIDEO_SCENE_CAMS, VIDEO_SCENE_FRAMES = 2, 3   # phase 18 (c)'s scene (camera 0: MPEG-4
+                                              # Part 2 I and P VOPs; camera 1: CABAC I/P
+                                              # fields, then MBAFF P and B frames)
 VIDEO_SCHEDULE = ("opt.coarse_iterations=2", "opt.iterations=4",
                   "opt.position_lr_max_steps=4", 'opt.custom_sampler="fine"')
 
 
-def h264_writer():
-    """``tests/h264_writer.py``, the fixtures' H.264 writer, loaded by its
-    path (another ``tests`` package may come first on ``sys.path``)."""
+def h264_writer(name="h264_writer"):
+    """``tests/h264_writer.py``, the fixtures' H.264 writer (or another
+    module of ``tests`` by ``name``), loaded by its path (another ``tests``
+    package may come first on ``sys.path``)."""
     import importlib.util
 
-    if "h264_writer" not in sys.modules:
+    if name not in sys.modules:
         spec = importlib.util.spec_from_file_location(
-            "h264_writer", os.path.join(ROOT, "tests", "h264_writer.py"))
+            name, os.path.join(ROOT, "tests", name + ".py"))
         mod = importlib.util.module_from_spec(spec)
-        sys.modules["h264_writer"] = mod
+        sys.modules[name] = mod
         spec.loader.exec_module(mod)
-    return sys.modules["h264_writer"]
+    return sys.modules[name]
+
+
+def mpeg4_video(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES, seed=0) -> bytes:
+    """An MP4 of ``frames`` MPEG-4 Part 2 VOPs at ``size`` written by
+    ``tests/mpeg4_writer.py`` on this host: an I-VOP then P-VOPs (the
+    rounding type alternating, as FFmpeg's encoder writes it), one video
+    packet a macroblock row whose data the writer codes once a VOP and
+    repeats (a packet's data depends on no other packet). Not a camera
+    file: random syntax (intra, inter, inter4v and not_coded macroblocks,
+    AC prediction, DQUANT), levels quantised at QP 2-12 from the DCT of
+    random pixel blocks."""
+    W = h264_writer("mpeg4_writer")
+    return W.video(W.Config(width=size[0], height=size[1], frames=frames, seed=seed,
+                            row_repeat=True, qp=(2, 12)))
 
 
 def row_video(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES, seed=0, b_frames=0,
@@ -3939,6 +3966,63 @@ def check_h264_fixtures() -> dict:
     return {"files": files, "frames": frames}
 
 
+def check_mpeg4_fixtures() -> dict:
+    """Phase 18 (a) (module docstring): every committed stream of
+    ``tests/torch_fixtures/mpeg4`` decoded on this host, frame by frame
+    with the same count, equal to cv2's committed BGR decode. Returns the
+    counts."""
+    from fourdgs_tpu_torch.utils import video
+
+    print("    (a) the MPEG-4 Part 2 decoder on the committed streams", flush=True)
+    with np.load(os.path.join(MPEG4_FIXTURES, "cv2_decode.npz")) as z:
+        want = {k: z[k] for k in z.files}
+    files = frames = 0
+    t0 = time.perf_counter()
+    for fname in sorted(os.listdir(MPEG4_FIXTURES)):
+        stem, ext = os.path.splitext(fname)
+        if ext != ".mp4":
+            continue
+        got = list(video.read_frames(os.path.join(MPEG4_FIXTURES, fname), bgr=True))
+        if len(got) != len(want[stem]) or not all(
+                np.array_equal(g, w) for g, w in zip(got, want[stem])):
+            raise AssertionError(f"{fname}: the port's decode is not cv2's bit for bit")
+        files += 1
+        frames += len(got)
+    if files != len(want):
+        raise AssertionError(f"{files} streams for {len(want)} committed decodes")
+    print(f"    {files} streams, {frames} frames: each equal to cv2's committed decode "
+          f"({time.perf_counter() - t0:.3f} s)")
+    return {"files": files, "frames": frames}
+
+
+def check_mpeg4_host_times(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES) -> dict:
+    """Phase 18 (b)'s MPEG-4 Part 2 stream (:func:`mpeg4_video`: I, P, P, P
+    at ``size``): each VOP's decode as the decoder timed it (I and P apart)
+    and the mean wall per frame out with the RGB conversion. Returns the
+    ms and the stream's size."""
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_video_") as tmp:
+        t0 = time.perf_counter()
+        data = mpeg4_video(size, frames)
+        write_s = time.perf_counter() - t0
+        path = os.path.join(tmp, "rows_mpeg4.mp4")
+        with open(path, "wb") as f:
+            f.write(data)
+        imgs, stats, decode_ms = _time_decode(path)
+    kinds = " ".join(k for k, _ in stats)
+    if len(imgs) != frames or imgs[0].shape != (size[1], size[0], 3) or \
+            kinds != " ".join("I" + "P" * (frames - 1)):
+        raise AssertionError(f"mpeg4: {len(imgs)} frames ({kinds}) of "
+                             f"{imgs[0].shape if imgs else None}")
+    per = {k: float(np.mean([ms[0] for kind, ms in stats if kind == k])) for k in "IP"}
+    print(f"    MPEG4: {frames} VOPs out in the order {kinds} ({len(data) / 1e6:.3f} MB, "
+          f"written in {write_s:.2f} s): decode I {per['I']:.2f} ms, P {per['P']:.2f} (each "
+          f"timed as it was decoded); {np.mean(decode_ms):.2f} ms a frame out with the RGB "
+          f"conversion", flush=True)
+    return {"decode_mpeg4_ms": float(np.mean(decode_ms)), "decode_mpeg4_i_ms": per["I"],
+            "decode_mpeg4_p_ms": per["P"], "mpeg4_mbytes": len(data) / 1e6,
+            "mpeg4_write_s": write_s}
+
+
 def _time_decode(path) -> tuple:
     """Decodes ``path`` frame by frame: the frames, each frame's (kinds,
     decode ms) of its coded pictures (one a frame, two a field pair) as the
@@ -3975,8 +4059,8 @@ def check_video_host_times(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES,
     from fourdgs_tpu_torch.utils import png, resample
 
     print(f"    (b) the card's host: decode, resize and PNG write of a {size[0]}x{size[1]} "
-          f"stream, coded with CABAC and with CAVLC, and of one coded as field pairs and one "
-          f"of MBAFF frames", flush=True)
+          f"stream, coded with CABAC and with CAVLC, and of one coded as field pairs, one "
+          f"of MBAFF frames and an MPEG-4 Part 2 one", flush=True)
     out, first = {}, None
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_video_") as tmp:
         for coding in ("cabac", "cavlc", "fields", "mbaff"):
@@ -4029,6 +4113,7 @@ def check_video_host_times(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES,
                 first = imgs
             elif coding == "cavlc" and not all(np.array_equal(a, b) for a, b in zip(imgs, first)):
                 raise AssertionError("the CAVLC stream's frames are not the CABAC stream's")
+        out.update(check_mpeg4_host_times(size, frames))
         resize_ms, write_ms = [], []
         for i, img in enumerate(first):
             t0 = time.perf_counter()
@@ -4048,10 +4133,10 @@ def write_video_scene(root, dev, video_size=VIDEO_SIZE, target=(1352, 1014)) -> 
     """A DyNeRF scene of videos only: :func:`write_dynerf_scene`'s
     ``poses_bounds.npy`` and point cloud for ``target`` frames, and
     ``VIDEO_SCENE_CAMS`` videos ``cam00.mp4…`` of ``VIDEO_SCENE_FRAMES``
-    pictures at ``video_size`` (:func:`row_video`, a seed a camera; the
-    first I and P frames coded with CAVLC, the others an I/P field pair then
-    MBAFF P and B frames coded with CABAC) and no ``cam*/images``.
-    Returns the videos' paths."""
+    pictures at ``video_size`` (the first an MPEG-4 Part 2 stream of I and P
+    VOPs, :func:`mpeg4_video`; the others H.264, :func:`row_video`, a seed a
+    camera, an I/P field pair then MBAFF P and B frames coded with CABAC)
+    and no ``cam*/images``. Returns the videos' paths."""
     write_dynerf_scene(root, dev, n_frames=0, size=target, n_cams=VIDEO_SCENE_CAMS)
     paths = []
     for ci in range(VIDEO_SCENE_CAMS):
@@ -4060,9 +4145,9 @@ def write_video_scene(root, dev, video_size=VIDEO_SIZE, target=(1352, 1014)) -> 
         os.rmdir(cam_dir)
         paths.append(cam_dir + ".mp4")
         with open(paths[-1], "wb") as f:
-            f.write(row_video(video_size, VIDEO_SCENE_FRAMES, seed=2 * ci,
-                              b_frames=2 if ci else 0, cavlc=ci == 0, fields=ci > 0,
-                              mbaff=ci > 0))
+            f.write(mpeg4_video(video_size, VIDEO_SCENE_FRAMES, seed=2 * ci) if ci == 0 else
+                    row_video(video_size, VIDEO_SCENE_FRAMES, seed=2 * ci, b_frames=2,
+                              cavlc=False, fields=True, mbaff=True))
     return paths
 
 
@@ -4086,8 +4171,8 @@ def check_video_chain(dev, video_size=VIDEO_SIZE, schedule=VIDEO_SCHEDULE) -> di
 
     target = tscene.DYNERF_SIZE
     print(f"    (c) a DyNeRF scene of {VIDEO_SCENE_CAMS} cam*.mp4 at {video_size[0]}x"
-          f"{video_size[1]} (camera 0 CAVLC I and P frames, camera 1 a CABAC I/P field pair "
-          f"then MBAFF P and B frames): load_scene "
+          f"{video_size[1]} (camera 0 MPEG-4 Part 2 I and P VOPs, camera 1 a CABAC I/P field "
+          f"pair then MBAFF P and B frames): load_scene "
           f"extracts, then the CLI chain", flush=True)
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_video_scene_") as tmp:
         data_dir, model_path = os.path.join(tmp, "data"), os.path.join(tmp, "model")
@@ -4141,6 +4226,23 @@ def check_video_chain(dev, video_size=VIDEO_SIZE, schedule=VIDEO_SCHEDULE) -> di
                              f"{cli['render_launches']}")
     return {"cli": (k1_train + k1_render, k2_train), "blend": trained,
             "extract_s": extract_s, "psnr": cli["psnr"]}
+
+
+def check_video_extraction(dev) -> tuple:
+    """Phase 18 (module docstring): (a) the committed H.264 and MPEG-4
+    streams (the MPEG-4 decoder built in a thread while the H.264 one
+    builds), (b) the host's times, (c) the scene of videos through the CLI
+    chain. Returns (b)'s and (c)'s results."""
+    import threading
+
+    from fourdgs_tpu_torch.utils import video
+
+    mpeg4_build = threading.Thread(target=video.get_lib, args=("mpeg4",))
+    mpeg4_build.start()
+    check_h264_fixtures()
+    mpeg4_build.join()
+    check_mpeg4_fixtures()
+    return check_video_host_times(), check_video_chain(dev)
 
 
 TIMELINE_TIMES = 10                # phase 16 (a)'s timestamps
@@ -4727,13 +4829,12 @@ def main() -> int:
         rare_chain = check_rare_chain(dev)
         phase_s[17] = time.perf_counter() - t0
 
-        # -- 18. the DyNeRF video extraction: the committed H.264 streams,
-        #    the host's times per 2704x2028 frame, then a scene of videos
-        #    through load_scene and the CLI chain
+        # -- 18. the DyNeRF video extraction: the committed H.264 and MPEG-4
+        #    streams, the host's times per 2704x2028 frame, then a scene of
+        #    videos through load_scene and the CLI chain (the MPEG-4 decoder
+        #    builds while the H.264 one does)
         t0 = time.perf_counter()
-        check_h264_fixtures()
-        video_host = check_video_host_times()
-        video_chain = check_video_chain(dev)
+        video_host, video_chain = check_video_extraction(dev)
         phase_s[18] = time.perf_counter() - t0
     finally:
         scene_tmp.cleanup()
@@ -4791,7 +4892,8 @@ def main() -> int:
                              "decode_ms", "decode_i_ms", "decode_p_ms", "decode_b_ms",
                              "decode_cavlc_ms", "decode_cavlc_i_ms", "decode_cavlc_p_ms",
                              "decode_cavlc_b_ms", "decode_mbaff_ms", "decode_mbaff_i_ms",
-                             "decode_mbaff_p_ms", "decode_mbaff_b_ms", "resize_ms",
+                             "decode_mbaff_p_ms", "decode_mbaff_b_ms", "decode_mpeg4_ms",
+                             "decode_mpeg4_i_ms", "decode_mpeg4_p_ms", "resize_ms",
                              "png_ms")}},
     }, {
         "name": "blend_backward",

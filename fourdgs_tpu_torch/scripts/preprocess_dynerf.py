@@ -4,7 +4,7 @@ Counterpart of ``scripts/preprocess_dynerf.py``: the same flags and the same
 skip rule (a camera whose ``images`` directory already holds ``--frames``
 files is left alone). The loader (``data/dynerf.py``) also extracts on
 first use; this pays the cost ahead. Frames are decoded by the port's H.264
-decoder and resized with its Pillow-exact LANCZOS
+or MPEG-4 Part 2 decoder (by the track's codec) and resized with its Pillow-exact LANCZOS
 (``utils/video.py::extract_video_frames``). A camera's directory is its
 video's path less the extension, as the port's loader takes it.
 

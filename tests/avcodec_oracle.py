@@ -1,4 +1,5 @@
-"""The decode of cv2's own libavcodec, for frames cv2 cannot return.
+"""The decode of cv2's own libavcodec, for frames cv2 cannot return and
+for the decoded samples of a stream.
 
 cv2 5.0's ``VideoCapture`` converts each decoded frame with libswscale,
 which (9.5) refuses a frame libavcodec flags interlaced ("Cannot convert
@@ -20,6 +21,7 @@ import os
 import numpy as np
 
 AV_CODEC_ID_H264 = 27
+AV_CODEC_ID_MPEG4 = 12
 EAGAIN = -11
 # AVPacket: buf, pts, dts, then data and size; AVFrame: data[8],
 # linesize[8], extended_data, width, height
@@ -65,12 +67,13 @@ def _plane(frame, i, w, h):
     return np.stack([rows[r * stride:r * stride + w] for r in range(h)])
 
 
-def decode(packets, threads=1):
-    """Each output frame of the H.264 access units ``packets`` (Annex-B
-    bytes, parameter sets in band) as (Y, U, V) uint8 planes, cropped as
-    libavcodec crops them, in output order."""
+def decode(packets, threads=1, codec_id=AV_CODEC_ID_H264):
+    """Each output frame of the ``packets`` of codec ``codec_id`` (H.264:
+    Annex-B access units, parameter sets in band; MPEG-4 Part 2: one VOP a
+    packet, the headers leading the first) as (Y, U, V) uint8 planes,
+    cropped as libavcodec crops them, in output order."""
     codec, util = _load()
-    dec = codec.avcodec_find_decoder(AV_CODEC_ID_H264)
+    dec = codec.avcodec_find_decoder(codec_id)
     ctx = ctypes.c_void_p(codec.avcodec_alloc_context3(dec))
     util.av_opt_set_int(ctx, b"threads", threads, 0)
     if codec.avcodec_open2(ctx, dec, None) < 0:
@@ -84,8 +87,8 @@ def decode(packets, threads=1):
             f = frame.value
             w = ctypes.c_int.from_address(f + _FRAME_W).value
             h = ctypes.c_int.from_address(f + _FRAME_H).value
-            out.append((_plane(f, 0, w, h), _plane(f, 1, w // 2, h // 2),
-                        _plane(f, 2, w // 2, h // 2)))
+            cw, ch = (w + 1) // 2, (h + 1) // 2
+            out.append((_plane(f, 0, w, h), _plane(f, 1, cw, ch), _plane(f, 2, cw, ch)))
             util.av_frame_unref(frame)
     try:
         for data in packets:

@@ -16,6 +16,7 @@ import pytest
 import bench_quality as JB
 import bench_quality_torch as TB
 from fourdgs_tpu_torch.configs.core import KPlanesConfig
+from tests.test_torch_cli import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CAMERA_FIELDS = ("world_view", "full_proj", "camera_center", "tanfovx",

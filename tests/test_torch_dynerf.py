@@ -8,8 +8,9 @@ lossless). ``load_scene`` dispatches ``"dynerf"`` with JAX's default frame
 size; a frame of another size is resized with LANCZOS when it is read, as
 JAX's is. A scene of ``cam*.mp4`` without extracted frames is extracted as
 JAX's loader extracts it (``_extract_video_frames``, cv2 and Pillow): the
-same PNG pixels, the same loaded images; a video the decoder does not read
-raises, naming the feature; a scene under a dotted directory keeps its
+same PNG pixels, the same loaded images (H.264 and, as cv2's VideoWriter
+writes it, MPEG-4 Part 2); a video the decoder does not read raises, naming
+the feature (MJPEG in an .mp4 too); a scene under a dotted directory keeps its
 frames inside it (the port's ``os.path.splitext``, where JAX cuts the path
 at its first dot)."""
 
@@ -157,7 +158,18 @@ def test_frame_modes_read_as_rgb(tmp_path):
 VIDEO_SIZE = (58, 42)       # no multiple of 16 either way; resized to (W, H)
 
 
-def write_video(path, seed, frames=3, size=VIDEO_SIZE, b_frames=0, cavlc=False):
+def write_video(path, seed, frames=3, size=VIDEO_SIZE, b_frames=0, cavlc=False, codec="h264"):
+    if codec == "mp4v":
+        # MPEG-4 Part 2 as cv2's VideoWriter writes an .mp4
+        import cv2
+
+        vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 25, size)
+        rng = np.random.default_rng(seed)
+        base = rng.integers(0, 256, (size[1] + 2 * frames, size[0] + 2 * frames, 3), np.uint8)
+        for i in range(frames):
+            vw.write(np.ascontiguousarray(base[i:i + size[1], 2 * i:2 * i + size[0]]))
+        vw.release()
+        return
     cfg = HW.Config(width=size[0], height=size[1], frames=frames, seed=seed, b_frames=b_frames,
                     cavlc=cavlc)
     sps, pps, aus = HW.write(cfg)
@@ -177,17 +189,20 @@ def make_video_scene(root, n_cams=2, frames=3):
         write_video(root / f"cam{c:02d}.mp4", seed=c, frames=frames)
 
 
-@pytest.mark.parametrize("n_frames,b_frames,frames,cavlc",
-                         [(2, 0, 3, False), (10, 0, 3, False), (10, 3, 7, False), (10, 3, 7, True)],
-                         ids=["2", "10", "b-10", "cavlc"])
-def test_extract_matches_jax(tmp_path, n_frames, b_frames, frames, cavlc):
+@pytest.mark.parametrize("n_frames,b_frames,frames,cavlc,codec",
+                         [(2, 0, 3, False, "h264"), (10, 0, 3, False, "h264"),
+                          (10, 3, 7, False, "h264"), (10, 3, 7, True, "h264"),
+                          (20, 0, 14, False, "mp4v")],
+                         ids=["2", "10", "b-10", "cavlc", "mp4v"])
+def test_extract_matches_jax(tmp_path, n_frames, b_frames, frames, cavlc, codec):
     """The port's ``extract_video_frames`` and JAX's
-    ``_extract_video_frames`` on one mp4 (I and P slices, or runs of up to 3
-    B pictures coded after the next anchor, coded with CABAC or CAVLC): the
-    same files, equal pixels; ``n_frames`` stops early or the video's end
-    does."""
+    ``_extract_video_frames`` on one mp4 (H.264: I and P slices, or runs of
+    up to 3 B pictures coded after the next anchor, coded with CABAC or
+    CAVLC; or MPEG-4 Part 2 as cv2's VideoWriter writes it, I- and P-VOPs
+    with a second I-VOP): the same files, equal pixels; ``n_frames`` stops
+    early or the video's end does."""
     path = tmp_path / "cam00.mp4"
-    write_video(path, seed=5, frames=frames, b_frames=b_frames, cavlc=cavlc)
+    write_video(path, seed=5, frames=frames, b_frames=b_frames, cavlc=cavlc, codec=codec)
     jdynerf._extract_video_frames(str(path), str(tmp_path / "jax"), (W, H), n_frames)
     assert video.extract_video_frames(str(path), str(tmp_path / "port"), (W, H),
                                       n_frames) == min(n_frames, frames)
@@ -231,6 +246,22 @@ def test_video_the_decoder_refuses_names_its_feature(tmp_path):
     data, _ = HW.header_only("chroma_422")
     (tmp_path / "cam01.mp4").write_bytes(data)
     with pytest.raises(NotImplementedError, match="4:2:0"):
+        tdynerf.load_dynerf_scene(str(tmp_path), target_wh=(W, H))
+
+
+def test_video_the_decoder_refuses_names_its_codec(tmp_path):
+    """A camera that cv2's VideoWriter wrote with its MJPG fourcc (MJPEG in
+    an .mp4: an ``mp4v`` sample entry of objectTypeIndication 0x6C, a codec
+    the decoders refuse) raises while the loader extracts it, naming MJPEG."""
+    import cv2
+
+    make_video_scene(tmp_path)
+    path = tmp_path / "cam01.mp4"
+    vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"), 25, VIDEO_SIZE)
+    for v in (40, 160):
+        vw.write(np.full((VIDEO_SIZE[1], VIDEO_SIZE[0], 3), v, np.uint8))
+    vw.release()
+    with pytest.raises(NotImplementedError, match="MJPEG"):
         tdynerf.load_dynerf_scene(str(tmp_path), target_wh=(W, H))
 
 

@@ -14,7 +14,8 @@ library the card's host lacks, CUDA by default.
   lazy imports inside functions included (JAX's ``debug_images.py`` and
   ``ImageRef`` import Pillow there, which only the card would find);
 - the native libraries build without a JPEG library (no ``-ljpeg``), the
-  resampler and the H.264 decoder with no library at all;
+  resampler and the H.264 and MPEG-4 Part 2 decoders with no library at
+  all;
 - the shell drivers call only the port's entry points and scripts;
 - with CUDA absent, each entry point raises unless asked for the CPU;
 - the port's constants equal the JAX package's.
@@ -161,6 +162,19 @@ def test_video_decoder_links_no_codec_library():
     assert not [f for f in video.FLAGS if f.startswith("-l")]
     src = (PKG / "native" / "h264.cpp").read_text()
     assert "#include <libav" not in src and "avcodec_" not in src
+
+
+def test_mpeg4_decoder_links_no_codec_library():
+    """The MPEG-4 Part 2 decoder and the headers the decoders share include
+    no codec library; ``utils/video.py`` builds it with the same flags."""
+    from fourdgs_tpu_torch.utils import native, video
+
+    assert video.MPEG4_SRC == PKG / "native" / "mpeg4.cpp"
+    assert native.local_headers(video.MPEG4_SRC) == [PKG / "native" / "mp4.h",
+                                                     PKG / "native" / "yuv420_bgr.h"]
+    for name in ("mpeg4.cpp", "mp4.h", "yuv420_bgr.h"):
+        src = (PKG / "native" / name).read_text()
+        assert "#include <libav" not in src and "avcodec_" not in src, name
 
 
 def test_entry_points_default_to_cuda():
