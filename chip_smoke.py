@@ -328,8 +328,13 @@ on failure:
    VideoWriter wrote, and the writer's I- and P-VOPs of every macroblock
    type, inter4v, DQUANT, AC prediction, every escape mode, H.263 and MPEG
    quantisation with loaded matrices, video packets, N-VOPs, the colour
-   variants), each equal to cv2's committed decode, the MPEG-4 decoder
-   built while the H.264 one is. (b) The host's ms per 2704×2028 frame of a
+   variants), and every committed stream of ``tests/torch_fixtures/hevc``
+   (HEVC Main: I, P and B slices, CTBs of 16 to 64, every partition, WPP,
+   SAO, scaling lists, weighted prediction, long-term pictures, CRA, BLA
+   and RASL pictures, EOS, pic_output_flag, sub-layers, hev1 and NAL
+   lengths of 1, 2 and 4 bytes, FFmpeg's edit list), each equal to cv2's
+   committed decode, the MPEG-4 and HEVC decoders built while the H.264
+   one is. (b) The host's ms per 2704×2028 frame of a
    stream ``tests/h264_writer.py`` writes there (:func:`row_video`: I, P,
    B, B in decoding order, of one-row slices; spatial direct, implicit
    weights and a referenced B picture as x264's defaults have them; not a
@@ -346,11 +351,16 @@ on failure:
    an MPEG-4 Part 2 stream ``tests/mpeg4_writer.py`` writes there
    (:func:`mpeg4_video`: I, P, P, P of one-row video packets): each VOP's
    decode by its type and the mean per frame out with the RGB conversion
-   (``decode_mpeg4_*_ms``). (c) A DyNeRF scene of two ``cam*.mp4`` at
-   2704×2028 of ``VIDEO_SCENE_FRAMES`` frames, the first MPEG-4 Part 2 (I
-   and P VOPs, as cv2's VideoWriter writes an .mp4), the second H.264 coded
-   with CABAC as an I/P field pair then MBAFF P and B frames, and no frames
-   on disk
+   (``decode_mpeg4_*_ms``); and of an HEVC stream ``tests/hevc_writer.py``
+   writes there (:func:`hevc_video`: I, P, B, B in decoding order of
+   one-row slices, 64x64 CTBs, WPP, weighted prediction, FFmpeg's edit
+   list): each picture's decode by its type and the mean per frame out with
+   the RGB conversion (``decode_hevc_*_ms``). (c) A DyNeRF scene of three
+   ``cam*.mp4`` at 2704×2028 of ``VIDEO_SCENE_FRAMES`` frames, the first
+   MPEG-4 Part 2 (I and P VOPs, as cv2's VideoWriter writes an .mp4), the
+   second H.264 coded with CABAC as an I/P field pair then MBAFF P and B
+   frames, the third HEVC (I, B and P out, with ``ctts`` and the edit list
+   FFmpeg's muxer writes for B-frames), and no frames on disk
    (:func:`write_video_scene`) through ``load_scene``, which extracts each
    camera's frames (each equal to its video's decode resized), then
    ``train_torch.py`` → ``render_torch.py``
@@ -3871,11 +3881,14 @@ def check_rare_chain(dev, schedule=MULTIPLEVIEW_SCHEDULE, preset=MULTIPLEVIEW_PR
 # tests/test_torch_mpeg4.py::write_committed_fixtures)
 H264_FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "h264")
 MPEG4_FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "mpeg4")
+HEVC_FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures", "hevc")
 VIDEO_SIZE = (2704, 2028)          # a Neu3D camera's cam*.mp4
 VIDEO_HOST_FRAMES = 4              # phase 18 (b)'s stream: I, P, B, B in decoding order
-VIDEO_SCENE_CAMS, VIDEO_SCENE_FRAMES = 2, 3   # phase 18 (c)'s scene (camera 0: MPEG-4
+VIDEO_SCENE_CAMS, VIDEO_SCENE_FRAMES = 3, 3   # phase 18 (c)'s scene (camera 0: MPEG-4
                                               # Part 2 I and P VOPs; camera 1: CABAC I/P
-                                              # fields, then MBAFF P and B frames)
+                                              # fields, then MBAFF P and B frames;
+                                              # camera 2: HEVC I, P and B pictures with
+                                              # FFmpeg's edit list)
 VIDEO_SCHEDULE = ("opt.coarse_iterations=2", "opt.iterations=4",
                   "opt.position_lr_max_steps=4", 'opt.custom_sampler="fine"')
 
@@ -3937,23 +3950,39 @@ def row_video(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES, seed=0, b_frames=0,
     return W.mp4(sps, pps, aus, size[0], size[1])
 
 
-def check_h264_fixtures() -> dict:
+def hevc_video(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES, seed=0) -> bytes:
+    """An MP4 of ``frames`` HEVC pictures at ``size`` written by
+    ``tests/hevc_writer.py`` on this host (Main, 64x64 CTBs, WPP, SAO,
+    AMP, weighted prediction, as x265's defaults have them): an IDR picture,
+    then an anchor P picture and the run of two B pictures that display
+    before it (the first a reference), each sample's composition time in a
+    ``ctts`` box and the edit list FFmpeg's muxer writes for B-frames; one
+    slice a CTB row whose data the writer codes once a picture and repeats.
+    Not a camera file: random syntax, every partition, residuals at QP
+    22-40."""
+    W = h264_writer("hevc_writer")
+    return W.video(W.Config(width=size[0], height=size[1], frames=frames, seed=seed,
+                            row_repeat=True, b_frames=2, b_pyramid=True, log2_ctb=6,
+                            log2_max_tb=5, depth_inter=1, depth_intra=1, wpp=True,
+                            weighted_pred=True, ctts=True))
+
+
+def check_committed_streams(fixtures, exts=(".mp4",)) -> dict:
     """Phase 18 (a) (module docstring): every committed stream of
-    ``tests/torch_fixtures/h264`` decoded on this host, frame by frame with
-    the same count, equal to cv2's committed BGR decode. Returns the counts."""
+    ``fixtures`` (a directory of ``tests/torch_fixtures``) decoded on this
+    host, frame by frame with the same count, equal to cv2's committed BGR
+    decode (its ``cv2_decode.npz``). Returns the counts."""
     from fourdgs_tpu_torch.utils import video
 
-    print("[18] the DyNeRF video extraction: (a) the H.264 decoder on the committed "
-          "streams", flush=True)
-    with np.load(os.path.join(H264_FIXTURES, "cv2_decode.npz")) as z:
+    with np.load(os.path.join(fixtures, "cv2_decode.npz")) as z:
         want = {k: z[k] for k in z.files}
     files = frames = 0
     t0 = time.perf_counter()
-    for fname in sorted(os.listdir(H264_FIXTURES)):
+    for fname in sorted(os.listdir(fixtures)):
         stem, ext = os.path.splitext(fname)
-        if ext not in (".mp4", ".h264"):
+        if ext not in exts:
             continue
-        got = list(video.read_frames(os.path.join(H264_FIXTURES, fname), bgr=True))
+        got = list(video.read_frames(os.path.join(fixtures, fname), bgr=True))
         if len(got) != len(want[stem]) or not all(
                 np.array_equal(g, w) for g, w in zip(got, want[stem])):
             raise AssertionError(f"{fname}: the port's decode is not cv2's bit for bit")
@@ -3964,63 +3993,72 @@ def check_h264_fixtures() -> dict:
     print(f"    {files} streams, {frames} frames: each equal to cv2's committed decode "
           f"({time.perf_counter() - t0:.3f} s)")
     return {"files": files, "frames": frames}
+
+
+def check_h264_fixtures() -> dict:
+    """Phase 18 (a): :func:`check_committed_streams` on
+    ``tests/torch_fixtures/h264`` (MP4 and Annex-B)."""
+    print("[18] the DyNeRF video extraction: (a) the H.264 decoder on the committed "
+          "streams", flush=True)
+    return check_committed_streams(H264_FIXTURES, (".mp4", ".h264"))
 
 
 def check_mpeg4_fixtures() -> dict:
-    """Phase 18 (a) (module docstring): every committed stream of
-    ``tests/torch_fixtures/mpeg4`` decoded on this host, frame by frame
-    with the same count, equal to cv2's committed BGR decode. Returns the
-    counts."""
-    from fourdgs_tpu_torch.utils import video
-
+    """Phase 18 (a): :func:`check_committed_streams` on
+    ``tests/torch_fixtures/mpeg4``."""
     print("    (a) the MPEG-4 Part 2 decoder on the committed streams", flush=True)
-    with np.load(os.path.join(MPEG4_FIXTURES, "cv2_decode.npz")) as z:
-        want = {k: z[k] for k in z.files}
-    files = frames = 0
-    t0 = time.perf_counter()
-    for fname in sorted(os.listdir(MPEG4_FIXTURES)):
-        stem, ext = os.path.splitext(fname)
-        if ext != ".mp4":
-            continue
-        got = list(video.read_frames(os.path.join(MPEG4_FIXTURES, fname), bgr=True))
-        if len(got) != len(want[stem]) or not all(
-                np.array_equal(g, w) for g, w in zip(got, want[stem])):
-            raise AssertionError(f"{fname}: the port's decode is not cv2's bit for bit")
-        files += 1
-        frames += len(got)
-    if files != len(want):
-        raise AssertionError(f"{files} streams for {len(want)} committed decodes")
-    print(f"    {files} streams, {frames} frames: each equal to cv2's committed decode "
-          f"({time.perf_counter() - t0:.3f} s)")
-    return {"files": files, "frames": frames}
+    return check_committed_streams(MPEG4_FIXTURES)
 
 
-def check_mpeg4_host_times(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES) -> dict:
-    """Phase 18 (b)'s MPEG-4 Part 2 stream (:func:`mpeg4_video`: I, P, P, P
-    at ``size``): each VOP's decode as the decoder timed it (I and P apart)
-    and the mean wall per frame out with the RGB conversion. Returns the
-    ms and the stream's size."""
+def check_hevc_fixtures() -> dict:
+    """Phase 18 (a): :func:`check_committed_streams` on
+    ``tests/torch_fixtures/hevc``."""
+    print("    (a) the HEVC decoder on the committed streams", flush=True)
+    return check_committed_streams(HEVC_FIXTURES)
+
+
+def stream_host_times(codec, write, size, frames, order, unit="pictures") -> dict:
+    """Phase 18 (b)'s stream of ``codec`` (``write(size, frames)`` gives
+    its MP4, whose frames come out of the kinds ``order``): each coded
+    picture's decode as the decoder timed it, by kind, and the mean wall
+    per frame out with the RGB conversion. Returns the ms
+    (``decode_<codec>_ms``, ``decode_<codec>_<kind>_ms``) and the stream's
+    size and write time."""
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_video_") as tmp:
         t0 = time.perf_counter()
-        data = mpeg4_video(size, frames)
+        data = write(size, frames)
         write_s = time.perf_counter() - t0
-        path = os.path.join(tmp, "rows_mpeg4.mp4")
+        path = os.path.join(tmp, f"rows_{codec}.mp4")
         with open(path, "wb") as f:
             f.write(data)
         imgs, stats, decode_ms = _time_decode(path)
     kinds = " ".join(k for k, _ in stats)
-    if len(imgs) != frames or imgs[0].shape != (size[1], size[0], 3) or \
-            kinds != " ".join("I" + "P" * (frames - 1)):
-        raise AssertionError(f"mpeg4: {len(imgs)} frames ({kinds}) of "
+    if len(imgs) != frames or imgs[0].shape != (size[1], size[0], 3) or kinds != order:
+        raise AssertionError(f"{codec}: {len(imgs)} frames ({kinds}) of "
                              f"{imgs[0].shape if imgs else None}")
-    per = {k: float(np.mean([ms[0] for kind, ms in stats if kind == k])) for k in "IP"}
-    print(f"    MPEG4: {frames} VOPs out in the order {kinds} ({len(data) / 1e6:.3f} MB, "
-          f"written in {write_s:.2f} s): decode I {per['I']:.2f} ms, P {per['P']:.2f} (each "
-          f"timed as it was decoded); {np.mean(decode_ms):.2f} ms a frame out with the RGB "
-          f"conversion", flush=True)
-    return {"decode_mpeg4_ms": float(np.mean(decode_ms)), "decode_mpeg4_i_ms": per["I"],
-            "decode_mpeg4_p_ms": per["P"], "mpeg4_mbytes": len(data) / 1e6,
-            "mpeg4_write_s": write_s}
+    per = {k: float(np.mean([ms[0] for kind, ms in stats if kind == k]))
+           for k in "IPB" if k in order}
+    print(f"    {codec.upper()}: {frames} {unit} out in the order {kinds} "
+          f"({len(data) / 1e6:.3f} MB, written in {write_s:.2f} s): decode "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in per.items()) + " (each timed as it was "
+          f"decoded); {np.mean(decode_ms):.2f} ms a frame out with the RGB conversion",
+          flush=True)
+    return {f"decode_{codec}_ms": float(np.mean(decode_ms)),
+            **{f"decode_{codec}_{k.lower()}_ms": v for k, v in per.items()},
+            f"{codec}_mbytes": len(data) / 1e6, f"{codec}_write_s": write_s}
+
+
+def check_hevc_host_times(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES) -> dict:
+    """Phase 18 (b)'s HEVC stream (:func:`hevc_video`: I, P, B, B in
+    decoding order at ``size``), through :func:`stream_host_times`."""
+    return stream_host_times("hevc", hevc_video, size, frames, "I B B P")
+
+
+def check_mpeg4_host_times(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES) -> dict:
+    """Phase 18 (b)'s MPEG-4 Part 2 stream (:func:`mpeg4_video`: I, P, P, P
+    at ``size``), through :func:`stream_host_times`."""
+    return stream_host_times("mpeg4", mpeg4_video, size, frames,
+                             " ".join("I" + "P" * (frames - 1)), "VOPs")
 
 
 def _time_decode(path) -> tuple:
@@ -4060,7 +4098,7 @@ def check_video_host_times(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES,
 
     print(f"    (b) the card's host: decode, resize and PNG write of a {size[0]}x{size[1]} "
           f"stream, coded with CABAC and with CAVLC, and of one coded as field pairs, one "
-          f"of MBAFF frames and an MPEG-4 Part 2 one", flush=True)
+          f"of MBAFF frames, an MPEG-4 Part 2 one and an HEVC one", flush=True)
     out, first = {}, None
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_video_") as tmp:
         for coding in ("cabac", "cavlc", "fields", "mbaff"):
@@ -4114,6 +4152,7 @@ def check_video_host_times(size=VIDEO_SIZE, frames=VIDEO_HOST_FRAMES,
             elif coding == "cavlc" and not all(np.array_equal(a, b) for a, b in zip(imgs, first)):
                 raise AssertionError("the CAVLC stream's frames are not the CABAC stream's")
         out.update(check_mpeg4_host_times(size, frames))
+        out.update(check_hevc_host_times(size, frames))
         resize_ms, write_ms = [], []
         for i, img in enumerate(first):
             t0 = time.perf_counter()
@@ -4134,9 +4173,10 @@ def write_video_scene(root, dev, video_size=VIDEO_SIZE, target=(1352, 1014)) -> 
     ``poses_bounds.npy`` and point cloud for ``target`` frames, and
     ``VIDEO_SCENE_CAMS`` videos ``cam00.mp4…`` of ``VIDEO_SCENE_FRAMES``
     pictures at ``video_size`` (the first an MPEG-4 Part 2 stream of I and P
-    VOPs, :func:`mpeg4_video`; the others H.264, :func:`row_video`, a seed a
-    camera, an I/P field pair then MBAFF P and B frames coded with CABAC)
-    and no ``cam*/images``. Returns the videos' paths."""
+    VOPs, :func:`mpeg4_video`; the second H.264, :func:`row_video`, an I/P
+    field pair then MBAFF P and B frames coded with CABAC; the third HEVC,
+    :func:`hevc_video`, I, P and B pictures with FFmpeg's edit list; a seed a
+    camera) and no ``cam*/images``. Returns the videos' paths."""
     write_dynerf_scene(root, dev, n_frames=0, size=target, n_cams=VIDEO_SCENE_CAMS)
     paths = []
     for ci in range(VIDEO_SCENE_CAMS):
@@ -4147,7 +4187,8 @@ def write_video_scene(root, dev, video_size=VIDEO_SIZE, target=(1352, 1014)) -> 
         with open(paths[-1], "wb") as f:
             f.write(mpeg4_video(video_size, VIDEO_SCENE_FRAMES, seed=2 * ci) if ci == 0 else
                     row_video(video_size, VIDEO_SCENE_FRAMES, seed=2 * ci, b_frames=2,
-                              cavlc=False, fields=True, mbaff=True))
+                              cavlc=False, fields=True, mbaff=True) if ci == 1 else
+                    hevc_video(video_size, VIDEO_SCENE_FRAMES, seed=6))  # I, B, P out
     return paths
 
 
@@ -4172,8 +4213,8 @@ def check_video_chain(dev, video_size=VIDEO_SIZE, schedule=VIDEO_SCHEDULE) -> di
     target = tscene.DYNERF_SIZE
     print(f"    (c) a DyNeRF scene of {VIDEO_SCENE_CAMS} cam*.mp4 at {video_size[0]}x"
           f"{video_size[1]} (camera 0 MPEG-4 Part 2 I and P VOPs, camera 1 a CABAC I/P field "
-          f"pair then MBAFF P and B frames): load_scene "
-          f"extracts, then the CLI chain", flush=True)
+          f"pair then MBAFF P and B frames, camera 2 HEVC I, P and B pictures with FFmpeg's "
+          f"edit list): load_scene extracts, then the CLI chain", flush=True)
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".smoke_video_scene_") as tmp:
         data_dir, model_path = os.path.join(tmp, "data"), os.path.join(tmp, "model")
         videos = write_video_scene(data_dir, dev, video_size, target)
@@ -4229,19 +4270,23 @@ def check_video_chain(dev, video_size=VIDEO_SIZE, schedule=VIDEO_SCHEDULE) -> di
 
 
 def check_video_extraction(dev) -> tuple:
-    """Phase 18 (module docstring): (a) the committed H.264 and MPEG-4
-    streams (the MPEG-4 decoder built in a thread while the H.264 one
-    builds), (b) the host's times, (c) the scene of videos through the CLI
-    chain. Returns (b)'s and (c)'s results."""
+    """Phase 18 (module docstring): (a) the committed H.264, MPEG-4 and
+    HEVC streams (the MPEG-4 and HEVC decoders built in threads while the
+    H.264 one builds), (b) the host's times, (c) the scene of videos through
+    the CLI chain. Returns (b)'s and (c)'s results."""
     import threading
 
     from fourdgs_tpu_torch.utils import video
 
-    mpeg4_build = threading.Thread(target=video.get_lib, args=("mpeg4",))
-    mpeg4_build.start()
+    builds = [threading.Thread(target=video.get_lib, args=(codec,))
+              for codec in ("mpeg4", "hevc")]
+    for t in builds:
+        t.start()
     check_h264_fixtures()
-    mpeg4_build.join()
+    for t in builds:
+        t.join()
     check_mpeg4_fixtures()
+    check_hevc_fixtures()
     return check_video_host_times(), check_video_chain(dev)
 
 
@@ -4829,10 +4874,10 @@ def main() -> int:
         rare_chain = check_rare_chain(dev)
         phase_s[17] = time.perf_counter() - t0
 
-        # -- 18. the DyNeRF video extraction: the committed H.264 and MPEG-4
-        #    streams, the host's times per 2704x2028 frame, then a scene of
-        #    videos through load_scene and the CLI chain (the MPEG-4 decoder
-        #    builds while the H.264 one does)
+        # -- 18. the DyNeRF video extraction: the committed H.264, MPEG-4 and
+        #    HEVC streams, the host's times per 2704x2028 frame, then a scene
+        #    of videos through load_scene and the CLI chain (the MPEG-4 and
+        #    HEVC decoders build while the H.264 one does)
         t0 = time.perf_counter()
         video_host, video_chain = check_video_extraction(dev)
         phase_s[18] = time.perf_counter() - t0
@@ -4893,8 +4938,9 @@ def main() -> int:
                              "decode_cavlc_ms", "decode_cavlc_i_ms", "decode_cavlc_p_ms",
                              "decode_cavlc_b_ms", "decode_mbaff_ms", "decode_mbaff_i_ms",
                              "decode_mbaff_p_ms", "decode_mbaff_b_ms", "decode_mpeg4_ms",
-                             "decode_mpeg4_i_ms", "decode_mpeg4_p_ms", "resize_ms",
-                             "png_ms")}},
+                             "decode_mpeg4_i_ms", "decode_mpeg4_p_ms", "decode_hevc_ms",
+                             "decode_hevc_i_ms", "decode_hevc_p_ms", "decode_hevc_b_ms",
+                             "resize_ms", "png_ms")}},
     }, {
         "name": "blend_backward",
         "route": "cuda",

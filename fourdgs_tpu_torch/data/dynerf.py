@@ -22,7 +22,7 @@ Parity target: scene/neural_3D_dataset_NDC.py + readdynerfInfo
 A frame whose size is not ``target_wh`` is resized with LANCZOS when it is
 read (:class:`ImageRef`), as JAX's is. A camera with a ``cam*.mp4`` and no
 ``cam*/images`` is extracted first, as JAX's loader does with cv2
-(``_extract_video_frames``): the port's H.264 or MPEG-4 Part 2 decoder
+(``_extract_video_frames``): the port's H.264, MPEG-4 Part 2 or HEVC decoder
 (``utils/video.py::extract_video_frames``, by the track's codec) writes its first ``n_frames``
 frames, LANCZOS-resized to ``target_wh``, as ``%04d.png``. One divergence
 is the port's own: a camera's directory is its video's path less the

@@ -1,16 +1,24 @@
 // The ISO-BMFF (MP4) demuxer of the port's video decoders (h264.cpp,
-// mpeg4.cpp), and the failures they report through their C APIs.
+// mpeg4.cpp, hevc.cpp), and the failures they report through their C APIs.
 //
 // demux_mp4 reads an MP4 file's first video track: ftyp, moov/trak/mdia
 // (hdlr 'vide')/minf/stbl, stsd's first sample entry (its type; for 'mp4v'
 // the esds box's objectTypeIndication and DecoderSpecificInfo, for 'avc1'
-// and 'avc3' the avcC box), stsc, stsz or stz2, stco or co64, mdat
-// anywhere, and the samples in decoding order. An edit list that drops
-// samples (a positive media_time) is refused, as cv2 would not return the
-// dropped frames.
+// and 'avc3' the avcC box, for 'hvc1' and 'hev1' the hvcC box), stts and
+// ctts (each sample's composition time), stsc, stsz or stz2, stco or co64,
+// mdat anywhere, and the samples in decoding order.
+//
+// An edit list whose media_time is the earliest composition time drops
+// nothing: FFmpeg's mp4 muxer writes one for every stream with B-frames
+// (media_time the composition delay of the first picture, a ctts box the
+// offset of each sample), and cv2 returns every frame of it. An edit that
+// starts later drops the samples whose composition time falls before it
+// (FFmpeg's mov demuxer marks their packets discarded and libavcodec
+// returns no frame of them); that one is refused, naming it.
 
 #pragma once
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
 #include <string>
@@ -97,10 +105,46 @@ using Span = std::pair<const uint8_t*, size_t>;
 struct Track {
   uint32_t entry = 0;  // the sample entry's type ('avc1', 'mp4v', ...)
   int oti = -1;        // 'mp4v': the esds objectTypeIndication (-1 without an esds)
-  // 'avc1' / 'avc3': the avcC box's payload; 'mp4v': the DecoderSpecificInfo
+  // 'avc1' / 'avc3': the avcC box's payload; 'hvc1' / 'hev1': the hvcC
+  // box's; 'mp4v': the DecoderSpecificInfo
   Span config{nullptr, 0};
   std::vector<Span> samples;  // in decoding order
+  std::vector<int64_t> cts;   // each sample's composition time (stts + ctts)
 };
+
+// each sample's decoding time (stts) plus its composition offset (ctts,
+// version 0 unsigned, version 1 signed; none without a ctts box)
+inline std::vector<int64_t> composition_times(const uint8_t* d, const std::vector<Box>& st,
+                                              size_t count) {
+  std::vector<int64_t> t(count, 0);
+  if (const Box* stts = find(st, "stts")) {
+    const uint8_t* a = d + stts->body;
+    if (stts->end - stts->body < 8) corrupt("truncated stts");
+    uint32_t runs = be32(a + 4);
+    if (8 + size_t(runs) * 8 > stts->end - stts->body) corrupt("truncated stts");
+    int64_t at = 0;
+    size_t i = 0;
+    for (uint32_t r = 0; r < runs; r++) {
+      uint32_t n = be32(a + 8 + 8 * r), delta = be32(a + 12 + 8 * r);
+      for (uint32_t k = 0; k < n && i < count; k++, i++, at += delta) t[i] = at;
+    }
+    for (; i < count; i++) t[i] = at;
+  }
+  if (const Box* ctts = find(st, "ctts")) {
+    const uint8_t* a = d + ctts->body;
+    if (ctts->end - ctts->body < 8) corrupt("truncated ctts");
+    int version = a[0];
+    uint32_t runs = be32(a + 4);
+    if (8 + size_t(runs) * 8 > ctts->end - ctts->body) corrupt("truncated ctts");
+    size_t i = 0;
+    for (uint32_t r = 0; r < runs; r++) {
+      uint32_t n = be32(a + 8 + 8 * r), raw = be32(a + 12 + 8 * r);
+      int64_t off = version == 1 ? int64_t(int32_t(raw)) : int64_t(raw);
+      for (uint32_t k = 0; k < n && i < count; k++, i++) t[i] += off;
+    }
+  }
+  return t;
+}
 
 // an MPEG-4 Systems descriptor's tag and payload [body, end) at d[p]
 inline bool descriptor(const uint8_t* d, size_t p, size_t end, int* tag, size_t* body,
@@ -186,27 +230,16 @@ inline Track demux_mp4(const uint8_t* d, size_t n) {
       const Box* avcc = find(inner, "avcC");
       if (!avcc) corrupt("avc1 sample entry without avcC");
       t.config = {d + avcc->body, avcc->end - avcc->body};
+    } else if (e.type == fourcc("hvc1") || e.type == fourcc("hev1")) {
+      if (e.end - e.body < 78) corrupt("truncated hvc1 sample entry");
+      auto inner = boxes(d, e.body + 78, e.end);
+      const Box* hvcc = find(inner, "hvcC");
+      if (!hvcc) corrupt("hvc1 sample entry without hvcC");
+      t.config = {d + hvcc->body, hvcc->end - hvcc->body};
     } else if (e.type == fourcc("mp4v")) {
       if (e.end - e.body < 78) corrupt("truncated mp4v sample entry");
       auto inner = boxes(d, e.body + 78, e.end);
       if (const Box* esds = find(inner, "esds")) parse_esds(d, *esds, t);
-    }
-    if (const Box* edts = find(tk, "edts")) {
-      auto ed = boxes(d, edts->body, edts->end);
-      if (const Box* elst = find(ed, "elst")) {
-        const uint8_t* a = d + elst->body;
-        size_t an = elst->end - elst->body;
-        if (an < 8) corrupt("truncated elst");
-        int version = a[0];
-        uint32_t cnt = be32(a + 4);
-        size_t esz = version == 1 ? 20 : 12;
-        if (8 + esz * cnt > an) corrupt("truncated elst");
-        for (uint32_t i = 0; i < cnt; i++) {
-          const uint8_t* q = a + 8 + esz * i;
-          int64_t media_time = version == 1 ? int64_t(be64(q + 8)) : int32_t(be32(q + 4));
-          if (media_time > 0) refuse("an edit list that drops samples");
-        }
-      }
     }
     // sample sizes
     std::vector<uint32_t> sizes;
@@ -264,6 +297,28 @@ inline Track demux_mp4(const uint8_t* d, size_t n) {
           if (end > n) corrupt("sample outside the file");
           t.samples.emplace_back(d + off, size_t(sizes[sample]));
           off = end;
+        }
+      }
+    }
+    t.cts = composition_times(d, st, t.samples.size());
+    if (const Box* edts = find(tk, "edts")) {
+      auto ed = boxes(d, edts->body, edts->end);
+      if (const Box* elst = find(ed, "elst")) {
+        const uint8_t* a = d + elst->body;
+        size_t an = elst->end - elst->body;
+        if (an < 8) corrupt("truncated elst");
+        int version = a[0];
+        uint32_t cnt = be32(a + 4);
+        size_t esz = version == 1 ? 20 : 12;
+        if (8 + esz * cnt > an) corrupt("truncated elst");
+        int64_t first = 0;
+        for (size_t i = 0; i < t.cts.size(); i++) first = i ? std::min(first, t.cts[i]) : t.cts[i];
+        for (uint32_t i = 0; i < cnt; i++) {
+          const uint8_t* q = a + 8 + esz * i;
+          int64_t media_time = version == 1 ? int64_t(be64(q + 8)) : int32_t(be32(q + 4));
+          // -1: an empty edit (a delay); up to the earliest composition
+          // time: nothing is dropped
+          if (media_time > first) refuse("an edit list that drops samples");
         }
       }
     }

@@ -1360,8 +1360,8 @@ struct Stream {
     if (t.entry != native::fourcc("mp4v"))
       refuse("video codec '" + native::fourcc_name(t.entry) + "' (not MPEG-4 Part 2)");
     if (t.oti < 0)
-      refuse("video codec 'mp4v' without an esds box (codecs other than H.264 and MPEG-4 Part 2 "
-             "with an objectTypeIndication)");
+      refuse("video codec 'mp4v' without an esds box (codecs other than H.264, MPEG-4 Part 2 "
+             "and HEVC with an objectTypeIndication)");
     if (t.oti != 0x20) refuse(oti_name(t.oti));
     samples = t.samples;
     if (t.config.second) {

@@ -1,10 +1,10 @@
 """Build helper for the port's host C++ libraries (``native/*.cpp``): the
 PNG prefetcher (``data/fastloader.py``), the JPEG decoder
-(``utils/jpeg.py``), the H.264 and MPEG-4 Part 2 decoders
+(``utils/jpeg.py``), the H.264, MPEG-4 Part 2 and HEVC decoders
 (``utils/video.py``) and the resampler (``utils/resample.py``).
 
 A library builds at first use with ``g++ -O2 -shared -fPIC`` followed by
-its caller's own flags (link flags; ``-O3`` for the H.264 decoder and the
+its caller's own flags (link flags; ``-O3`` for the video decoders and the
 resampler, which overrides ``-O2``) into ``fourdgs_tpu_torch/_build/``,
 its name keyed by a hash of the source, of each ``native/*.h`` it
 includes (``#include "name.h"``, followed into the headers' own includes)

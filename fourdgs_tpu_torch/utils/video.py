@@ -1,5 +1,5 @@
-"""Video reader over the port's native decoders: H.264 (``native/h264.cpp``)
-and MPEG-4 Part 2 (``native/mpeg4.cpp``).
+"""Video reader over the port's native decoders: H.264 (``native/h264.cpp``),
+MPEG-4 Part 2 (``native/mpeg4.cpp``) and HEVC (``native/hevc.cpp``).
 
 The JAX package reads a Neu3D camera's ``cam*.mp4`` with cv2's
 ``VideoCapture`` (``data/dynerf.py::_extract_video_frames``); the port
@@ -7,9 +7,24 @@ depends on no cv2, PyAV or FFmpeg, so it decodes the video itself. The
 decoders are host C++ that link no codec library, each built at first use
 with ``g++ -O3 -shared -fPIC`` into ``fourdgs_tpu_torch/_build/`` by the
 port's native build helper (``utils/native.py::build``, keyed by a hash
-of source, included headers and flags) and loaded with ``ctypes``; both
-have the same C API, and the MP4 track's sample entry picks one
-(``mp4v``: MPEG-4 Part 2, anything else and Annex-B: H.264).
+of source, included headers and flags) and loaded with ``ctypes``; all
+three have the same C API, and the MP4 track's sample entry picks one
+(``mp4v``: MPEG-4 Part 2, ``hvc1`` and ``hev1``: HEVC, anything else and
+Annex-B: H.264).
+
+HEVC (what current phones, action cameras and x265 write): an MP4 file's
+first video track with an ``hvc1`` or ``hev1`` sample entry of ITU-T H.265
+Main (or Main Still Picture, or Main 10 at 8 bits), 8-bit 4:2:0
+progressive, I, P and B slices (WPP, SAO, deblocking, AMP, weighted
+prediction, scaling lists, long-term references, sign data hiding,
+transform skip, cu_qp_delta), frames in cv2's order and number (RASL
+pictures of a leading CRA dropped, ``pic_output_flag`` 0 kept back, the
+reorder buffer of the highest sub-layer) and equal to cv2's bit for bit;
+the decoder's header comment lists where it follows libavcodec. It refuses,
+naming them: tiles, PCM, the lossless transquant bypass, dependent slice
+segments, bit depths above 8, chroma other than 4:2:0, separate colour
+planes, the range, SCC, 3D and multilayer extensions, fields coded as
+pictures (``field_seq_flag``) and a reference missing from the buffer.
 
 MPEG-4 Part 2 (what ``cv2.VideoWriter`` writes into an .mp4 for the
 fourccs mp4v, FMP4, XVID and DIVX): an MP4 file's first video track with
@@ -43,8 +58,15 @@ other than 4:2:0, bit depths above 8, the
 lossless transform bypass, slice groups, arbitrary slice order, SP and SI
 slices, data partitioning, gaps in ``frame_num``, a colour matrix cv2
 does not convert, an edit list that drops samples and codecs other than
-H.264 and MPEG-4 Part 2. A truncated or corrupt stream raises
-``ValueError``.
+H.264, MPEG-4 Part 2 and HEVC (AV1, VP9, MJPEG among them). A truncated or
+corrupt stream raises ``ValueError``.
+
+An MP4 track's edit list may shift its start by the composition delay of
+its first picture, as FFmpeg's muxer writes one for every stream with
+B-frames (its ``ctts`` box giving each sample's offset): that drops no
+frame, and cv2 returns them all. An edit that starts later than the
+earliest composition time drops the samples before it; the decoders refuse
+it, naming it.
 """
 
 from __future__ import annotations
@@ -60,9 +82,11 @@ from fourdgs_tpu_torch.utils import native, png, resample
 
 SRC = native.NATIVE_DIR / "h264.cpp"
 MPEG4_SRC = native.NATIVE_DIR / "mpeg4.cpp"
+HEVC_SRC = native.NATIVE_DIR / "hevc.cpp"
 FLAGS = ("-O3",)
 
-# each decoder's C API (``hv_*`` of h264.cpp, ``mv_*`` of mpeg4.cpp):
+# each decoder's C API (``hv_*`` of h264.cpp, ``mv_*`` of mpeg4.cpp,
+# ``hc_*`` of hevc.cpp):
 # (argument types, result type) by name
 _API = {
     "open": ([ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_int), ctypes.c_char_p,
@@ -74,15 +98,15 @@ _API = {
     "info": ([ctypes.c_void_p, ctypes.c_char_p, ctypes.POINTER(ctypes.c_double)], ctypes.c_int),
     "close": ([ctypes.c_void_p], None),
 }
-_CODECS = {"h264": (SRC, "hv_"), "mpeg4": (MPEG4_SRC, "mv_")}
+_CODECS = {"h264": (SRC, "hv_"), "mpeg4": (MPEG4_SRC, "mv_"), "hevc": (HEVC_SRC, "hc_")}
 _libs = {}
 _lib_locks = {codec: threading.Lock() for codec in _CODECS}
 
 
 def get_lib(codec: str = "h264") -> dict:
-    """The decoder of ``codec`` ("h264" or "mpeg4"), built and loaded on
-    first use (each under its own lock, so that the two can build at
-    once): its C API's functions by ``_API``'s names."""
+    """The decoder of ``codec`` ("h264", "mpeg4" or "hevc"), built and
+    loaded on first use (each under its own lock, so that they can build
+    at once): its C API's functions by ``_API``'s names."""
     with _lib_locks[codec]:
         if codec not in _libs:
             src, prefix = _CODECS[codec]
@@ -114,8 +138,8 @@ def _boxes(data: bytes, start: int, end: int):
 
 def codec_of(data: bytes) -> str:
     """"mpeg4" for an MP4 file whose first video track's sample entry is
-    ``mp4v``, else "h264" (whose decoder reads Annex-B and refuses, naming
-    it, any other codec)."""
+    ``mp4v``, "hevc" for ``hvc1`` or ``hev1``, else "h264" (whose decoder
+    reads Annex-B and refuses, naming it, any other codec)."""
     moov = _boxes(data, 0, len(data)).get(b"moov")
     pos, end = moov if moov else (0, 0)
     while pos + 8 <= end:
@@ -129,9 +153,10 @@ def codec_of(data: bytes) -> str:
             if hdlr and data[hdlr[0] + 8:hdlr[0] + 12] == b"vide":
                 stbl = _boxes(data, *md.get(b"minf", (0, 0))).get(b"stbl", (0, 0))
                 stsd = _boxes(data, *stbl).get(b"stsd")
-                if stsd and data[stsd[0] + 12:stsd[0] + 16] == b"mp4v":
+                entry = data[stsd[0] + 12:stsd[0] + 16] if stsd else b""
+                if entry == b"mp4v":
                     return "mpeg4"
-                return "h264"
+                return "hevc" if entry in (b"hvc1", b"hev1") else "h264"
         pos += size
     return "h264"
 

@@ -22,6 +22,7 @@ import numpy as np
 
 AV_CODEC_ID_H264 = 27
 AV_CODEC_ID_MPEG4 = 12
+AV_CODEC_ID_HEVC = 173
 EAGAIN = -11
 # AVPacket: buf, pts, dts, then data and size; AVFrame: data[8],
 # linesize[8], extended_data, width, height
@@ -68,10 +69,10 @@ def _plane(frame, i, w, h):
 
 
 def decode(packets, threads=1, codec_id=AV_CODEC_ID_H264):
-    """Each output frame of the ``packets`` of codec ``codec_id`` (H.264:
-    Annex-B access units, parameter sets in band; MPEG-4 Part 2: one VOP a
-    packet, the headers leading the first) as (Y, U, V) uint8 planes,
-    cropped as libavcodec crops them, in output order."""
+    """Each output frame of the ``packets`` of codec ``codec_id`` (H.264
+    and HEVC: Annex-B access units, parameter sets in band; MPEG-4 Part 2:
+    one VOP a packet, the headers leading the first) as (Y, U, V) uint8
+    planes, cropped as libavcodec crops them, in output order."""
     codec, util = _load()
     dec = codec.avcodec_find_decoder(codec_id)
     ctx = ctypes.c_void_p(codec.avcodec_alloc_context3(dec))

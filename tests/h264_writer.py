@@ -770,18 +770,21 @@ class Writer:
         up by 2 in display order from each IDR picture."""
         c, rng = self.c, self.rng
         aus, disp = [self._picture(True, False, 0, "anchor")], 0
+        self.b_display = [0]        # each access unit's display index, from its IDR's
         while len(aus) < c.frames:
             idr = rng.random() < c.p_idr
             most = min(c.b_frames, c.frames - len(aus) - 1)
             run = 0 if idr else most if c.b_full_runs else int(rng.integers(0, most + 1))
             disp = 0 if idr else disp + run + 1
             aus.append(self._picture(idr, False, 2 * disp, "anchor"))
+            self.b_display.append(disp)
             order = list(range(1, run + 1))
             mid = (run + 1) // 2 if c.b_pyramid and run >= 2 else None
             if mid is not None:
                 order = [mid] + [k for k in order if k != mid]
             for k in order:
                 aus.append(self._picture(False, k != mid, 2 * (disp - run - 1 + k), "b"))
+                self.b_display.append(disp - run - 1 + k)
         return aus
 
     def _b_stype(self, role, intra_pic):
@@ -2601,10 +2604,12 @@ def _full(kind, version, flags, *payload):
 
 
 def mp4(sps, pps, aus, width, height, length_size=4, moov_first=False, co64=False,
-        stz2=False, chunk=3, codec=b"avc1", edit=None) -> bytes:
+        stz2=False, chunk=3, codec=b"avc1", edit=None, cts=None) -> bytes:
     """An MP4 file of one video track: ``aus`` as samples of
     ``length_size``-byte NAL lengths, SPS and PPS in ``avcC``, ``chunk``
-    samples a chunk (the last chunk shorter), 60 samples a second."""
+    samples a chunk (the last chunk shorter), 60 samples a second; with
+    ``cts`` each sample's composition time (a ctts box, version 0) and with
+    ``edit`` an edit list of that media_time."""
     samples = [b"".join(len(n).to_bytes(length_size, "big") + n for n in au) for au in aus]
     ftyp = _box(b"ftyp", b"isom", (512).to_bytes(4, "big"), b"isomiso2avc1mp41")
     mdat_payload = b"".join(samples)
@@ -2620,6 +2625,8 @@ def mp4(sps, pps, aus, width, height, length_size=4, moov_first=False, co64=Fals
                      (0xFFFF).to_bytes(2, "big"), avcc)
         stsd = _full(b"stsd", 0, 0, u32(1), entry)
         stts = _full(b"stts", 0, 0, u32(1), u32(n), u32(1))
+        ctts = b"" if cts is None else _full(b"ctts", 0, 0, u32(n),
+                                             *[u32(1) + u32(c - i) for i, c in enumerate(cts)])
         chunks = [list(range(i, min(i + chunk, n))) for i in range(0, n, chunk)]
         runs = []
         for ci, ch in enumerate(chunks):
@@ -2641,7 +2648,7 @@ def mp4(sps, pps, aus, width, height, length_size=4, moov_first=False, co64=Fals
             stco = _full(b"stco", 0, 0, u32(len(offs)), *[u32(o) for o in offs])
         keys = [i + 1 for i, au in enumerate(aus) if any((x[0] & 31) == 5 for x in au)]
         stss = _full(b"stss", 0, 0, u32(len(keys)), *[u32(k) for k in keys])
-        stbl = _box(b"stbl", stsd, stts, stsc, stsz, stco, stss)
+        stbl = _box(b"stbl", stsd, stts, ctts, stsc, stsz, stco, stss)
         vmhd = _full(b"vmhd", 0, 1, bytes(8))
         dref = _full(b"dref", 0, 0, u32(1), _full(b"url ", 0, 1))
         minf = _box(b"minf", vmhd, _box(b"dinf", dref), stbl)
@@ -2694,7 +2701,7 @@ REFUSALS = {
     "matrix_bt2020": "matrix_coefficients 9",
     "edit_list": "edit list",
     "codec_mp4v": "codecs other than H.264",
-    "codec_hevc": "codecs other than H.264",
+    "codec_av01": "codecs other than H.264",
 }
 
 
@@ -2760,7 +2767,7 @@ def header_only(feature: str):
         return mp4(sps, pps, aus, 32, 32, edit=1), ".mp4"
     if feature.startswith("codec_"):
         return mp4(sps, pps, aus, 32, 32, codec=b"mp4v" if feature == "codec_mp4v"
-                   else b"hvc1"), ".mp4"
+                   else b"av01"), ".mp4"
     return annexb(sps, pps, aus), ".h264"
 
 

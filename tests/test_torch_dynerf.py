@@ -170,6 +170,14 @@ def write_video(path, seed, frames=3, size=VIDEO_SIZE, b_frames=0, cavlc=False, 
             vw.write(np.ascontiguousarray(base[i:i + size[1], 2 * i:2 * i + size[0]]))
         vw.release()
         return
+    if codec in ("hevc", "hevc_edit"):
+        # HEVC, with the edit list FFmpeg's muxer writes for B-frames
+        from tests import hevc_writer as HEVCW
+
+        path.write_bytes(HEVCW.video(HEVCW.Config(
+            width=size[0], height=size[1], frames=frames, seed=seed, b_frames=b_frames,
+            b_pyramid=True, wpp=True, ctts=codec == "hevc_edit")))
+        return
     cfg = HW.Config(width=size[0], height=size[1], frames=frames, seed=seed, b_frames=b_frames,
                     cavlc=cavlc)
     sps, pps, aus = HW.write(cfg)
@@ -192,15 +200,17 @@ def make_video_scene(root, n_cams=2, frames=3):
 @pytest.mark.parametrize("n_frames,b_frames,frames,cavlc,codec",
                          [(2, 0, 3, False, "h264"), (10, 0, 3, False, "h264"),
                           (10, 3, 7, False, "h264"), (10, 3, 7, True, "h264"),
-                          (20, 0, 14, False, "mp4v")],
-                         ids=["2", "10", "b-10", "cavlc", "mp4v"])
+                          (20, 0, 14, False, "mp4v"), (10, 0, 5, False, "hevc"),
+                          (10, 3, 8, False, "hevc_edit")],
+                         ids=["2", "10", "b-10", "cavlc", "mp4v", "hevc", "hevc-edit"])
 def test_extract_matches_jax(tmp_path, n_frames, b_frames, frames, cavlc, codec):
     """The port's ``extract_video_frames`` and JAX's
     ``_extract_video_frames`` on one mp4 (H.264: I and P slices, or runs of
     up to 3 B pictures coded after the next anchor, coded with CABAC or
     CAVLC; or MPEG-4 Part 2 as cv2's VideoWriter writes it, I- and P-VOPs
-    with a second I-VOP): the same files, equal pixels; ``n_frames`` stops
-    early or the video's end does."""
+    with a second I-VOP; or HEVC, I and P pictures, or runs of up to 3 B
+    pictures with ``ctts`` and FFmpeg's edit list): the same files, equal
+    pixels; ``n_frames`` stops early or the video's end does."""
     path = tmp_path / "cam00.mp4"
     write_video(path, seed=5, frames=frames, b_frames=b_frames, cavlc=cavlc, codec=codec)
     jdynerf._extract_video_frames(str(path), str(tmp_path / "jax"), (W, H), n_frames)

@@ -784,9 +784,10 @@ def test_chip_smoke_phase_18a_on_cpu(committed):
 def test_chip_smoke_phase_18_on_cpu(monkeypatch, capsys):
     """Phase 18 (b) and (c) on the CPU at a small size: the host's times of
     a row-repeated I, P, B, B stream coded with CABAC and with CAVLC, of
-    one coded as field pairs and of one of MBAFF frames, and a scene of
-    videos (an MPEG-4 Part 2 one, and one coded as a field pair then MBAFF P
-    and B frames) extracted by
+    one coded as field pairs, of one of MBAFF frames, of an MPEG-4 Part 2
+    one and of an HEVC one, and a scene of videos (an MPEG-4 Part 2 one, one
+    coded as a field pair then MBAFF P and B frames, and an HEVC one with
+    FFmpeg's edit list) extracted by
     ``load_scene`` then trained on the plain path (the dynerf preset's
     widths cut as ``tests/test_torch_dynerf_cli.py`` cuts them), K1 and K2
     held to their plain versions at a step of its model."""
@@ -805,7 +806,8 @@ def test_chip_smoke_phase_18_on_cpu(monkeypatch, capsys):
                                      "decode_field_b_ms", "decode_pair_ip_ms",
                                      "decode_pair_bb_ms", "decode_mbaff_ms",
                                      "decode_mbaff_i_ms", "decode_mbaff_p_ms", "decode_mbaff_b_ms",
-                                     "resize_ms",
+                                     "decode_mpeg4_ms", "decode_hevc_ms", "decode_hevc_i_ms",
+                                     "decode_hevc_p_ms", "decode_hevc_b_ms", "resize_ms",
                                      "png_ms"))
     codings = []
     row_video = CS.row_video
@@ -825,5 +827,6 @@ def test_chip_smoke_phase_18_on_cpu(monkeypatch, capsys):
     # MBAFF frames with B
     assert codings == [(2, False, True, True)]
     assert "camera 0 MPEG-4 Part 2 I and P VOPs" in out
+    assert "camera 2 HEVC I, P and B pictures with FFmpeg's edit list" in out
     assert "each the resized decode of its video" in out
     assert np.isfinite(chain["psnr"]) and chain["extract_s"] > 0

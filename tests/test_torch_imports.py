@@ -177,6 +177,18 @@ def test_mpeg4_decoder_links_no_codec_library():
         assert "#include <libav" not in src and "avcodec_" not in src, name
 
 
+def test_hevc_decoder_links_no_codec_library():
+    """The HEVC decoder includes no codec library and only the headers the
+    decoders share; ``utils/video.py`` builds it with the same flags."""
+    from fourdgs_tpu_torch.utils import native, video
+
+    assert video.HEVC_SRC == PKG / "native" / "hevc.cpp"
+    assert native.local_headers(video.HEVC_SRC) == [PKG / "native" / "mp4.h",
+                                                    PKG / "native" / "yuv420_bgr.h"]
+    src = video.HEVC_SRC.read_text()
+    assert "#include <libav" not in src and "avcodec_" not in src
+
+
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is usable")

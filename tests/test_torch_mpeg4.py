@@ -264,15 +264,20 @@ def test_chip_smoke_phase_18a_mpeg4_on_cpu(committed):
 
 
 def test_chip_smoke_phase_18_runs_its_checks(monkeypatch):
-    """``check_video_extraction`` (phase 18 of ``main``) runs (a) on both
-    codecs' committed streams, the MPEG-4 decoder built in a thread, then
-    (b) and (c) (stubbed here: the rehearsals above and
-    ``tests/test_torch_h264.py`` run them at a small size)."""
+    """``check_video_extraction`` (phase 18 of ``main``) runs (a) on the
+    three codecs' committed streams, the MPEG-4 and HEVC decoders built in
+    threads, then (b) and (c) (stubbed here: the rehearsals above,
+    ``tests/test_torch_hevc.py`` and ``tests/test_torch_h264.py`` run them at
+    a small size)."""
     calls = []
+    for name in ("check_h264_fixtures", "check_mpeg4_fixtures", "check_hevc_fixtures"):
+        real = getattr(CS, name)
+        monkeypatch.setattr(CS, name, lambda real=real, name=name: calls.append(name) or real())
     monkeypatch.setattr(CS, "check_video_host_times", lambda: calls.append("b") or "host")
     monkeypatch.setattr(CS, "check_video_chain", lambda dev: calls.append(("c", dev)) or "chain")
     assert CS.check_video_extraction("dev") == ("host", "chain")
-    assert calls == ["b", ("c", "dev")]
+    assert calls == ["check_h264_fixtures", "check_mpeg4_fixtures", "check_hevc_fixtures", "b",
+                     ("c", "dev")]
 
 
 def test_chip_smoke_phase_18b_mpeg4_on_cpu():
